@@ -7,11 +7,13 @@ Phases, each of which raises (non-zero exit) on any failure:
   0. build   — compiles every CUDA kernel of the main path from
                kafka_tpu_torch/csrc with nvcc for sm_90a, one nvcc per
                source, all started together.
-  1. kernels — each kernel against its plain PyTorch version on the card
-               at Llama-3.2-1B geometry (Hq 32, Hkv 8, D 64, page 16), then
-               timed beside its plain version, its bound and a PyTorch
-               library call (scaled_dot_product_attention on the gathered
-               window — a yardstick only; the port never calls it).
+  1. kernels — each kernel (K1 paged decode, K2 flash prefill, K3 paged
+               verify) against its plain PyTorch version on the card at
+               Llama-3.2-1B geometry (Hq 32, Hkv 8, D 64, page 16; K3 at
+               the K = 4 verify shape), then timed beside its plain
+               version, its bound and a PyTorch library call
+               (scaled_dot_product_attention on the gathered window — a
+               yardstick only; the port never calls it).
   2. engine  — the engine at full llama-3.2-1b width (bf16, vocab 128256,
                random weights from --seed): eight greedy requests, one
                submitted alone and longer than the largest prefill bucket
@@ -19,14 +21,24 @@ Phases, each of which raises (non-zero exit) on any failure:
                together.  Both kernel launch counters must move.  The same
                requests run through a plain-attention engine on the same
                weights; logits must agree within the stated bf16 tolerance
-               and the token agreement is printed.
+               and the token agreement is printed.  Then (a) the same
+               requests on an engine with speculative_k = 4 whose
+               proposers offer the first engine's own continuation: K3
+               must launch, tokens must be accepted, and the emitted
+               positions' logits must agree with the spec-off engine's;
+               (b) a two-turn thread on the first engine: turn 2 must hit
+               the prefix cache and prefill from past the cached pages
+               (K2 at start > 0).
   3. server  — the HTTP server built by create_app for llama-3.2-1b as the
                provider builder does with no checkpoint: byte tokenizer, so
                the vocab is 262 (full width otherwise).  In-process on a
                free port: two streamed turns on one thread (the second
-               turn's prompt holds the first) and one streamed
+               turn's prompt holds the first and must report
+               prompt_tokens_details.cached_tokens) and one streamed
                /v1/chat/completions.  Every stream must end with
-               `data: [DONE]`, and both kernel counters must move.
+               `data: [DONE]`, and both kernel counters must move.  Then
+               one streamed request to a second server configured with
+               KAFKA_TORCH_SPECULATIVE_K=4.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
@@ -146,6 +158,8 @@ def phase_kernels(seed: int) -> None:
         paged_decode_attention_plain,
         paged_prefill_attention,
         paged_prefill_attention_plain,
+        paged_verify_attention,
+        paged_verify_attention_plain,
     )
 
     dev = torch.device("cuda")
@@ -249,7 +263,56 @@ def phase_kernels(seed: int) -> None:
         "shape": f"S={S} start=0 chunk_len={S} Hq={Hq} Hkv={Hkv} D={D} "
                  f"page={ps} P={P}",
     }
-    for k in ("K1", "K2"):
+    # K3: the full-width verify shape (K = 4 -> S = 5), ragged windows and
+    # query counts, lane 7 a trash lane; only rows j < q_len carry a
+    # contract
+    S3 = 5
+    seq3 = torch.tensor([15, 16, 31, 255, 511, 700, 2040, 5],
+                        dtype=torch.int32, device=dev)
+    ql3 = torch.tensor([1, 2, 3, 4, 5, 5, 3, 1], dtype=torch.int32,
+                       device=dev)
+    q3 = torch.randn(B, S3, Hq, D, generator=gen, device=dev
+                     ).to(torch.bfloat16)
+    a3 = (q3, k_pool, v_pool, table, seq3, ql3)
+    out_k = paged_verify_attention(*a3, page_size=ps)
+    out_p = paged_verify_attention_plain(*a3, page_size=ps)
+    torch.cuda.synchronize()
+    rows = [(b, j) for b in range(B) for j in range(int(ql3[b]))]
+    bi = torch.tensor([r[0] for r in rows], device=dev)
+    ji = torch.tensor([r[1] for r in rows], device=dev)
+    err3 = check_close("K3 paged_verify_attention", out_k[bi, ji],
+                       out_p[bi, ji])
+    n_win = (seq3.long() + ql3.long()).clamp(max=P * ps)
+    b3, by3 = bound(
+        2 * int(n_win.sum()) * HD * 2 + 2 * B * S3 * Hq * D * 2
+        + B * P * 4 + 2 * B * 4,
+        4 * Hq * D * int((ql3.long() * n_win).sum()))
+    qpos = seq3.long()[:, None] + torch.arange(S3, device=dev)[None]
+    kv = torch.arange(C, device=dev)[None, None]
+    mask3 = ((kv <= qpos[:, :, None]) & (kv < n_win[:, None, None]))[:, None]
+    q3w = q3.transpose(1, 2).contiguous()
+    RESULTS["K3"] = {
+        "name": "paged_verify_attention",
+        "route": "cuda",
+        "source": "kafka_tpu_torch/csrc/paged_verify.cu",
+        "replaces": "kafka_tpu/ops/pallas/paged_attention.py:384",
+        "max_abs_err": err3,
+        "ms": time_ms(lambda: paged_verify_attention(*a3, page_size=ps)),
+        "plain_ms": time_ms(
+            lambda: paged_verify_attention_plain(*a3, page_size=ps)),
+        "bound_ms": b3,
+        "bound_by": by3,
+        "library_ms": time_ms(lambda: sdpa(q3w, k_win, v_win,
+                                           attn_mask=mask3,
+                                           enable_gqa=True)),
+        "device_ms": device_ms(
+            lambda: paged_verify_attention(*a3, page_size=ps),
+            "paged_verify"),
+        "shape": f"B={B} S={S3} Hq={Hq} Hkv={Hkv} D={D} page={ps} P={P} "
+                 f"window_tokens={int(n_win.sum())} "
+                 f"valid_rows={len(rows)}",
+    }
+    for k in ("K1", "K2", "K3"):
         r = RESULTS[k]
         log(f"{k} {r['name']}: {r['ms']:.4f} ms (device {r['device_ms']}, "
             f"plain {r['plain_ms']:.4f}, "
@@ -271,20 +334,73 @@ def _engine_cfg(**kw):
                         keep_logits=True, **kw)
 
 
-def _drive(engine, prompts, max_new: int):
-    """The first prompt alone to completion, then the rest together."""
+class ForcedSpeculator:
+    """Stands in for the engine's n-gram proposer: proposes the next
+    tokens of a known stream, so the verify path and acceptance are
+    exercised whatever random weights emit."""
+
+    def __init__(self, stream):
+        self.stream = stream
+        self.hist = []
+
+    def push(self, token):
+        self.hist.append(token)
+
+    def propose(self, k_max):
+        n = len(self.hist)
+        return self.stream[n:n + max(0, k_max)]
+
+    def observe(self, accepted, proposed):
+        pass
+
+
+def _drive(engine, prompts, max_new: int, streams=None):
+    """The first prompt alone to completion, then the rest together.
+    streams: per prompt, a stream a ForcedSpeculator proposes from."""
     from kafka_tpu_torch.runtime import GenRequest
 
     done = {}
     reqs = [GenRequest(request_id=f"r{i}", prompt_ids=p,
                        max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
-    engine.submit(reqs[0])
+
+    def submit(i):
+        engine.submit(reqs[i])
+        if streams is not None:
+            reqs[i].spec = ForcedSpeculator(streams[i])
+
+    submit(0)
     done.update(engine.run_to_completion())
-    for r in reqs[1:]:
-        engine.submit(r)
+    for i in range(1, len(reqs)):
+        submit(i)
     done.update(engine.run_to_completion())
     return [done[r.request_id] for r in reqs]
+
+
+def _compare_streams(cfg, got, ref, max_new: int):
+    """Greedy streams of two engines on the same weights: (identical
+    streams, tokens in matching prefixes, worst logits max|d|/max|ref|
+    up to and including the first divergence, where histories are still
+    equal)."""
+    import torch
+
+    same = agree = 0
+    worst = 0.0
+    for a, b in zip(got, ref):
+        if len(a.output_ids) != max_new or a.finish_reason != "length":
+            raise AssertionError(f"{a.request_id}: {len(a.output_ids)} "
+                                 f"tokens, finish {a.finish_reason}")
+        n = 0
+        while n < max_new and a.output_ids[n] == b.output_ids[n]:
+            n += 1
+        same += n == max_new
+        agree += n
+        for i in range(min(n + 1, max_new)):
+            la, lb = a.logits[i], b.logits[i]
+            if la.shape != (cfg.vocab_size,) or not torch.isfinite(la).all():
+                raise AssertionError(f"{a.request_id}: bad logits row {i}")
+            worst = max(worst, ((la - lb).abs().max() / lb.abs().max()).item())
+    return same, agree, worst
 
 
 def phase_engine(seed: int) -> None:
@@ -335,27 +451,8 @@ def phase_engine(seed: int) -> None:
             kernels.paged_prefill_attention.launches:
         raise AssertionError("the plain engine launched a kernel")
 
-    same_streams = 0
-    agree = total = 0
-    worst = 0.0
-    for a, b in zip(got, ref):
-        if len(a.output_ids) != max_new or a.finish_reason != "length":
-            raise AssertionError(f"{a.request_id}: {len(a.output_ids)} tokens, "
-                                 f"finish {a.finish_reason}")
-        n = 0
-        while n < max_new and a.output_ids[n] == b.output_ids[n]:
-            n += 1
-        same_streams += n == max_new
-        agree += n
-        total += max_new
-        # logits are comparable up to and including the first divergence
-        # (the histories are equal until then)
-        for i in range(min(n + 1, max_new)):
-            la, lb = a.logits[i], b.logits[i]
-            if la.shape != (cfg.vocab_size,) or not torch.isfinite(la).all():
-                raise AssertionError(f"{a.request_id}: bad logits row {i}")
-            rel = ((la - lb).abs().max() / lb.abs().max()).item()
-            worst = max(worst, rel)
+    same_streams, agree, worst = _compare_streams(cfg, got, ref, max_new)
+    total = max_new * len(prompts)
     log(f"engine vs plain engine: {same_streams}/8 identical greedy streams, "
         f"token agreement {agree}/{total} (matching prefix), worst logits "
         f"max|d|/max|ref| = {worst:.4f} (tol {LOGITS_RTOL})")
@@ -365,9 +462,94 @@ def phase_engine(seed: int) -> None:
     }
     if not worst <= LOGITS_RTOL:
         raise AssertionError(f"engine logits disagree: {worst}")
+
+    # (a) speculation: K = 4, each lane's proposer offering the spec-off
+    # kernel engine's own continuation, so acceptance is exercised
+    spec = InferenceEngine(cfg, params, _engine_cfg(speculative_k=4))
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    sgot = _drive(spec, prompts, max_new,
+                  streams=[r.output_ids for r in got])
+    torch.cuda.synchronize()
+    sdt = time.monotonic() - t0
+    k3 = kernels.paged_verify_attention.launches
+    prop, acc = spec.speculation_proposed_tokens, \
+        spec.speculation_accepted_tokens
+    s_same, s_agree, s_worst = _compare_streams(cfg, sgot, got, max_new)
+    log(f"engine (speculative_k=4, forced proposals): 8 requests in "
+        f"{sdt:.2f}s over {spec.verify_steps} verify steps, launches "
+        f"K3={k3} K1={kernels.paged_decode_attention.launches}; accepted "
+        f"{acc}/{prop} proposed; vs spec-off: {s_same}/8 identical greedy "
+        f"streams, token agreement {s_agree}/{total}, worst logits "
+        f"max|d|/max|ref| = {s_worst:.4f} (tol {LOGITS_RTOL})")
+    if k3 == 0 or acc == 0:
+        raise AssertionError(f"speculative engine: K3 launches {k3}, "
+                             f"accepted {acc}")
+    if not s_worst <= LOGITS_RTOL:
+        raise AssertionError(f"speculative engine logits disagree: {s_worst}")
+    if spec.self_check():
+        raise AssertionError(f"speculative engine: {spec.self_check()}")
+    RESULTS["K3"]["launches"] = RESULTS["K3"]["engine_launches"] = k3
+    RESULTS["engine_speculative"] = {
+        "seconds": sdt, "verify_steps": spec.verify_steps,
+        "proposed": prop, "accepted": acc, "identical_streams": s_same,
+        "token_agreement": [s_agree, total], "logits_rel_err": s_worst,
+    }
+    del spec
+
+    # (b) prefix reuse: a two-turn thread on the kernel engine; turn 2's
+    # prefill must start past the cached pages (K2 at start > 0) and its
+    # first logits row agree with a cold engine's
+    RESULTS["engine_prefix"] = prefix_turns(eng, plain, cfg, rng)
     RESULTS["decode_profile"] = decode_profile(eng, cfg, rng)
     del eng, plain, params
     torch.cuda.empty_cache()
+
+
+def prefix_turns(eng, cold, cfg, rng) -> dict:
+    import torch
+
+    from kafka_tpu_torch.models import llama
+    from kafka_tpu_torch.ops import kernels
+
+    first = rng.randint(0, cfg.vocab_size, size=300).tolist()
+    t1 = eng.generate(first, max_new_tokens=16, prefix_key="smoke-thread")
+    second = first + t1.output_ids + \
+        rng.randint(0, cfg.vocab_size, size=40).tolist()
+    starts = []
+    real = llama.paged_prefill_attention
+
+    def spy(q, k, v, row, start, chunk_len, **kw):
+        starts.append(start)
+        return real(q, k, v, row, start, chunk_len, **kw)
+
+    llama.paged_prefill_attention = spy
+    kernels.reset_launch_counts()
+    try:
+        t2 = eng.generate(second, max_new_tokens=16,
+                          prefix_key="smoke-thread")
+        torch.cuda.synchronize()
+    finally:
+        llama.paged_prefill_attention = real
+    k2 = kernels.paged_prefill_attention.launches
+    ref = cold.generate(second, max_new_tokens=1)
+    rel = ((t2.logits[0] - ref.logits[0]).abs().max()
+           / ref.logits[0].abs().max()).item()
+    out = {"turn2_prompt_tokens": len(second),
+           "turn2_cached_tokens": t2.cached_tokens,
+           "cache_source": t2.cache_source, "k2_launches": k2,
+           "k2_starts": sorted(set(starts)), "first_logits_rel_err": rel}
+    log(f"prefix reuse: turn 2 of {len(second)} tokens cached "
+        f"{t2.cached_tokens} ({t2.cache_source}); K2 launches {k2} at "
+        f"starts {out['k2_starts']}; first logits vs a cold engine "
+        f"max|d|/max|ref| = {rel:.4f} (tol {LOGITS_RTOL})")
+    if t2.cached_tokens <= 0 or k2 == 0 or min(starts) <= 0:
+        raise AssertionError(f"turn 2 did not reuse the prefix: {out}")
+    if not rel <= LOGITS_RTOL:
+        raise AssertionError(f"turn 2 logits disagree: {rel}")
+    if eng.self_check():
+        raise AssertionError(f"prefix engine: {eng.self_check()}")
+    return out
 
 
 def decode_profile(eng, cfg, rng, width: int = 8, ctx: int = 256) -> dict:
@@ -514,6 +696,11 @@ async def _serve_and_query(db_path: str) -> dict:
                     u1["completion_tokens"]:
                 raise AssertionError(f"turn 2 prompt ({u2['prompt_tokens']}) "
                                      "does not hold turn 1")
+            cached = (u2.get("prompt_tokens_details") or {}).get(
+                "cached_tokens", 0)
+            if not 0 < cached < u2["prompt_tokens"]:
+                raise AssertionError(f"turn 2 did not hit the prefix cache: "
+                                     f"{u2}")
             async with s.get(f"{base}/v1/threads/smoke/messages") as r:
                 msgs = (await r.json())["messages"]
             roles = [m["role"] for m in msgs]
@@ -533,20 +720,82 @@ async def _serve_and_query(db_path: str) -> dict:
     return out
 
 
+async def _serve_speculative(db_path: str) -> dict:
+    """One streamed request to a server configured from the environment
+    with KAFKA_TORCH_SPECULATIVE_K=4, as an operator would enable it."""
+    import aiohttp
+    from aiohttp import web
+
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.server import ServingConfig, create_app
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    os.environ["KAFKA_TORCH_SPECULATIVE_K"] = "4"
+    try:
+        cfg = ServingConfig.from_env(
+            model_name="llama-3.2-1b", max_batch=8, page_size=16,
+            num_pages=1100, max_pages_per_seq=128,
+            prefill_buckets=(64, 128, 256, 512), db_path=db_path)
+    finally:
+        del os.environ["KAFKA_TORCH_SPECULATIVE_K"]
+    if cfg.speculative_k != 4:
+        raise AssertionError(f"KAFKA_TORCH_SPECULATIVE_K not read: {cfg}")
+    app = await create_app(cfg)
+    engine = app[STATE_KEY]["llm"].engine
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    kernels.reset_launch_counts()
+    try:
+        async with aiohttp.ClientSession() as s:
+            t0 = time.monotonic()
+            ev = await _stream(
+                s, f"http://127.0.0.1:{port}/v1/threads/spec/chat/"
+                   "completions",
+                {"model": "llama-3.2-1b", "stream": True, "temperature": 0,
+                 "max_tokens": 48, "messages": [{
+                     "role": "user",
+                     "content": "one two three four " * 12}]})
+            dt = time.monotonic() - t0
+        out = {"seconds": dt, "usage": _usage(ev),
+               "proposed": engine.speculation_proposed_tokens,
+               "accepted": engine.speculation_accepted_tokens,
+               "verify_steps": engine.verify_steps}
+    finally:
+        out_k = {k: f.launches for k, f in (
+            ("K1", kernels.paged_decode_attention),
+            ("K2", kernels.paged_prefill_attention),
+            ("K3", kernels.paged_verify_attention))}
+        await runner.cleanup()
+    out.update(out_k)
+    return out
+
+
 def phase_server() -> None:
     with tempfile.TemporaryDirectory() as td:
         out = asyncio.run(_serve_and_query(os.path.join(td, "threads.db")))
+        spec = asyncio.run(_serve_speculative(os.path.join(td, "spec.db")))
     log(f"server: 3 streams ended with [DONE] in {out['seconds']:.2f}s; "
         f"prompt tokens turn1={out['turn1']['prompt_tokens']} "
-        f"turn2={out['turn2']['prompt_tokens']} "
+        f"turn2={out['turn2']['prompt_tokens']} (cached "
+        f"{out['turn2']['prompt_tokens_details']['cached_tokens']}) "
         f"chat={out['turn3']['prompt_tokens']}; history {out['history']}; "
         f"launches K1={out['K1']} K2={out['K2']}")
+    log(f"server (KAFKA_TORCH_SPECULATIVE_K=4): 1 stream of "
+        f"{spec['usage']['completion_tokens']} tokens in "
+        f"{spec['seconds']:.2f}s; {spec['verify_steps']} verify steps, "
+        f"accepted {spec['accepted']}/{spec['proposed']} proposed; "
+        f"launches K1={spec['K1']} K2={spec['K2']} K3={spec['K3']}")
+    RESULTS["server_speculative"] = spec
+    if "K3" in RESULTS:
+        RESULTS["K3"]["server_launches"] = spec["K3"]
     if out["K1"] == 0 or out["K2"] == 0:
         raise AssertionError(f"server phase did not launch both kernels: "
                              f"K1={out['K1']} K2={out['K2']}")
     RESULTS["server"] = out
-    RESULTS["K1"]["launches"] = out["K1"]
-    RESULTS["K2"]["launches"] = out["K2"]
+    for k in ("K1", "K2"):
+        RESULTS[k]["launches"] = RESULTS[k]["server_launches"] = out[k]
 
 
 def main() -> int:
@@ -592,8 +841,9 @@ def main() -> int:
     kernels_line = {"kernels": [
         {**{k: RESULTS[n].get(k) for k in keys},
          "engine_launches": RESULTS[n].get("engine_launches"),
+         "server_launches": RESULTS[n].get("server_launches"),
          "device_ms": RESULTS[n].get("device_ms")}
-        for n in ("K1", "K2") if n in RESULTS
+        for n in ("K1", "K2", "K3") if n in RESULTS
     ]}
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
     with open(os.path.join(here, "chiprun_out", "chip_smoke.json"), "w") as f:

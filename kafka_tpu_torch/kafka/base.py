@@ -7,8 +7,11 @@ event stream and persisted after it — even on a mid-run failure.
 
 `run_turn` is the one model turn the main path needs: it streams the LLM's
 chunks as OpenAI chunk dicts and ends with the `agent_done` event the
-protocol's clients wait for.  The tool-calling agent loop, prompts,
-playbooks and compaction wait for a later slice of the port.
+protocol's clients wait for.  `run_thread_turn` runs it inside
+`run_with_thread` and keys the engine's KV prefix cache by the thread
+(kafka_tpu/kafka/v1.py:150), so each turn prefills only the conversation
+suffix.  The tool-calling agent loop, prompts, playbooks and compaction
+wait for a later slice of the port.
 """
 
 from __future__ import annotations
@@ -79,3 +82,22 @@ async def run_with_thread(
         to_save = [m.to_dict() for m in acc.messages]
         if to_save:
             await db.add_messages(thread_id, to_save)
+
+
+def run_thread_turn(
+    db: DBClient,
+    llm: LLMProvider,
+    thread_id: str,
+    new_messages: List[Any],
+    system_prompt: Optional[str] = None,
+    **llm_kwargs: Any,
+) -> AsyncIterator[Dict[str, Any]]:
+    """One model turn on a thread: history in, new messages and reply
+    persisted.  The thread id is the request's prefix_key, so the
+    engine's radix cache serves the earlier turns' KV (providers without
+    a cache ignore it)."""
+    llm_kwargs.setdefault("prefix_key", thread_id)
+    return run_with_thread(
+        db, thread_id, new_messages,
+        lambda working: run_turn(llm, working, system_prompt, **llm_kwargs),
+    )

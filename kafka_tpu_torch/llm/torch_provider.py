@@ -6,7 +6,10 @@ go straight into the continuous-batching engine via the dispatch thread
 
 * context overflow raises a typed ContextLengthError before any compute;
 * chunks are yielded as the decode loop emits tokens;
-* usage is reported on every path, streaming included;
+* usage is reported on every path, streaming included, with
+  prompt_tokens_details.cached_tokens for the prompt span served from the
+  engine's radix prefix cache (the thread route passes the thread id as
+  `prefix_key`, so a thread's next turn prefills only its new tokens);
 * generated text that opens a JSON object or array is buffered and parsed
   into OpenAI tool_calls; plain text streams through immediately.
 
@@ -151,6 +154,7 @@ class TorchLLMProvider(LLMProvider):
         top_p: float = 1.0,
         top_k: int = 0,
         seed: Optional[int] = None,
+        prefix_key: Optional[str] = None,
         **kwargs: Any,
     ) -> AsyncIterator[StreamChunk]:
         self.validate_messages(messages)
@@ -174,6 +178,7 @@ class TorchLLMProvider(LLMProvider):
             top_p=top_p,
             seed=seed if seed is not None else 0,
             stop_token_ids=tuple(self.tokenizer.stop_ids),
+            prefix_key=prefix_key,
         )
         events = self.worker.submit(req, asyncio.get_running_loop())
 
@@ -232,7 +237,8 @@ class TorchLLMProvider(LLMProvider):
                 if ev.finished:
                     for chunk in self._finalize(
                             mode, buffered, ev, completion_id, model_id,
-                            len(prompt_ids), n_tokens):
+                            len(prompt_ids), n_tokens,
+                            req.usage_cached_tokens or 0):
                         yield chunk
                     return
         finally:
@@ -241,7 +247,8 @@ class TorchLLMProvider(LLMProvider):
 
     def _finalize(self, mode: str, buffered: List[str], ev: TokenEvent,
                   completion_id: str, model_id: str, prompt_tokens: int,
-                  completion_tokens: int) -> List[StreamChunk]:
+                  completion_tokens: int, cached_tokens: int = 0
+                  ) -> List[StreamChunk]:
         """Terminal chunks: flush buffers, resolve tool calls, report usage."""
         chunks: List[StreamChunk] = []
         finish = ev.finish_reason or "stop"
@@ -261,6 +268,10 @@ class TorchLLMProvider(LLMProvider):
             prompt_tokens=prompt_tokens,
             completion_tokens=completion_tokens,
             total_tokens=prompt_tokens + completion_tokens,
+            # OpenAI-compatible prompt_tokens_details.cached_tokens: the
+            # prompt span served from radix-cached KV pages (own- or
+            # cross-thread) instead of prefill compute
+            cached_prompt_tokens=cached_tokens,
         )
         chunks.append(StreamChunk(finish_reason=finish, id=completion_id,
                                   model=model_id, usage=usage.to_dict()))

@@ -16,10 +16,11 @@ Two KV cache forms, as in the JAX package:
 * contiguous: KVCache k/v [L, B, C, Hkv, D], slot == absolute position;
 * paged: per-layer pools [L, TOTAL_SLOTS, Hkv*D] (runtime/kv_cache.py)
   addressed through a PagedView index plan.  Decode (S == 1) runs the
-  paged decode kernel (K1) and a single-sequence prefill chunk runs the
-  flash prefill kernel (K2) when cfg.attention_backend == "kernel";
-  everything else gathers the window by page and runs the plain
-  attention.
+  paged decode kernel (K1), a speculative verify step (S = K+1 queries
+  per lane, `seq_lens` and `q_lens` set) the paged verify kernel (K3) and
+  a single-sequence prefill chunk the flash prefill kernel (K2) when
+  cfg.attention_backend == "kernel"; everything else gathers the window
+  by page and runs the plain attention with per-query causal masking.
 Unlike JAX, caches are updated IN PLACE (the pools are the engine's
 largest allocation; a functional copy per step would double it), and
 forward returns the same cache object.
@@ -33,7 +34,11 @@ import numpy as np
 import torch
 
 from ..ops.attention import causal_attention
-from ..ops.kernels import paged_decode_attention, paged_prefill_attention
+from ..ops.kernels import (
+    paged_decode_attention,
+    paged_prefill_attention,
+    paged_verify_attention,
+)
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin, rope_frequencies
 from .config import ModelConfig
@@ -84,10 +89,14 @@ class PagedView(NamedTuple):
     kv_positions: [B, C]  absolute position of each window slot
     kv_valid:     [B, C]  False for unallocated/beyond-length slots
     page_table:   [B, P]  physical page ids (int32)
-    seq_lens:     [B]     cached token counts, int32 (decode kernel only)
+    seq_lens:     [B]     cached token counts before the step, int32
+                          (decode and verify kernels only)
     page_size:    int
     start, chunk_len: host ints bounding a prefill chunk (prefill kernel
                   only; B == 1)
+    q_lens:       [B]     valid queries per lane of a verify step
+                          (cand_len + 1), int32 (verify kernel only; the
+                          JAX package carries it as chunk_len)
     """
 
     write_idx: torch.Tensor
@@ -99,6 +108,7 @@ class PagedView(NamedTuple):
     page_size: Optional[int] = None
     start: Optional[int] = None
     chunk_len: Optional[int] = None
+    q_lens: Optional[torch.Tensor] = None
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype=None,
@@ -223,6 +233,11 @@ def _attention_block(
                 q[:, 0], k_cache, v_cache, paged.page_table, paged.seq_lens,
                 page_size=paged.page_size,
             )[:, None]
+        elif kernel and s > 1 and paged.seq_lens is not None:
+            out = paged_verify_attention(
+                q.contiguous(), k_cache, v_cache, paged.page_table,
+                paged.seq_lens, paged.q_lens, page_size=paged.page_size,
+            )
         elif kernel and s > 1 and b == 1 and paged.start is not None:
             out = paged_prefill_attention(
                 q[0], k_cache, v_cache, paged.page_table[0],

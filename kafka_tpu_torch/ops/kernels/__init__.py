@@ -6,6 +6,8 @@ sits beside its plain PyTorch version in the same module:
   paged_decode_attention   csrc/paged_decode.cu   (K1, every decode step)
   paged_prefill_attention  csrc/flash_prefill.cu  (K2, single-sequence
                                                    prefill chunks)
+  paged_verify_attention   csrc/paged_verify.cu   (K3, speculative verify
+                                                   steps)
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors (raising on what the kernel does not take); each counts
@@ -15,8 +17,10 @@ its launches in `<wrapper>.launches`.  Sources compile at first use
 
 from .flash_prefill import paged_prefill_attention, paged_prefill_attention_plain
 from .paged_decode import paged_decode_attention, paged_decode_attention_plain
+from .paged_verify import paged_verify_attention, paged_verify_attention_plain
 
-KERNELS = (paged_decode_attention, paged_prefill_attention)
+KERNELS = (paged_decode_attention, paged_prefill_attention,
+           paged_verify_attention)
 
 
 def reset_launch_counts() -> None:
@@ -30,5 +34,7 @@ __all__ = [
     "paged_decode_attention_plain",
     "paged_prefill_attention",
     "paged_prefill_attention_plain",
+    "paged_verify_attention",
+    "paged_verify_attention_plain",
     "reset_launch_counts",
 ]

@@ -35,6 +35,7 @@ NVCC_FLAGS = ARCH_FLAGS + [
 SIGNATURES: Dict[str, Dict[str, str]] = {
     "paged_decode": {"kafka_paged_decode_bf16": "PPPPPPPPIIIIIIIFP"},
     "flash_prefill": {"kafka_flash_prefill_bf16": "PPPPPIIIIIIIIFP"},
+    "paged_verify": {"kafka_paged_verify_bf16": "PPPPPPPPPIIIIIIIIFP"},
 }
 _CTYPE = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
 

@@ -14,6 +14,19 @@ scheduler keeps the JAX engine's semantics:
   and any bucket over 128 on the kernel backend — takes the
   single-sequence prefill, which runs the flash prefill kernel (K2);
 * decode runs the paged decode kernel (K1) for every layer;
+* a request with a `prefix_key` (the serving layer passes the thread id)
+  attaches the longest whole-page prefix the radix prefix cache holds
+  (runtime/prefix_cache.py) before the admission page gate, and its
+  prefill starts at the first uncached token (`cached_tokens`); a
+  finished request stores its materialized tokens' pages into the cache
+  before they go back to the pool, and page pressure evicts cache leaves
+  before it preempts a live request;
+* with `speculative_k > 0` each lane's n-gram proposer
+  (runtime/speculative.py) may offer up to K candidate tokens; one
+  [B, K+1]-query forward — the paged verify kernel (K3) — checks them
+  all, every position is sampled with the sequential path's own
+  (seed, position) draw, and the longest matching run plus the bonus
+  token is emitted, so the stream is the one plain decode would give;
 * when the pool runs out of pages mid-decode the youngest request is
   rolled back to the waiting queue (re-prefilled later over prompt +
   generated-so-far; its resumed prefill's token is the deterministic
@@ -23,11 +36,13 @@ scheduler keeps the JAX engine's semantics:
 What the port does differently: PyTorch runs eagerly, so there are no
 compiled step programs, and the sampled tokens are fetched synchronously
 at each dispatch (the JAX engine's fetch_lag pipeline, multi-step fusion,
-off-slot parking, prefix cache, KV tiers, speculation, grammar FSM, flight
-recorder and metrics wait for later slices; multi_step=1 in the JAX
-engine is token-identical, engine.py:1450-1455).  Requests therefore
-never sit in a draining state: a token is processed in the step that
-produced it.
+off-slot parking, KV tiers, grammar FSM, flight recorder and metrics wait
+for later slices; multi_step=1 in the JAX engine is token-identical,
+engine.py:1450-1455).  Requests therefore never sit in a draining state:
+a token is processed in the step that produced it.  For speculation this
+means a verify step is accepted and emitted in the step that ran it: the
+JAX engine's in-flight verify bookkeeping (`spec_ahead`, device-side
+seq_lens that run ahead of the host's) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, PagedView, forward, params_to
+from ..ops.kernels.paged_verify import MAX_ROWS as MAX_VERIFY_ROWS
 from ..ops.sampling import SamplingParams, sample_tokens_per_slot
 from .kv_cache import (
     OutOfPagesError,
@@ -53,6 +69,8 @@ from .kv_cache import (
     make_kv_pool_arrays,
     page_table_array,
 )
+from .prefix_cache import PrefixCache
+from .speculative import LaneSpeculator
 
 logger = logging.getLogger("kafka_tpu_torch.engine")
 
@@ -98,6 +116,20 @@ class EngineConfig:
     # Diagnostic: keep each request's sampled-row logits (float32, host)
     # on GenRequest.logits.  The chip smoke compares engines with it.
     keep_logits: bool = False
+    # Radix prefix cache (runtime/prefix_cache.py): cross-thread KV reuse
+    # over the refcounted pool, for requests that carry a prefix_key.
+    # prefix_cache_entries is the on/off knob (0 disables; any positive
+    # value enables); prefix_cache_pages bounds the pages the cache may
+    # retain (None = bounded only by pool pressure via reclaim; 0
+    # disables).
+    prefix_cache_entries: int = 64
+    prefix_cache_pages: Optional[int] = None
+    # Draft-free speculative decoding (runtime/speculative.py): up to K
+    # n-gram candidates per lane verified in one [B, K+1]-query forward.
+    # 0 (the default) disables it: no proposer is built and decode is the
+    # plain path.  Greedy output equals plain decode token for token, and
+    # sampled output is plain decode's own draws at any temperature.
+    speculative_k: int = 0
 
     @property
     def max_window(self) -> int:
@@ -137,6 +169,19 @@ class GenRequest:
     prefill_ids: List[int] = dataclasses.field(default_factory=list)
     # EngineConfig.keep_logits: the logits row each token was sampled from
     logits: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    # KV prefix reuse: requests sharing cached token runs share their
+    # pages and prefill only the rest.  The serving layer keys by thread.
+    prefix_key: Optional[str] = None
+    # radix-cache hit of the latest attach: tokens served from cached
+    # pages, and "own" (this thread's earlier turn) or "cross" (another
+    # thread's shared prefix)
+    cached_tokens: int = 0
+    cache_source: Optional[str] = None
+    # the FIRST admission's share, frozen when its prefill starts (usage
+    # reports this: a preemption's re-attach is not client-saved compute)
+    usage_cached_tokens: Optional[int] = None
+    # n-gram proposer (EngineConfig.speculative_k > 0), built at submit
+    spec: Optional[LaneSpeculator] = None
 
 
 @dataclasses.dataclass
@@ -174,6 +219,17 @@ class InferenceEngine:
         if not ecfg.prefill_buckets or list(ecfg.prefill_buckets) != sorted(
                 set(ecfg.prefill_buckets)) or ecfg.prefill_buckets[0] < 1:
             raise ValueError("prefill_buckets must be increasing and positive")
+        if ecfg.prefix_cache_pages is not None and ecfg.prefix_cache_pages < 0:
+            raise ValueError(
+                "prefix_cache_pages must be >= 0 (0 disables; None = "
+                "bounded only by pool pressure)")
+        if ecfg.speculative_k < 0:
+            raise ValueError("speculative_k must be >= 0 (0 disables)")
+        if ecfg.speculative_k > 0 and \
+                ecfg.speculative_k + 2 > ecfg.max_window:
+            raise ValueError(
+                f"speculative_k={ecfg.speculative_k} does not fit the "
+                f"attention window ({ecfg.max_window})")
         backend = "kernel" if ecfg.attention_backend == "auto" else "plain"
         if backend == "kernel" and self.device.type == "cuda":
             g, d = cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
@@ -184,6 +240,12 @@ class InferenceEngine:
                     f"head_dim 64 or 128 and <= 8 q heads per kv head; "
                     f"{cfg.name} is {cfg.dtype} D={d} G={g} — use "
                     f"attention_backend='plain'")
+            if g * (ecfg.speculative_k + 1) > MAX_VERIFY_ROWS:
+                raise ValueError(
+                    f"the paged verify kernel holds at most "
+                    f"{MAX_VERIFY_ROWS} query rows per kv head; "
+                    f"speculative_k={ecfg.speculative_k} with {g} q heads "
+                    f"per kv head needs {g * (ecfg.speculative_k + 1)}")
         self.cfg = cfg.replace(attention_backend=backend)
         self.params = params_to(params, device=self.device)
         self.kv_dtype = kv_dtype or cfg.activation_dtype
@@ -204,6 +266,15 @@ class InferenceEngine:
         # EWMA of decode step wall time (Retry-After estimate)
         self._tpot_s: Optional[float] = None
         self.preemptions = 0
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(self.pool, max_pages=ecfg.prefix_cache_pages)
+            if ecfg.prefix_cache_entries > 0 and ecfg.prefix_cache_pages != 0
+            else None)
+        # speculation counters: candidates proposed / accepted, and the
+        # verify forwards that checked them
+        self.speculation_proposed_tokens = 0
+        self.speculation_accepted_tokens = 0
+        self.verify_steps = 0
 
     # ------------------------------------------------------------------
     # public API
@@ -226,6 +297,10 @@ class InferenceEngine:
         if len(req.prompt_ids) + req.max_new_tokens > limit:
             req.max_new_tokens = max(1, limit - len(req.prompt_ids))
         req.prefill_ids = list(req.prompt_ids)
+        if self.ecfg.speculative_k > 0 and req.spec is None:
+            # every lane of this slice is unconstrained (the grammar FSM
+            # has not been ported), so every lane may speculate
+            req.spec = LaneSpeculator(req.prompt_ids)
         req.submit_time = time.monotonic()
         req.state = WAITING
         self.waiting.append(req)
@@ -299,11 +374,17 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def _expected_page_owners(self) -> Dict[int, int]:
+        """Live references per page: every registered request's sequence
+        plus the prefix cache's retains — what the pool's refcounts must
+        equal."""
         owners: Dict[int, int] = {}
         for req in self._requests.values():
             if req.seq is not None:
                 for p in req.seq.pages:
                     owners[p] = owners.get(p, 0) + 1
+        if self.prefix_cache is not None:
+            for p, n in self.prefix_cache.page_owners().items():
+                owners[p] = owners.get(p, 0) + n
         return owners
 
     def self_check(self, repair: bool = False) -> List[str]:
@@ -418,24 +499,66 @@ class InferenceEngine:
                 break
 
     def _admit_waiting_head(self, slot: int) -> bool:
+        """Start the waiting head's prefill in `slot`; False (queue
+        untouched) when page-blocked.  A blocked head drops the prefix
+        retains it took for the page estimate: waiting requests must not
+        pin pool pages."""
         req = self.waiting[0]
-        if self._pages_needed(req) > self.pool.free_pages:
+        self._attach_prefix(req)
+        needed = self._pages_needed(req)
+        if needed > self.pool.free_pages and not self._reclaim_cache(needed):
+            self._detach_prefix(req)
             return False
         self.waiting.pop(0)
         try:
             self._start_prefill(req, slot)
         except OutOfPagesError:
-            if req.seq is not None:
-                self.pool.free_sequence(req.seq)
-                req.seq = None
+            self._detach_prefix(req)
             req.state = WAITING
             self.waiting.insert(0, req)
             return False
         return True
 
+    def _attach_prefix(self, req: GenRequest) -> None:
+        """Share the longest cached prefix before the admission page gate:
+        the gate then sizes the allocation net of the share, and a
+        reclaim under pressure cannot evict the run this request is
+        about to reuse (the lookup retained its pages)."""
+        if req.prefix_key is None or self.prefix_cache is None \
+                or req.seq is not None:
+            return
+        req.cached_tokens = 0
+        req.cache_source = None
+        hit = self.prefix_cache.lookup(req.prefix_key, req.prefill_ids)
+        if hit is not None:
+            req.seq = SequencePages(seq_id=req.request_id)
+            req.seq.pages, req.seq.length = hit.pages, hit.tokens
+            req.cached_tokens = hit.tokens
+            req.cache_source = hit.source
+
+    def _detach_prefix(self, req: GenRequest) -> None:
+        """Roll back a page-blocked _attach_prefix: free the retains and
+        clear the hit record (hits count only when the prefill starts)."""
+        if req.seq is not None:
+            self.pool.free_sequence(req.seq)
+            req.seq = None
+        req.cached_tokens = 0
+        req.cache_source = None
+
+    def _reclaim_cache(self, pages_needed: int) -> bool:
+        """Evict prefix-cache leaves until `pages_needed` pages are free;
+        False when the cache cannot free enough (or there is none)."""
+        return self.prefix_cache is not None and \
+            self.prefix_cache.reclaim(pages_needed)
+
     def _start_prefill(self, req: GenRequest, slot: int) -> None:
         req.seq = req.seq or SequencePages(seq_id=req.request_id)
         self.pool.ensure_capacity(req.seq, len(req.prefill_ids) + 1)
+        if req.cached_tokens and self.prefix_cache is not None:
+            # the attach survived the page gate: now the hit counts
+            self.prefix_cache.commit_hit(req.cached_tokens, req.cache_source)
+        if req.usage_cached_tokens is None:
+            req.usage_cached_tokens = req.cached_tokens
         req.state = PREFILLING
         req.slot = slot
         self.slots[slot] = req
@@ -607,6 +730,8 @@ class InferenceEngine:
     def _process_token(self, req: GenRequest, token: int,
                        final_reason: Optional[str]) -> None:
         req.output_ids.append(token)
+        if req.spec is not None:
+            req.spec.push(token)  # keep the n-gram index tail-accurate
         if req.first_token_time is None:
             req.first_token_time = time.monotonic()
         if token in req.stop_token_ids:
@@ -618,6 +743,18 @@ class InferenceEngine:
             return
         req.finish_reason = reason
         req.state = FINISHED
+        if req.seq is not None and req.prefix_key is not None \
+                and self.prefix_cache is not None:
+            # Cache the thread's KV before the pages go back to the pool
+            # (the cache takes its own retains).  Store only tokens whose
+            # KV is materialized: seq.length counts them — the final
+            # sampled token's KV is never written (it is the pending
+            # decode input), so a page-aligned next turn must not share a
+            # page holding an unwritten slot.
+            self.prefix_cache.store(
+                req.prefix_key,
+                (req.prompt_ids + req.output_ids)[: req.seq.length],
+                req.seq.pages)
         self._release_slot(req)
         self._requests.pop(req.request_id, None)
         self._out_events.append(TokenEvent(req.request_id, token,
@@ -636,7 +773,9 @@ class InferenceEngine:
         if not live:
             return
         t0 = time.monotonic()
-        toks = self._decode(members)
+        verified = self.ecfg.speculative_k > 0 and \
+            self._try_dispatch_verify(live)
+        toks = [] if verified else self._decode(members)
         dt = time.monotonic() - t0
         self._tpot_s = dt if self._tpot_s is None else \
             0.9 * self._tpot_s + 0.1 * dt
@@ -646,16 +785,22 @@ class InferenceEngine:
             self._process_token(req, tok,
                                 self._limit_reason_after_dispatch(req))
 
+    def _device_table(self) -> torch.Tensor:
+        """The decode batch's page table on the device, re-uploaded only
+        after a scheduling change."""
+        if self._ctl_dirty:
+            self._d_table = torch.from_numpy(page_table_array(
+                [s.seq if s is not None else None for s in self.slots],
+                self.ecfg.max_pages_per_seq)).to(self.device)
+            self._ctl_dirty = False
+        return self._d_table
+
     def _decode(self, members: List[Optional[GenRequest]]) -> List[int]:
         """One decode step for the active lanes of the batch; returns the
         sampled tokens of the non-None members, in slot order."""
         ps, dev, B = self.ecfg.page_size, self.device, self.ecfg.max_batch
         C = self.ecfg.max_window
-        if self._ctl_dirty:
-            self._d_table = torch.from_numpy(page_table_array(
-                [s.seq if s is not None else None for s in self.slots],
-                self.ecfg.max_pages_per_seq)).to(dev)
-            self._ctl_dirty = False
+        table = self._device_table()
         lens = np.zeros(B, np.int32)
         last = np.zeros(B, np.int64)
         write = np.zeros(B, np.int64)
@@ -674,7 +819,7 @@ class InferenceEngine:
             kv_positions=kv_pos,
             kv_valid=(kv_pos <= d_lens.long()[:, None])
             & torch.from_numpy(active).to(dev)[:, None],
-            page_table=self._d_table,
+            page_table=table,
             seq_lens=d_lens,
             page_size=ps,
         )
@@ -687,9 +832,163 @@ class InferenceEngine:
         return self._sample(logits[idx, 0], [members[i] for i in idx],
                             [int(lens[i]) for i in idx])
 
+    # ------------------------------------------------------------------
+    # speculative decoding
+    # ------------------------------------------------------------------
+
+    def _assert_private_tail(self, req: GenRequest, cl: int) -> None:
+        """Verify writes land only in the lane's PRIVATE tail pages, never
+        in radix-shared prefix pages: every page of positions
+        seq_len..seq_len+cl must be owned by this sequence alone and
+        unknown to the prefix cache.  This holds by construction (lookups
+        share only whole pages strictly before the prefill's start, and
+        store() retains pages only at finish); the assert is a cheap
+        tripwire over a handful of tail pages per verify step."""
+        ps = self.ecfg.page_size
+        pages = req.seq.pages[req.seq.length // ps:
+                              (req.seq.length + cl) // ps + 1]
+        shared = [p for p in pages if self.pool.refcount[p] != 1]
+        assert not shared, (f"speculative write span of {req.request_id} "
+                            f"covers shared pages {shared}")
+        assert self.prefix_cache is None or \
+            not self.prefix_cache.owns_any(pages), (
+                f"speculative write span of {req.request_id} covers "
+                "radix-cached pages")
+
+    def _try_dispatch_verify(self, live: List[GenRequest]) -> bool:
+        """Propose, then run one [B, K+1] verify step for the active
+        lanes.  False when no lane has a usable candidate run (plain
+        decode then runs exactly as without speculation).  Candidate runs
+        are clamped so a fully accepted run stays inside the token budget
+        and the attention window; lanes without a proposal ride the same
+        forward as an ordinary one-token decode (cand_len 0)."""
+        ecfg = self.ecfg
+        proposals: Dict[int, List[int]] = {}
+        for s in live:
+            if s.spec is None:
+                continue
+            room = min(ecfg.speculative_k,
+                       s.max_new_tokens - s.dispatched - 1,
+                       ecfg.max_window - 2 - s.seq.length)
+            cands = s.spec.propose(room)
+            if cands:
+                proposals[s.slot] = [int(c) for c in cands]
+        # grow pages over each proposer's whole write span (positions
+        # seq_len..seq_len+cl); a page-blocked proposal shrinks to a
+        # plain ride rather than preempt anyone for speculative work
+        for s in live:
+            cands = proposals.get(s.slot)
+            if cands is None:
+                continue
+            need = s.seq.length + len(cands) + 1
+            if self._grow(s.seq, need):
+                continue
+            short = -(-need // ecfg.page_size) - len(s.seq.pages)
+            if not (self._reclaim_cache(short) and self._grow(s.seq, need)):
+                del proposals[s.slot]
+        if not proposals:
+            return False
+        for slot, cands in proposals.items():
+            self._assert_private_tail(self.slots[slot], len(cands))
+        self._verify(live, proposals)
+        return True
+
+    def _verify(self, live: List[GenRequest],
+                proposals: Dict[int, List[int]]) -> None:
+        """The verify forward and its acceptance.
+
+        Lane i feeds [last_token, c_1..c_K] at positions seq_len..seq_len+K
+        and writes the KV of its first cand_len + 1 of them (the rest, and
+        idle lanes, write the trash page).  Every position is sampled with
+        the sequential path's own (seed, position) draw; candidates are
+        kept while sample == candidate, so the emitted tokens are the ones
+        plain decode would have produced.  The rejected tail is rolled
+        back by seq.length alone: its stale KV lies past the length,
+        masked until those positions are written again."""
+        ecfg, dev = self.ecfg, self.device
+        ps, B, C = ecfg.page_size, ecfg.max_batch, ecfg.max_window
+        S = ecfg.speculative_k + 1
+        toks = np.zeros((B, S), np.int64)
+        lens = np.zeros(B, np.int32)
+        q_lens = np.ones(B, np.int32)
+        write = np.tile(np.arange(S, dtype=np.int64) % ps, (B, 1))
+        active = np.zeros(B, bool)
+        for s in live:
+            i, n = s.slot, s.seq.length
+            cands = proposals.get(i, [])
+            run = [s.output_ids[-1]] + cands
+            toks[i, :len(run)] = run
+            lens[i], q_lens[i], active[i] = n, len(run), True
+            pos = n + np.arange(len(run))
+            pages = np.asarray(s.seq.pages, np.int64)[pos // ps]
+            write[i, :len(run)] = pages * ps + pos % ps
+        table = self._device_table()
+        d_lens = torch.from_numpy(lens).to(dev)
+        ends = torch.from_numpy(lens.astype(np.int64) + q_lens).to(dev)
+        kv_pos = torch.arange(C, device=dev).expand(B, C)
+        positions = d_lens.long()[:, None] + torch.arange(S, device=dev)[None]
+        paged = PagedView(
+            write_idx=torch.from_numpy(write).to(dev),
+            read_idx=None,
+            kv_positions=kv_pos,
+            kv_valid=(kv_pos < ends[:, None])
+            & torch.from_numpy(active).to(dev)[:, None],
+            page_table=table,
+            seq_lens=d_lens,
+            page_size=ps,
+            q_lens=torch.from_numpy(q_lens).to(dev),
+        )
+        logits, _ = forward(
+            self.params, self.cfg, torch.from_numpy(toks).to(dev), positions,
+            kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged)
+        self.verify_steps += 1
+        # sample only the rows acceptance can read: 0..cand_len per lane
+        rows = [(s, j) for s in live for j in range(int(q_lens[s.slot]))]
+        flat = logits[[s.slot for s, _ in rows], [j for _, j in rows]]
+        samples = self._sample(flat, [s for s, _ in rows],
+                               [int(lens[s.slot]) + j for s, j in rows],
+                               keep=False)
+        at = 0
+        for s in live:
+            cands = proposals.get(s.slot, [])
+            row = samples[at:at + len(cands) + 1]
+            kept = flat[at:at + len(cands) + 1]
+            at += len(cands) + 1
+            m = 0
+            while m < len(cands) and row[m] == cands[m]:
+                m += 1
+            if cands:
+                self.speculation_proposed_tokens += len(cands)
+                self.speculation_accepted_tokens += m
+                s.spec.observe(m, len(cands))
+            self._emit_run(s, row[:m + 1], kept[:m + 1])
+
+    def _emit_run(self, req: GenRequest, run: List[int],
+                  logits: torch.Tensor) -> None:
+        """Emit an accepted run (candidates + bonus token) with plain
+        decode's host limits applied token by token: a stop token, the
+        token budget or the window cuts the run exactly where sequential
+        decode would have stopped."""
+        old_len, old_disp = req.seq.length, req.dispatched
+        req.seq.length += len(run)
+        req.dispatched += len(run)
+        if self.ecfg.keep_logits:
+            req.logits.extend(logits.float().cpu())
+        for j, tok in enumerate(run):
+            final = None
+            if old_disp + j + 1 >= req.max_new_tokens or \
+                    old_len + j + 2 >= self.ecfg.max_window:
+                final = "length"
+            self._process_token(req, tok, final)
+            if req.state == FINISHED:
+                if self.ecfg.keep_logits:
+                    del req.logits[len(req.output_ids):]
+                return
+
     def _sample(self, logits: torch.Tensor, reqs: Sequence[GenRequest],
-                positions: Sequence[int]) -> List[int]:
-        """Sample one token per row; row i draws at (seed, positions[i])."""
+                positions: Sequence[int], keep: bool = True) -> List[int]:
+        """Sample one token per row; row i draws at (seed, positions[i]).
+        keep=False leaves EngineConfig.keep_logits to the caller."""
         dev = logits.device
         params = SamplingParams(
             temperature=torch.tensor([r.temperature for r in reqs],
@@ -701,30 +1000,37 @@ class InferenceEngine:
         )
         toks = sample_tokens_per_slot(logits, params,
                                       [r.seed for r in reqs], positions)
-        if self.ecfg.keep_logits:
+        if self.ecfg.keep_logits and keep:
             host = logits.float().cpu()
             for i, r in enumerate(reqs):
                 r.logits.append(host[i])
         return [int(t) for t in toks.tolist()]
 
     def _ensure_pages(self, req: GenRequest) -> None:
-        """Grow req's pages for one more token.  Under pressure, roll the
-        youngest request back to the waiting queue; if that is not enough,
-        roll req itself back rather than let it write into the trash page."""
-        try:
-            if self.pool.ensure_capacity(req.seq, req.seq.length + 1):
-                self._ctl_dirty = True
+        """Grow req's pages for one more token.  Under pressure, evict
+        prefix-cache leaves first (rebuilding one costs a prefill, no
+        victim), then roll the youngest request back to the waiting
+        queue; if that is not enough, roll req itself back rather than
+        let it write into the trash page."""
+        need = req.seq.length + 1
+        if self._grow(req.seq, need) or (
+                self._reclaim_cache(1) and self._grow(req.seq, need)):
             return
-        except OutOfPagesError:
-            pass
         self._preempt_youngest()
         if req.state != ACTIVE or req.seq is None:
             return
-        try:
-            self.pool.ensure_capacity(req.seq, req.seq.length + 1)
-            self._ctl_dirty = True
-        except OutOfPagesError:
+        if not self._grow(req.seq, need):
             self._preempt(req)
+
+    def _grow(self, seq: SequencePages, length: int) -> bool:
+        """Grow seq's pages to cover `length` tokens; False when the pool
+        cannot."""
+        try:
+            if self.pool.ensure_capacity(seq, length):
+                self._ctl_dirty = True
+            return True
+        except OutOfPagesError:
+            return False
 
     def _release_slot(self, req: GenRequest) -> None:
         """Free a request's batch slot and pages."""

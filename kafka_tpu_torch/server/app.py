@@ -35,7 +35,7 @@ from ..core.types import (
 from ..core.wire import ChatCompletionRequest
 from ..db import DBClient, LocalDBClient
 from ..device import DeviceLike, resolve_device
-from ..kafka import MessageAccumulator, run_turn, run_with_thread
+from ..kafka import MessageAccumulator, run_thread_turn, run_turn
 from ..llm.base import LLMProvider
 from .config import ServingConfig
 from .sse import sse_response
@@ -87,13 +87,20 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
         max_ttft_s=cfg.max_ttft_s,
         max_total_s=cfg.request_timeout_s,
         max_waiting=cfg.max_queue_depth,
+        prefix_cache_pages=cfg.prefix_cache_pages,
+        speculative_k=cfg.speculative_k,
     )
     engine = InferenceEngine(model_cfg, params, engine_cfg, device=dev)
     if cfg.warmup:
-        # one lone prompt over 128 tokens takes the single-sequence
-        # prefill (flash prefill kernel) and one decode step (paged decode
-        # kernel): on CUDA both kernels are built and loaded now, before
-        # the worker thread drives the engine
+        # on CUDA every kernel is built now (one nvcc per source, in
+        # parallel), before the worker thread drives the engine; one lone
+        # prompt over 128 tokens then takes the single-sequence prefill
+        # (flash prefill kernel) and one decode step (paged decode
+        # kernel).  No prefix_key: warmup must not seed the prefix cache.
+        if dev.type == "cuda":
+            from ..ops.kernels import build
+
+            build.build_all()
         n = max(1, min(200, engine_cfg.max_window - 2))
         engine.submit(GenRequest(request_id="__warmup", prompt_ids=[3] * n,
                                  max_new_tokens=2))
@@ -208,11 +215,8 @@ def _turn_events(request: web.Request, body: ChatCompletionRequest,
     system_prompt = state["cfg"].system_prompt
     if thread_id is None:
         return run_turn(state["llm"], messages, system_prompt, **llm_kwargs)
-    return run_with_thread(
-        state["db"], thread_id, messages,
-        lambda working: run_turn(state["llm"], working, system_prompt,
-                                 **llm_kwargs),
-    )
+    return run_thread_turn(state["db"], state["llm"], thread_id, messages,
+                           system_prompt, **llm_kwargs)
 
 
 async def _completion_response(events, model: str) -> web.Response:
@@ -229,6 +233,9 @@ async def _completion_response(events, model: str) -> web.Response:
                 usage.prompt_tokens += u.get("prompt_tokens", 0)
                 usage.completion_tokens += u.get("completion_tokens", 0)
                 usage.total_tokens += u.get("total_tokens", 0)
+                usage.cached_prompt_tokens += (
+                    u.get("prompt_tokens_details") or {}
+                ).get("cached_tokens", 0)
     except ServerOverloadedError as e:
         return web.json_response(
             {"error": {"message": str(e), "type": "server_overloaded"}},

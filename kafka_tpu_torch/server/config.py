@@ -40,6 +40,16 @@ class ServingConfig:
     # run one short generation at boot so the CUDA kernels are built and
     # the first request pays serving latency, not nvcc
     warmup: bool = True
+    # Radix prefix-cache page budget (KAFKA_TORCH_PREFIX_CACHE_PAGES): how
+    # many KV pool pages the cross-thread prefix cache may retain.  None =
+    # bounded only by pool pressure (the engine reclaims cache pages
+    # before it ever preempts a live request); 0 disables the cache.
+    prefix_cache_pages: Optional[int] = None
+    # Draft-free speculative decoding (KAFKA_TORCH_SPECULATIVE_K): up to K
+    # n-gram prompt-lookup candidates per lane verified in one [B, K+1]
+    # forward (the paged verify kernel).  0 (default) disables it.  Best
+    # on repetition-heavy agent traffic (tool echoes, JSON, code spans).
+    speculative_k: int = 0
 
     @classmethod
     def from_env(cls, **overrides) -> "ServingConfig":
@@ -67,5 +77,7 @@ class ServingConfig:
             tiny_model=get("TINY_MODEL", "0") in ("1", "true", "True"),
             system_prompt=get("SYSTEM_PROMPT", None),
             warmup=get("WARMUP", "1") not in ("0", "false", "False"),
+            prefix_cache_pages=get("PREFIX_CACHE_PAGES", None, int),
+            speculative_k=get("SPECULATIVE_K", cls.speculative_k, int),
         )
         return dataclasses.replace(cfg, **overrides)

@@ -1,5 +1,6 @@
-"""kafka_tpu_torch kernels (K1 paged decode, K2 flash prefill) vs the JAX
-package's Pallas kernels, and the port's ops vs the JAX ops.
+"""kafka_tpu_torch kernels (K1 paged decode, K2 flash prefill, K3 paged
+verify) vs the JAX package's Pallas kernels, and the port's ops vs the JAX
+ops.
 
 On the CPU the port's wrappers run their plain versions; each is held to
 the Pallas kernel run in interpret mode on the same numpy inputs (random
@@ -21,6 +22,7 @@ from kafka_tpu.ops.norms import rms_norm as jax_rms_norm
 from kafka_tpu.ops.pallas import (
     paged_decode_attention as pallas_decode,
     paged_prefill_attention as pallas_prefill,
+    paged_verify_attention as pallas_verify,
 )
 from kafka_tpu.ops.rope import (
     apply_rope as jax_apply_rope,
@@ -42,6 +44,8 @@ from kafka_tpu_torch.ops.kernels import (
     paged_decode_attention_plain,
     paged_prefill_attention,
     paged_prefill_attention_plain,
+    paged_verify_attention,
+    paged_verify_attention_plain,
 )
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -242,6 +246,62 @@ class TestFlashPrefillPlain:
         assert paged_prefill_attention.launches == 0
 
 
+def make_verify_case(seed, B=3, P=6, ps=8, Hq=4, Hkv=2, D=16, num_pages=24,
+                     S=4):
+    """The inputs of tests/test_pallas_kernels.py::TestPagedVerifyAttention:
+    random page lists, ragged seq_lens, q_lens in 1..S."""
+    rng = np.random.RandomState(seed)
+    k_pool = rng.randn(num_pages * ps, Hkv * D).astype(np.float32)
+    v_pool = rng.randn(num_pages * ps, Hkv * D).astype(np.float32)
+    q = rng.randn(B, S, Hq, D).astype(np.float32)
+    free = list(range(1, num_pages))
+    rng.shuffle(free)
+    table = np.zeros((B, P), np.int32)
+    seq_lens = rng.randint(1, P * ps - S - 1, size=B).astype(np.int32)
+    q_lens = rng.randint(1, S + 1, size=B).astype(np.int32)
+    for b in range(B):
+        for i in range(int(np.ceil((seq_lens[b] + S + 1) / ps))):
+            table[b, i] = free.pop()
+    return q, k_pool, v_pool, table, seq_lens, q_lens
+
+
+class TestPagedVerifyPlain:
+    @pytest.mark.parametrize("seed,Hq,Hkv,D,S", [
+        (0, 4, 2, 16, 4), (1, 4, 2, 16, 4), (2, 8, 2, 16, 5),
+        (3, 4, 1, 32, 3),
+    ])
+    def test_matches_pallas(self, seed, Hq, Hkv, D, S):
+        """Rows j < q_len against the Pallas kernel in interpret mode."""
+        args = make_verify_case(seed, Hq=Hq, Hkv=Hkv, D=D, S=S)
+        q, kp, vp, table, lens, qlens = args
+        ref = np.asarray(pallas_verify(
+            *(jnp.asarray(a) for a in args), page_size=8, interpret=True))
+        out = paged_verify_attention_plain(*(t(a) for a in args),
+                                           page_size=8).numpy()
+        for b in range(q.shape[0]):
+            n = int(qlens[b])
+            np.testing.assert_allclose(out[b, :n], ref[b, :n], **TOL)
+
+    def test_one_query_equals_decode(self):
+        """S = 1, q_len = 1 is a decode step: plain K3 equals plain K1."""
+        q, kp, vp, table, lens = make_decode_case(6, 4, 6, 8, 8, 2, 16, 30)
+        q1 = t(q)[:, None]
+        ones = torch.ones(4, dtype=torch.int32)
+        got = paged_verify_attention_plain(q1, t(kp), t(vp), t(table),
+                                           t(lens), ones, page_size=8)
+        want = paged_decode_attention_plain(t(q), t(kp), t(vp), t(table),
+                                            t(lens), page_size=8)
+        assert torch.equal(got[:, 0], want)
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        args = [t(a) for a in make_verify_case(7)]
+        kernels.reset_launch_counts()
+        a = paged_verify_attention(*args, page_size=8)
+        b = paged_verify_attention_plain(*args, page_size=8)
+        assert torch.equal(a, b)
+        assert paged_verify_attention.launches == 0
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels (card only)
 # ---------------------------------------------------------------------------
@@ -284,6 +344,22 @@ class TestCudaKernels:
                                                 page_size=16)
             torch.cuda.synchronize()
             self._close(out[:clen], ref[:clen])
+
+    def test_paged_verify_kernel(self, cuda):
+        """K = 4 verify shape at Llama-3.2-1B geometry; rows j < q_len."""
+        q, kp, vp, table, lens, qlens = make_verify_case(
+            0, B=8, P=32, ps=16, Hq=32, Hkv=8, D=64, num_pages=8 * 32 + 1,
+            S=5)
+        args = [t(a).to(cuda).to(torch.bfloat16) for a in (q, kp, vp)] + \
+            [t(a).to(cuda) for a in (table, lens, qlens)]
+        before = paged_verify_attention.launches
+        out = paged_verify_attention(*args, page_size=16)
+        ref = paged_verify_attention_plain(*args, page_size=16)
+        torch.cuda.synchronize()
+        assert paged_verify_attention.launches == before + 1
+        for b in range(8):
+            n = int(qlens[b])
+            self._close(out[b, :n], ref[b, :n])
 
     def test_wrapper_rejects_what_the_kernel_does_not_take(self, cuda):
         q = torch.zeros(2, 8, 64, device=cuda)  # float32, not bf16
