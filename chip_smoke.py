@@ -8,12 +8,17 @@ Phases, each of which raises (non-zero exit) on any failure:
                kafka_tpu_torch/csrc with nvcc for sm_90a, one nvcc per
                source, all started together.
   1. kernels — each kernel (K1 paged decode, K2 flash prefill, K3 paged
-               verify) against its plain PyTorch version on the card at
+               verify, K4 int8 paged decode, K5 fused decode MLP in bf16
+               and int8) against its plain PyTorch version on the card at
                Llama-3.2-1B geometry (Hq 32, Hkv 8, D 64, page 16; K3 at
-               the K = 4 verify shape), then timed beside its plain
+               the K = 4 verify shape; K4 at K1's shape over an int8 pool;
+               K5 at B 8, H 2048, F 8192), then timed beside its plain
                version, its bound and a PyTorch library call
                (scaled_dot_product_attention on the gathered window — a
-               yardstick only; the port never calls it).
+               yardstick only; the port never calls it; K5 has none and
+               is timed beside the port's torch formulation instead).
+               K5 is not on the serving path (as in the JAX package): its
+               path is a 16-layer decode MLP sweep through the function.
   2. engine  — the engine at full llama-3.2-1b width (bf16, vocab 128256,
                random weights from --seed): eight greedy requests, one
                submitted alone and longer than the largest prefill bucket
@@ -28,7 +33,13 @@ Phases, each of which raises (non-zero exit) on any failure:
                positions' logits must agree with the spec-off engine's;
                (b) a two-turn thread on the first engine: turn 2 must hit
                the prefix cache and prefill from past the cached pages
-               (K2 at start > 0).
+               (K2 at start > 0).  (c) int8 serving: the same weights
+               quantized per output channel and an int8 KV pool; decode
+               must launch K4 (and no K1 or K2), logits must agree with
+               the same int8 engine on plain attention, and the int8
+               model's logit quality against the bf16 model must hold the
+               analytic flip bound (flip_margin_max <= 2 max|dlogit|);
+               decode-step profiles of both engines are printed.
   3. server  — the HTTP server built by create_app for llama-3.2-1b as the
                provider builder does with no checkpoint: byte tokenizer, so
                the vocab is 262 (full width otherwise).  In-process on a
@@ -38,7 +49,10 @@ Phases, each of which raises (non-zero exit) on any failure:
                /v1/chat/completions.  Every stream must end with
                `data: [DONE]`, and both kernel counters must move.  Then
                one streamed request to a second server configured with
-               KAFKA_TORCH_SPECULATIVE_K=4.
+               KAFKA_TORCH_SPECULATIVE_K=4, and two streamed turns on one
+               thread to a third configured with KAFKA_TORCH_QUANTIZE=int8
+               and KAFKA_TORCH_KV_QUANTIZE=int8: turn 2 must report cached
+               tokens and K4 must launch.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
@@ -74,6 +88,12 @@ KERNEL_RTOL = 2.0 ** -7
 # attention outputs differ at bf16 rounding and the difference propagates
 # through the residual stream; held to 5% of the largest |logit|.
 LOGITS_RTOL = 0.05
+# K5 against its plain version: both round at the JAX kernel's points and
+# differ by f32 summation order, so a bf16 rounding may land one ulp apart
+# (2^-7 relative) inside the MLP and move the output; held to the JAX
+# package's own kernel tolerance (tests/test_fused_mlp.py).
+K5_ATOL = 0.05
+KERNEL_KEYS = ("K1", "K2", "K3", "K4", "K5", "K5_int8")
 
 RESULTS: dict = {}
 
@@ -312,12 +332,176 @@ def phase_kernels(seed: int) -> None:
                  f"window_tokens={int(n_win.sum())} "
                  f"valid_rows={len(rows)}",
     }
-    for k in ("K1", "K2", "K3"):
+    kernel_k4(args, gen)
+    kernel_k5(gen)
+    for k in KERNEL_KEYS:
         r = RESULTS[k]
+        lib = r["library_ms"]
         log(f"{k} {r['name']}: {r['ms']:.4f} ms (device {r['device_ms']}, "
             f"plain {r['plain_ms']:.4f}, "
-            f"bound {r['bound_ms']:.5f} by {r['bound_by']}, "
-            f"library {r['library_ms']:.4f}) at {r['shape']}")
+            f"bound {r['bound_ms']:.5f} by {r['bound_by']}, library "
+            f"{'none' if lib is None else f'{lib:.4f}'}"
+            + (f", torch formulation {r['torch_ms']:.4f}"
+               if "torch_ms" in r else "") + f") at {r['shape']}")
+
+
+def kernel_k4(k1_args, gen) -> None:
+    """K4 at K1's shape: the same windows, their rows quantized per slot
+    into an int8 pool as the engine's KV write does."""
+    import torch
+
+    from kafka_tpu_torch.models.quant import dequantize, quantize_array
+    from kafka_tpu_torch.ops.kernels import (
+        paged_decode_attention_int8,
+        paged_decode_attention_int8_plain,
+    )
+
+    q, k_pool, v_pool, table, seq_lens = k1_args
+    B, Hq, D = q.shape
+    HD = k_pool.shape[1]
+    Hkv, ps, P = HD // D, 16, table.shape[1]
+    kq, vq = quantize_array(k_pool, (-1,)), quantize_array(v_pool, (-1,))
+    a4 = (q, kq.q, kq.s, vq.q, vq.s, table, seq_lens)
+    out_k = paged_decode_attention_int8(*a4, page_size=ps)
+    out_p = paged_decode_attention_int8_plain(*a4, page_size=ps)
+    torch.cuda.synchronize()
+    err4 = check_close("K4 paged_decode_attention_int8", out_k, out_p)
+    tok = int((seq_lens.long() + 1).clamp(max=P * ps).sum())
+    b4, by4 = bound(
+        tok * (2 * HD + 2 * 4) + 2 * B * Hq * D * 2 + B * P * 4 + B * 4,
+        4 * Hq * D * tok)
+    # yardstick: SDPA on the dequantized, pre-gathered bf16 window
+    C = P * ps
+    pt = table.long()
+    win = [dequantize(t, torch.bfloat16).view(-1, ps, HD)[pt]
+           .view(B, C, Hkv, D).transpose(1, 2).contiguous()
+           for t in (kq, vq)]
+    mask = (torch.arange(C, device=q.device)[None]
+            <= seq_lens.long()[:, None])[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4 = q[:, :, None, :]
+    RESULTS["K4"] = {
+        "name": "paged_decode_attention_int8",
+        "route": "cuda",
+        "source": "kafka_tpu_torch/csrc/paged_decode_int8.cu",
+        "replaces": "kafka_tpu/ops/pallas/paged_attention.py:690",
+        "max_abs_err": err4,
+        "ms": time_ms(lambda: paged_decode_attention_int8(*a4, page_size=ps)),
+        "plain_ms": time_ms(
+            lambda: paged_decode_attention_int8_plain(*a4, page_size=ps)),
+        "bound_ms": b4,
+        "bound_by": by4,
+        "library_ms": time_ms(lambda: sdpa(q4, win[0], win[1],
+                                           attn_mask=mask, enable_gqa=True)),
+        "device_ms": device_ms(
+            lambda: paged_decode_attention_int8(*a4, page_size=ps),
+            "paged_decode_int8"),
+        "shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={ps} P={P} "
+                 f"valid_tokens={tok} int8 pool",
+    }
+
+
+def kernel_k5(gen) -> None:
+    """K5 at the llama-3.2-1b decode MLP shape (B 8, H 2048, F 8192),
+    bf16 and int8 weights.  K5 is not on the serving path (as in the JAX
+    package): its path is the function itself, driven over the 16-layer
+    MLP stack of a full-width layer stack below, with the counter read
+    around that sweep alone."""
+    import torch
+
+    from kafka_tpu_torch.models.quant import (
+        QTensor,
+        dequantize,
+        quantize_array,
+    )
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.ops.kernels import (
+        fused_mlp_args,
+        fused_mlp_block,
+        fused_mlp_block_plain,
+    )
+    from kafka_tpu_torch.ops.norms import rms_norm
+
+    dev = torch.device("cuda")
+    B, H, F, L, eps = 8, 2048, 8192, 16, 1e-5
+
+    def normal(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device=dev) * fan_in ** -0.5
+                ).to(torch.bfloat16)
+
+    stack = {"ln_mlp": (1 + 0.1 * torch.randn(L, H, generator=gen,
+                                              device=dev)).to(torch.bfloat16),
+             "wg": normal((L, H, F), H), "wu": normal((L, H, F), H),
+             "wd": normal((L, F, H), F)}
+    qstack = dict(stack)
+    for name in ("wg", "wu", "wd"):
+        qstack[name] = quantize_array(stack[name], (1,))
+    h0 = torch.randn(B, H, generator=gen, device=dev).to(torch.bfloat16)
+
+    def torch_formulation(h, ln, wg, wu, wd, sg=None, su=None, sd=None):
+        # the port's decode MLP (models/llama.py): norm, dequant, matmuls
+        if sg is not None:
+            wg, wu, wd = (dequantize(QTensor(q=w, s=s_), torch.bfloat16)
+                          for w, s_ in ((wg, sg), (wu, su), (wd, sd)))
+        x = rms_norm(h, ln, eps)
+        g, u = x @ wg, x @ wu
+        return h + (torch.nn.functional.silu(g) * u) @ wd
+
+    w_bytes = {"bf16": 3 * H * F * 2, "int8": 3 * H * F + (2 * F + H) * 4}
+    for key, label, layers in (("K5", "bf16", stack),
+                               ("K5_int8", "int8", qstack)):
+        a5 = fused_mlp_args(layers, 0)
+        out_k = fused_mlp_block(h0, *a5, eps=eps)
+        out_p = fused_mlp_block_plain(h0, *a5, eps=eps)
+        torch.cuda.synchronize()
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        log(f"K5 fused_mlp_block ({label}) max_abs_err={err:.3e} "
+            f"(tol {K5_ATOL})")
+        if not err <= K5_ATOL:
+            raise AssertionError(f"K5 ({label}) disagrees with its plain "
+                                 f"version: {err}")
+        # its path: one decode MLP sweep over the layer stack
+        kernels.reset_launch_counts()
+        h = h_ref = h0
+        for l in range(L):
+            h = fused_mlp_block(h, *fused_mlp_args(layers, l), eps=eps)
+            h_ref = torch_formulation(h_ref, *fused_mlp_args(layers, l))
+        torch.cuda.synchronize()
+        launches = fused_mlp_block.launches
+        sweep = ((h.float() - h_ref.float()).abs().max()
+                 / h_ref.float().abs().max()).item()
+        log(f"K5 ({label}) path: {L}-layer MLP sweep, launches {launches}, "
+            f"max|d|/max|ref| vs the torch formulation {sweep:.4f} "
+            f"(tol {LOGITS_RTOL})")
+        if launches != L or not torch.isfinite(h).all() \
+                or not sweep <= LOGITS_RTOL:
+            raise AssertionError(f"K5 ({label}) sweep: launches {launches}, "
+                                 f"rel err {sweep}")
+        b5, by5 = bound(w_bytes[label] + 3 * B * H * 2 + H * 2,
+                        2 * B * 3 * H * F)
+        RESULTS[key] = {
+            "name": f"fused_mlp_block ({label})",
+            "route": "cuda",
+            "source": "kafka_tpu_torch/csrc/fused_mlp.cu",
+            "replaces": "kafka_tpu/ops/pallas/fused_mlp.py:153",
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": time_ms(lambda: fused_mlp_block(h0, *a5, eps=eps)),
+            "plain_ms": time_ms(
+                lambda: fused_mlp_block_plain(h0, *a5, eps=eps)),
+            "bound_ms": b5,
+            "bound_by": by5,
+            # no single PyTorch call computes the block; the port's own
+            # torch formulation is timed beside it instead
+            "library_ms": None,
+            "torch_ms": time_ms(lambda: torch_formulation(h0, *a5)),
+            "device_ms": device_ms(
+                lambda: fused_mlp_block(h0, *a5, eps=eps), "mlp_"),
+            "sweep_rel_err": sweep,
+            "shape": f"B={B} H={H} F={F} {label} weights",
+        }
+    del stack, qstack
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -502,8 +686,88 @@ def phase_engine(seed: int) -> None:
     # first logits row agree with a cold engine's
     RESULTS["engine_prefix"] = prefix_turns(eng, plain, cfg, rng)
     RESULTS["decode_profile"] = decode_profile(eng, cfg, rng)
-    del eng, plain, params
+    del eng, plain
     torch.cuda.empty_cache()
+    # (c) int8 serving: the same weights quantized, an int8 KV pool
+    RESULTS["engine_int8"] = engine_int8(cfg, params, prompts, max_new, rng)
+    del params
+    torch.cuda.empty_cache()
+
+
+def engine_int8(cfg, params, prompts, max_new: int, rng) -> dict:
+    """int8 weights + int8 KV: decode must go through K4 (and K1/K2 stay
+    idle: prefill reads the int8 pool through the dequantizing gather);
+    logits against the same int8 engine on plain attention; the int8
+    model's logit quality against the bf16 one; a decode profile."""
+    import torch
+
+    from kafka_tpu_torch.models.llama import _layer
+    from kafka_tpu_torch.models.quant import dequantize, quantize_params
+    from kafka_tpu_torch.models.quant_quality import logit_quality_metrics
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.runtime import InferenceEngine
+
+    qparams = quantize_params(params)
+    eng = InferenceEngine(cfg, qparams, _engine_cfg(kv_quantize="int8"))
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    got = _drive(eng, prompts, max_new)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launched = {f.__name__: f.launches for f in kernels.KERNELS}
+    k4 = launched["paged_decode_attention_int8"]
+    log(f"engine (int8 weights + int8 KV): 8 requests in {dt:.2f}s, "
+        f"launches {launched}")
+    if k4 == 0 or launched["paged_decode_attention"] or \
+            launched["paged_prefill_attention"]:
+        raise AssertionError(f"int8 engine launches: {launched}")
+    plain = InferenceEngine(cfg, qparams, _engine_cfg(
+        kv_quantize="int8", attention_backend="plain"))
+    kernels.reset_launch_counts()
+    ref = _drive(plain, prompts, max_new)
+    if any(f.launches for f in kernels.KERNELS):
+        raise AssertionError("the plain int8 engine launched a kernel")
+    same, agree, worst = _compare_streams(cfg, got, ref, max_new)
+    total = max_new * len(prompts)
+    log(f"int8 engine vs plain int8 engine: {same}/8 identical greedy "
+        f"streams, token agreement {agree}/{total}, worst logits "
+        f"max|d|/max|ref| = {worst:.4f} (tol {LOGITS_RTOL})")
+    if not worst <= LOGITS_RTOL:
+        raise AssertionError(f"int8 engine logits disagree: {worst}")
+    if eng.self_check():
+        raise AssertionError(f"int8 engine: {eng.self_check()}")
+    del plain
+    quality_prompts = [rng.randint(0, cfg.vocab_size, size=64).tolist()
+                       for _ in range(4)]
+    quality = logit_quality_metrics(cfg, params, qparams, quality_prompts)
+    log(f"int8 vs bf16 logit quality: {quality}")
+    if not quality["flip_margin_max"] <= 2 * quality["max_abs_dlogit"]:
+        raise AssertionError(f"flip outside the analytic bound: {quality}")
+    # what the int8 step adds: every matmul weight dequantized to bf16 once
+    # per layer per step, and the LM head's codes cast to bf16
+    layers = qparams["layers"]
+    names = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+    def dequant_all():
+        for l in range(cfg.num_layers):
+            for n in names:
+                dequantize(_layer(layers[n], l), torch.bfloat16)
+        qparams["embed"].q.to(torch.bfloat16)
+
+    dequant_ms = time_ms(dequant_all, iters=5, warmup=1)
+    log(f"int8 decode step: weight dequant materialised per step "
+        f"{dequant_ms:.3f} ms (CUDA events, all layers + LM head)")
+    profile = decode_profile(eng, cfg, rng)
+    bf16 = RESULTS.get("decode_profile", {})
+    log(f"decode step bf16 vs int8: host {bf16.get('step_ms')} vs "
+        f"{profile['step_ms']:.2f} ms, device {bf16.get('device_ms_per_step')} "
+        f"vs {profile['device_ms_per_step']:.3f} ms, busy share "
+        f"{bf16.get('device_busy_share')} vs {profile['device_busy_share']:.3f}")
+    RESULTS["K4"]["engine_launches"] = k4
+    return {"seconds": dt, "launches": launched, "identical_streams": same,
+            "token_agreement": [agree, total], "logits_rel_err": worst,
+            "logit_quality": quality, "dequant_ms_per_step": dequant_ms,
+            "decode_profile": profile}
 
 
 def prefix_turns(eng, cold, cfg, rng) -> dict:
@@ -772,10 +1036,86 @@ async def _serve_speculative(db_path: str) -> dict:
     return out
 
 
+async def _serve_int8(db_path: str) -> dict:
+    """Two streamed turns on one thread to a server configured from the
+    environment with KAFKA_TORCH_QUANTIZE=int8 and
+    KAFKA_TORCH_KV_QUANTIZE=int8."""
+    import aiohttp
+    from aiohttp import web
+
+    from kafka_tpu_torch.models.quant import QTensor
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.server import ServingConfig, create_app
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    knobs = {"KAFKA_TORCH_QUANTIZE": "int8", "KAFKA_TORCH_KV_QUANTIZE": "int8"}
+    os.environ.update(knobs)
+    try:
+        cfg = ServingConfig.from_env(
+            model_name="llama-3.2-1b", max_batch=8, page_size=16,
+            num_pages=1100, max_pages_per_seq=128,
+            prefill_buckets=(64, 128, 256, 512), db_path=db_path,
+            system_prompt="You are a terse assistant.")
+    finally:
+        for k in knobs:
+            del os.environ[k]
+    if (cfg.quantize, cfg.kv_quantize) != ("int8", "int8"):
+        raise AssertionError(f"int8 knobs not read: {cfg}")
+    app = await create_app(cfg)
+    engine = app[STATE_KEY]["llm"].engine
+    if not isinstance(engine.k_pool, QTensor) or \
+            not isinstance(engine.params["layers"]["wq"], QTensor):
+        raise AssertionError("the int8 server holds dense weights or pool")
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    url = f"http://127.0.0.1:{port}/v1/threads/int8/chat/completions"
+    kernels.reset_launch_counts()
+    out = {}
+    try:
+        async with aiohttp.ClientSession() as s:
+            t0 = time.monotonic()
+            ev1 = await _stream(s, url, {
+                "model": "llama-3.2-1b", "stream": True, "temperature": 0,
+                "max_tokens": 16, "messages": [{
+                    "role": "user", "content": "Explain int8 KV caches "
+                    "and per-slot scales in two sentences. " * 6}]})
+            ev2 = await _stream(s, url, {
+                "model": "llama-3.2-1b", "stream": True, "temperature": 0,
+                "max_tokens": 16, "messages": [{
+                    "role": "user", "content": "Shorter, please."}]})
+            out["seconds"] = time.monotonic() - t0
+        out["turn1"], out["turn2"] = _usage(ev1), _usage(ev2)
+    finally:
+        out.update({f.__name__: f.launches for f in kernels.KERNELS})
+        await runner.cleanup()
+    cached = (out["turn2"].get("prompt_tokens_details") or {}).get(
+        "cached_tokens", 0)
+    if cached <= 0:
+        raise AssertionError(f"int8 turn 2 did not hit the prefix cache: "
+                             f"{out['turn2']}")
+    if out["paged_decode_attention_int8"] == 0:
+        raise AssertionError(f"int8 server did not launch K4: {out}")
+    return out
+
+
 def phase_server() -> None:
     with tempfile.TemporaryDirectory() as td:
         out = asyncio.run(_serve_and_query(os.path.join(td, "threads.db")))
         spec = asyncio.run(_serve_speculative(os.path.join(td, "spec.db")))
+        int8 = asyncio.run(_serve_int8(os.path.join(td, "int8.db")))
+    log(f"server (KAFKA_TORCH_QUANTIZE=int8 KAFKA_TORCH_KV_QUANTIZE=int8): "
+        f"2 thread turns ended with [DONE] in {int8['seconds']:.2f}s; turn 2 "
+        f"prompt {int8['turn2']['prompt_tokens']} tokens, cached "
+        f"{int8['turn2']['prompt_tokens_details']['cached_tokens']}; "
+        f"launches K4={int8['paged_decode_attention_int8']} "
+        f"K1={int8['paged_decode_attention']} "
+        f"K2={int8['paged_prefill_attention']}")
+    RESULTS["server_int8"] = int8
+    if "K4" in RESULTS:
+        RESULTS["K4"]["launches"] = RESULTS["K4"]["server_launches"] = \
+            int8["paged_decode_attention_int8"]
     log(f"server: 3 streams ended with [DONE] in {out['seconds']:.2f}s; "
         f"prompt tokens turn1={out['turn1']['prompt_tokens']} "
         f"turn2={out['turn2']['prompt_tokens']} (cached "
@@ -840,10 +1180,10 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = {"kernels": [
         {**{k: RESULTS[n].get(k) for k in keys},
-         "engine_launches": RESULTS[n].get("engine_launches"),
-         "server_launches": RESULTS[n].get("server_launches"),
-         "device_ms": RESULTS[n].get("device_ms")}
-        for n in ("K1", "K2", "K3") if n in RESULTS
+         **{k: RESULTS[n][k] for k in ("engine_launches", "server_launches",
+                                       "device_ms", "torch_ms")
+            if k in RESULTS[n]}}
+        for n in KERNEL_KEYS if n in RESULTS
     ]}
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
     with open(os.path.join(here, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -11,6 +11,13 @@ from .llama import (
     params_to,
 )
 from .loader import convert_hf_state_dict, load_checkpoint
+from .quant import (
+    QTensor,
+    dequantize,
+    param_bytes,
+    quantize_array,
+    quantize_params,
+)
 from .tokenizer import (
     BaseTokenizer,
     ByteTokenizer,
@@ -33,6 +40,11 @@ __all__ = [
     "params_to",
     "convert_hf_state_dict",
     "load_checkpoint",
+    "QTensor",
+    "dequantize",
+    "param_bytes",
+    "quantize_array",
+    "quantize_params",
     "BaseTokenizer",
     "ByteTokenizer",
     "HFTokenizer",

@@ -24,6 +24,14 @@ Two KV cache forms, as in the JAX package:
 Unlike JAX, caches are updated IN PLACE (the pools are the engine's
 largest allocation; a functional copy per step would double it), and
 forward returns the same cache object.
+
+Int8 (models/quant.py), as in the JAX package: any matmul weight, the
+embedding table and the LM head may be a QTensor, and the paged pools may
+be QTensor pools (int8 rows, one f32 scale per slot).  Over an int8 pool a
+decode step runs the int8 paged decode kernel (K4); prefill chunks and
+verify steps read the window through the dequantizing page gather — the
+JAX package gates its flash prefill and verify kernels off int8 pools and
+has no int8 kernel for either.
 """
 
 from __future__ import annotations
@@ -36,36 +44,72 @@ import torch
 from ..ops.attention import causal_attention
 from ..ops.kernels import (
     paged_decode_attention,
+    paged_decode_attention_int8,
     paged_prefill_attention,
     paged_verify_attention,
 )
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin, rope_frequencies
 from .config import ModelConfig
+from .quant import QTensor, dequantize, quantize_array
 
 Params = Dict[str, Any]
 
 
-def _kv_write(cache: torch.Tensor, idx: torch.Tensor,
-              rows: torch.Tensor) -> None:
+def _layer(x: Any, l: int) -> Any:
+    """Layer l of a layer-stacked tensor or QTensor (both parts)."""
+    if isinstance(x, QTensor):
+        return QTensor(q=x.q[l], s=x.s[l])
+    return x[l]
+
+
+def _w(layers: Params, name: str, l: int, dtype: torch.dtype) -> torch.Tensor:
+    """Layer l's weight, dequantized when it is an int8 QTensor (JAX
+    models/llama.py _w: the matmul sees the dense weight)."""
+    return dequantize(_layer(layers[name], l), dtype)
+
+
+def _kv_write(cache: Any, idx: torch.Tensor, rows: torch.Tensor) -> None:
     """Scatter new KV rows into a pool at flat slot indices, in place.
-    rows [..., Hkv*D]; idx [...] integer."""
-    cache.index_copy_(0, idx.reshape(-1).long(),
+    rows [..., Hkv*D]; idx [...] integer.  An int8 pool (QTensor) takes
+    each row quantized against its own abs-max, with its f32 scale — the
+    JAX package's per-slot recipe."""
+    idx = idx.reshape(-1).long()
+    if isinstance(cache, QTensor):
+        qt = quantize_array(rows, (-1,))
+        hd = cache.q.shape[-1]
+        cache.q.index_copy_(0, idx, qt.q.reshape(-1, hd))
+        cache.s.index_copy_(0, idx, qt.s.reshape(-1, 1))
+        return
+    cache.index_copy_(0, idx,
                       rows.reshape(-1, cache.shape[-1]).to(cache.dtype))
 
 
-def _kv_read(cache: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather pool rows at flat slot indices: idx [B, C] -> [B, C, Hkv*D]."""
+def _kv_read(cache: Any, idx: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """Gather pool rows at flat slot indices: idx [B, C] -> [B, C, Hkv*D];
+    an int8 pool is dequantized to `dtype`."""
+    if isinstance(cache, QTensor):
+        return dequantize(QTensor(q=cache.q[idx], s=cache.s[idx]), dtype)
     return cache[idx]
 
 
-def _kv_read_pages(cache: torch.Tensor, page_table: torch.Tensor,
-                   page_size: int) -> torch.Tensor:
+def _kv_read_pages(cache: Any, page_table: torch.Tensor, page_size: int,
+                   dtype: torch.dtype) -> torch.Tensor:
     """Gather a [B, P*page_size, Hkv*D] window by PAGE (B*P contiguous
-    blocks instead of B*C rows).  page_table: [B, P]."""
-    slots, hd = cache.shape
+    blocks instead of B*C rows).  page_table: [B, P].  An int8 pool's
+    rows and per-slot scales are gathered the same way and dequantized to
+    `dtype`."""
+    pt = page_table.long()
     lead = page_table.shape[:-1]
-    win = cache.view(slots // page_size, page_size, hd)[page_table.long()]
+    if isinstance(cache, QTensor):
+        slots, hd = cache.q.shape
+        q = cache.q.view(slots // page_size, page_size, hd)[pt]
+        s = cache.s.view(slots // page_size, page_size, 1)[pt]
+        return dequantize(QTensor(q=q.reshape(*lead, -1, hd),
+                                  s=s.reshape(*lead, -1, 1)), dtype)
+    slots, hd = cache.shape
+    win = cache.view(slots // page_size, page_size, hd)[pt]
     return win.reshape(*lead, -1, hd)
 
 
@@ -166,34 +210,59 @@ def _to_torch(a: Any, dtype=None) -> torch.Tensor:
     return t.to(dtype) if dtype is not None else t
 
 
+def _is_qtensor(v: Any) -> bool:
+    """A QTensor of either package (the JAX one is a NamedTuple with the
+    same fields; the port does not import it)."""
+    return isinstance(v, tuple) and getattr(v, "_fields", None) == ("q", "s")
+
+
+def _leaf_from_jax(v: Any, dtype, device) -> Any:
+    # np.asarray of a QTensor would stack q and s: convert the parts, and
+    # keep the int8 codes and f32 scales whatever `dtype` says
+    if _is_qtensor(v):
+        return QTensor(q=_to_torch(v.q).to(device), s=_to_torch(v.s).to(device))
+    return _to_torch(v, dtype).to(device)
+
+
 def params_from_jax(np_params: Mapping[str, Any], dtype=None,
                     device=None) -> Params:
     """The port's parameters from `kafka_tpu.models.init_params`' pytree
-    (dense), converted to numpy arrays.  Layouts are identical; `dtype`
-    (default: keep each array's own) casts every tensor."""
-    layers = {k: _to_torch(v, dtype).to(device)
+    (dense, or int8 from `quantize_params`), converted to numpy arrays.
+    Layouts are identical; `dtype` (default: keep each array's own) casts
+    every dense tensor."""
+    layers = {k: _leaf_from_jax(v, dtype, device)
               for k, v in np_params["layers"].items()}
     out: Params = {
-        k: _to_torch(v, dtype).to(device)
+        k: _leaf_from_jax(v, dtype, device)
         for k, v in np_params.items() if k != "layers"
     }
     out["layers"] = layers
     return out
 
 
+def _leaf_to(v: Any, device, dtype) -> Any:
+    if isinstance(v, QTensor):  # int8 codes and f32 scales keep their types
+        return QTensor(q=v.q.to(device=device), s=v.s.to(device=device))
+    return v.to(device=device, dtype=dtype)
+
+
 def params_to(params: Params, device=None, dtype=None) -> Params:
-    """Move (and optionally cast) a parameter tree."""
-    out = {k: v.to(device=device, dtype=dtype)
+    """Move (and optionally cast the dense tensors of) a parameter tree."""
+    out = {k: _leaf_to(v, device, dtype)
            for k, v in params.items() if k != "layers"}
-    out["layers"] = {k: v.to(device=device, dtype=dtype)
+    out["layers"] = {k: _leaf_to(v, device, dtype)
                      for k, v in params["layers"].items()}
     return out
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _matmul_f32(x: torch.Tensor, w: Any) -> torch.Tensor:
     """x [N, H] @ w [H, V] with float32 output.  CUDA low-precision inputs
     accumulate straight into f32 (the JAX preferred_element_type recipe)
-    instead of rounding the logits to bf16."""
+    instead of rounding the logits to bf16.  An int8 table (QTensor, one
+    scale per output column) is multiplied as its codes in x's dtype and
+    scaled on the f32 output (JAX models/llama.py:533-553)."""
+    if isinstance(w, QTensor):
+        return _matmul_f32(x, w.q.to(x.dtype)) * w.s.reshape(1, -1)
     if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
         return torch.mm(x, w, out_dtype=torch.float32)
     return (x @ w).float()
@@ -216,42 +285,57 @@ def _attention_block(
     """One attention sublayer. x: [B, S, H] -> [B, S, H].  Writes the new
     k/v rows into this layer's cache (in place)."""
     b, s, h = x.shape
+    dt = x.dtype
     hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ layers["wq"][l].reshape(h, hq * d)).view(b, s, hq, d)
-    k = (x @ layers["wk"][l].reshape(h, hkv * d)).view(b, s, hkv, d)
-    v = (x @ layers["wv"][l].reshape(h, hkv * d)).view(b, s, hkv, d)
+    q = (x @ _w(layers, "wq", l, dt).reshape(h, hq * d)).view(b, s, hq, d)
+    k = (x @ _w(layers, "wk", l, dt).reshape(h, hkv * d)).view(b, s, hkv, d)
+    v = (x @ _w(layers, "wv", l, dt).reshape(h, hkv * d)).view(b, s, hkv, d)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
     if paged is not None:
         # paged pool: k_cache/v_cache are this layer's [SLOTS, Hkv*D]
+        # (dense tensors, or QTensor int8 rows + [SLOTS, 1] scales)
         _kv_write(k_cache, paged.write_idx, k.reshape(b, s, hkv * d))
         _kv_write(v_cache, paged.write_idx, v.reshape(b, s, hkv * d))
         kernel = cfg.attention_backend == "kernel"
-        if kernel and s == 1 and paged.seq_lens is not None:
+        int8 = isinstance(k_cache, QTensor)
+        if kernel and s == 1 and paged.seq_lens is not None and int8:
+            # int8 pool: K4 reads the int8 rows (half K1's bytes) and folds
+            # the per-slot scales into scores and probabilities
+            out = paged_decode_attention_int8(
+                q[:, 0], k_cache.q, k_cache.s, v_cache.q, v_cache.s,
+                paged.page_table, paged.seq_lens, page_size=paged.page_size,
+            )[:, None]
+        elif kernel and s == 1 and paged.seq_lens is not None:
             out = paged_decode_attention(
                 q[:, 0], k_cache, v_cache, paged.page_table, paged.seq_lens,
                 page_size=paged.page_size,
             )[:, None]
-        elif kernel and s > 1 and paged.seq_lens is not None:
+        elif kernel and s > 1 and paged.seq_lens is not None and not int8:
             out = paged_verify_attention(
                 q.contiguous(), k_cache, v_cache, paged.page_table,
                 paged.seq_lens, paged.q_lens, page_size=paged.page_size,
             )
-        elif kernel and s > 1 and b == 1 and paged.start is not None:
+        elif kernel and s > 1 and b == 1 and paged.start is not None \
+                and not int8:
             out = paged_prefill_attention(
                 q[0], k_cache, v_cache, paged.page_table[0],
                 paged.start, paged.chunk_len, page_size=paged.page_size,
             )[None]
         else:
+            # the page gather + plain attention: every chunk and verify
+            # step over an int8 pool comes here, on the card too — the JAX
+            # package's own formulation (its flash prefill and verify
+            # kernels take dense pools only, JAX models/llama.py:275-311)
             if paged.page_table is not None:
                 k_win = _kv_read_pages(k_cache, paged.page_table,
-                                       paged.page_size)
+                                       paged.page_size, dt)
                 v_win = _kv_read_pages(v_cache, paged.page_table,
-                                       paged.page_size)
+                                       paged.page_size, dt)
             else:
-                k_win = _kv_read(k_cache, paged.read_idx)
-                v_win = _kv_read(v_cache, paged.read_idx)
+                k_win = _kv_read(k_cache, paged.read_idx, dt)
+                v_win = _kv_read(v_cache, paged.read_idx, dt)
             out = causal_attention(
                 q, k_win.view(b, -1, hkv, d), v_win.view(b, -1, hkv, d),
                 q_positions=positions, kv_positions=paged.kv_positions,
@@ -271,14 +355,16 @@ def _attention_block(
         kv_pos = torch.arange(cap, device=x.device).expand(b, cap)
         out = causal_attention(q, k_cache, v_cache, q_positions=positions,
                                kv_positions=kv_pos, kv_valid=kv_valid)
-    return out.reshape(b, s, hq * d) @ layers["wo"][l].reshape(hq * d, h)
+    return out.reshape(b, s, hq * d) @ _w(layers, "wo", l, dt).reshape(
+        hq * d, h)
 
 
 def _mlp_block(x: torch.Tensor, layers: Params, l: int) -> torch.Tensor:
     """SwiGLU MLP: down(silu(gate(x)) * up(x))."""
-    g = x @ layers["wg"][l]
-    u = x @ layers["wu"][l]
-    return (torch.nn.functional.silu(g) * u) @ layers["wd"][l]
+    dt = x.dtype
+    g = x @ _w(layers, "wg", l, dt)
+    u = x @ _w(layers, "wu", l, dt)
+    return (torch.nn.functional.silu(g) * u) @ _w(layers, "wd", l, dt)
 
 
 def forward(
@@ -306,13 +392,20 @@ def forward(
     Returns (logits float32 [B, S, V] (or [B, 1, V]), the cache or None).
     """
     layers = params["layers"]
-    x = params["embed"][token_ids].to(cfg.activation_dtype)
+    embed = params["embed"]
+    act = cfg.activation_dtype
+    if isinstance(embed, QTensor):
+        # per-row dequant of the looked-up rows only, the product in the
+        # activation dtype (JAX models/llama.py:480-487)
+        x = embed.q[token_ids].to(act) * embed.s[token_ids].to(act)
+    else:
+        x = embed[token_ids].to(act)
     inv_freq = rope_frequencies(cfg, device=x.device)
     cos, sin = rope_cos_sin(positions, inv_freq)
     for l in range(cfg.num_layers):
         kc = vc = None
         if kv_cache is not None:
-            kc, vc = kv_cache.k[l], kv_cache.v[l]
+            kc, vc = _layer(kv_cache.k, l), _layer(kv_cache.v, l)
         attn_in = rms_norm(x, layers["ln_attn"][l], cfg.rms_norm_eps)
         x = x + _attention_block(attn_in, layers, l, cfg, cos, sin,
                                  positions, kc, vc, kv_valid,
@@ -323,7 +416,11 @@ def forward(
         x = x[torch.arange(x.shape[0], device=x.device), logits_at][:, None]
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     b, s, h = x.shape
-    head = (params["embed"].t() if cfg.tie_word_embeddings
-            else params["lm_head"])
+    if not cfg.tie_word_embeddings:
+        head = params["lm_head"]  # [H, V]
+    elif isinstance(embed, QTensor):  # [V, H] codes, [V, 1] scales
+        head = QTensor(q=embed.q.t(), s=embed.s)
+    else:
+        head = embed.t()
     logits = _matmul_f32(x.reshape(b * s, h), head).view(b, s, -1)
     return logits, kv_cache

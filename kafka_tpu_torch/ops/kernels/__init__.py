@@ -8,6 +8,14 @@ sits beside its plain PyTorch version in the same module:
                                                    prefill chunks)
   paged_verify_attention   csrc/paged_verify.cu   (K3, speculative verify
                                                    steps)
+  paged_decode_attention_int8
+                           csrc/paged_decode_int8.cu
+                                                  (K4, every decode step
+                                                   over an int8 KV pool)
+  fused_mlp_block          csrc/fused_mlp.cu      (K5, the fused decode
+                                                   MLP; not on the serving
+                                                   path, as in the JAX
+                                                   package)
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors (raising on what the kernel does not take); each counts
@@ -16,11 +24,17 @@ its launches in `<wrapper>.launches`.  Sources compile at first use
 """
 
 from .flash_prefill import paged_prefill_attention, paged_prefill_attention_plain
+from .fused_mlp import fused_mlp_args, fused_mlp_block, fused_mlp_block_plain
 from .paged_decode import paged_decode_attention, paged_decode_attention_plain
+from .paged_decode_int8 import (
+    paged_decode_attention_int8,
+    paged_decode_attention_int8_plain,
+)
 from .paged_verify import paged_verify_attention, paged_verify_attention_plain
 
 KERNELS = (paged_decode_attention, paged_prefill_attention,
-           paged_verify_attention)
+           paged_verify_attention, paged_decode_attention_int8,
+           fused_mlp_block)
 
 
 def reset_launch_counts() -> None:
@@ -30,6 +44,11 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "fused_mlp_args",
+    "fused_mlp_block",
+    "fused_mlp_block_plain",
+    "paged_decode_attention_int8",
+    "paged_decode_attention_int8_plain",
     "paged_decode_attention",
     "paged_decode_attention_plain",
     "paged_prefill_attention",

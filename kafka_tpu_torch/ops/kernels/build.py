@@ -36,6 +36,8 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
     "paged_decode": {"kafka_paged_decode_bf16": "PPPPPPPPIIIIIIIFP"},
     "flash_prefill": {"kafka_flash_prefill_bf16": "PPPPPIIIIIIIIFP"},
     "paged_verify": {"kafka_paged_verify_bf16": "PPPPPPPPPIIIIIIIIFP"},
+    "paged_decode_int8": {"kafka_paged_decode_int8": "PPPPPPPPPPIIIIIIIFP"},
+    "fused_mlp": {"kafka_fused_mlp": "PPPPPPPPPPPIIIIFP"},
 }
 _CTYPE = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
 

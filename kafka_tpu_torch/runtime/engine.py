@@ -13,7 +13,10 @@ scheduler keeps the JAX engine's semantics:
   dispatch (plain attention, as in the JAX package); a lone admission —
   and any bucket over 128 on the kernel backend — takes the
   single-sequence prefill, which runs the flash prefill kernel (K2);
-* decode runs the paged decode kernel (K1) for every layer;
+* decode runs the paged decode kernel (K1) for every layer — over an
+  int8 KV pool (`kv_quantize="int8"`) the int8 paged decode kernel (K4),
+  while every prefill chunk and verify step reads that pool through the
+  dequantizing page gather, as the JAX package does;
 * a request with a `prefix_key` (the serving layer passes the thread id)
   attaches the longest whole-page prefix the radix prefix cache holds
   (runtime/prefix_cache.py) before the admission page gate, and its
@@ -130,6 +133,12 @@ class EngineConfig:
     # plain path.  Greedy output equals plain decode token for token, and
     # sampled output is plain decode's own draws at any temperature.
     speculative_k: int = 0
+    # KV-cache quantization: "" (the kv dtype) or "int8" — int8 rows with
+    # one f32 scale per slot (runtime/kv_cache.py), half the window bytes.
+    # Decode runs the int8 paged decode kernel (K4); prefill chunks and
+    # verify steps read through the dequantizing page gather, as in the
+    # JAX package (which has no int8 prefill or verify kernel).
+    kv_quantize: str = ""
 
     @property
     def max_window(self) -> int:
@@ -240,7 +249,9 @@ class InferenceEngine:
                     f"head_dim 64 or 128 and <= 8 q heads per kv head; "
                     f"{cfg.name} is {cfg.dtype} D={d} G={g} — use "
                     f"attention_backend='plain'")
-            if g * (ecfg.speculative_k + 1) > MAX_VERIFY_ROWS:
+            # an int8 pool's verify steps take the page gather, not K3
+            if not ecfg.kv_quantize and \
+                    g * (ecfg.speculative_k + 1) > MAX_VERIFY_ROWS:
                 raise ValueError(
                     f"the paged verify kernel holds at most "
                     f"{MAX_VERIFY_ROWS} query rows per kv head; "
@@ -251,8 +262,10 @@ class InferenceEngine:
         self.kv_dtype = kv_dtype or cfg.activation_dtype
         ps = ecfg.page_size
         self.pool = PagePool(ecfg.num_pages, ps)
+        # dense tensors, or QTensor pools (int8 rows + per-slot scales)
         self.k_pool, self.v_pool = make_kv_pool_arrays(
-            cfg, ecfg.num_pages, ps, self.kv_dtype, device=self.device)
+            cfg, ecfg.num_pages, ps, self.kv_dtype, device=self.device,
+            quantize=ecfg.kv_quantize)
         B = ecfg.max_batch
         self.slots: List[Optional[GenRequest]] = [None] * B
         self.waiting: List[GenRequest] = []

@@ -5,18 +5,21 @@ Counterpart of kafka_tpu/runtime/kv_cache.py.  The pool is two tensors
 JAX package's layout, so pools compare byte for byte); sequences own
 ordered lists of physical pages.  The host-side allocator (copied) is
 refcounted.  Physical page 0 is the trash page — inactive batch lanes
-point their writes at it.  Dense pools only; int8 KV waits for its slice.
+point their writes at it.  An int8 pool (`quantize="int8"`) holds each
+pool as a QTensor: int8 slot rows [L, SLOTS, Hkv*D] and one f32 scale per
+(layer, slot) [L, SLOTS, 1], the JAX package's layout.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models.config import ModelConfig
+from ..models.quant import QTensor
 
 TRASH_PAGE = 0
 
@@ -155,14 +158,29 @@ class PagePool:
 
 def make_kv_pool_arrays(
     cfg: ModelConfig, num_pages: int, page_size: int, dtype=None,
-    device=None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    device=None, quantize: str = "",
+) -> Tuple[Any, Any]:
     """Allocate the K and V pools, [L, TOTAL_SLOTS, Hkv*D], zeroed.  Each
     layer's slice pool[l] is a contiguous [TOTAL_SLOTS, Hkv*D] tensor —
-    what the paged kernels take."""
-    dtype = dtype or cfg.activation_dtype
+    what the paged kernels take.
+
+    quantize="int8" returns each pool as a QTensor: int8 rows plus a
+    per-(layer, slot) f32 scale [L, SLOTS, 1] — half the window bytes of
+    a bf16 pool.  Rows are quantized at the write and dequantized at the
+    gather or inside the int8 decode kernel (models/llama.py)."""
     shape = (cfg.num_layers, num_pages * page_size,
              cfg.num_kv_heads * cfg.head_dim)
+    if quantize == "int8":
+        def pool() -> QTensor:
+            return QTensor(
+                q=torch.zeros(shape, dtype=torch.int8, device=device),
+                s=torch.zeros(shape[:2] + (1,), dtype=torch.float32,
+                              device=device))
+
+        return pool(), pool()
+    if quantize:
+        raise ValueError(f"unknown kv quantize mode {quantize!r}")
+    dtype = dtype or cfg.activation_dtype
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
 

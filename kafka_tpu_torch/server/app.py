@@ -60,9 +60,14 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
     it); "cpu" for the tests."""
     from ..llm.torch_provider import TorchLLMProvider
     from ..models import get_config, init_params, load_checkpoint
+    from ..models.quant import quantize_params
     from ..models.tokenizer import ByteTokenizer, load_tokenizer
     from ..runtime import EngineConfig, GenRequest, InferenceEngine
 
+    for knob, mode in (("quantize", cfg.quantize),
+                       ("kv_quantize", cfg.kv_quantize)):
+        if mode not in ("", "int8"):
+            raise ValueError(f"unknown {knob} mode {mode!r}")
     dev = resolve_device(device)
     if cfg.checkpoint_dir:
         tokenizer = load_tokenizer(cfg.checkpoint_dir)
@@ -77,6 +82,8 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
                 vocab_size=max(tokenizer.vocab_size, 262), dtype=cfg.dtype)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed)
         params = init_params(model_cfg, gen, device=dev)
+    if cfg.quantize == "int8":
+        params = quantize_params(params, model_cfg)
     engine_cfg = EngineConfig(
         max_batch=cfg.max_batch,
         page_size=cfg.page_size,
@@ -89,14 +96,16 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
         max_waiting=cfg.max_queue_depth,
         prefix_cache_pages=cfg.prefix_cache_pages,
         speculative_k=cfg.speculative_k,
+        kv_quantize=cfg.kv_quantize,
     )
     engine = InferenceEngine(model_cfg, params, engine_cfg, device=dev)
     if cfg.warmup:
         # on CUDA every kernel is built now (one nvcc per source, in
         # parallel), before the worker thread drives the engine; one lone
         # prompt over 128 tokens then takes the single-sequence prefill
-        # (flash prefill kernel) and one decode step (paged decode
-        # kernel).  No prefix_key: warmup must not seed the prefix cache.
+        # (flash prefill kernel, or the page gather over an int8 pool) and
+        # one decode step (the paged decode kernel, int8 or not).  No
+        # prefix_key: warmup must not seed the prefix cache.
         if dev.type == "cuda":
             from ..ops.kernels import build
 

@@ -16,6 +16,14 @@ class ServingConfig:
     checkpoint_dir: Optional[str] = None  # HF safetensors dir; None=random
     dtype: str = "bfloat16"
     seed: int = 0  # random-init weights when no checkpoint is given
+    # weight-only quantization (KAFKA_TORCH_QUANTIZE): "" (the model
+    # dtype) or "int8" (models/quant.py, per-output-channel scales) —
+    # half the weight bytes in memory
+    quantize: str = ""
+    # KV-cache quantization (KAFKA_TORCH_KV_QUANTIZE): "" or "int8"
+    # (per-slot scales, runtime/kv_cache.py) — half the KV window's bytes;
+    # decode runs the int8 paged decode kernel
+    kv_quantize: str = ""
     # engine shape
     max_batch: int = 8
     page_size: int = 16
@@ -64,6 +72,8 @@ class ServingConfig:
             checkpoint_dir=get("CHECKPOINT_DIR", None),
             dtype=get("DTYPE", cls.dtype),
             seed=get("SEED", cls.seed, int),
+            quantize=get("QUANTIZE", cls.quantize),
+            kv_quantize=get("KV_QUANTIZE", cls.kv_quantize),
             max_batch=get("MAX_BATCH", cls.max_batch, int),
             num_pages=get("NUM_PAGES", cls.num_pages, int),
             max_pages_per_seq=get("MAX_PAGES_PER_SEQ", cls.max_pages_per_seq,

@@ -1,12 +1,16 @@
 """kafka_tpu_torch kernels (K1 paged decode, K2 flash prefill, K3 paged
-verify) vs the JAX package's Pallas kernels, and the port's ops vs the JAX
-ops.
+verify, K4 int8 paged decode, K5 fused decode MLP) vs the JAX package's
+Pallas kernels, and the port's ops vs the JAX ops.
 
 On the CPU the port's wrappers run their plain versions; each is held to
 the Pallas kernel run in interpret mode on the same numpy inputs (random
 page layouts), atol/rtol 2e-5 in float32 — the tolerance the JAX
-package's own kernel tests use.  The CUDA kernels themselves need a card:
-those tests carry the `cuda` marker and skip here.
+package's own kernel tests use; K4 at atol 1e-5 in f32; K5 at 0.05 in
+bf16 and int8 (tests/test_fused_mlp.py's own tolerance: the two round
+the same bf16 values at the same points but sum in another order, so a
+rounding may land one bf16 ulp apart) and 1e-4 in f32.  The CUDA kernels
+themselves need a card: those tests carry the `cuda` marker and skip
+here.
 """
 
 import numpy as np
@@ -19,11 +23,14 @@ import torch
 from kafka_tpu.models.config import get_config as jax_get_config
 from kafka_tpu.ops.attention import causal_attention as jax_causal
 from kafka_tpu.ops.norms import rms_norm as jax_rms_norm
+from kafka_tpu.models.quant import quantize_array as jax_quantize_array
 from kafka_tpu.ops.pallas import (
     paged_decode_attention as pallas_decode,
+    paged_decode_attention_int8 as pallas_decode_int8,
     paged_prefill_attention as pallas_prefill,
     paged_verify_attention as pallas_verify,
 )
+from kafka_tpu.ops.pallas.fused_mlp import fused_mlp_block as pallas_mlp
 from kafka_tpu.ops.rope import (
     apply_rope as jax_apply_rope,
     rope_cos_sin as jax_rope_cos_sin,
@@ -39,8 +46,13 @@ from kafka_tpu_torch.ops import (
     rope_frequencies,
 )
 from kafka_tpu_torch.ops import kernels
+from kafka_tpu_torch.models.quant import quantize_array
 from kafka_tpu_torch.ops.kernels import (
+    fused_mlp_block,
+    fused_mlp_block_plain,
     paged_decode_attention,
+    paged_decode_attention_int8,
+    paged_decode_attention_int8_plain,
     paged_decode_attention_plain,
     paged_prefill_attention,
     paged_prefill_attention_plain,
@@ -303,6 +315,88 @@ class TestPagedVerifyPlain:
 
 
 # ---------------------------------------------------------------------------
+# K4 / K5 plain versions vs the Pallas kernels (interpret mode)
+# ---------------------------------------------------------------------------
+
+
+def make_int8_case(seed, B, P, ps, Hq, Hkv, D, num_pages):
+    """K1's random paged layout (lane B-1 a trash lane) with both pools
+    quantized per slot, as the engine's KV write does; pages no sequence
+    owns keep stale codes and scales."""
+    q, kp, vp, table, lens = make_decode_case(seed, B, P, ps, Hq, Hkv, D,
+                                              num_pages)
+    kq, vq = quantize_array(t(kp), (-1,)), quantize_array(t(vp), (-1,))
+    return (t(q), kq.q, kq.s, vq.q, vq.s, t(table), t(lens))
+
+
+class TestPagedDecodeInt8Plain:
+    @pytest.mark.parametrize("seed,Hq,Hkv,D", [
+        (0, 8, 4, 32), (1, 8, 2, 16), (2, 4, 1, 16),
+    ])
+    def test_matches_pallas(self, seed, Hq, Hkv, D):
+        args = make_int8_case(seed, 5, 6, 8, Hq, Hkv, D, num_pages=40)
+        ref = np.asarray(pallas_decode_int8(
+            *(jnp.asarray(a.numpy()) for a in args), page_size=8,
+            interpret=True))
+        out = paged_decode_attention_int8_plain(*args, page_size=8)
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        args = make_int8_case(4, 3, 4, 8, 8, 2, 16, 20)
+        kernels.reset_launch_counts()
+        a = paged_decode_attention_int8(*args, page_size=8)
+        b = paged_decode_attention_int8_plain(*args, page_size=8)
+        assert torch.equal(a, b)
+        assert paged_decode_attention_int8.launches == 0
+
+
+def make_mlp_case(seed, B=8, H=256, F=1024):
+    """tests/test_fused_mlp.py's shapes and scales, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, H).astype(np.float32),
+            (rng.randn(H) * 0.1 + 1).astype(np.float32),
+            (rng.randn(H, F) * H ** -0.5).astype(np.float32),
+            (rng.randn(H, F) * H ** -0.5).astype(np.float32),
+            (rng.randn(F, H) * F ** -0.5).astype(np.float32))
+
+
+class TestFusedMLPPlain:
+    @pytest.mark.parametrize("kind,tol", [
+        ("bfloat16", 0.05), ("int8", 0.05), ("float32", 1e-4),
+    ])
+    def test_matches_pallas(self, kind, tol):
+        h, ln, wg, wu, wd = make_mlp_case({"bfloat16": 0, "int8": 3,
+                                           "float32": 5}[kind])
+        dt = jnp.float32 if kind == "float32" else jnp.bfloat16
+        pdt = torch.float32 if kind == "float32" else torch.bfloat16
+        jh, jln = jnp.asarray(h, dt), jnp.asarray(ln, dt)
+        ws = [jnp.asarray(w, dt) for w in (wg, wu, wd)]
+        th, tln = t(h).to(pdt), t(ln).to(pdt)
+        if kind == "int8":
+            jq = [jax_quantize_array(w, (0,)) for w in ws]
+            jargs = [q.q for q in jq] + [q.s for q in jq]
+            targs = [t(np.array(a)) for a in jargs]
+        else:
+            jargs = ws
+            targs = [t(np.array(w.astype(jnp.float32))).to(pdt)
+                     for w in ws]
+        ref = np.asarray(pallas_mlp(jh, jln, *jargs, eps=1e-5,
+                                    interpret=True).astype(jnp.float32))
+        out = fused_mlp_block_plain(th, tln, *targs, eps=1e-5)
+        assert out.dtype == pdt
+        assert np.abs(out.float().numpy() - ref).max() < tol
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        h, ln, wg, wu, wd = (t(a) for a in make_mlp_case(7, B=2, H=64,
+                                                          F=128))
+        kernels.reset_launch_counts()
+        a = fused_mlp_block(h, ln, wg, wu, wd, eps=1e-5)
+        b = fused_mlp_block_plain(h, ln, wg, wu, wd, eps=1e-5)
+        assert torch.equal(a, b)
+        assert fused_mlp_block.launches == 0
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels (card only)
 # ---------------------------------------------------------------------------
 
@@ -360,6 +454,35 @@ class TestCudaKernels:
         for b in range(8):
             n = int(qlens[b])
             self._close(out[b, :n], ref[b, :n])
+
+    def test_paged_decode_int8_kernel(self, cuda):
+        args = [a.to(cuda) for a in make_int8_case(
+            0, 8, 32, 16, 32, 8, 64, 8 * 32 + 1)]
+        args[0] = args[0].to(torch.bfloat16)
+        before = paged_decode_attention_int8.launches
+        out = paged_decode_attention_int8(*args, page_size=16)
+        torch.cuda.synchronize()
+        assert paged_decode_attention_int8.launches == before + 1
+        self._close(out, paged_decode_attention_int8_plain(*args,
+                                                           page_size=16))
+
+    @pytest.mark.parametrize("int8", [False, True])
+    def test_fused_mlp_kernel(self, cuda, int8):
+        """The llama-3.2-1b decode MLP shape, within the JAX kernel test's
+        0.05 (chip_smoke.py states the same tolerance)."""
+        h, ln, wg, wu, wd = (t(a).to(cuda) for a in make_mlp_case(
+            1, B=8, H=2048, F=8192))
+        h, ln = h.to(torch.bfloat16), ln.to(torch.bfloat16)
+        ws = [w.to(torch.bfloat16) for w in (wg, wu, wd)]
+        if int8:
+            qs = [quantize_array(w, (0,)) for w in ws]
+            ws = [q.q for q in qs] + [q.s for q in qs]
+        before = fused_mlp_block.launches
+        out = fused_mlp_block(h, ln, *ws, eps=1e-5)
+        ref = fused_mlp_block_plain(h, ln, *ws, eps=1e-5)
+        torch.cuda.synchronize()
+        assert fused_mlp_block.launches == before + 1
+        assert (out.float() - ref.float()).abs().max().item() < 0.05
 
     def test_wrapper_rejects_what_the_kernel_does_not_take(self, cuda):
         q = torch.zeros(2, 8, 64, device=cuda)  # float32, not bf16

@@ -166,7 +166,8 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "m.startswith('jax.'))\n"
         "import kafka_tpu_torch, kafka_tpu_torch.server, "
         "kafka_tpu_torch.server.__main__, kafka_tpu_torch.runtime, "
-        "kafka_tpu_torch.models, kafka_tpu_torch.ops.kernels, "
+        "kafka_tpu_torch.models, kafka_tpu_torch.models.quant_quality, "
+        "kafka_tpu_torch.ops.kernels, "
         "kafka_tpu_torch.llm, kafka_tpu_torch.kafka, kafka_tpu_torch.db\n"
         "bad = [m for m in sys.modules if m in ('jax', 'kafka_tpu') or "
         "m.startswith(('jax.', 'kafka_tpu.'))]\n"
