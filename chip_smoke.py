@@ -6,7 +6,10 @@
 Phases, each of which raises (non-zero exit) on any failure:
   0. build   — compiles every CUDA kernel of the main path from
                kafka_tpu_torch/csrc with nvcc for sm_90a, one nvcc per
-               source, all started together.
+               source, all started together; logs each kernel function's
+               ptxas registers and spill bytes, and K2's HMMA count from
+               cuobjdump -sass.  K2 must not spill and must use the
+               tensor cores.
   1. kernels — each kernel (K1 paged decode, K2 flash prefill, K3 paged
                verify, K4 int8 paged decode, K5 fused decode MLP in bf16
                and int8) against its plain PyTorch version on the card at
@@ -17,8 +20,13 @@ Phases, each of which raises (non-zero exit) on any failure:
                (scaled_dot_product_attention on the gathered window — a
                yardstick only; the port never calls it; K5 has none and
                is timed beside the port's torch formulation instead).
-               K5 is not on the serving path (as in the JAX package): its
-               path is a 16-layer decode MLP sweep through the function.
+               K2 runs at every shape of K2_CASES (the engine's and the
+               agent turn's chunks, short and long, and D 128), with the
+               launcher's block shape and each shape pinned, held
+               elementwise and per row, rows past chunk_len checked to be
+               zeros; a planted dropped-tile fault must fail the row check.  K5 is not on the
+               serving path (as in the JAX package): its path is a
+               16-layer decode MLP sweep through the function.
   2. engine  — the engine at full llama-3.2-1b width (bf16, vocab 128256,
                random weights from --seed): eight greedy requests, one
                submitted alone and longer than the largest prefill bucket
@@ -42,17 +50,23 @@ Phases, each of which raises (non-zero exit) on any failure:
                decode-step profiles of both engines are printed.
   3. server  — the HTTP server built by create_app for llama-3.2-1b as the
                provider builder does with no checkpoint: byte tokenizer, so
-               the vocab is 262 (full width otherwise).  In-process on a
-               free port: two streamed turns on one thread (the second
-               turn's prompt holds the first and must report
-               prompt_tokens_details.cached_tokens) and one streamed
-               /v1/chat/completions.  Every stream must end with
+               the vocab is 262 (full width otherwise), serving the agent
+               turn with the built-in tools at a 4096-token window with
+               prefill buckets up to 2048.  In-process on a free port: two
+               streamed turns on one thread (turn 1's prompt must hold the
+               tool schemas and its host-clock TTFT is logged; each turn
+               must end in agent_done with a reason of the reference's
+               set; the second turn's prompt holds the first and must
+               report prompt_tokens_details.cached_tokens; the history
+               must read user, assistant, user, assistant) and one
+               streamed /v1/chat/completions.  Every stream must end with
                `data: [DONE]`, and both kernel counters must move.  Then
                one streamed request to a second server configured with
                KAFKA_TORCH_SPECULATIVE_K=4, and two streamed turns on one
                thread to a third configured with KAFKA_TORCH_QUANTIZE=int8
-               and KAFKA_TORCH_KV_QUANTIZE=int8: turn 2 must report cached
-               tokens and K4 must launch.
+               and KAFKA_TORCH_KV_QUANTIZE=int8 (both with no tools but the
+               agent's idle tool, at 2048-token windows): turn 2 must
+               report cached tokens and K4 must launch.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
@@ -84,6 +98,11 @@ PEAK_HBM_BYTES = 3.35e12
 # ulps relative, plus an absolute floor for outputs near zero.
 KERNEL_ATOL = 2e-2
 KERNEL_RTOL = 2.0 ** -7
+# K2 per (row, head): ||kernel - plain|| / ||plain|| along D.  Both round
+# the output to bf16 (2^-9 relative on average) and the probabilities
+# at different points, so a sound row reads a few 2^-9; a row of ~2000
+# random keys that lost one 64-token tile reads ~0.5 (planted_tile_fault).
+K2_ROW_RTOL = 0.02
 # Engine logits, kernel engine vs plain engine (bf16 weights, 16 layers):
 # attention outputs differ at bf16 rounding and the difference propagates
 # through the residual stream; held to 5% of the largest |logit|.
@@ -127,9 +146,10 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, name_part: str, iters: int = 20):
+def device_ms(fn, name_part, iters: int = 20):
     """Device time per call of the CUDA kernels whose name holds
-    name_part, from torch.profiler (excludes the wrapper's host work)."""
+    name_part (None: of every kernel the call runs), from torch.profiler
+    (excludes the wrapper's host work)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -141,7 +161,9 @@ def device_ms(fn, name_part: str, iters: int = 20):
         torch.cuda.synchronize()
     total_us = sum(
         getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
-        for e in prof.key_averages() if name_part in e.key)
+        for e in prof.key_averages()
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+            if name_part is None else name_part in e.key))
     return total_us / iters / 1e3 if total_us else None
 
 
@@ -240,49 +262,7 @@ def phase_kernels(seed: int) -> None:
                  f"valid_tokens={tok}",
     }
 
-    # K2: a 512-row chunk at start=0, and at start>0 with chunk_len<S
-    S = 512
-    page_row = (torch.randperm(num_pages - 1, generator=gen, device=dev)[:P]
-                + 1).to(torch.int32).contiguous()
-    qs = torch.randn(S, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
-    errs = []
-    for start, clen in ((0, 512), (512, 300)):
-        a2 = (qs, k_pool, v_pool, page_row, start, clen)
-        ok_ = paged_prefill_attention(*a2, page_size=ps)
-        op_ = paged_prefill_attention_plain(*a2, page_size=ps)
-        torch.cuda.synchronize()
-        errs.append(check_close(
-            f"K2 paged_prefill_attention start={start} chunk_len={clen}",
-            ok_[:clen], op_[:clen]))
-    err2 = max(errs)
-    a2 = (qs, k_pool, v_pool, page_row, 0, S)
-    pairs = S * (S + 1) // 2  # sum over rows of (start + i + 1), start 0
-    b2, by2 = bound(2 * S * Hq * D * 2 + 2 * S * HD * 2 + P * 4,
-                    4 * Hq * D * pairs)
-    kw = k_pool.view(-1, ps, HD)[page_row.long()].view(1, C, Hkv, D)[:, :S]
-    vw = v_pool.view(-1, ps, HD)[page_row.long()].view(1, C, Hkv, D)[:, :S]
-    kw = kw.transpose(1, 2).contiguous()
-    vw = vw.transpose(1, 2).contiguous()
-    qw = qs.transpose(0, 1)[None].contiguous()
-    RESULTS["K2"] = {
-        "name": "paged_prefill_attention",
-        "route": "cuda",
-        "source": "kafka_tpu_torch/csrc/flash_prefill.cu",
-        "replaces": "kafka_tpu/ops/pallas/flash_prefill.py:164",
-        "max_abs_err": err2,
-        "ms": time_ms(lambda: paged_prefill_attention(*a2, page_size=ps)),
-        "plain_ms": time_ms(
-            lambda: paged_prefill_attention_plain(*a2, page_size=ps)),
-        "bound_ms": b2,
-        "bound_by": by2,
-        "library_ms": time_ms(lambda: sdpa(qw, kw, vw, is_causal=True,
-                                           enable_gqa=True)),
-        "device_ms": device_ms(
-            lambda: paged_prefill_attention(*a2, page_size=ps),
-            "flash_prefill"),
-        "shape": f"S={S} start=0 chunk_len={S} Hq={Hq} Hkv={Hkv} D={D} "
-                 f"page={ps} P={P}",
-    }
+    kernel_k2(k_pool, v_pool, gen)
     # K3: the full-width verify shape (K = 4 -> S = 5), ragged windows and
     # query counts, lane 7 a trash lane; only rows j < q_len carry a
     # contract
@@ -343,6 +323,228 @@ def phase_kernels(seed: int) -> None:
             f"{'none' if lib is None else f'{lib:.4f}'}"
             + (f", torch formulation {r['torch_ms']:.4f}"
                if "torch_ms" in r else "") + f") at {r['shape']}")
+
+
+# K2 cases: (S, start, chunk_len, Hq, Hkv, D).  The engine phase's 512-row
+# chunks, its 256-row remainder chunk and its turn-2 suffix (a 64 bucket
+# at start 304); the repaired thread turn's cold prefill (the built-in
+# tools' schemas make the server phase's turn 1 3,218 byte tokens: a
+# 2048-row chunk at start 0, then its last 1,170 rows at start 2048,
+# padded to the 2048 bucket; a 1024-row chunk of 1000 rows is the same
+# kind of chunk one bucket down) and its turn-2 suffix (86 rows at start
+# 3216 in the 128 bucket); and Llama-3.1-8B's attention geometry (D 128)
+# at a long, a 512-row and a short chunk, random tensors.  At G 4 the
+# launcher picks 4 warps of 2 16-row tiles (4x2) from S 1024 up and 4x1
+# below; each case also runs both shapes pinned.
+K2_CASES = (
+    (512, 0, 512, 32, 8, 64),
+    (512, 512, 300, 32, 8, 64),
+    (256, 512, 256, 32, 8, 64),
+    (64, 304, 52, 32, 8, 64),
+    (2048, 0, 2048, 32, 8, 64),
+    (1024, 2048, 1000, 32, 8, 64),
+    (2048, 2048, 1170, 32, 8, 64),
+    (128, 3216, 86, 32, 8, 64),
+    (2048, 0, 2048, 32, 8, 128),
+    (512, 0, 512, 32, 8, 128),
+    (128, 1024, 100, 32, 8, 128),
+)
+
+
+def row_rel_err(got, want) -> float:
+    """max over (row, head) of ||got - want|| / ||want|| along D."""
+    got, want = got.float(), want.float()
+    n = want.norm(dim=-1)
+    return ((got - want).norm(dim=-1) / n.clamp_min(1e-6)).max().item()
+
+
+def check_rows(name: str, got, want) -> float:
+    """The per-row relative check beside check_close's elementwise one: a
+    row that attends n random keys has |o| ~ sqrt(e / n), so at n ~ 2000
+    the absolute floor is half a typical element and only a relative
+    reading sees a dropped or mis-masked tile."""
+    rel = row_rel_err(got, want)
+    log(f"{name} row_rel_err={rel:.3e} (tol {K2_ROW_RTOL})")
+    if not rel <= K2_ROW_RTOL:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"row_rel_err {rel}")
+    return rel
+
+
+def planted_tile_fault(a2, ps: int, rows: int = 64):
+    """The plain output with one planted fault: the last `rows` positions
+    of the chunk lose the window's second 64-token kv tile, the fault a
+    kernel's tile or causal bookkeeping could make."""
+    import torch
+
+    from kafka_tpu_torch.ops.attention import causal_attention
+    from kafka_tpu_torch.ops.kernels import paged_prefill_attention_plain
+
+    q, kp, vp, row, start, clen = a2
+    S, Hq, D = q.shape
+    HD = kp.shape[1]
+    C = row.shape[0] * ps
+    out = paged_prefill_attention_plain(*a2, page_size=ps)
+    win = [t.view(-1, ps, HD)[row.long()].reshape(1, C, HD // D, D)
+           for t in (kp, vp)]
+    kv_pos = torch.arange(C, device=q.device)[None]
+    lo = clen - rows
+    out[lo:clen] = causal_attention(
+        q[None, lo:clen], win[0], win[1],
+        q_positions=start + torch.arange(lo, clen, device=q.device)[None],
+        kv_positions=kv_pos,
+        kv_valid=(kv_pos < start + clen) & ((kv_pos < 64) | (kv_pos >= 128)),
+    )[0]
+    return out
+
+
+def kernel_k2(k_pool, v_pool, gen) -> None:
+    """K2 at every case of K2_CASES against its plain version (rows past
+    chunk_len must come back as zeros), held elementwise and per row, the
+    launcher's pick and every block shape pinned; each timed with CUDA
+    events and the profiler's device time beside its bound and SDPA on the
+    pre-gathered window (causal from the lower right, the kernel's
+    function).  The first case heads the kernels line.  At the cold turn's
+    first chunk a planted dropped-tile fault must fail the row check."""
+    import torch
+    from torch.nn.attention.bias import causal_lower_right
+
+    from kafka_tpu_torch.ops.kernels import (
+        paged_prefill_attention,
+        paged_prefill_attention_plain,
+    )
+    from kafka_tpu_torch.ops.kernels.flash_prefill import ROW_TILES
+
+    dev = k_pool.device
+    ps = 16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pools = {k_pool.shape[1]: (k_pool, v_pool)}
+    cases = []
+    for S, start, clen, Hq, Hkv, D in K2_CASES:
+        HD = Hkv * D
+        if HD not in pools or pools[HD][0].shape[0] < 2 * (start + S):
+            n = 2 * (start + S) // ps + 1
+            pools[HD] = tuple(
+                torch.randn(n * ps, HD, generator=gen, device=dev
+                            ).to(torch.bfloat16) for _ in range(2))
+        kp, vp = pools[HD]
+        P = (start + S) // ps
+        row = (torch.randperm(kp.shape[0] // ps - 1, generator=gen,
+                              device=dev)[:P] + 1).to(torch.int32)
+        qs = torch.randn(S, Hq, D, generator=gen, device=dev
+                         ).to(torch.bfloat16)
+        a2 = (qs, kp, vp, row, start, clen)
+        shape = (f"S={S} start={start} chunk_len={clen} Hq={Hq} Hkv={Hkv} "
+                 f"D={D} page={ps} P={P}")
+        out_p = paged_prefill_attention_plain(*a2, page_size=ps)
+        errs, rels, tiles_ms = [], [], {}
+        for rt in (None,) + ROW_TILES:
+            tag = "auto" if rt is None else f"4x{rt}"
+            out_k = paged_prefill_attention(*a2, page_size=ps, row_tiles=rt)
+            torch.cuda.synchronize()
+            name = f"K2 paged_prefill_attention {shape} [{tag}]"
+            errs.append(check_close(name, out_k[:clen], out_p[:clen]))
+            rels.append(check_rows(name, out_k[:clen], out_p[:clen]))
+            if clen < S and out_k[clen:].abs().max().item() != 0:
+                raise AssertionError(f"K2 rows past chunk_len not zero: "
+                                     f"{shape} [{tag}]")
+            if rt is not None:  # device time: short calls are host-bound
+                tiles_ms[tag] = device_ms(lambda: paged_prefill_attention(
+                    *a2, page_size=ps, row_tiles=rt), "flash_prefill")  # noqa
+        kv = start + clen
+        pairs = clen * start + clen * (clen + 1) // 2  # sum of start + i + 1
+        b2, by2 = bound(2 * clen * Hq * D * 2 + 2 * kv * HD * 2 + P * 4,
+                        4 * Hq * D * pairs)
+        # yardstick: SDPA over the pre-gathered window, causal from the
+        # lower right (query i of the chunk sees keys <= start + i)
+        win = [t.view(-1, ps, HD)[row.long()].reshape(1, P * ps, Hkv, D)
+               [:, :kv].transpose(1, 2).contiguous() for t in (kp, vp)]
+        qw = qs[:clen].transpose(0, 1)[None].contiguous()
+        bias = causal_lower_right(clen, kv)
+        lib = lambda: sdpa(qw, win[0], win[1], attn_mask=bias,  # noqa
+                           enable_gqa=True)
+        ms = time_ms(lambda: paged_prefill_attention(*a2, page_size=ps))
+        dms = device_ms(lambda: paged_prefill_attention(*a2, page_size=ps),
+                        "flash_prefill")
+        case = {
+            "shape": shape, "max_abs_err": max(errs),
+            "row_rel_err": max(rels), "ms": ms, "device_ms": dms,
+            "tiles_device_ms": tiles_ms,
+            "plain_ms": time_ms(
+                lambda: paged_prefill_attention_plain(*a2, page_size=ps),
+                iters=10, warmup=2),
+            "bound_ms": b2, "bound_by": by2, "library_ms": time_ms(lib),
+            "library_device_ms": device_ms(lib, None),
+            "tflops": 4 * Hq * D * pairs / (ms * 1e-3) / 1e12,
+        }
+        log(f"K2 {shape}: {ms:.4f} ms (device {dms}; pinned shapes, device: "
+            f"{tiles_ms}), "
+            f"SDPA {case['library_ms']:.4f} (device "
+            f"{case['library_device_ms']}), plain {case['plain_ms']:.4f}, "
+            f"bound {b2:.5f} by {by2}, {case['tflops']:.1f} TFLOP/s")
+        if (S, start, clen, D) == (2048, 0, 2048, 64):
+            bad = planted_tile_fault(a2, ps)
+            f_abs = (bad[:clen].float() - out_p[:clen].float()).abs()
+            f_exc = (f_abs - KERNEL_RTOL * out_p[:clen].float().abs()).max()
+            f_rel = row_rel_err(bad[:clen], out_p[:clen])
+            case["planted_fault"] = {
+                "max_abs_err": f_abs.max().item(), "row_rel_err": f_rel,
+                "elementwise_check_passes": bool(f_exc <= KERNEL_ATOL)}
+            log(f"K2 planted fault (last 64 rows lose kv tile 1) {shape}: "
+                f"{case['planted_fault']}")
+            if not f_rel > K2_ROW_RTOL:
+                raise AssertionError("K2's row check does not see a dropped "
+                                     f"kv tile: row_rel_err {f_rel}")
+        cases.append(case)
+    head = cases[0]
+    RESULTS["K2"] = {
+        "name": "paged_prefill_attention",
+        "route": "cuda",
+        "source": "kafka_tpu_torch/csrc/flash_prefill.cu",
+        "replaces": "kafka_tpu/ops/pallas/flash_prefill.py:164",
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "device_ms", "shape")},
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "row_rel_err": max(c["row_rel_err"] for c in cases),
+        "cases": cases,
+    }
+
+
+def ptxas_report(logs: dict) -> dict:
+    """Per kernel function: registers and spill bytes from nvcc's
+    -Xptxas -v output ({source: [{fn, registers, spill_stores,
+    spill_loads}]})."""
+    import re
+
+    report = {}
+    for name, text in logs.items():
+        rows, fn = [], None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                fn = {"fn": m.group(1)}
+                rows.append(fn)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and fn is not None:
+                fn["spill_stores"], fn["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None:
+                fn["registers"] = int(m.group(1))
+        report[name] = rows
+    return report
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """Instructions of `opcode` in the built library of csrc/<name>.cu
+    (cuobjdump -sass)."""
+    from kafka_tpu_torch.ops.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build._lib_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return sum(1 for line in sass.splitlines() if f" {opcode}" in line)
 
 
 def kernel_k4(k1_args, gen) -> None:
@@ -882,8 +1084,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-async def _stream(session, url: str, body: dict) -> list:
+async def _stream(session, url: str, body: dict, timing=None) -> list:
+    """POST a streamed request; its parsed events.  timing (a dict), if
+    given, gets `ttft_s`: host-clock seconds from the request to the first
+    event carrying generated content or a tool call."""
     events = []
+    t0 = time.monotonic()
     async with session.post(url, json=body) as resp:
         if resp.status != 200:
             raise AssertionError(f"{url}: HTTP {resp.status} "
@@ -892,6 +1098,9 @@ async def _stream(session, url: str, body: dict) -> list:
             line = raw.decode().strip()
             if line.startswith("data: "):
                 events.append(line[len("data: "):])
+                if timing is not None and "ttft_s" not in timing and \
+                        ('"content"' in line or '"tool_calls"' in line):
+                    timing["ttft_s"] = time.monotonic() - t0
     if not events or events[-1] != "[DONE]":
         raise AssertionError(f"{url}: stream did not end with [DONE]: "
                              f"{events[-3:]}")
@@ -916,16 +1125,29 @@ async def _serve_and_query(db_path: str) -> dict:
     from kafka_tpu_torch.ops import kernels
     from kafka_tpu_torch.server import ServingConfig, create_app
 
+    from kafka_tpu_torch.agents import IDLE_TOOL
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    # the built-in tools (create_app's default): a 4096-token window and
+    # buckets up to 2048, so a cold turn prefills 2048-row chunks
     cfg = ServingConfig(
         model_name="llama-3.2-1b", max_batch=8, page_size=16,
-        num_pages=1100, max_pages_per_seq=128,
-        prefill_buckets=(64, 128, 256, 512), max_new_tokens_default=32,
-        db_path=db_path, system_prompt="You are a terse assistant.",
+        num_pages=8 * 256 + 64, max_pages_per_seq=256,
+        prefill_buckets=(64, 128, 256, 512, 1024, 2048),
+        max_new_tokens_default=32, db_path=db_path,
+        system_prompt="You are a terse assistant.",
     )
     t0 = time.monotonic()
     app = await create_app(cfg)
     log(f"server: create_app(llama-3.2-1b) built in "
         f"{time.monotonic() - t0:.1f}s")
+    state = app[STATE_KEY]
+    tool_defs = state["kafka"].get_tools() + [IDLE_TOOL]
+    schema_tokens = len(state["llm"].tokenizer.encode(
+        json.dumps(tool_defs, indent=2)))
+    names = sorted(t["function"]["name"] for t in tool_defs)
+    log(f"server: {len(tool_defs)} tools rendered ({', '.join(names)}), "
+        f"{schema_tokens} tokens of schemas")
     port = _free_port()
     runner = web.AppRunner(app)
     await runner.setup()
@@ -936,26 +1158,40 @@ async def _serve_and_query(db_path: str) -> dict:
     out = {}
     try:
         async with aiohttp.ClientSession() as s:
-            long_text = ("Tell me about paged attention and continuous "
-                         "batching on a GPU. ") * 9  # > 512 byte tokens
             t1 = time.monotonic()
+            timing: dict = {}
             ev1 = await _stream(s, f"{base}/v1/threads/smoke/chat/completions",
                                 {"model": "llama-3.2-1b", "stream": True,
                                  "temperature": 0, "max_tokens": 16,
-                                 "messages": [{"role": "user",
-                                               "content": long_text}]})
+                                 "messages": [{"role": "user", "content":
+                                               "Tell me about paged "
+                                               "attention on a GPU."}]},
+                                timing)
             ev2 = await _stream(s, f"{base}/v1/threads/smoke/chat/completions",
                                 {"model": "llama-3.2-1b", "stream": True,
                                  "temperature": 0, "max_tokens": 16,
                                  "messages": [{"role": "user",
                                                "content": "And in short?"}]})
+            # a second cold prefill of the tool-laden prompt, after turn 1
+            # has met every shape once
+            timing3: dict = {}
             ev3 = await _stream(s, f"{base}/v1/chat/completions",
                                 {"model": "llama-3.2-1b", "stream": True,
                                  "temperature": 0, "max_tokens": 16,
                                  "messages": [{"role": "user",
-                                               "content": "Hello!"}]})
+                                               "content": "Hello!"}]},
+                                timing3)
             out["seconds"] = time.monotonic() - t1
             u1, u2 = _usage(ev1), _usage(ev2)
+            if u1["prompt_tokens"] <= schema_tokens:
+                raise AssertionError(f"turn 1's prompt ({u1['prompt_tokens']}"
+                                     f") does not hold the tool schemas "
+                                     f"({schema_tokens} tokens)")
+            reasons = [e.get("reason") for e in ev1 + ev2 if
+                       e.get("type") == "agent_done"]
+            if len(reasons) != 2 or not set(reasons) <= {
+                    "text_response", "idle", "max_iterations"}:
+                raise AssertionError(f"agent_done reasons {reasons}")
             if u2["prompt_tokens"] <= u1["prompt_tokens"] + \
                     u1["completion_tokens"]:
                 raise AssertionError(f"turn 2 prompt ({u2['prompt_tokens']}) "
@@ -976,7 +1212,11 @@ async def _serve_and_query(db_path: str) -> dict:
                 models = await r.json()
             out.update(turn1=u1, turn2=u2, turn3=_usage(ev3),
                        history=roles, health=health,
-                       models=[m["id"] for m in models["data"]])
+                       models=[m["id"] for m in models["data"]],
+                       tool_schema_tokens=schema_tokens, tools=names,
+                       agent_done_reasons=reasons,
+                       turn1_ttft_s=timing.get("ttft_s"),
+                       chat_ttft_s=timing3.get("ttft_s"))
     finally:
         out["K1"] = kernels.paged_decode_attention.launches
         out["K2"] = kernels.paged_prefill_attention.launches
@@ -999,12 +1239,15 @@ async def _serve_speculative(db_path: str) -> dict:
         cfg = ServingConfig.from_env(
             model_name="llama-3.2-1b", max_batch=8, page_size=16,
             num_pages=1100, max_pages_per_seq=128,
-            prefill_buckets=(64, 128, 256, 512), db_path=db_path)
+            prefill_buckets=(64, 128, 256, 512), db_path=db_path,
+            system_prompt="You are a terse assistant.")
     finally:
         del os.environ["KAFKA_TORCH_SPECULATIVE_K"]
     if cfg.speculative_k != 4:
         raise AssertionError(f"KAFKA_TORCH_SPECULATIVE_K not read: {cfg}")
-    app = await create_app(cfg)
+    # no tools but the agent's idle tool: the built-in schemas would not
+    # fit this 2048-token window (the first server phase serves them)
+    app = await create_app(cfg, tools=[])
     engine = app[STATE_KEY]["llm"].engine
     port = _free_port()
     runner = web.AppRunner(app)
@@ -1061,7 +1304,7 @@ async def _serve_int8(db_path: str) -> dict:
             del os.environ[k]
     if (cfg.quantize, cfg.kv_quantize) != ("int8", "int8"):
         raise AssertionError(f"int8 knobs not read: {cfg}")
-    app = await create_app(cfg)
+    app = await create_app(cfg, tools=[])  # 2048-token window, as above
     engine = app[STATE_KEY]["llm"].engine
     if not isinstance(engine.k_pool, QTensor) or \
             not isinstance(engine.params["layers"]["wq"], QTensor):
@@ -1117,6 +1360,9 @@ def phase_server() -> None:
         RESULTS["K4"]["launches"] = RESULTS["K4"]["server_launches"] = \
             int8["paged_decode_attention_int8"]
     log(f"server: 3 streams ended with [DONE] in {out['seconds']:.2f}s; "
+        f"TTFT turn 1 {out['turn1_ttft_s']} s, chat {out['chat_ttft_s']} s "
+        f"(host clock, cold prefills of the prompt with the built-in tools); "
+        f"agent_done {out['agent_done_reasons']}; "
         f"prompt tokens turn1={out['turn1']['prompt_tokens']} "
         f"turn2={out['turn2']['prompt_tokens']} (cached "
         f"{out['turn2']['prompt_tokens_details']['cached_tokens']}) "
@@ -1163,10 +1409,24 @@ def main() -> int:
     t0 = time.monotonic()
     build_s, build_logs = build.build_all()
     log(f"build: {build_s:.1f}s (nvcc, sm_90a, parallel)")
-    for name, text in build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+    ptxas = ptxas_report(build_logs)
+    for name, rows in ptxas.items():
+        for r in rows:
+            log(f"  ptxas {name}: {r['fn']}: {r.get('registers')} registers, "
+                f"spill stores {r.get('spill_stores')} B, loads "
+                f"{r.get('spill_loads')} B")
+    # K2 runs on the tensor cores without spilling, at D 64 and D 128
+    k2_fns = ptxas.get("flash_prefill", [])
+    if build_logs.get("flash_prefill"):
+        spills = [r for r in k2_fns if r.get("spill_stores") or
+                  r.get("spill_loads")]
+        if len(k2_fns) < 2 or spills:
+            raise AssertionError(f"K2 ptxas: {k2_fns}")
+    hmma = sass_count("flash_prefill", "HMMA")
+    log(f"K2 SASS: {hmma} HMMA instructions (tensor cores)")
+    if hmma == 0:
+        raise AssertionError("K2 has no tensor-core instructions")
+    RESULTS["ptxas"], RESULTS["k2_hmma"] = ptxas, hmma
     RESULTS["build_s"] = build_s
     if "kernels" in phases:
         phase_kernels(args.seed)
@@ -1181,7 +1441,7 @@ def main() -> int:
     kernels_line = {"kernels": [
         {**{k: RESULTS[n].get(k) for k in keys},
          **{k: RESULTS[n][k] for k in ("engine_launches", "server_launches",
-                                       "device_ms", "torch_ms")
+                                       "device_ms", "torch_ms", "cases")
             if k in RESULTS[n]}}
         for n in KERNEL_KEYS if n in RESULTS
     ]}

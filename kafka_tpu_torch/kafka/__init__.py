@@ -1,7 +1,12 @@
-"""Kafka tier, main-path slice: thread persistence + one model turn."""
+"""Kafka orchestrator tier: wires LLM, tools, prompts, compaction, threads."""
 
-from .base import run_thread_turn, run_turn, run_with_thread
-from .utils import MessageAccumulator
+from .base import KafkaAgent
+from .utils import MessageAccumulator, playbooks_to_markdown
+from .v1 import KafkaV1Provider
 
-__all__ = ["MessageAccumulator", "run_thread_turn", "run_turn",
-           "run_with_thread"]
+__all__ = [
+    "KafkaAgent",
+    "KafkaV1Provider",
+    "MessageAccumulator",
+    "playbooks_to_markdown",
+]

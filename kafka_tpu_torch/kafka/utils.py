@@ -1,8 +1,9 @@
-"""Kafka-layer helper: event-stream re-accumulation (copied from
-kafka_tpu/kafka/utils.py; the playbook tables wait for the prompt slice).
+"""Kafka-layer helpers: event-stream re-accumulation and playbook tables
+(copied from kafka_tpu/kafka/utils.py).
 
 `MessageAccumulator` rebuilds persistable `Message`s from the live event
-stream of a run.
+stream of a run; `playbooks_to_markdown` renders per-thread playbooks into
+the markdown table the prompt tier embeds.
 """
 
 from __future__ import annotations
@@ -74,3 +75,22 @@ class MessageAccumulator:
         self._acc.clear()
         self._current_id = None
 
+
+def playbooks_to_markdown(playbooks: List[Dict[str, Any]]) -> str:
+    """Render playbooks as a markdown section for the system prompt."""
+    if not playbooks:
+        return ""
+    lines = [
+        "# Playbooks",
+        "",
+        "Follow the matching playbook when a task fits its trigger:",
+        "",
+        "| Playbook | When to use | Steps |",
+        "|---|---|---|",
+    ]
+    for pb in playbooks:
+        name = str(pb.get("name", "")).replace("|", "\\|")
+        trigger = str(pb.get("trigger", pb.get("description", ""))).replace("|", "\\|")
+        content = str(pb.get("content", "")).replace("\n", "<br>").replace("|", "\\|")
+        lines.append(f"| {name} | {trigger} | {content} |")
+    return "\n".join(lines)

@@ -34,7 +34,8 @@ NVCC_FLAGS = ARCH_FLAGS + [
 # F = float; every entry point returns the CUDA error code as an int.
 SIGNATURES: Dict[str, Dict[str, str]] = {
     "paged_decode": {"kafka_paged_decode_bf16": "PPPPPPPPIIIIIIIFP"},
-    "flash_prefill": {"kafka_flash_prefill_bf16": "PPPPPIIIIIIIIFP"},
+    "flash_prefill": {"kafka_flash_prefill_bf16": "PPPPPIIIIIIIIFP",
+                      "kafka_flash_prefill_bf16_tiles": "PPPPPIIIIIIIIFPI"},
     "paged_verify": {"kafka_paged_verify_bf16": "PPPPPPPPPIIIIIIIIFP"},
     "paged_decode_int8": {"kafka_paged_decode_int8": "PPPPPPPPPPIIIIIIIFP"},
     "fused_mlp": {"kafka_fused_mlp": "PPPPPPPPPPPIIIIFP"},

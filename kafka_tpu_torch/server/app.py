@@ -8,18 +8,24 @@ Counterpart of kafka_tpu/server/app.py:
   GET  /v1/models                            served models
   GET  /health                               liveness + engine stats
 
-Both chat routes stream real tokens as they decode (`"stream": true`) or
-answer one JSON completion.  The thread route keeps history server-side:
-it loads the thread's messages, runs one model turn over history + the new
-messages, and persists the new user message and the reply.  Tools, the
-agent loop, auth, admin/debug routes, tracing and Prometheus wait for
-later slices of the port.
+Both chat routes run the reference's agent turn (`_agent_events`,
+kafka_tpu/server/app.py:803-900): `KafkaV1Provider` renders the system
+prompt (`PromptProviderV1`, or the configured `system_prompt`), passes the
+server's tools (the built-in weather, counter and planner tools by
+default) to the LLM, executes the tools the model calls and loops, and
+streams OpenAI chunks, `tool_result` and cumulative `tool_messages`
+events, ending with `agent_done` and `data: [DONE]` (`"stream": true`) or
+one JSON completion.  The thread route keeps history server-side through
+`KafkaAgent.run_with_thread`, one provider per request; the stateless
+route shares `state["kafka"]`.  MCP servers, sandbox tools, auth,
+admin/debug routes and Prometheus wait for later slices of the port.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
-from typing import Any, AsyncIterator, Dict, Optional
+from typing import Any, AsyncIterator, Dict, List, Optional
 
 import torch
 from aiohttp import web
@@ -35,8 +41,9 @@ from ..core.types import (
 from ..core.wire import ChatCompletionRequest
 from ..db import DBClient, LocalDBClient
 from ..device import DeviceLike, resolve_device
-from ..kafka import MessageAccumulator, run_thread_turn, run_turn
+from ..kafka import KafkaV1Provider, MessageAccumulator
 from ..llm.base import LLMProvider
+from ..tools import MCPServerConfig, Tool
 from .config import ServingConfig
 from .sse import sse_response
 
@@ -121,18 +128,38 @@ async def create_app(
     cfg: Optional[ServingConfig] = None,
     llm_provider: Optional[LLMProvider] = None,
     db: Optional[DBClient] = None,
+    tools: Optional[List[Tool]] = None,
+    mcp_servers: Optional[List[MCPServerConfig]] = None,
     device: DeviceLike = None,
 ) -> web.Application:
     """Build the application; the keyword seams override config-driven
-    wiring (tests inject a provider or a DB)."""
+    wiring (tests inject a provider, a DB or a tool set).  tools=None
+    serves the built-in tools; mcp_servers defaults to none, and any
+    configured server raises NotImplementedError until tools/mcp.py is
+    ported."""
     cfg = cfg or ServingConfig.from_env()
     if llm_provider is None:
         llm_provider = build_provider(cfg, device=device)
     if db is None:
         db = LocalDBClient(cfg.db_path)
     await db.initialize()
+    if tools is None:
+        from ..server_tools import builtin_tools
+
+        tools = builtin_tools()
+    kafka = KafkaV1Provider(
+        llm_provider,
+        thread_db=db,
+        tools=tools,
+        mcp_servers=mcp_servers,
+        default_model=cfg.model_name,
+        system_prompt=cfg.system_prompt,
+    )
+    await kafka.initialize()
     app = web.Application(middlewares=[cors_middleware(cfg.cors_origins)])
-    app[STATE_KEY] = {"cfg": cfg, "db": db, "llm": llm_provider}
+    app[STATE_KEY] = {"cfg": cfg, "db": db, "llm": llm_provider,
+                      "tools": tools, "mcp_servers": list(mcp_servers or []),
+                      "kafka": kafka}
     r = app.router
     r.add_post("/v1/chat/completions", chat_completions)
     r.add_post("/v1/threads/{thread_id}/chat/completions",
@@ -146,6 +173,7 @@ async def create_app(
 
 async def _cleanup(app: web.Application) -> None:
     state = app[STATE_KEY]
+    await state["kafka"].cleanup()
     await state["db"].close()
     await state["llm"].aclose()
 
@@ -208,24 +236,81 @@ def _admission_gate(request: web.Request) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _turn_events(request: web.Request, body: ChatCompletionRequest,
-                 thread_id: Optional[str]) -> AsyncIterator[Dict[str, Any]]:
+async def _agent_events(
+    request: web.Request,
+    body: ChatCompletionRequest,
+    thread_id: Optional[str],
+) -> AsyncIterator[Dict[str, Any]]:
+    """Run the agent turn; yield protocol events + tool_messages.  As the
+    reference does, sampling carries only temperature (default 0.7),
+    max_tokens and tool_choice from the body."""
     state = _state(request)
-    llm_kwargs: Dict[str, Any] = dict(
-        model=body.model or state["cfg"].model_name,
+    sampling: Dict[str, Any] = dict(
         temperature=body.temperature if body.temperature is not None
         else 0.7,
         max_tokens=body.max_tokens,
     )
-    for name in ("top_p", "top_k", "seed"):
-        if getattr(body, name) is not None:
-            llm_kwargs[name] = getattr(body, name)
+    if body.tool_choice is not None:
+        sampling["tool_choice"] = body.tool_choice
     messages = [m.model_dump(exclude_none=True) for m in body.messages]
-    system_prompt = state["cfg"].system_prompt
+    model = body.model or state["cfg"].model_name
+    acc = MessageAccumulator()
+
     if thread_id is None:
-        return run_turn(state["llm"], messages, system_prompt, **llm_kwargs)
-    return run_thread_turn(state["db"], state["llm"], thread_id, messages,
-                           system_prompt, **llm_kwargs)
+        kafka = state["kafka"]
+        stream = kafka.run(messages, model=model, **sampling)
+    else:
+        # per-thread provider: the thread's config (global_prompt,
+        # playbooks, model) is read at initialize
+        kafka = KafkaV1Provider(
+            state["llm"],
+            thread_db=state["db"],
+            tools=state["tools"],
+            mcp_servers=state["mcp_servers"],
+            thread_id=thread_id,
+            default_model=model,
+            system_prompt=state["cfg"].system_prompt,
+        )
+        await kafka.initialize()
+        stream = kafka.run_with_thread(thread_id, messages, **sampling)
+
+    # the CUMULATIVE tool-cycle history is re-batched before each new
+    # completion's chunks (and before agent_done) whenever its content
+    # changed: a client replaces all its tool/tool-call messages with each
+    # batch.  Plain assistant text streams live and is never batched.
+    last_batched = None
+
+    def _maybe_batch() -> Optional[Dict[str, Any]]:
+        nonlocal last_batched
+        batch = [m.to_dict() for m in acc.messages
+                 if m.role == "tool" or m.tool_calls]
+        fingerprint = hashlib.sha256(
+            json.dumps(batch, sort_keys=True, default=str).encode()
+        ).hexdigest()
+        if batch and fingerprint != last_batched:
+            last_batched = fingerprint
+            return {"type": "tool_messages", "messages": batch}
+        return None
+
+    last_cid = None
+    try:
+        async for event in stream:
+            if event.get("object") == "chat.completion.chunk":
+                cid = event.get("id")
+                if cid != last_cid:
+                    last_cid = cid
+                    batch_ev = _maybe_batch()
+                    if batch_ev:
+                        yield batch_ev
+            acc.add_event(event)
+            if event.get("type") == "agent_done":
+                batch_ev = _maybe_batch()
+                if batch_ev:
+                    yield batch_ev
+            yield event
+    finally:
+        if thread_id is not None:
+            await kafka.cleanup()
 
 
 async def _completion_response(events, model: str) -> web.Response:
@@ -277,7 +362,7 @@ async def _completion_response(events, model: str) -> web.Response:
 async def chat_completions(request: web.Request) -> web.StreamResponse:
     _admission_gate(request)
     body = await _parse(request)
-    events = _turn_events(request, body, thread_id=None)
+    events = _agent_events(request, body, thread_id=None)
     if body.stream:
         return await sse_response(request, events)
     return await _completion_response(events, body.model)
@@ -288,7 +373,7 @@ async def thread_chat_completions(request: web.Request
     _admission_gate(request)
     thread_id = request.match_info["thread_id"]
     body = await _parse(request)
-    events = _turn_events(request, body, thread_id=thread_id)
+    events = _agent_events(request, body, thread_id=thread_id)
     if body.stream:
         return await sse_response(request, events)
     return await _completion_response(events, body.model)

@@ -59,6 +59,7 @@ from kafka_tpu_torch.ops.kernels import (
     paged_verify_attention,
     paged_verify_attention_plain,
 )
+from kafka_tpu_torch.ops.kernels.flash_prefill import ROW_TILES
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -217,15 +218,24 @@ class TestPagedDecodePlain:
 
 
 class TestFlashPrefillPlain:
-    @pytest.mark.parametrize("start,chunk_len,S,Hq,Hkv", [
-        (0, 16, 16, 8, 4),    # first chunk, full
-        (0, 11, 16, 8, 2),    # first chunk, padded tail
-        (32, 16, 16, 8, 4),   # later chunk with context
-        (48, 5, 16, 4, 1),    # short final chunk, MQA
-        (24, 30, 32, 8, 2),   # chunk not page-aligned at its start
+    @pytest.mark.parametrize("start,chunk_len,S,Hq,Hkv,D", [
+        # first chunk, full
+        pytest.param(0, 16, 16, 8, 4, 16, id="0-16-16-8-4"),
+        # first chunk, padded tail
+        pytest.param(0, 11, 16, 8, 2, 16, id="0-11-16-8-2"),
+        # later chunk with context
+        pytest.param(32, 16, 16, 8, 4, 16, id="32-16-16-8-4"),
+        # short final chunk, MQA
+        pytest.param(48, 5, 16, 4, 1, 16, id="48-5-16-4-1"),
+        # chunk not page-aligned at its start
+        pytest.param(24, 30, 32, 8, 2, 16, id="24-30-32-8-2"),
+        # Llama-3.1-8B's head_dim with G 8, first chunk with a padded tail
+        pytest.param(0, 13, 16, 8, 1, 128, id="d128-g8-first"),
+        # D 128, G 8, a later chunk whose window spans shuffled pages
+        pytest.param(40, 20, 24, 16, 2, 128, id="d128-g8-start40"),
     ])
-    def test_matches_pallas(self, start, chunk_len, S, Hq, Hkv):
-        ps, P, D = 8, 12, 16
+    def test_matches_pallas(self, start, chunk_len, S, Hq, Hkv, D):
+        ps, P = 8, 12
         rng = np.random.RandomState(start + chunk_len)
         num_pages = P + 5
         HD = Hkv * D
@@ -425,19 +435,37 @@ class TestCudaKernels:
         self._close(out, paged_decode_attention_plain(*args, page_size=16))
 
     def test_flash_prefill_kernel(self, cuda):
+        """Short and long chunks (every block shape the launcher picks, and
+        each shape pinned at every case), start > 0 over shuffled pages,
+        D 128 with G 4 and G 8; rows past chunk_len come back as zeros."""
         rng = np.random.RandomState(1)
-        kp = t(rng.randn(40 * 16, 512).astype(np.float32)).to(cuda)
-        vp = t(rng.randn(40 * 16, 512).astype(np.float32)).to(cuda)
-        q = t(rng.randn(128, 32, 64).astype(np.float32)).to(cuda)
-        kp, vp, q = (a.to(torch.bfloat16) for a in (kp, vp, q))
-        row = t((rng.permutation(39)[:32] + 1).astype(np.int32)).to(cuda)
-        for start, clen in ((0, 128), (64, 100)):
+        for S, start, clen, Hq, Hkv, D in (
+                (128, 0, 128, 32, 8, 64), (128, 64, 100, 32, 8, 64),
+                (2048, 0, 2048, 32, 8, 64), (1024, 2048, 1000, 32, 8, 64),
+                (2048, 2048, 1170, 32, 8, 64), (2048, 0, 1500, 32, 8, 128),
+                (256, 100, 200, 64, 8, 128)):
+            P = (start + S) // 16
+            kp, vp = (t(rng.randn((P + 8) * 16, Hkv * D).astype(np.float32))
+                      .to(cuda).to(torch.bfloat16) for _ in range(2))
+            q = t(rng.randn(S, Hq, D).astype(np.float32)).to(cuda).to(
+                torch.bfloat16)
+            row = t((rng.permutation(P + 7)[:P] + 1).astype(np.int32)).to(
+                cuda)
+            before = paged_prefill_attention.launches
             out = paged_prefill_attention(q, kp, vp, row, start, clen,
                                           page_size=16)
             ref = paged_prefill_attention_plain(q, kp, vp, row, start, clen,
                                                 page_size=16)
             torch.cuda.synchronize()
+            assert paged_prefill_attention.launches == before + 1
             self._close(out[:clen], ref[:clen])
+            assert (out[clen:] == 0).all()
+            for row_tiles in ROW_TILES:
+                out = paged_prefill_attention(q, kp, vp, row, start, clen,
+                                              page_size=16,
+                                              row_tiles=row_tiles)
+                self._close(out[:clen], ref[:clen])
+                assert (out[clen:] == 0).all()
 
     def test_paged_verify_kernel(self, cuda):
         """K = 4 verify shape at Llama-3.2-1B geometry; rows j < q_len."""

@@ -254,17 +254,20 @@ class TestEnginePrefixReuse:
 
 def test_thread_turn_two_reports_cached_tokens(tmp_path):
     """The thread route keys the cache by thread: turn 2 reports the
-    cached span in usage.prompt_tokens_details, streamed and not."""
+    cached span in usage.prompt_tokens_details, streamed and not.  No
+    tools but the agent's idle tool (`tools=[]`) and a short system
+    prompt keep the turns inside this 1024-token window."""
     from aiohttp.test_utils import TestClient, TestServer
 
     cfg = ServingConfig(tiny_model=True, max_batch=2, page_size=16,
-                        num_pages=64, max_pages_per_seq=32,
+                        num_pages=160, max_pages_per_seq=64,
                         prefill_buckets=(16, 32, 64, 128),
                         max_new_tokens_default=6, warmup=True,
+                        system_prompt="terse",
                         db_path=str(tmp_path / "threads.db"))
 
     async def run():
-        app = await create_app(cfg, device="cpu")
+        app = await create_app(cfg, tools=[], device="cpu")
         usages = []
         async with TestClient(TestServer(app)) as c:
             for i, content in enumerate(("tell me a story about pages",

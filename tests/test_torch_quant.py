@@ -312,7 +312,9 @@ def test_serving_config_reads_the_quantize_knobs(monkeypatch):
 
 def test_int8_server_streams_a_thread_turn(monkeypatch, tmp_path):
     """build_provider quantizes the weights and allocates the int8 pool;
-    a streamed thread turn ends with [DONE]; an unknown mode is refused."""
+    a streamed thread turn ends with [DONE]; an unknown mode is refused.
+    No tools but the agent's idle tool and a short system prompt keep the
+    turn inside this 1024-token window."""
     from aiohttp.test_utils import TestClient, TestServer
 
     from kafka_tpu_torch.server.app import STATE_KEY, build_provider
@@ -320,13 +322,13 @@ def test_int8_server_streams_a_thread_turn(monkeypatch, tmp_path):
     monkeypatch.setenv("KAFKA_TORCH_QUANTIZE", "int8")
     monkeypatch.setenv("KAFKA_TORCH_KV_QUANTIZE", "int8")
     cfg = ServingConfig.from_env(
-        tiny_model=True, max_batch=2, page_size=16, num_pages=32,
-        max_pages_per_seq=16, prefill_buckets=(16, 32, 64, 128),
-        max_new_tokens_default=6, warmup=False,
+        tiny_model=True, max_batch=2, page_size=16, num_pages=160,
+        max_pages_per_seq=64, prefill_buckets=(16, 32, 64, 128),
+        max_new_tokens_default=6, warmup=False, system_prompt="terse",
         db_path=str(tmp_path / "threads.db"))
 
     async def serve():
-        app = await create_app(cfg, device="cpu")
+        app = await create_app(cfg, tools=[], device="cpu")
         engine = app[STATE_KEY]["llm"].engine
         async with TestClient(TestServer(app)) as c:
             r = await c.post(

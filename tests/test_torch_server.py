@@ -3,7 +3,10 @@
 A tiny float32 model behind the port's create_app: a streamed two-turn
 thread ends every stream with `data: [DONE]` and persists its history,
 the stateless route streams too, and the provider's stream equals the
-engine's greedy tokens.  Also: importing the port leaves jax and kafka_tpu
+engine's greedy tokens.  These apps serve no tools besides the agent's
+`idle` tool (`tools=[]`): the built-in tools' schemas alone are ~3k
+byte-tokenizer tokens, past these small windows (tests/test_torch_agent.py
+and tests/test_torch_sse_contract.py keep them, at a 4096 window).  Also: importing the port leaves jax and kafka_tpu
 out of sys.modules, and its entry points refuse to start without CUDA
 unless asked for the CPU.
 """
@@ -36,8 +39,8 @@ def _one_thread():
 
 def serving_cfg(tmp_path, **kw):
     return ServingConfig(**{**dict(
-        tiny_model=True, max_batch=2, page_size=16, num_pages=64,
-        max_pages_per_seq=32, prefill_buckets=(16, 32, 64, 128),
+        tiny_model=True, max_batch=2, page_size=16, num_pages=160,
+        max_pages_per_seq=64, prefill_buckets=(16, 32, 64, 128),
         max_new_tokens_default=8, db_path=str(tmp_path / "threads.db"),
         system_prompt="terse", warmup=False), **kw})
 
@@ -52,7 +55,7 @@ def test_streamed_thread_turns_persist_history(tmp_path):
 
     async def run():
         app = await create_app(serving_cfg(tmp_path, warmup=True),
-                               device="cpu")
+                               tools=[], device="cpu")
         usages = []
         async with TestClient(TestServer(app)) as c:
             for content in ("hello there", "and again"):
@@ -92,7 +95,8 @@ def test_stateless_completion_streamed_and_not(tmp_path):
     from aiohttp.test_utils import TestClient, TestServer
 
     async def run():
-        app = await create_app(serving_cfg(tmp_path), device="cpu")
+        app = await create_app(serving_cfg(tmp_path), tools=[],
+                               device="cpu")
         async with TestClient(TestServer(app)) as c:
             body = {"model": "tiny", "temperature": 0, "max_tokens": 4,
                     "messages": [{"role": "user", "content": "hi"}]}
@@ -168,7 +172,11 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.server.__main__, kafka_tpu_torch.runtime, "
         "kafka_tpu_torch.models, kafka_tpu_torch.models.quant_quality, "
         "kafka_tpu_torch.ops.kernels, "
-        "kafka_tpu_torch.llm, kafka_tpu_torch.kafka, kafka_tpu_torch.db\n"
+        "kafka_tpu_torch.llm, kafka_tpu_torch.kafka, kafka_tpu_torch.db, "
+        "kafka_tpu_torch.agents, kafka_tpu_torch.tools, "
+        "kafka_tpu_torch.server_tools, kafka_tpu_torch.prompts, "
+        "kafka_tpu_torch.llm.compaction, kafka_tpu_torch.tracing, "
+        "kafka_tpu_torch.failpoints\n"
         "bad = [m for m in sys.modules if m in ('jax', 'kafka_tpu') or "
         "m.startswith(('jax.', 'kafka_tpu.'))]\n"
         "assert not pre and not bad, (pre, bad)\n"
