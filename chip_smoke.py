@@ -20,6 +20,12 @@ Phases, each of which raises (non-zero exit) on any failure:
                (scaled_dot_product_attention on the gathered window — a
                yardstick only; the port never calls it; K5 has none and
                is timed beside the port's torch formulation instead).
+               K1 runs at the ragged head case and every case of K1_CASES
+               (all lanes at 2,047 tokens, all <= 32 tokens, windows on
+               chunk and page boundaries, trash lanes, G 8, G 1, D 128),
+               each held elementwise and per row and timed (CUDA events
+               and profiler device time, SDPA's too); a planted
+               dropped-chunk fault must fail the row check.
                K2 runs at every shape of K2_CASES (the engine's and the
                agent turn's chunks, short and long, and D 128), with the
                launcher's block shape and each shape pinned, held
@@ -66,7 +72,18 @@ Phases, each of which raises (non-zero exit) on any failure:
                thread to a third configured with KAFKA_TORCH_QUANTIZE=int8
                and KAFKA_TORCH_KV_QUANTIZE=int8 (both with no tools but the
                agent's idle tool, at 2048-token windows): turn 2 must
-               report cached tokens and K4 must launch.
+               report cached tokens and K4 must launch.  Constrained
+               decoding (fault C3): a server with no tools but the idle
+               tool and no prefix cache serves greedy thread turns with
+               tool_choice "required" and a named function; each must be
+               one model turn ending finish_reason "tool_calls" whose
+               text validate_tool_call_json accepts, run on the device
+               FSM (FSM tokens > 0, host-mask steps 0, model vocab ==
+               tokenizer vocab); the "required" turn again with
+               KAFKA_TORCH_GRAMMAR_ONDEVICE=0 must take the host mask and
+               give the same tokens; and the speculative server's
+               "required" turn (a grammar lane with a proposer) must give
+               them too.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
@@ -196,10 +213,6 @@ def phase_kernels(seed: int) -> None:
     import torch
 
     from kafka_tpu_torch.ops.kernels import (
-        paged_decode_attention,
-        paged_decode_attention_plain,
-        paged_prefill_attention,
-        paged_prefill_attention_plain,
         paged_verify_attention,
         paged_verify_attention_plain,
     )
@@ -224,43 +237,15 @@ def phase_kernels(seed: int) -> None:
     seq_lens = torch.tensor([15, 16, 31, 255, 511, 700, 2046, 5],
                             dtype=torch.int32, device=dev)
     args = (q, k_pool, v_pool, table, seq_lens)
-    out_k = paged_decode_attention(*args, page_size=ps)
-    out_p = paged_decode_attention_plain(*args, page_size=ps)
-    torch.cuda.synchronize()
-    err1 = check_close("K1 paged_decode_attention", out_k, out_p)
-    n_valid = (seq_lens.long() + 1).clamp(max=P * ps)
-    tok = int(n_valid.sum())
-    b1, by1 = bound(
-        2 * tok * HD * 2 + 2 * B * Hq * D * 2 + B * P * 4 + B * 4,
-        4 * Hq * D * tok)
     C = P * ps
     pt = table.long()
     k_win = k_pool.view(-1, ps, HD)[pt].view(B, C, Hkv, D).transpose(1, 2)
     v_win = v_pool.view(-1, ps, HD)[pt].view(B, C, Hkv, D).transpose(1, 2)
     k_win, v_win = k_win.contiguous(), v_win.contiguous()
-    mask = (torch.arange(C, device=dev)[None] <= seq_lens.long()[:, None]
-            )[:, None, None, :]
-    q4 = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    RESULTS["K1"] = {
-        "name": "paged_decode_attention",
-        "route": "cuda",
-        "source": "kafka_tpu_torch/csrc/paged_decode.cu",
-        "replaces": "kafka_tpu/ops/pallas/paged_attention.py:180",
-        "max_abs_err": err1,
-        "ms": time_ms(lambda: paged_decode_attention(*args, page_size=ps)),
-        "plain_ms": time_ms(
-            lambda: paged_decode_attention_plain(*args, page_size=ps)),
-        "bound_ms": b1,
-        "bound_by": by1,
-        "library_ms": time_ms(lambda: sdpa(q4, k_win, v_win, attn_mask=mask,
-                                           enable_gqa=True)),
-        "device_ms": device_ms(
-            lambda: paged_decode_attention(*args, page_size=ps),
-            "paged_decode"),
-        "shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={ps} P={P} "
-                 f"valid_tokens={tok}",
-    }
+    # the other K1 cases draw from their own generator, so the K2-K5
+    # inputs stay those of earlier runs
+    kernel_k1(args, torch.Generator(device=dev).manual_seed(seed + 1))
 
     kernel_k2(k_pool, v_pool, gen)
     # K3: the full-width verify shape (K = 4 -> S = 5), ragged windows and
@@ -291,6 +276,8 @@ def phase_kernels(seed: int) -> None:
     kv = torch.arange(C, device=dev)[None, None]
     mask3 = ((kv <= qpos[:, :, None]) & (kv < n_win[:, None, None]))[:, None]
     q3w = q3.transpose(1, 2).contiguous()
+    lib3 = lambda: sdpa(q3w, k_win, v_win, attn_mask=mask3,  # noqa: E731
+                        enable_gqa=True)
     RESULTS["K3"] = {
         "name": "paged_verify_attention",
         "route": "cuda",
@@ -302,9 +289,8 @@ def phase_kernels(seed: int) -> None:
             lambda: paged_verify_attention_plain(*a3, page_size=ps)),
         "bound_ms": b3,
         "bound_by": by3,
-        "library_ms": time_ms(lambda: sdpa(q3w, k_win, v_win,
-                                           attn_mask=mask3,
-                                           enable_gqa=True)),
+        "library_ms": time_ms(lib3),
+        "library_device_ms": device_ms(lib3, None),
         "device_ms": device_ms(
             lambda: paged_verify_attention(*a3, page_size=ps),
             "paged_verify"),
@@ -321,8 +307,168 @@ def phase_kernels(seed: int) -> None:
             f"plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.5f} by {r['bound_by']}, library "
             f"{'none' if lib is None else f'{lib:.4f}'}"
+            f" (device {r.get('library_device_ms')})"
             + (f", torch formulation {r['torch_ms']:.4f}"
                if "torch_ms" in r else "") + f") at {r['shape']}")
+
+
+# K1 cases beside the ragged head case (B 8, lengths 15..2046 on and
+# around page boundaries, lane 7 a trash lane): (label, Hq, Hkv, D, table
+# pages P, seq_lens, trash lanes).  Every lane at 2,047 tokens; every lane
+# at <= 32 tokens in a 128-token window (one chunk per lane, no merge
+# launch); windows ending on chunk (128-token) and page boundaries; two
+# trash lanes with long lengths; G 8; G 1; and Llama-3.1-8B's geometry
+# (D 128).  Together they launch both templates (D 64, D 128), the merge
+# and its absence, and G 1, 4 and 8.
+K1_CASES = (
+    ("long", 32, 8, 64, 128, [2046] * 8, ()),
+    ("short", 32, 8, 64, 8, [0, 1, 7, 15, 16, 17, 30, 31], ()),
+    ("boundaries", 32, 8, 64, 128,
+     [127, 128, 126, 255, 15, 16, 1023, 2047], ()),
+    ("trash", 32, 8, 64, 128, [900, 40, 2046, 300, 1500, 7, 64, 511],
+     (1, 4)),
+    ("G8", 64, 8, 64, 128, [15, 16, 31, 255, 511, 700, 2046, 5], ()),
+    ("G1", 8, 8, 64, 128, [15, 16, 31, 255, 511, 700, 2046, 5], ()),
+    ("D128", 32, 8, 128, 128, [15, 16, 31, 255, 511, 700, 2046, 5], ()),
+)
+
+
+def planted_chunk_fault(args, ps: int):
+    """The plain output with one planted fault: the longest lane loses its
+    second 128-token chunk of the window, the fault a kernel's chunk
+    bookkeeping or merge could make."""
+    import torch
+
+    from kafka_tpu_torch.ops.attention import causal_attention
+    from kafka_tpu_torch.ops.kernels import paged_decode_attention_plain
+
+    q, kp, vp, table, seq_lens = args
+    B, Hq, D = q.shape
+    HD = kp.shape[1]
+    C = table.shape[1] * ps
+    out = paged_decode_attention_plain(*args, page_size=ps)
+    b = int(seq_lens.argmax())
+    win = [t.view(-1, ps, HD)[table[b].long()].reshape(1, C, HD // D, D)
+           for t in (kp, vp)]
+    kv_pos = torch.arange(C, device=q.device)[None]
+    n = int(seq_lens[b])
+    out[b] = causal_attention(
+        q[b][None, None], win[0], win[1],
+        q_positions=torch.tensor([[n]], device=q.device),
+        kv_positions=kv_pos,
+        kv_valid=(kv_pos <= n) & ((kv_pos < 128) | (kv_pos >= 256)),
+    )[0, 0]
+    return out
+
+
+def k1_case(label: str, args, ps: int) -> dict:
+    """One K1 case: held to the plain version elementwise and per row,
+    then timed (CUDA events per wrapper call, profiler device time) beside
+    SDPA on the pre-gathered padded window (a yardstick: it reads every
+    slot of the window, not only the valid ones) and the bound."""
+    import torch
+
+    from kafka_tpu_torch.ops.kernels import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    q, k_pool, v_pool, table, seq_lens = args
+    B, Hq, D = q.shape
+    HD = k_pool.shape[1]
+    Hkv, P = HD // D, table.shape[1]
+    C = P * ps
+    shape = (f"{label}: B={B} Hq={Hq} Hkv={Hkv} D={D} page={ps} P={P} "
+             f"seq_lens={seq_lens.tolist()}")
+    out_k = paged_decode_attention(*args, page_size=ps)
+    out_p = paged_decode_attention_plain(*args, page_size=ps)
+    torch.cuda.synchronize()
+    err = check_close(f"K1 paged_decode_attention {shape}", out_k, out_p)
+    rel = check_rows(f"K1 paged_decode_attention {shape}", out_k, out_p)
+    tok = int((seq_lens.long() + 1).clamp(max=C).sum())
+    b1, by1 = bound(
+        2 * tok * HD * 2 + 2 * B * Hq * D * 2 + B * P * 4 + B * 4,
+        4 * Hq * D * tok)
+    pt = table.long()
+    win = [t.view(-1, ps, HD)[pt].view(B, C, Hkv, D).transpose(1, 2)
+           .contiguous() for t in (k_pool, v_pool)]
+    mask = (torch.arange(C, device=q.device)[None]
+            <= seq_lens.long()[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(q4, win[0], win[1], attn_mask=mask,  # noqa: E731
+                       enable_gqa=True)
+    kern = lambda: paged_decode_attention(*args, page_size=ps)  # noqa: E731
+    case = {
+        "shape": shape, "max_abs_err": err, "row_rel_err": rel,
+        "ms": time_ms(kern), "device_ms": device_ms(kern, "paged_decode"),
+        # the two kernels apart: the chunks, and the merge of long lanes
+        "device_ms_chunks": device_ms(kern, "paged_decode_chunk"),
+        "device_ms_merge": device_ms(kern, "paged_decode_combine"),
+        "plain_ms": time_ms(
+            lambda: paged_decode_attention_plain(*args, page_size=ps),
+            iters=10, warmup=2),
+        "bound_ms": b1, "bound_by": by1, "valid_tokens": tok,
+        "library_ms": time_ms(lib), "library_device_ms": device_ms(lib, None),
+    }
+    log(f"K1 {shape}: {case['ms']:.4f} ms (device {case['device_ms']}: "
+        f"chunks {case['device_ms_chunks']}, merge "
+        f"{case['device_ms_merge']}), "
+        f"SDPA {case['library_ms']:.4f} (device {case['library_device_ms']}),"
+        f" plain {case['plain_ms']:.4f}, bound {b1:.5f} by {by1}")
+    return case
+
+
+def kernel_k1(head_args, gen) -> None:
+    """K1 at the ragged head case and every case of K1_CASES, each held
+    elementwise and per row to its plain version and timed; at the head
+    case a planted dropped-chunk fault must fail the row check."""
+    import torch
+
+    from kafka_tpu_torch.ops.kernels import paged_decode_attention_plain
+
+    ps = 16
+    cases = [k1_case("ragged", head_args, ps)]
+    bad = planted_chunk_fault(head_args, ps)
+    want = paged_decode_attention_plain(*head_args, page_size=ps)
+    f_rel = row_rel_err(bad, want)
+    f_abs = (bad.float() - want.float()).abs()
+    f_exc = (f_abs - KERNEL_RTOL * want.float().abs()).max()
+    cases[0]["planted_fault"] = {
+        "max_abs_err": f_abs.max().item(), "row_rel_err": f_rel,
+        "elementwise_check_passes": bool(f_exc <= KERNEL_ATOL)}
+    log(f"K1 planted fault (the longest lane loses its second chunk): "
+        f"{cases[0]['planted_fault']}")
+    if not f_rel > K2_ROW_RTOL:
+        raise AssertionError("K1's row check does not see a dropped chunk: "
+                             f"row_rel_err {f_rel}")
+    dev = head_args[0].device
+    for label, Hq, Hkv, D, P, lens, trash in K1_CASES:
+        B, HD = len(lens), Hkv * D
+        num_pages = B * P + 1
+        kp, vp = (torch.randn(num_pages * ps, HD, generator=gen, device=dev
+                              ).to(torch.bfloat16) for _ in range(2))
+        q = torch.randn(B, Hq, D, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+        table = perm.view(B, P).to(torch.int32).contiguous()
+        for b in trash:
+            table[b] = 0
+        seq = torch.tensor(lens, dtype=torch.int32, device=dev)
+        cases.append(k1_case(label, (q, kp, vp, table, seq), ps))
+    head = cases[0]
+    RESULTS["K1"] = {
+        "name": "paged_decode_attention",
+        "route": "cuda",
+        "source": "kafka_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "kafka_tpu/ops/pallas/paged_attention.py:180",
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_device_ms",
+                                "device_ms", "shape")},
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "row_rel_err": max(c["row_rel_err"] for c in cases),
+        "cases": cases,
+    }
 
 
 # K2 cases: (S, start, chunk_len, Hq, Hkv, D).  The engine phase's 512-row
@@ -582,6 +728,8 @@ def kernel_k4(k1_args, gen) -> None:
             <= seq_lens.long()[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q4 = q[:, :, None, :]
+    lib4 = lambda: sdpa(q4, win[0], win[1], attn_mask=mask,  # noqa: E731
+                        enable_gqa=True)
     RESULTS["K4"] = {
         "name": "paged_decode_attention_int8",
         "route": "cuda",
@@ -593,8 +741,8 @@ def kernel_k4(k1_args, gen) -> None:
             lambda: paged_decode_attention_int8_plain(*a4, page_size=ps)),
         "bound_ms": b4,
         "bound_by": by4,
-        "library_ms": time_ms(lambda: sdpa(q4, win[0], win[1],
-                                           attn_mask=mask, enable_gqa=True)),
+        "library_ms": time_ms(lib4),
+        "library_device_ms": device_ms(lib4, None),
         "device_ms": device_ms(
             lambda: paged_decode_attention_int8(*a4, page_size=ps),
             "paged_decode_int8"),
@@ -1224,9 +1372,168 @@ async def _serve_and_query(db_path: str) -> dict:
     return out
 
 
-async def _serve_speculative(db_path: str) -> dict:
+CONSTRAINED_PROMPT = "List what you can do for me, then finish."
+CONSTRAINED_MAX_TOKENS = 96
+
+
+def _wrap_free(g, stream: list, budget: int) -> int:
+    """Tokens of `stream` emitted before either constrained path's wrap-up
+    window (budget_left <= dist + wrap_slack; the compiled slack is at
+    least the host mask's 4 characters): there the device FSM's and the
+    host mask's rows are provably equal, so their greedy tokens must be.
+    Inside it each path closes the JSON by its own rule (the host mask's
+    fixed 4-character slack engages later), as in the JAX package."""
+    state = 0
+    for i, t in enumerate(stream):
+        if budget - i <= int(g.dist[state]) + g.wrap_slack:
+            return i
+        state = g.walk([t], start=state)
+        if state < 0:
+            return i + 1
+    return len(stream)
+
+
+def _spy_submits(engine) -> list:
+    """Record every request the provider hands the engine."""
+    seen = []
+    real = engine.submit
+
+    def submit(req, *a, **kw):
+        seen.append(req)
+        return real(req, *a, **kw)
+
+    engine.submit = submit
+    return seen
+
+
+async def _constrained_turn(session, url: str, tool_choice, engine, seen,
+                            tokenizer, tool_defs) -> dict:
+    """One greedy thread turn with `tool_choice`: it must be one model turn
+    that ends `finish_reason: "tool_calls"`, its text a tool call that
+    validate_tool_call_json accepts.  Returns its tokens and the engine's
+    constrained counters moved by it."""
+    from kafka_tpu_torch.llm.constrained import validate_tool_call_json
+
+    keys = ("constrained_ondevice_tokens", "constrained_host_mask_steps",
+            "constrained_mask_overtight", "constrained_degrades")
+    before = {k: getattr(engine, k) for k in keys}
+    n0 = len(seen)
+    ev = await _stream(session, url, {
+        "model": "llama-3.2-1b", "stream": True, "temperature": 0,
+        "max_tokens": CONSTRAINED_MAX_TOKENS, "tool_choice": tool_choice,
+        "messages": [{"role": "user", "content": CONSTRAINED_PROMPT}]})
+    if len(seen) != n0 + 1:
+        raise AssertionError(f"{tool_choice}: {len(seen) - n0} model turns")
+    req = seen[-1]
+    chunks = [e["choices"][0] for e in ev
+              if e.get("object") == "chat.completion.chunk"
+              and e.get("choices")]
+    finishes = [c.get("finish_reason") for c in chunks
+                if c.get("finish_reason")]
+    calls = [tc["function"] for c in chunks
+             for tc in c.get("delta", {}).get("tool_calls") or []]
+    text = tokenizer.decode([t for t in req.output_ids
+                             if t not in tokenizer.stop_ids])
+    if finishes != ["tool_calls"] or not calls or \
+            not validate_tool_call_json(text, tool_defs):
+        raise AssertionError(f"{tool_choice}: finish {finishes}, calls "
+                             f"{calls}, text {text!r}")
+    return {"tool_choice": tool_choice, "tokens": len(req.output_ids),
+            "output_ids": list(req.output_ids), "call": calls[0],
+            "finish_reason": req.finish_reason, "grammar": req.grammar,
+            **{k: getattr(engine, k) - before[k] for k in keys}}
+
+
+async def _serve_constrained(db_path: str) -> dict:
+    """Fault C3 on the card: greedy thread turns with tool_choice
+    "required" and a named function, served through the device FSM, then
+    the "required" turn again with KAFKA_TORCH_GRAMMAR_ONDEVICE=0 (the
+    host mask path), whose tokens must be the same.  No tools but the
+    agent's idle tool (so a forced call ends the run and no tool reaches
+    the network); no prefix cache, so every turn prefills cold."""
+    import aiohttp
+    from aiohttp import web
+
+    from kafka_tpu_torch.agents import IDLE_TOOL
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.server import ServingConfig, create_app
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    cfg = ServingConfig(
+        model_name="llama-3.2-1b", max_batch=8, page_size=16,
+        num_pages=1100, max_pages_per_seq=128,
+        prefill_buckets=(64, 128, 256, 512), db_path=db_path,
+        system_prompt="You are a terse assistant.", prefix_cache_pages=0)
+    app = await create_app(cfg, tools=[])
+    llm = app[STATE_KEY]["llm"]
+    engine, tok = llm.engine, llm.tokenizer
+    if engine.cfg.vocab_size != tok.vocab_size:
+        raise AssertionError(f"model vocab {engine.cfg.vocab_size} != "
+                             f"tokenizer vocab {tok.vocab_size}: the engine "
+                             "would drop the grammar to the host path")
+    if not llm.get_model_info()["grammar_ondevice"]:
+        raise AssertionError("KAFKA_TORCH_GRAMMAR_ONDEVICE is off")
+    seen = _spy_submits(engine)
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    base = f"http://127.0.0.1:{port}/v1/threads"
+    kernels.reset_launch_counts()
+    turns = {}
+    try:
+        async with aiohttp.ClientSession() as s:
+            t0 = time.monotonic()
+            for label, choice in (
+                    ("required", "required"),
+                    ("named", {"type": "function",
+                               "function": {"name": "idle"}})):
+                turns[label] = await _constrained_turn(
+                    s, f"{base}/c3-{label}/chat/completions", choice, engine,
+                    seen, tok, [IDLE_TOOL])
+            os.environ["KAFKA_TORCH_GRAMMAR_ONDEVICE"] = "0"
+            try:
+                turns["required_host"] = await _constrained_turn(
+                    s, f"{base}/c3-host/chat/completions", "required",
+                    engine, seen, tok, [IDLE_TOOL])
+            finally:
+                del os.environ["KAFKA_TORCH_GRAMMAR_ONDEVICE"]
+            dt = time.monotonic() - t0
+    finally:
+        k1 = kernels.paged_decode_attention.launches
+        await runner.cleanup()
+    for label in ("required", "named"):
+        t = turns[label]
+        if t["constrained_ondevice_tokens"] <= 0 or \
+                t["constrained_host_mask_steps"] or t["constrained_degrades"]:
+            raise AssertionError(f"{label} turn did not run on the device "
+                                 f"FSM: {t}")
+    host = turns["required_host"]
+    if host["constrained_ondevice_tokens"] or \
+            host["constrained_host_mask_steps"] <= 0:
+        raise AssertionError(f"ONDEVICE=0 turn did not take the host mask: "
+                             f"{host}")
+    fsm_ids = turns["required"]["output_ids"]
+    n = _wrap_free(turns["required"]["grammar"], fsm_ids,
+                   CONSTRAINED_MAX_TOKENS)
+    host["same_tokens_before_wrap_up"] = n
+    host["whole_stream_equal"] = host["output_ids"] == fsm_ids
+    if n < min(40, len(fsm_ids)) or host["output_ids"][:n] != fsm_ids[:n]:
+        raise AssertionError(
+            f"host-mask stream differs from the device-FSM stream before "
+            f"the wrap-up window ({n} tokens): {host['output_ids']} vs "
+            f"{fsm_ids}")
+    for t in turns.values():
+        t.pop("grammar")
+    return {"seconds": dt, "K1": k1, "turns": turns}
+
+
+async def _serve_speculative(db_path: str, constrained_ref: list) -> dict:
     """One streamed request to a server configured from the environment
-    with KAFKA_TORCH_SPECULATIVE_K=4, as an operator would enable it."""
+    with KAFKA_TORCH_SPECULATIVE_K=4, as an operator would enable it; then
+    the constrained server's greedy "required" turn, whose grammar lane
+    speculates: its tokens must be constrained_ref, the spec-off stream.
+    No prefix cache, so that turn prefills cold as it did there."""
     import aiohttp
     from aiohttp import web
 
@@ -1240,7 +1547,7 @@ async def _serve_speculative(db_path: str) -> dict:
             model_name="llama-3.2-1b", max_batch=8, page_size=16,
             num_pages=1100, max_pages_per_seq=128,
             prefill_buckets=(64, 128, 256, 512), db_path=db_path,
-            system_prompt="You are a terse assistant.")
+            system_prompt="You are a terse assistant.", prefix_cache_pages=0)
     finally:
         del os.environ["KAFKA_TORCH_SPECULATIVE_K"]
     if cfg.speculative_k != 4:
@@ -1248,7 +1555,9 @@ async def _serve_speculative(db_path: str) -> dict:
     # no tools but the agent's idle tool: the built-in schemas would not
     # fit this 2048-token window (the first server phase serves them)
     app = await create_app(cfg, tools=[])
-    engine = app[STATE_KEY]["llm"].engine
+    llm = app[STATE_KEY]["llm"]
+    engine = llm.engine
+    seen = _spy_submits(engine)
     port = _free_port()
     runner = web.AppRunner(app)
     await runner.setup()
@@ -1265,10 +1574,22 @@ async def _serve_speculative(db_path: str) -> dict:
                      "role": "user",
                      "content": "one two three four " * 12}]})
             dt = time.monotonic() - t0
-        out = {"seconds": dt, "usage": _usage(ev),
-               "proposed": engine.speculation_proposed_tokens,
-               "accepted": engine.speculation_accepted_tokens,
-               "verify_steps": engine.verify_steps}
+            out = {"seconds": dt, "usage": _usage(ev),
+                   "proposed": engine.speculation_proposed_tokens,
+                   "accepted": engine.speculation_accepted_tokens,
+                   "verify_steps": engine.verify_steps}
+            from kafka_tpu_torch.agents import IDLE_TOOL
+
+            p0, a0 = (engine.speculation_proposed_tokens,
+                      engine.speculation_accepted_tokens)
+            turn = await _constrained_turn(
+                s, f"http://127.0.0.1:{port}/v1/threads/spec-c3/chat/"
+                   "completions", "required", engine, seen, llm.tokenizer,
+                [IDLE_TOOL])
+            turn.update(proposed=engine.speculation_proposed_tokens - p0,
+                        accepted=engine.speculation_accepted_tokens - a0)
+            turn.pop("grammar")
+            out["constrained"] = turn
     finally:
         out_k = {k: f.launches for k, f in (
             ("K1", kernels.paged_decode_attention),
@@ -1276,6 +1597,14 @@ async def _serve_speculative(db_path: str) -> dict:
             ("K3", kernels.paged_verify_attention))}
         await runner.cleanup()
     out.update(out_k)
+    turn = out["constrained"]
+    if seen[-1].spec is None or turn["constrained_ondevice_tokens"] <= 0:
+        raise AssertionError(f"the grammar lane did not speculate on the "
+                             f"device FSM: {turn}")
+    if turn["output_ids"] != constrained_ref:
+        raise AssertionError(
+            f"speculation changed the grammar lane's greedy stream: "
+            f"{turn['output_ids']} vs {constrained_ref}")
     return out
 
 
@@ -1346,7 +1675,10 @@ async def _serve_int8(db_path: str) -> dict:
 def phase_server() -> None:
     with tempfile.TemporaryDirectory() as td:
         out = asyncio.run(_serve_and_query(os.path.join(td, "threads.db")))
-        spec = asyncio.run(_serve_speculative(os.path.join(td, "spec.db")))
+        con = asyncio.run(_serve_constrained(os.path.join(td, "c3.db")))
+        spec = asyncio.run(_serve_speculative(
+            os.path.join(td, "spec.db"),
+            con["turns"]["required"]["output_ids"]))
         int8 = asyncio.run(_serve_int8(os.path.join(td, "int8.db")))
     log(f"server (KAFKA_TORCH_QUANTIZE=int8 KAFKA_TORCH_KV_QUANTIZE=int8): "
         f"2 thread turns ended with [DONE] in {int8['seconds']:.2f}s; turn 2 "
@@ -1374,6 +1706,22 @@ def phase_server() -> None:
         f"accepted {spec['accepted']}/{spec['proposed']} proposed; "
         f"launches K1={spec['K1']} K2={spec['K2']} K3={spec['K3']}")
     RESULTS["server_speculative"] = spec
+    for label, t in con["turns"].items():
+        log(f"server constrained turn ({label}, tool_choice "
+            f"{json.dumps(t['tool_choice'])}): {t['tokens']} tokens, finish "
+            f"tool_calls, call {t['call']['name']}({t['call']['arguments']}); "
+            f"device-FSM tokens {t['constrained_ondevice_tokens']}, host-mask "
+            f"steps {t['constrained_host_mask_steps']}")
+    sc = spec["constrained"]
+    host = con["turns"]["required_host"]
+    log(f"server constrained turns: the host-mask rerun equals the device "
+        f"FSM's first {host['same_tokens_before_wrap_up']} tokens (all "
+        f"before either wrap-up window; whole stream equal: "
+        f"{host['whole_stream_equal']}); with speculation "
+        f"({sc['accepted']}/{sc['proposed']} proposed accepted) the grammar "
+        f"lane's {sc['tokens']} tokens equal speculation off; launches "
+        f"K1={con['K1']} in {con['seconds']:.2f}s")
+    RESULTS["server_constrained"] = con
     if "K3" in RESULTS:
         RESULTS["K3"]["server_launches"] = spec["K3"]
     if out["K1"] == 0 or out["K2"] == 0:
@@ -1441,7 +1789,8 @@ def main() -> int:
     kernels_line = {"kernels": [
         {**{k: RESULTS[n].get(k) for k in keys},
          **{k: RESULTS[n][k] for k in ("engine_launches", "server_launches",
-                                       "device_ms", "torch_ms", "cases")
+                                       "device_ms", "library_device_ms",
+                                       "torch_ms", "cases")
             if k in RESULTS[n]}}
         for n in KERNEL_KEYS if n in RESULTS
     ]}

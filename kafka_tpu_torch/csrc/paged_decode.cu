@@ -14,15 +14,33 @@
 // Design, and what differs from the TPU kernel:
 // * GQA is indexed directly (kv head = q head / G).  The TPU kernel's
 //   block-diagonal q expansion existed only for Mosaic's lane tiling.
-// * B is small at decode, so a (sequence, kv head) grid alone leaves most
-//   of the 132 SMs idle.  The valid window is split into `n_splits` token
-//   ranges (a third grid axis); each block writes its unnormalised partial
-//   (m, l, acc) and a second, tiny kernel combines the splits.  With one
-//   split the first kernel writes the output itself.
-// * Inside a block each warp walks its share of the tokens; a lane holds
-//   D/32 elements of the G query rows that share the kv head, so one
-//   coalesced K row load serves all G heads.  The warps' partial softmax
-//   states are merged through shared memory.
+// * Work is cut into fixed chunks of `chunk` tokens (the wrapper passes
+//   128 at page 16: 8 whole pages) across all lanes, not into equal
+//   splits per lane: a lane of 2,047 tokens gets 16 blocks per kv head and
+//   a lane of 6 tokens one, so the longest lane no longer sets the time.
+//   128 tokens is 32 KB of K and V per kv head at D 64: long enough that
+//   the merge is cheap, short enough that 8 lanes of a few hundred tokens
+//   fill the 132 SMs.  The grid enumerates (chunk, kv head) over the
+//   prefix sum of the lanes' chunk counts, kv head fastest; its length is
+//   a host-side bound (the lengths live on the device), and blocks past
+//   the last chunk exit at once.
+// * A block reads its chunk's page ids once, then stages the chunk's K and
+//   V rows for its kv head through shared memory in tiles of 32 tokens
+//   with 16-byte cp.async copies, double-buffered: tile i + 1 is in flight
+//   while tile i is computed.  Rows are padded by 16 bytes, so the
+//   per-lane 16-byte row reads of the score step hit every bank once.
+// * All G heads x 32 tokens are scored at once on the CUDA cores: a lane
+//   owns a token, a warp two heads (warp, warp + 4), and reads the token's
+//   K row once for both.  A G <= 8-row product is far too small for
+//   mma.sync or wgmma to pay off, and the work is bound by bytes, not
+//   operations.  One online-softmax rescale per tile, not per token; P.V
+//   is taken from shared memory, 16 threads per head each owning D / 16
+//   output elements.
+// * A lane with one chunk writes its rows itself; the other lanes' chunks
+//   write unnormalised f32 (m, l, acc) partials, which a second small
+//   kernel merges, a variable number per row: a row's (m, l) pairs are
+//   read once into shared memory and its acc loads are unrolled, so the
+//   merge of a 16-chunk lane waits out a few memory latencies, not 32.
 //
 // Plain C interface, loaded with ctypes; the launch error code is returned.
 
@@ -33,31 +51,54 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxG = 8;      // q heads per kv head supported
-constexpr int kWarps = 4;     // warps per block
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxG = 8;             // q heads per kv head supported
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 32;            // tokens per staged tile, one per lane
+constexpr int kPad = 8;              // bf16 padding per staged row (16 B)
+constexpr int kMaxChunkPages = 128;  // page ids a chunk may span
 
-template <int E>
-__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
-  if constexpr (E == 2) {
-    __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-    float2 f = __bfloat1622float2(v);
-    out[0] = f.x;
-    out[1] = f.y;
-  } else {
-    static_assert(E % 4 == 0, "E must be 2 or a multiple of 4");
+template <int D>
+struct Smem {
+  __nv_bfloat16 k[2][kTile][D + kPad];
+  __nv_bfloat16 v[2][kTile][D + kPad];
+  float q[kMaxG][D];       // pre-scaled by scale * log2(e)
+  float p[kMaxG][kTile];   // the tile's probabilities
+  float alpha[kMaxG];      // the tile's rescale of the running sums
+  float m[kMaxG];
+  float l[kMaxG];
+  int page[kMaxChunkPages];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; a false `valid` zero-fills the destination instead
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void bf16x8_to_f32(uint4 raw, float* out) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-    for (int i = 0; i < E; i += 4) {
-      uint2 raw = *reinterpret_cast<const uint2*>(p + i);
-      __nv_bfloat162 a = *reinterpret_cast<__nv_bfloat162*>(&raw.x);
-      __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&raw.y);
-      float2 fa = __bfloat1622float2(a);
-      float2 fb = __bfloat1622float2(b);
-      out[i] = fa.x;
-      out[i + 1] = fa.y;
-      out[i + 2] = fb.x;
-      out[i + 3] = fb.y;
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
   }
 }
 
@@ -67,136 +108,236 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// grid (B, Hkv, n_splits), block kThreads.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// chunks of one lane: its valid window cut into `chunk`-token pieces (at
+// least one, so every row is written)
+__device__ __forceinline__ int lane_chunks(int seq_len, int cap, int chunk) {
+  const int n = max(0, min(seq_len + 1, cap));
+  return max(1, (n + chunk - 1) / chunk);
+}
+
+// one head's online-softmax step over a tile; the warp's lane = token
+__device__ __forceinline__ void tile_softmax(float s, bool valid, float& m,
+                                             float& l, float* p_row,
+                                             float* alpha, int lane) {
+  s = valid ? s : kNegInf;
+  const float m_new = fmaxf(m, warp_max(s));
+  const float a = exp2f(m - m_new);
+  const float p = valid ? exp2f(s - m_new) : 0.f;
+  l = l * a + warp_sum(p);
+  m = m_new;
+  p_row[lane] = p;
+  if (lane == 0) *alpha = a;
+}
+
+// stage tokens t0 + tile * kTile .. of the chunk [t0, t1) into buffer buf;
+// rows past t1 are zero-filled
 template <int D>
-__global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
+__device__ __forceinline__ void load_tile(
+    Smem<D>& sm, const __nv_bfloat16* __restrict__ k_pool,
+    const __nv_bfloat16* __restrict__ v_pool, int t0, int t1, int tile,
+    int buf, int page_size, int HD, int kvh) {
+  constexpr int CPR = D / 8;  // 16-byte pieces of a row
+  const int base = t0 + tile * kTile;
+  for (int i = threadIdx.x; i < kTile * CPR; i += kThreads) {
+    const int tt = i / CPR;
+    const int c = (i % CPR) * 8;
+    const int t = base + tt;
+    const bool ok = t < t1;
+    size_t off = 0;
+    if (ok)
+      off = ((size_t)sm.page[(t - t0) / page_size] * page_size +
+             t % page_size) * HD + (size_t)kvh * D + c;
+    cp_async16(smem_addr(&sm.k[buf][tt][c]), k_pool + off, ok);
+    cp_async16(smem_addr(&sm.v[buf][tt][c]), v_pool + off, ok);
+  }
+}
+
+// grid (Hkv * B * max_chunks), block kThreads.
+template <int D>
+__global__ void __launch_bounds__(kThreads) paged_decode_chunk_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, Hq, D]
     const __nv_bfloat16* __restrict__ k_pool,  // [SLOTS, Hkv*D]
     const __nv_bfloat16* __restrict__ v_pool,  // [SLOTS, Hkv*D]
     const int* __restrict__ page_table,        // [B, P]
     const int* __restrict__ seq_lens,          // [B]
-    __nv_bfloat16* __restrict__ out,           // [B, Hq, D] (n_splits == 1)
-    float* __restrict__ part_acc,              // [B, Hq, n_splits, D]
-    float* __restrict__ part_ml,               // [B, Hq, n_splits, 2]
-    int G, int Hkv, int P, int page_size, int n_splits, float scale) {
-  constexpr int E = D / 32;
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int split = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+    __nv_bfloat16* __restrict__ out,           // [B, Hq, D]
+    float* __restrict__ part_acc,              // [B, max_chunks, Hq, D]
+    float* __restrict__ part_ml,               // [B, max_chunks, Hq, 2]
+    int B, int G, int Hkv, int P, int page_size, int chunk, int max_chunks,
+    float scale) {
+  __shared__ __align__(16) Smem<D> sm;
+  constexpr int E = D / 16;  // output elements a P.V thread owns
+  const int kvh = blockIdx.x % Hkv;
+  const int cap = P * page_size;
+
+  // this block's lane b and chunk j: the J-th chunk of the prefix sum
+  int J = blockIdx.x / Hkv;
+  int b = 0, n_ch = 1;
+  for (; b < B; ++b) {
+    n_ch = lane_chunks(seq_lens[b], cap, chunk);
+    if (J < n_ch) break;
+    J -= n_ch;
+  }
+  if (b == B) return;
+  const int j = J;
+  const int n_valid = max(0, min(seq_lens[b] + 1, cap));
+  const int t0 = j * chunk;                 // page-aligned
+  const int t1 = min(t0 + chunk, n_valid);  // t0 < t1 unless n_valid is 0
+  const int n_tiles = max(0, (t1 - t0 + kTile - 1) / kTile);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int Hq = Hkv * G;
   const int HD = Hkv * D;
 
-  int n_valid = seq_lens[b] + 1;  // the query sits at position seq_len
-  n_valid = max(0, min(n_valid, P * page_size));
-  const int per = (n_valid + n_splits - 1) / n_splits;
-  const int t0 = split * per;
-  const int t1 = min(t0 + per, n_valid);
+  const int n_pages = max(0, (t1 - t0 + page_size - 1) / page_size);
+  for (int i = tid; i < n_pages; i += kThreads)
+    sm.page[i] = page_table[(size_t)b * P + t0 / page_size + i];
+  const __nv_bfloat16* qb = q + ((size_t)b * Hq + (size_t)kvh * G) * D;
+  for (int i = tid; i < G * D; i += kThreads)
+    sm.q[i / D][i % D] = __bfloat162float(qb[i]) * scale * kLog2e;
+  __syncthreads();
 
-  float qr[kMaxG][E];
-  float m[kMaxG], l[kMaxG], acc[kMaxG][E];
+  // score step: heads g0 = warp and g1 = warp + 4; P.V step: head pr,
+  // elements pd..pd+E-1
+  const int g0 = warp;
+  const int g1 = warp + kWarps;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const int pr = tid / 16;
+  const int pd = (tid % 16) * E;
+  float acc[E];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      acc[g][e] = 0.f;
-      qr[g][e] = 0.f;
-    }
-    if (g < G) {
-      const __nv_bfloat16* qp =
-          q + ((size_t)b * Hq + (size_t)kvh * G + g) * D + lane * E;
-      load_bf16<E>(qp, qr[g]);
-#pragma unroll
-      for (int e = 0; e < E; ++e) qr[g][e] *= scale;
-    }
-  }
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
 
-  for (int t = t0 + warp; t < t1; t += kWarps) {
-    const int page = page_table[(size_t)b * P + t / page_size];
-    const size_t row = ((size_t)page * page_size + t % page_size) * HD +
-                       (size_t)kvh * D + lane * E;
-    float kf[E], vf[E];
-    load_bf16<E>(k_pool + row, kf);
-    load_bf16<E>(v_pool + row, vf);
+  if (n_tiles > 0)
+    load_tile<D>(sm, k_pool, v_pool, t0, t1, 0, 0, page_size, HD, kvh);
+  cp_async_commit();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < n_tiles)
+      load_tile<D>(sm, k_pool, v_pool, t0, t1, i + 1, buf ^ 1, page_size, HD,
+                   kvh);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile i has landed for every thread
+    const int nv = min(kTile, t1 - t0 - i * kTile);
+    if (g0 < G) {  // warp-uniform
+      float s0 = 0.f, s1 = 0.f;
+      const __nv_bfloat16* kr = &sm.k[buf][lane][0];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g < G) {
-        float s = 0.f;
+      for (int c = 0; c < D; c += 8) {
+        float kf[8];
+        bf16x8_to_f32(*reinterpret_cast<const uint4*>(kr + c), kf);
 #pragma unroll
-        for (int e = 0; e < E; ++e) s += qr[g][e] * kf[e];
-        s = warp_sum(s);
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = __expf(m[g] - m_new);
-        const float p = __expf(s - m_new);
-        l[g] = l[g] * alpha + p;
+        for (int e = 0; e < 8; ++e) s0 += sm.q[g0][c + e] * kf[e];
+        if (g1 < G) {
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] = acc[g][e] * alpha + p * vf[e];
-        m[g] = m_new;
+          for (int e = 0; e < 8; ++e) s1 += sm.q[g1][c + e] * kf[e];
+        }
+      }
+      tile_softmax(s0, lane < nv, m0, l0, sm.p[g0], &sm.alpha[g0], lane);
+      if (g1 < G)
+        tile_softmax(s1, lane < nv, m1, l1, sm.p[g1], &sm.alpha[g1], lane);
+    }
+    __syncthreads();  // probabilities and rescales are ready
+    if (pr < G) {
+      const float a = sm.alpha[pr];
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] *= a;
+      for (int tt = 0; tt < nv; ++tt) {
+        const float p = sm.p[pr][tt];
+        float vf[E];
+        if constexpr (E == 8) {
+          bf16x8_to_f32(*reinterpret_cast<const uint4*>(&sm.v[buf][tt][pd]),
+                        vf);
+        } else {
+          const uint2 raw = *reinterpret_cast<const uint2*>(&sm.v[buf][tt][pd]);
+          const __nv_bfloat162* h =
+              reinterpret_cast<const __nv_bfloat162*>(&raw);
+          const float2 a01 = __bfloat1622float2(h[0]);
+          const float2 a23 = __bfloat1622float2(h[1]);
+          vf[0] = a01.x;
+          vf[1] = a01.y;
+          vf[2] = a23.x;
+          vf[3] = a23.y;
+        }
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] += p * vf[e];
       }
     }
+    __syncthreads();  // buffer `buf` and the probabilities are free again
   }
 
-  // merge the warps' partial states
-  __shared__ float sm_m[kWarps][kMaxG];
-  __shared__ float sm_l[kWarps][kMaxG];
-  __shared__ float sm_acc[kWarps][kMaxG][D];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g < G) {
-      if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
-      }
-#pragma unroll
-      for (int e = 0; e < E; ++e) sm_acc[warp][g][lane * E + e] = acc[g][e];
-    }
+  if (lane == 0 && g0 < G) {
+    sm.m[g0] = m0;
+    sm.l[g0] = l0;
+  }
+  if (lane == 0 && g1 < G) {
+    sm.m[g1] = m1;
+    sm.l[g1] = l1;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
-    const int g = idx / D;
-    const int d = idx % D;
-    float M = kNegInf;
+  if (pr >= G) return;
+  const int h = kvh * G + pr;
+  if (n_ch == 1) {
+    const float inv = 1.f / fmaxf(sm.l[pr], 1e-30f);
+    __nv_bfloat16* o = out + ((size_t)b * Hq + h) * D + pd;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sm_m[w][g]);
-    float L = 0.f, A = 0.f;
+    for (int e = 0; e < E; e += 2)
+      *reinterpret_cast<__nv_bfloat162*>(o + e) =
+          __floats2bfloat162_rn(acc[e] * inv, acc[e + 1] * inv);
+    return;
+  }
+  const size_t row = ((size_t)b * max_chunks + j) * Hq + h;
+  float* pa = part_acc + row * D + pd;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c = __expf(sm_m[w][g] - M);
-      L += sm_l[w][g] * c;
-      A += sm_acc[w][g][d] * c;
-    }
-    const size_t bh = (size_t)b * Hq + (size_t)kvh * G + g;
-    if (n_splits == 1) {
-      out[bh * D + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
-    } else {
-      part_acc[(bh * n_splits + split) * D + d] = A;
-      if (d == 0) {
-        part_ml[(bh * n_splits + split) * 2] = M;
-        part_ml[(bh * n_splits + split) * 2 + 1] = L;
-      }
-    }
+  for (int e = 0; e < E; ++e) pa[e] = acc[e];
+  if (pd == 0) {
+    part_ml[row * 2] = sm.m[pr];
+    part_ml[row * 2 + 1] = sm.l[pr];
   }
 }
 
-// grid (B * Hq), block D: merge the n_splits partial states of one row.
+// grid (B * Hq), block D, max_chunks * 2 floats of dynamic shared memory:
+// merge the chunk partials of one row (lanes with one chunk were written
+// by the chunk kernel).  The row's (m, l) pairs are read once, by as many
+// threads, into shared memory; each thread then reads its element of
+// every partial's acc, unrolled so the loads overlap.
 __global__ void paged_decode_combine_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    __nv_bfloat16* __restrict__ out, int n_splits, int D) {
-  const size_t bh = blockIdx.x;
+    const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out,
+    int Hq, int D, int cap, int chunk, int max_chunks) {
+  extern __shared__ float ml[];  // [n][2]
+  const int row = blockIdx.x;
+  const int b = row / Hq;
+  const int h = row % Hq;
+  const int n = lane_chunks(seq_lens[b], cap, chunk);
+  if (n <= 1) return;
   const int d = threadIdx.x;
-  float M = kNegInf;
-  for (int s = 0; s < n_splits; ++s)
-    M = fmaxf(M, part_ml[(bh * n_splits + s) * 2]);
-  float L = 0.f, A = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const float c = __expf(part_ml[(bh * n_splits + s) * 2] - M);
-    L += part_ml[(bh * n_splits + s) * 2 + 1] * c;
-    A += part_acc[(bh * n_splits + s) * D + d] * c;
+  const size_t first = (size_t)b * max_chunks * Hq + h;
+  for (int j = d; j < n; j += blockDim.x) {
+    const size_t r = first + (size_t)j * Hq;
+    ml[2 * j] = part_ml[r * 2];
+    ml[2 * j + 1] = part_ml[r * 2 + 1];
   }
-  out[bh * D + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+  __syncthreads();
+  float M = kNegInf;
+  for (int j = 0; j < n; ++j) M = fmaxf(M, ml[2 * j]);
+  float L = 0.f, A = 0.f;
+#pragma unroll 8
+  for (int j = 0; j < n; ++j) {
+    const float c = exp2f(ml[2 * j] - M);
+    L += ml[2 * j + 1] * c;
+    A += part_acc[(first + (size_t)j * Hq) * D + d] * c;
+  }
+  out[(size_t)row * D + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
 }
 
 }  // namespace
@@ -205,12 +346,19 @@ extern "C" int kafka_paged_decode_bf16(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* seq_lens, void* out, void* part_acc,
     void* part_ml, int B, int Hq, int Hkv, int D, int P, int page_size,
-    int n_splits, float scale, void* stream) {
-  const int G = Hq / Hkv;
-  if (G < 1 || G > kMaxG || Hq % Hkv != 0 || n_splits < 1 || B < 1)
+    int chunk, float scale, void* stream) {
+  const int G = Hkv > 0 ? Hq / Hkv : 0;
+  if (G < 1 || G > kMaxG || Hq % Hkv != 0 || B < 1 || P < 1 ||
+      page_size < 1 || chunk < page_size || chunk % page_size != 0 ||
+      chunk / page_size > kMaxChunkPages)
+    return (int)cudaErrorInvalidValue;
+  const int cap = P * page_size;
+  const int max_chunks = (cap + chunk - 1) / chunk;
+  if (max_chunks * 2 * (int)sizeof(float) > 48 * 1024)  // the merge's (m, l)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  dim3 grid(B, Hkv, n_splits);
+  const long long blocks = (long long)Hkv * B * max_chunks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   auto* qp = static_cast<const __nv_bfloat16*>(q);
   auto* kp = static_cast<const __nv_bfloat16*>(k_pool);
   auto* vp = static_cast<const __nv_bfloat16*>(v_pool);
@@ -220,16 +368,20 @@ extern "C" int kafka_paged_decode_bf16(
   auto* pa = static_cast<float*>(part_acc);
   auto* pm = static_cast<float*>(part_ml);
   if (D == 64) {
-    paged_decode_split_kernel<64><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, pt, sl, op, pa, pm, G, Hkv, P, page_size, n_splits, scale);
+    paged_decode_chunk_kernel<64><<<(unsigned)blocks, kThreads, 0, st>>>(
+        qp, kp, vp, pt, sl, op, pa, pm, B, G, Hkv, P, page_size, chunk,
+        max_chunks, scale);
   } else if (D == 128) {
-    paged_decode_split_kernel<128><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, pt, sl, op, pa, pm, G, Hkv, P, page_size, n_splits, scale);
+    paged_decode_chunk_kernel<128><<<(unsigned)blocks, kThreads, 0, st>>>(
+        qp, kp, vp, pt, sl, op, pa, pm, B, G, Hkv, P, page_size, chunk,
+        max_chunks, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_splits == 1) return (int)err;
-  paged_decode_combine_kernel<<<B * Hq, D, 0, st>>>(pa, pm, op, n_splits, D);
+  if (err != cudaSuccess || max_chunks == 1) return (int)err;
+  paged_decode_combine_kernel<<<B * Hq, D, max_chunks * 2 * sizeof(float),
+                                st>>>(pa, pm, sl, op, Hq, D, cap, chunk,
+                                      max_chunks);
   return (int)cudaGetLastError();
 }

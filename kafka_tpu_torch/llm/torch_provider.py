@@ -11,10 +11,16 @@ go straight into the continuous-batching engine via the dispatch thread
   engine's radix prefix cache (the thread route passes the thread id as
   `prefix_key`, so a thread's next turn prefills only its new tokens);
 * generated text that opens a JSON object or array is buffered and parsed
-  into OpenAI tool_calls; plain text streams through immediately.
+  into OpenAI tool_calls; plain text streams through immediately;
+* `tool_choice` "required" or a named function constrains the tokens:
+  `build_tool_call_mask_fn` gives the agent loop a ToolCallMaskFn
+  (llm/constrained.py), and `stream_completion` lowers it to a compiled
+  token DFA that the engine advances on the device
+  (KAFKA_TORCH_GRAMMAR_ONDEVICE, on by default); the mask fn stays on the
+  request as the host-mask fallback.
 
-Images, constrained decoding, data-parallel replicas and resizing wait for
-later slices of the port.
+Images, data-parallel replicas and resizing wait for later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -36,6 +42,11 @@ from ..models.config import ModelConfig
 from ..models.tokenizer import BaseTokenizer, parse_tool_call_text
 from ..runtime.engine import GenRequest, InferenceEngine, TokenEvent
 from .base import LLMProvider, MessageLike, to_message_dicts
+from .constrained import (
+    build_tool_call_mask_fn,
+    compile_grammar_for_mask_fn,
+    grammar_ondevice_enabled,
+)
 from .worker import EngineWorker
 
 
@@ -138,7 +149,21 @@ class TorchLLMProvider(LLMProvider):
             "supports_streaming": True,
             "device": str(self.engine.device),
             "attention_backend": self.model_cfg.attention_backend,
+            # on-device grammar FSM for constrained tool-call decoding
+            # (KAFKA_TORCH_GRAMMAR_ONDEVICE; llm/constrained.py)
+            "grammar_ondevice": grammar_ondevice_enabled(),
         }
+
+    def build_tool_call_mask_fn(
+        self,
+        tools: Optional[List[Dict[str, Any]]],
+        tool_choice: Any = "required",
+    ):
+        """Constrained decoding over the local sampler (llm/constrained.py):
+        the returned fn plugs into GenRequest.logits_mask_fn and forces
+        schema-valid tool-call JSON."""
+        return build_tool_call_mask_fn(self.tokenizer, tools or [],
+                                       tool_choice)
 
     def get_available_models(self) -> List[Dict[str, Any]]:
         return [{"id": self.model_name, "object": "model",
@@ -155,6 +180,7 @@ class TorchLLMProvider(LLMProvider):
         top_k: int = 0,
         seed: Optional[int] = None,
         prefix_key: Optional[str] = None,
+        logits_mask_fn=None,
         **kwargs: Any,
     ) -> AsyncIterator[StreamChunk]:
         self.validate_messages(messages)
@@ -167,6 +193,17 @@ class TorchLLMProvider(LLMProvider):
         if len(prompt_ids) > self.max_prompt_tokens:
             raise ContextLengthError(len(prompt_ids), self.max_prompt_tokens,
                                      self.provider_name)
+        # the on-device grammar FSM: the mask lowered to a token DFA the
+        # engine advances inside its decode and verify steps.  Cached per
+        # (tokenizer, schema, vocab); large-vocab schemas compile on a
+        # background worker and serve through the host mask until the
+        # table lands.  None (disabled, a custom mask fn, an uncompilable
+        # grammar) keeps the host mask path.
+        grammar = None
+        if logits_mask_fn is not None:
+            grammar = await asyncio.to_thread(
+                compile_grammar_for_mask_fn, logits_mask_fn,
+                self.model_cfg.vocab_size)
         completion_id = new_completion_id()
         model_id = model or self.model_name
         req = GenRequest(
@@ -179,6 +216,8 @@ class TorchLLMProvider(LLMProvider):
             seed=seed if seed is not None else 0,
             stop_token_ids=tuple(self.tokenizer.stop_ids),
             prefix_key=prefix_key,
+            logits_mask_fn=logits_mask_fn,
+            grammar=grammar,
         )
         events = self.worker.submit(req, asyncio.get_running_loop())
 

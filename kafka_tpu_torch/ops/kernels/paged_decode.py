@@ -16,7 +16,7 @@ import torch
 
 from ..attention import causal_attention
 from . import build
-from .common import check_pool_args, num_sms, stream_ptr
+from .common import check_pool_args, stream_ptr
 
 
 def paged_decode_attention_plain(
@@ -52,11 +52,14 @@ def paged_decode_attention_plain(
     return out[:, 0]
 
 
-def _num_splits(B: int, Hkv: int, device: torch.device) -> int:
-    """Split the window so the grid covers ~2 blocks per SM (B is small at
-    decode; a (sequence, kv head) grid alone leaves most SMs idle)."""
-    blocks = B * Hkv
-    return max(1, min(16, -(-2 * num_sms(device) // blocks)))
+# tokens per chunk of work (csrc/paged_decode.cu): whole pages, ~128 tokens
+CHUNK_TOKENS = 128
+
+
+def chunk_tokens(page_size: int) -> int:
+    """The kernel's chunk: the whole pages that make ~CHUNK_TOKENS tokens
+    (one page where a page is longer)."""
+    return page_size * max(1, CHUNK_TOKENS // page_size)
 
 
 def paged_decode_attention(
@@ -92,21 +95,19 @@ def paged_decode_attention(
             f"paged decode kernel takes D in (64, 128) and <= 8 q heads per "
             f"kv head; got Hq={Hq} Hkv={Hkv} D={D}")
     P = page_table.shape[1]
-    n_splits = _num_splits(B, Hkv, q.device)
+    chunk = chunk_tokens(page_size)
+    max_chunks = -(-P * page_size // chunk)
     out = torch.empty_like(q)
-    if n_splits > 1:
-        part_acc = torch.empty((B, Hq, n_splits, D), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B, Hq, n_splits, 2), dtype=torch.float32,
-                              device=q.device)
-    else:
-        part_acc = part_ml = out  # unused by the one-split launch
+    part_acc = torch.empty((B, max_chunks, Hq, D), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, max_chunks, Hq, 2), dtype=torch.float32,
+                          device=q.device)
     lib = build.load("paged_decode")
     rc = lib.kafka_paged_decode_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(),
-        B, Hq, Hkv, D, P, page_size, n_splits,
+        B, Hq, Hkv, D, P, page_size, chunk,
         float(D ** -0.5 if scale is None else scale), stream_ptr(q.device),
     )
     if rc != 0:

@@ -8,7 +8,10 @@ and position — reproducible under preemption and re-batching, the JAX
 package's per-(seed, position) contract (kafka_tpu/runtime/engine.py,
 fold_in(key(seed), position)).  The bits differ from JAX's threefry, so
 sampled streams are held to determinism within the port, not to JAX's
-tokens.  The grammar-mask functions wait for the grammar slice.
+tokens.  `grammar_allowed_mask` / `grammar_advance` are the on-device
+grammar FSM's mask and step (kafka_tpu/ops/sampling.py:132-187): gathers
+over the compiled tables (llm/constrained.py), plain PyTorch on device
+tensors — the JAX package has no kernel for them either.
 """
 
 from __future__ import annotations
@@ -98,6 +101,63 @@ def draw_seed(seed: int, position: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
     return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
+
+
+def grammar_allowed_mask(
+    fsm_state: torch.Tensor,
+    fsm_g: torch.Tensor,
+    budget_left: torch.Tensor,
+    active: torch.Tensor,
+    token_class: torch.Tensor,
+    trans: torch.Tensor,
+    dist: torch.Tensor,
+    wrap_slack: torch.Tensor,
+) -> torch.Tensor:
+    """[B, V] bool allowed mask from per-lane device FSM states.
+
+    fsm_state [B] (-1 = unconstrained lane), fsm_g [B] grammar index,
+    budget_left [B] remaining token budget, active [B] bool, token_class
+    [G, V], trans [S, C] (-1 illegal), dist [S] shortest tokens-to-done,
+    wrap_slack [] (all int tensors on one device).  Constrained lanes
+    within `wrap_slack` tokens of their shortest close restrict to
+    distance-decreasing transitions (on-device wrap-up) so a bounded
+    generation still parses; a wrap window with no such move degrades to
+    the legal set.  Unconstrained and inactive lanes get all-True rows,
+    which leave the sampler's logits bit-identical to an unmasked call.
+    """
+    S = trans.shape[0]
+    on = (fsm_state >= 0) & active
+    s = fsm_state.long().clamp(0, S - 1)
+    row = trans.index_select(0, s)                       # [B, C]
+    legal = row >= 0
+    nd = dist[row.long().clamp(0, S - 1)]                # [B, C]
+    d = dist.index_select(0, s)[:, None]                 # [B, 1]
+    wrap = budget_left[:, None] <= d + wrap_slack
+    keep = legal & (~wrap | (nd < d))
+    keep = torch.where(keep.any(dim=-1, keepdim=True), keep, legal)
+    tc = token_class.index_select(0, fsm_g.long())       # [B, V]
+    mask = torch.take_along_dim(keep, tc.long(), dim=1)  # [B, V]
+    return torch.where(on[:, None], mask, torch.ones_like(mask))
+
+
+def grammar_advance(
+    fsm_state: torch.Tensor,
+    fsm_g: torch.Tensor,
+    tokens: torch.Tensor,
+    active: torch.Tensor,
+    token_class: torch.Tensor,
+    trans: torch.Tensor,
+) -> torch.Tensor:
+    """Advance each lane's FSM state by one sampled token ([B]).  Inactive
+    and unconstrained lanes keep their state; an illegal token (reachable
+    only through the over-tight degrade path) parks the lane at the -1
+    unconstrained sentinel instead of indexing garbage."""
+    S = trans.shape[0]
+    on = (fsm_state >= 0) & active
+    tc = token_class.index_select(0, fsm_g.long())       # [B, V]
+    cls = torch.take_along_dim(tc, tokens.long()[:, None], dim=1)[:, 0]
+    nxt = trans[fsm_state.long().clamp(0, S - 1), cls.long()]
+    return torch.where(on, nxt, fsm_state)
 
 
 def sample_tokens_per_slot(

@@ -30,6 +30,16 @@ scheduler keeps the JAX engine's semantics:
   all, every position is sampled with the sequential path's own
   (seed, position) draw, and the longest matching run plus the bonus
   token is emitted, so the stream is the one plain decode would give;
+* a request with a `logits_mask_fn` (llm/constrained.ToolCallMaskFn, the
+  provider's tool_choice mask) is constrained: with its compiled
+  `grammar` (the same automaton lowered to a token DFA) the lane carries
+  a device FSM state that masks and advances inside the decode and verify
+  steps (`grammar_allowed_mask` / `grammar_advance`); without one, or
+  when the grammar cannot register or its replay stops validating, the
+  lane takes the host mask path: a [1, V] row from
+  `logits_mask_fn(output_ids)` per token.  Device-FSM lanes speculate
+  (the verify step masks each position with the state reached through
+  the candidate prefix); host-masked lanes do not;
 * when the pool runs out of pages mid-decode the youngest request is
   rolled back to the waiting queue (re-prefilled later over prompt +
   generated-so-far; its resumed prefill's token is the deterministic
@@ -39,9 +49,11 @@ scheduler keeps the JAX engine's semantics:
 What the port does differently: PyTorch runs eagerly, so there are no
 compiled step programs, and the sampled tokens are fetched synchronously
 at each dispatch (the JAX engine's fetch_lag pipeline, multi-step fusion,
-off-slot parking, KV tiers, grammar FSM, flight recorder and metrics wait
-for later slices; multi_step=1 in the JAX engine is token-identical,
-engine.py:1450-1455).  Requests therefore never sit in a draining state:
+off-slot parking, KV tiers, flight recorder and metrics wait for later
+slices; multi_step=1 in the JAX engine is token-identical,
+engine.py:1450-1455).  For constrained lanes this means the host mask
+needs no singleton-mask chaining (`predicted`): every mask row is built
+from complete output_ids.  Requests therefore never sit in a draining state:
 a token is processed in the step that produced it.  For speculation this
 means a verify step is accepted and emitted in the step that ran it: the
 JAX engine's in-flight verify bookkeeping (`spec_ahead`, device-side
@@ -54,7 +66,7 @@ import dataclasses
 import itertools
 import logging
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,7 +75,12 @@ from ..device import DeviceLike, resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, PagedView, forward, params_to
 from ..ops.kernels.paged_verify import MAX_ROWS as MAX_VERIFY_ROWS
-from ..ops.sampling import SamplingParams, sample_tokens_per_slot
+from ..ops.sampling import (
+    SamplingParams,
+    grammar_advance,
+    grammar_allowed_mask,
+    sample_tokens_per_slot,
+)
 from .kv_cache import (
     OutOfPagesError,
     PagePool,
@@ -191,6 +208,118 @@ class GenRequest:
     usage_cached_tokens: Optional[int] = None
     # n-gram proposer (EngineConfig.speculative_k > 0), built at submit
     spec: Optional[LaneSpeculator] = None
+    # constrained decoding: fn(output_ids) -> allowed token id list or None
+    logits_mask_fn: Optional[Callable[[List[int]], Optional[List[int]]]] = None
+    # the on-device grammar FSM (llm/constrained.CompiledGrammar) of the
+    # same mask: the lane's automaton state is masked and advanced inside
+    # the decode and verify steps.  logits_mask_fn stays attached as the
+    # fallback: a grammar that cannot register or whose replay stops
+    # validating degrades the lane to the host mask path.  None = host
+    # mask path.
+    grammar: Optional[Any] = None
+    # over-tight mask rows log once per request (the counter counts all)
+    overtight_logged: bool = False
+
+
+class _GrammarTables:
+    """Device residency for registered CompiledGrammar artifacts
+    (kafka_tpu/runtime/engine.py:520-628).
+
+    All live grammars share ONE padded table set so a mixed batch takes a
+    single mask/advance: per-grammar transition blocks are concatenated
+    along the state axis (entries offset at registration, so a lane's
+    absolute int32 state addresses the combined [S, C] array) and
+    token-class rows stack into [G, V].  Registration is append-only —
+    offsets never move, so in-flight lanes' device states stay valid
+    across registrations; shapes grow geometrically, as in the reference.
+    A full registry (MAX_LIVE), a vocab mismatch or a table set over the
+    KAFKA_TORCH_GRAMMAR_TABLE_MB budget returns None and the request
+    degrades to the host mask path.
+    """
+
+    MAX_LIVE = 8
+    MIN_STATE_PAD = 256
+
+    def __init__(self, vocab_size: int, device: torch.device):
+        self.vocab_size = vocab_size
+        self.device = device
+        self.grammars: List[Any] = []
+        self.offsets: List[int] = []
+        self._total_states = 0
+        # device tensors (padded); None until the first registration
+        self.token_class: Optional[torch.Tensor] = None  # [G_pad, V] int32
+        self.trans: Optional[torch.Tensor] = None        # [S_pad, C_pad]
+        self.dist: Optional[torch.Tensor] = None         # [S_pad] int32
+        self.slack: Optional[torch.Tensor] = None        # [] int32
+
+    def register(self, grammar) -> Optional[int]:
+        """Index of `grammar` in the table set (registering if new); None
+        when it cannot register."""
+        from ..llm.constrained import _grammar_table_cap_bytes
+
+        for i, g in enumerate(self.grammars):
+            if g is grammar:
+                return i
+        if len(self.grammars) >= self.MAX_LIVE:
+            return None
+        if grammar.vocab_size != self.vocab_size:
+            return None
+        if self._padded_bytes(
+            self._total_states + grammar.num_states,
+            max([grammar.num_classes] + [g.num_classes
+                                         for g in self.grammars]),
+            len(self.grammars) + 1,
+        ) > _grammar_table_cap_bytes():
+            return None
+        self.grammars.append(grammar)
+        self.offsets.append(self._total_states)
+        self._total_states += grammar.num_states
+        self._rebuild()
+        return len(self.grammars) - 1
+
+    def _padded_bytes(self, total_states: int, max_classes: int,
+                      n_grammars: int) -> int:
+        """Device bytes of the padded table set for a prospective shape."""
+        S_pad = self._pad(total_states, self.MIN_STATE_PAD)
+        C_pad = self._pad(max_classes, 32)
+        G_pad = self._pad(n_grammars, 1)
+        return 4 * (G_pad * self.vocab_size + S_pad * C_pad + S_pad)
+
+    @staticmethod
+    def _pad(n: int, lo: int) -> int:
+        p = lo
+        while p < n:
+            p *= 2
+        return p
+
+    def _rebuild(self) -> None:
+        S_pad = self._pad(self._total_states, self.MIN_STATE_PAD)
+        C_pad = self._pad(max(g.num_classes for g in self.grammars), 32)
+        G_pad = self._pad(len(self.grammars), 1)
+        tc = np.zeros((G_pad, self.vocab_size), np.int32)
+        trans = np.full((S_pad, C_pad), -1, np.int32)
+        # padded/unreachable states read as "far from done" so wrap-up
+        # never engages on them
+        dist = np.full(S_pad, 1 << 20, np.int32)
+        for gi, (g, off) in enumerate(zip(self.grammars, self.offsets)):
+            tc[gi] = g.token_class
+            block = g.trans.copy()
+            block[block >= 0] += off
+            trans[off:off + g.num_states, : g.num_classes] = block
+            dist[off:off + g.num_states] = g.dist
+        dev = self.device
+        self.token_class = torch.from_numpy(tc).to(dev)
+        self.trans = torch.from_numpy(trans).to(dev)
+        self.dist = torch.from_numpy(dist).to(dev)
+        # conservative across grammars: extra slack engages wrap earlier
+        # but never breaks closure
+        self.slack = torch.tensor(max(g.wrap_slack for g in self.grammars),
+                                  dtype=torch.int32, device=dev)
+
+    def args(self) -> Tuple[torch.Tensor, ...]:
+        """(token_class, trans, dist, slack): grammar_allowed_mask's
+        table arguments."""
+        return (self.token_class, self.trans, self.dist, self.slack)
 
 
 @dataclasses.dataclass
@@ -288,6 +417,22 @@ class InferenceEngine:
         self.speculation_proposed_tokens = 0
         self.speculation_accepted_tokens = 0
         self.verify_steps = 0
+        # on-device grammar FSM lanes: per-slot automaton state (-1 =
+        # unconstrained), grammar index into the shared table set, and
+        # remaining token budget, all on the device and advanced there
+        self._grammars = _GrammarTables(cfg.vocab_size, self.device)
+        self._fsm = torch.full((B,), -1, dtype=torch.int32,
+                               device=self.device)
+        self._fsm_g = torch.zeros(B, dtype=torch.int32, device=self.device)
+        self._budget = torch.zeros(B, dtype=torch.int32, device=self.device)
+        # constrained-decoding counters: tokens emitted by device-FSM
+        # lanes, host mask rows built from logits_mask_fn, over-tight
+        # rows (no allowed token: the sampler degrades the row to
+        # unconstrained), and lanes degraded from the FSM to the host mask
+        self.constrained_ondevice_tokens = 0
+        self.constrained_host_mask_steps = 0
+        self.constrained_mask_overtight = 0
+        self.constrained_degrades = 0
 
     # ------------------------------------------------------------------
     # public API
@@ -309,10 +454,24 @@ class InferenceEngine:
             req.max_new_tokens = self.ecfg.max_new_tokens_default
         if len(req.prompt_ids) + req.max_new_tokens > limit:
             req.max_new_tokens = max(1, limit - len(req.prompt_ids))
+        if req.grammar is not None and (
+                getattr(req.grammar, "vocab_size", None)
+                != self.cfg.vocab_size):
+            # an artifact compiled for another model's vocab cannot index
+            # this engine's tables: host mask path
+            req.grammar = None
+        if req.logits_mask_fn is not None and hasattr(
+                req.logits_mask_fn, "set_budget"):
+            # constrained decoding: tell the mask the post-clamp budget so
+            # it can wrap the JSON up before tokens run out
+            req.logits_mask_fn.set_budget(req.max_new_tokens)
         req.prefill_ids = list(req.prompt_ids)
-        if self.ecfg.speculative_k > 0 and req.spec is None:
-            # every lane of this slice is unconstrained (the grammar FSM
-            # has not been ported), so every lane may speculate
+        if self.ecfg.speculative_k > 0 and req.spec is None and (
+                req.logits_mask_fn is None or req.grammar is not None):
+            # free lanes and device-FSM lanes speculate (the verify step
+            # masks every position with the FSM state reached through the
+            # candidate prefix); host-masked lanes do not, their masks
+            # need a host turnaround per token
             req.spec = LaneSpeculator(req.prompt_ids)
         req.submit_time = time.monotonic()
         req.state = WAITING
@@ -448,6 +607,7 @@ class InferenceEngine:
                                      finish_reason="error:engine"))
         self.waiting.sort(key=lambda r: r.submit_time)
         self._ctl_dirty = True
+        self._fsm.fill_(-1)
         problems = self.self_check(repair=True)
         if problems:
             logger.error("post-failure self-check repaired %d problem(s): %s",
@@ -663,7 +823,8 @@ class InferenceEngine:
         req.seq.length = start + chunk_len
         if req.seq.length < len(prompt):
             return  # more chunks to go; decode proceeds meanwhile
-        tok = self._sample(logits[:, 0], [req], [start + chunk_len - 1])[0]
+        tok = self._sample(logits[:, 0], [req], [start + chunk_len - 1],
+                           allowed=self._prefill_masks([req]))[0]
         self._finish_prefill(req, tok)
 
     def _advance_prefill_batch(self, bucket: int, reqs: List[GenRequest],
@@ -713,9 +874,11 @@ class InferenceEngine:
                 done.append(i)
         if not done:
             return
+        finished = [reqs[i] for i in done]
         toks = self._sample(
-            logits[done, 0], [reqs[i] for i in done],
-            [int(starts[i] + lens[i] - 1) for i in done])
+            logits[done, 0], finished,
+            [int(starts[i] + lens[i] - 1) for i in done],
+            allowed=self._prefill_masks(finished))
         for i, tok in zip(done, toks):
             self._finish_prefill(reqs[i], tok)
 
@@ -729,9 +892,12 @@ class InferenceEngine:
             req.resumed = False
             if req.logits:
                 req.logits.pop()
-            return
-        req.dispatched += 1
-        self._process_token(req, tok, self._limit_reason_after_dispatch(req))
+        else:
+            req.dispatched += 1
+            self._process_token(req, tok,
+                                self._limit_reason_after_dispatch(req))
+        if req.state == ACTIVE:
+            self._set_fsm_lane(req)
 
     def _limit_reason_after_dispatch(self, req: GenRequest) -> Optional[str]:
         if req.dispatched >= req.max_new_tokens:
@@ -743,6 +909,8 @@ class InferenceEngine:
     def _process_token(self, req: GenRequest, token: int,
                        final_reason: Optional[str]) -> None:
         req.output_ids.append(token)
+        if req.grammar is not None:
+            self.constrained_ondevice_tokens += 1
         if req.spec is not None:
             req.spec.push(token)  # keep the n-gram index tail-accurate
         if req.first_token_time is None:
@@ -825,13 +993,13 @@ class InferenceEngine:
             lens[i], last[i], active[i] = n, m.output_ids[-1], True
             write[i] = m.seq.pages[n // ps] * ps + n % ps
         d_lens = torch.from_numpy(lens).to(dev)
+        d_active = torch.from_numpy(active).to(dev)
         kv_pos = torch.arange(C, device=dev).expand(B, C)
         paged = PagedView(
             write_idx=torch.from_numpy(write[:, None]).to(dev),
             read_idx=None,
             kv_positions=kv_pos,
-            kv_valid=(kv_pos <= d_lens.long()[:, None])
-            & torch.from_numpy(active).to(dev)[:, None],
+            kv_valid=(kv_pos <= d_lens.long()[:, None]) & d_active[:, None],
             page_table=table,
             seq_lens=d_lens,
             page_size=ps,
@@ -842,8 +1010,25 @@ class InferenceEngine:
             paged=paged,
         )
         idx = [i for i, m in enumerate(members) if m is not None]
-        return self._sample(logits[idx, 0], [members[i] for i in idx],
-                            [int(lens[i]) for i in idx])
+        fsm = any(members[i].grammar is not None for i in idx)
+        mask = None
+        if fsm:
+            # device-FSM lanes: mask from each lane's state (all-True rows
+            # for the others), then advance by the sampled token
+            mask = grammar_allowed_mask(self._fsm, self._fsm_g, self._budget,
+                                        d_active, *self._grammars.args())
+        mask = self._host_rows(mask, [(i, members[i]) for i in idx])
+        toks = self._sample(logits[idx, 0], [members[i] for i in idx],
+                            [int(lens[i]) for i in idx],
+                            allowed=None if mask is None else mask[idx])
+        if fsm:
+            full = np.zeros(B, np.int64)
+            full[idx] = toks
+            self._fsm = grammar_advance(
+                self._fsm, self._fsm_g, torch.from_numpy(full).to(dev),
+                d_active, self._grammars.token_class, self._grammars.trans)
+            self._budget = self._budget - d_active.int()
+        return toks
 
     # ------------------------------------------------------------------
     # speculative decoding
@@ -878,7 +1063,7 @@ class InferenceEngine:
         ecfg = self.ecfg
         proposals: Dict[int, List[int]] = {}
         for s in live:
-            if s.spec is None:
+            if s.spec is None or self._host_constrained(s):
                 continue
             room = min(ecfg.speculative_k,
                        s.max_new_tokens - s.dispatched - 1,
@@ -957,11 +1142,40 @@ class InferenceEngine:
         self.verify_steps += 1
         # sample only the rows acceptance can read: 0..cand_len per lane
         rows = [(s, j) for s in live for j in range(int(q_lens[s.slot]))]
-        flat = logits[[s.slot for s, _ in rows], [j for _, j in rows]]
+        slots = [s.slot for s, _ in rows]
+        flat = logits[slots, [j for _, j in rows]]
+        d_active = torch.from_numpy(active).to(dev)
+        fsm = any(s.grammar is not None for s in live)
+        mask = states = None
+        if fsm:
+            # the FSM state BEFORE each position: states[:, j] is the
+            # automaton after the first j candidates (what sequential
+            # decode would thread); position j is masked with budget
+            # budget - j.  Positions past cand_len walk candidates that
+            # acceptance never reads.
+            tc, trans, _, _ = self._grammars.args()
+            cands = torch.from_numpy(toks[:, 1:]).to(dev)
+            sts = [self._fsm]
+            for j in range(S - 1):
+                sts.append(grammar_advance(sts[-1], self._fsm_g, cands[:, j],
+                                           d_active, tc, trans))
+            states = torch.stack(sts, dim=1)                     # [B, S]
+            per_pos = torch.stack([
+                grammar_allowed_mask(sts[j], self._fsm_g, self._budget - j,
+                                     d_active, *self._grammars.args())
+                for j in range(S)], dim=1)                       # [B, S, V]
+            mask = per_pos[slots, [j for _, j in rows]]
+        # host-masked lanes ride with no candidates: one row each
+        mask = self._host_rows(
+            mask, [(r, s) for r, (s, j) in enumerate(rows)
+                   if j == 0 and self._host_constrained(s)], n=len(rows))
         samples = self._sample(flat, [s for s, _ in rows],
                                [int(lens[s.slot]) + j for s, j in rows],
-                               keep=False)
+                               keep=False, allowed=mask)
         at = 0
+        runs = []
+        accepted = np.zeros(B, np.int64)
+        bonus = np.zeros(B, np.int64)
         for s in live:
             cands = proposals.get(s.slot, [])
             row = samples[at:at + len(cands) + 1]
@@ -974,7 +1188,21 @@ class InferenceEngine:
                 self.speculation_proposed_tokens += len(cands)
                 self.speculation_accepted_tokens += m
                 s.spec.observe(m, len(cands))
-            self._emit_run(s, row[:m + 1], kept[:m + 1])
+            accepted[s.slot], bonus[s.slot] = m, row[m]
+            runs.append((s, row[:m + 1], kept[:m + 1]))
+        if fsm:
+            # rejected-tail FSM rollback: the lane keeps the state reached
+            # through its accepted candidates, advanced by the bonus token
+            # (the mirror of the seq.length rollback)
+            d_m = torch.from_numpy(accepted).to(dev)
+            s_m = states.gather(1, d_m[:, None])[:, 0]
+            self._fsm = grammar_advance(
+                s_m, self._fsm_g, torch.from_numpy(bonus).to(dev), d_active,
+                self._grammars.token_class, self._grammars.trans)
+            self._budget = self._budget - torch.where(
+                d_active, d_m + 1, torch.zeros_like(d_m)).int()
+        for s, run, kept in runs:
+            self._emit_run(s, run, kept)
 
     def _emit_run(self, req: GenRequest, run: List[int],
                   logits: torch.Tensor) -> None:
@@ -999,9 +1227,11 @@ class InferenceEngine:
                 return
 
     def _sample(self, logits: torch.Tensor, reqs: Sequence[GenRequest],
-                positions: Sequence[int], keep: bool = True) -> List[int]:
+                positions: Sequence[int], keep: bool = True,
+                allowed: Optional[torch.Tensor] = None) -> List[int]:
         """Sample one token per row; row i draws at (seed, positions[i]).
-        keep=False leaves EngineConfig.keep_logits to the caller."""
+        keep=False leaves EngineConfig.keep_logits to the caller; allowed
+        [rows, V] bool is the constrained-decoding mask (None: free)."""
         dev = logits.device
         params = SamplingParams(
             temperature=torch.tensor([r.temperature for r in reqs],
@@ -1012,12 +1242,133 @@ class InferenceEngine:
                                device=dev),
         )
         toks = sample_tokens_per_slot(logits, params,
-                                      [r.seed for r in reqs], positions)
+                                      [r.seed for r in reqs], positions,
+                                      allowed_mask=allowed)
         if self.ecfg.keep_logits and keep:
             host = logits.float().cpu()
             for i, r in enumerate(reqs):
                 r.logits.append(host[i])
         return [int(t) for t in toks.tolist()]
+
+    # ------------------------------------------------------------------
+    # constrained decoding
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _host_constrained(req: GenRequest) -> bool:
+        """Does this lane take the host mask path?  Device-FSM lanes are
+        masked and advanced on the device instead."""
+        return req.logits_mask_fn is not None and req.grammar is None
+
+    def _set_fsm_lane(self, req: GenRequest) -> None:
+        """Seed the lane's device FSM state and budget as it joins the
+        decode batch (prefill finish, resume after preemption): free lanes
+        park the slot at -1; grammar lanes replay their output through
+        the compiled table.  A grammar that cannot register or a replay
+        that stops validating degrades the lane to the host mask path."""
+        slot = req.slot
+        if req.grammar is None:
+            self._fsm[slot] = -1
+            return
+        g_idx = self._grammars.register(req.grammar)
+        state = req.grammar.walk(req.output_ids) if g_idx is not None else -1
+        if state < 0:
+            self._degrade(req, "cannot register" if g_idx is None
+                          else "replay stopped validating")
+            self._fsm[slot] = -1
+            return
+        self._fsm[slot] = self._grammars.offsets[g_idx] + state
+        self._fsm_g[slot] = g_idx
+        self._budget[slot] = req.max_new_tokens - req.dispatched
+
+    def _degrade(self, req: GenRequest, why: str) -> None:
+        logger.warning("grammar for %s: %s; degrading to the host mask path",
+                       req.request_id, why)
+        req.grammar = None
+        self.constrained_degrades += 1
+
+    def _prefill_masks(self, reqs: Sequence[GenRequest]
+                       ) -> Optional[torch.Tensor]:
+        """[len(reqs), V] mask for the tokens a prefill samples, None when
+        no lane is constrained.  Grammar lanes take their compiled row at
+        the state their output replays to, under the decode step's
+        wrap-up rule; host-masked lanes call their mask fn."""
+        rows: List[Optional[np.ndarray]] = []
+        for req in reqs:
+            row = None
+            if req.grammar is not None:
+                state = req.grammar.walk(req.output_ids)
+                if state >= 0:
+                    row = req.grammar.allowed_row(
+                        state,
+                        budget_left=req.max_new_tokens - req.dispatched)
+                else:
+                    self._degrade(req, "replay stopped validating at prefill")
+            if row is None and self._host_constrained(req):
+                row = self._host_mask_row(req)
+            rows.append(row)
+        if all(r is None for r in rows):
+            return None
+        V = self.cfg.vocab_size
+        return torch.from_numpy(np.stack(
+            [np.ones(V, bool) if r is None else r for r in rows])
+        ).to(self.device)
+
+    def _host_rows(self, mask: Optional[torch.Tensor],
+                   lanes: Sequence[Tuple[int, GenRequest]],
+                   n: Optional[int] = None) -> Optional[torch.Tensor]:
+        """Write the host mask rows of the host-masked lanes among
+        `lanes` ((row, request) pairs) into `mask` ([n or max_batch, V],
+        created all-True when None).  Returns the mask, None when no row
+        constrains."""
+        for i, req in lanes:
+            if not self._host_constrained(req):
+                continue
+            row = self._host_mask_row(req)
+            if row is None:
+                continue
+            if mask is None:
+                mask = torch.ones((n or self.ecfg.max_batch,
+                                   self.cfg.vocab_size), dtype=torch.bool,
+                                  device=self.device)
+            mask[i] = torch.from_numpy(row).to(self.device)
+        return mask
+
+    def _host_mask_row(self, req: GenRequest) -> Optional[np.ndarray]:
+        """[V] bool row from the lane's mask fn over its complete output
+        (None: this step is free).  Ids outside the model vocab are
+        dropped; a raising mask fn degrades the lane to unconstrained."""
+        try:
+            allowed = req.logits_mask_fn(req.output_ids)
+        except Exception:
+            logger.exception("logits_mask_fn failed for %s; degrading the "
+                             "lane to unconstrained", req.request_id)
+            req.logits_mask_fn = None
+            return None
+        if allowed is None:
+            return None
+        self.constrained_host_mask_steps += 1
+        ids = np.asarray(allowed, np.int64)
+        ids = ids[(ids >= 0) & (ids < self.cfg.vocab_size)]
+        if len(ids) == 0:
+            self._record_overtight(req)
+        row = np.zeros(self.cfg.vocab_size, bool)
+        row[ids] = True
+        return row
+
+    def _record_overtight(self, req: GenRequest) -> None:
+        """An over-tight mask row (no token allowed): the sampler degrades
+        it to unconstrained.  Counted every time, logged once per
+        request."""
+        self.constrained_mask_overtight += 1
+        if req.overtight_logged:
+            return
+        req.overtight_logged = True
+        fn = req.logits_mask_fn
+        desc = fn.state_desc() if hasattr(fn, "state_desc") else "?"
+        logger.warning("over-tight constrained mask for %s (state %s): the "
+                       "sampler degrades this row to unconstrained",
+                       req.request_id, desc)
 
     def _ensure_pages(self, req: GenRequest) -> None:
         """Grow req's pages for one more token.  Under pressure, evict
@@ -1049,6 +1400,7 @@ class InferenceEngine:
         """Free a request's batch slot and pages."""
         if req.slot >= 0:
             self.slots[req.slot] = None
+            self._fsm[req.slot] = -1  # the next occupant starts free
             req.slot = -1
             self._ctl_dirty = True
         if req.seq is not None:

@@ -422,17 +422,42 @@ class TestCudaKernels:
         assert (diff <= 2e-2 + 2.0 ** -7 * want.float().abs()).all(), \
             diff.max().item()
 
-    def test_paged_decode_kernel(self, cuda):
-        q, kp, vp, table, lens = make_decode_case(0, 8, 32, 16, 32, 8, 64,
-                                                  8 * 32 + 1)
+    @pytest.mark.parametrize("case", [
+        "ragged", "long", "short", "boundaries", "G8", "G1", "D128"])
+    def test_paged_decode_kernel(self, cuda, case):
+        """The chunked kernel at each of chip_smoke.py's K1 cases: every
+        lane at 2,047 tokens, every lane <= 32 tokens in a one-chunk window,
+        windows ending on chunk and page boundaries, G 8 and G 1, and D 128;
+        held elementwise and per (row, head) (||d|| / ||plain|| <= 0.02)."""
+        Hq, Hkv, D, P, lens = {
+            "ragged": (32, 8, 64, 32, None),
+            "long": (32, 8, 64, 128, [2046] * 8),
+            "short": (32, 8, 64, 8, [0, 1, 7, 15, 16, 17, 30, 31]),
+            "boundaries": (32, 8, 64, 128,
+                           [127, 128, 126, 255, 15, 16, 1023, 2047]),
+            "G8": (64, 8, 64, 128, [15, 16, 31, 255, 511, 700, 2046, 5]),
+            "G1": (8, 8, 64, 128, [15, 16, 31, 255, 511, 700, 2046, 5]),
+            "D128": (32, 8, 128, 128, [15, 16, 31, 255, 511, 700, 2046, 5]),
+        }[case]
+        q, kp, vp, table, rand_lens = make_decode_case(
+            0, 8, P, 16, Hq, Hkv, D, 8 * P + 1)
+        if lens is not None:
+            rng = np.random.RandomState(1)
+            table = (rng.permutation(8 * P).reshape(8, P) + 1
+                     ).astype(np.int32)
+            rand_lens = np.asarray(lens, np.int32)
         args = [t(a).to(cuda) for a in (q, kp, vp)]
         args = [a.to(torch.bfloat16) for a in args] + \
-            [t(table).to(cuda), t(lens).to(cuda)]
+            [t(table).to(cuda), t(rand_lens).to(cuda)]
         before = paged_decode_attention.launches
         out = paged_decode_attention(*args, page_size=16)
         torch.cuda.synchronize()
         assert paged_decode_attention.launches == before + 1
-        self._close(out, paged_decode_attention_plain(*args, page_size=16))
+        want = paged_decode_attention_plain(*args, page_size=16)
+        self._close(out, want)
+        rel = ((out.float() - want.float()).norm(dim=-1)
+               / want.float().norm(dim=-1).clamp_min(1e-6)).max().item()
+        assert rel <= 0.02, rel
 
     def test_flash_prefill_kernel(self, cuda):
         """Short and long chunks (every block shape the launcher picks, and

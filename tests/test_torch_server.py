@@ -175,7 +175,8 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.llm, kafka_tpu_torch.kafka, kafka_tpu_torch.db, "
         "kafka_tpu_torch.agents, kafka_tpu_torch.tools, "
         "kafka_tpu_torch.server_tools, kafka_tpu_torch.prompts, "
-        "kafka_tpu_torch.llm.compaction, kafka_tpu_torch.tracing, "
+        "kafka_tpu_torch.llm.compaction, kafka_tpu_torch.llm.constrained, "
+        "kafka_tpu_torch.tracing, "
         "kafka_tpu_torch.failpoints\n"
         "bad = [m for m in sys.modules if m in ('jax', 'kafka_tpu') or "
         "m.startswith(('jax.', 'kafka_tpu.'))]\n"
