@@ -26,6 +26,17 @@ Phases, each of which raises (non-zero exit) on any failure:
                each held elementwise and per row and timed (CUDA events
                and profiler device time, SDPA's too); a planted
                dropped-chunk fault must fail the row check.
+               K3 runs at the ragged head case (S 5) and every case of
+               K3_CASES (all lanes at ~2,040 tokens, all <= 32 slots,
+               windows on chunk and page boundaries, trash lanes, G 8 at
+               S 5, G 4 at S 9 and S 17 — the speculative_k 8 and 16 of
+               fault C4 —, G 8 at S 17, D 128), K4 at K1's eight cases
+               over int8 pools (K4_CASES); each held elementwise and per
+               row (K3's rows j >= q_len must be zeros), each with a
+               planted dropped-chunk fault that must fail the row check,
+               each timed with CUDA events and with the profiler's device
+               time, the L2 warm and flushed, beside SDPA's device time
+               and the bound (K4 also at 256-token chunks).
                K2 runs at every shape of K2_CASES (the engine's and the
                agent turn's chunks, short and long, and D 128), with the
                launcher's block shape and each shape pinned, held
@@ -45,6 +56,11 @@ Phases, each of which raises (non-zero exit) on any failure:
                proposers offer the first engine's own continuation: K3
                must launch, tokens must be accepted, and the emitted
                positions' logits must agree with the spec-off engine's;
+               (a') the same at speculative_k = 8 (fault C4: 36 query rows
+               per kv head): K3 must launch, and the greedy streams must
+               equal the spec-off streams wherever the spec-off logits
+               are not a bf16 near-tie (they may part only where the two
+               tokens' margin is within twice the logits' difference);
                (b) a two-turn thread on the first engine: turn 2 must hit
                the prefix cache and prefill from past the cached pages
                (K2 at start > 0).  (c) int8 serving: the same weights
@@ -90,6 +106,13 @@ Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `{"ok": true, "device": {...}}`.  The full record also goes to
 chiprun_out/chip_smoke.json.  Without CUDA, or without the package beside
 it, the script exits non-zero and prints no result.
+
+Comparing two trees on one card: unpack the other commit (`git archive`)
+into a git-ignored directory and run, in one call,
+    python3 chip_smoke.py --phases attention --root DIR --out base.json
+    python3 chip_smoke.py --phases attention --out new.json
+(and the two again, in reverse order): both time the K3 and K4 cases on the
+same inputs (made from --seed); the first with DIR's kernels.
 """
 
 from __future__ import annotations
@@ -132,6 +155,9 @@ K5_ATOL = 0.05
 KERNEL_KEYS = ("K1", "K2", "K3", "K4", "K5", "K5_int8")
 
 RESULTS: dict = {}
+# a baseline run (--root): the kernels of another checkout, timed on the
+# same inputs; a case its wrappers refuse is recorded, not failed
+BASELINE = False
 
 
 def log(msg: str) -> None:
@@ -163,25 +189,60 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, name_part, iters: int = 20):
+def device_ms(fn, name_part, iters: int = 20, flush=None):
     """Device time per call of the CUDA kernels whose name holds
     name_part (None: of every kernel the call runs), from torch.profiler
-    (excludes the wrapper's host work)."""
+    (excludes the wrapper's host work).  flush: run before every call (an
+    L2 flush, so each call finds its inputs in device memory; its own
+    kernels must not match name_part).
+
+    Each kernel is averaged over the launches the profile caught, times
+    its launches per call: a profile may drop events (now and then all of
+    them), and a sum over the caught ones divided by `iters` reads low.
+    Profiles that dropped events are listed in RESULTS["profile_drops"]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
-        for e in prof.key_averages()
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-            if name_part is None else name_part in e.key))
-    return total_us / iters / 1e3 if total_us else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        cuda = [e for e in prof.key_averages() if e.count and
+                e.device_type == torch.autograd.DeviceType.CUDA]
+        rows = [e for e in cuda if name_part is None or name_part in e.key]
+        if not rows:  # none launched (a lane set with no merge), or lost
+            if not cuda:
+                RESULTS.setdefault("profile_drops", []).append(
+                    {"kernels": name_part, "caught": 0.0})
+            continue
+        caught = min(e.count for e in rows) / iters
+        if caught < 1:
+            RESULTS.setdefault("profile_drops", []).append(
+                {"kernels": name_part, "caught": caught})
+        return sum(
+            getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+            / e.count * max(1, round(e.count / iters)) for e in rows) / 1e3
+    return None
+
+
+_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Overwrite 128 MB, more than the H100's 50 MB L2, so the next call
+    reads its inputs from device memory (a fill kernel: no "paged_" in its
+    name)."""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(128 << 20, dtype=torch.uint8,
+                                  device="cuda"))
+    _FLUSH[0].zero_()
 
 
 def check_close(name: str, got, want) -> float:
@@ -209,13 +270,10 @@ def bound(bytes_moved: float, flops: float):
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels(seed: int) -> None:
+def phase_kernels(seed: int, only_attention: bool = False) -> None:
+    """Phase 1.  only_attention: K3 and K4 alone (their cases, timed), the
+    inputs the same as in the full phase."""
     import torch
-
-    from kafka_tpu_torch.ops.kernels import (
-        paged_verify_attention,
-        paged_verify_attention_plain,
-    )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -237,68 +295,15 @@ def phase_kernels(seed: int) -> None:
     seq_lens = torch.tensor([15, 16, 31, 255, 511, 700, 2046, 5],
                             dtype=torch.int32, device=dev)
     args = (q, k_pool, v_pool, table, seq_lens)
-    C = P * ps
-    pt = table.long()
-    k_win = k_pool.view(-1, ps, HD)[pt].view(B, C, Hkv, D).transpose(1, 2)
-    v_win = v_pool.view(-1, ps, HD)[pt].view(B, C, Hkv, D).transpose(1, 2)
-    k_win, v_win = k_win.contiguous(), v_win.contiguous()
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    # the other K1 cases draw from their own generator, so the K2-K5
-    # inputs stay those of earlier runs
-    kernel_k1(args, torch.Generator(device=dev).manual_seed(seed + 1))
-
-    kernel_k2(k_pool, v_pool, gen)
-    # K3: the full-width verify shape (K = 4 -> S = 5), ragged windows and
-    # query counts, lane 7 a trash lane; only rows j < q_len carry a
-    # contract
-    S3 = 5
-    seq3 = torch.tensor([15, 16, 31, 255, 511, 700, 2040, 5],
-                        dtype=torch.int32, device=dev)
-    ql3 = torch.tensor([1, 2, 3, 4, 5, 5, 3, 1], dtype=torch.int32,
-                       device=dev)
-    q3 = torch.randn(B, S3, Hq, D, generator=gen, device=dev
-                     ).to(torch.bfloat16)
-    a3 = (q3, k_pool, v_pool, table, seq3, ql3)
-    out_k = paged_verify_attention(*a3, page_size=ps)
-    out_p = paged_verify_attention_plain(*a3, page_size=ps)
-    torch.cuda.synchronize()
-    rows = [(b, j) for b in range(B) for j in range(int(ql3[b]))]
-    bi = torch.tensor([r[0] for r in rows], device=dev)
-    ji = torch.tensor([r[1] for r in rows], device=dev)
-    err3 = check_close("K3 paged_verify_attention", out_k[bi, ji],
-                       out_p[bi, ji])
-    n_win = (seq3.long() + ql3.long()).clamp(max=P * ps)
-    b3, by3 = bound(
-        2 * int(n_win.sum()) * HD * 2 + 2 * B * S3 * Hq * D * 2
-        + B * P * 4 + 2 * B * 4,
-        4 * Hq * D * int((ql3.long() * n_win).sum()))
-    qpos = seq3.long()[:, None] + torch.arange(S3, device=dev)[None]
-    kv = torch.arange(C, device=dev)[None, None]
-    mask3 = ((kv <= qpos[:, :, None]) & (kv < n_win[:, None, None]))[:, None]
-    q3w = q3.transpose(1, 2).contiguous()
-    lib3 = lambda: sdpa(q3w, k_win, v_win, attn_mask=mask3,  # noqa: E731
-                        enable_gqa=True)
-    RESULTS["K3"] = {
-        "name": "paged_verify_attention",
-        "route": "cuda",
-        "source": "kafka_tpu_torch/csrc/paged_verify.cu",
-        "replaces": "kafka_tpu/ops/pallas/paged_attention.py:384",
-        "max_abs_err": err3,
-        "ms": time_ms(lambda: paged_verify_attention(*a3, page_size=ps)),
-        "plain_ms": time_ms(
-            lambda: paged_verify_attention_plain(*a3, page_size=ps)),
-        "bound_ms": b3,
-        "bound_by": by3,
-        "library_ms": time_ms(lib3),
-        "library_device_ms": device_ms(lib3, None),
-        "device_ms": device_ms(
-            lambda: paged_verify_attention(*a3, page_size=ps),
-            "paged_verify"),
-        "shape": f"B={B} S={S3} Hq={Hq} Hkv={Hkv} D={D} page={ps} P={P} "
-                 f"window_tokens={int(n_win.sum())} "
-                 f"valid_rows={len(rows)}",
-    }
-    kernel_k4(args, gen)
+    # the other cases of K1, K3 and K4 draw from generators of their own,
+    # so each kernel's inputs do not depend on which ran before it
+    if not only_attention:
+        kernel_k1(args, torch.Generator(device=dev).manual_seed(seed + 1))
+        kernel_k2(k_pool, v_pool, gen)
+    kernel_k3(args, torch.Generator(device=dev).manual_seed(seed + 3))
+    kernel_k4(args, torch.Generator(device=dev).manual_seed(seed + 4))
+    if only_attention:
+        return
     kernel_k5(gen)
     for k in KERNEL_KEYS:
         r = RESULTS[k]
@@ -333,34 +338,6 @@ K1_CASES = (
 )
 
 
-def planted_chunk_fault(args, ps: int):
-    """The plain output with one planted fault: the longest lane loses its
-    second 128-token chunk of the window, the fault a kernel's chunk
-    bookkeeping or merge could make."""
-    import torch
-
-    from kafka_tpu_torch.ops.attention import causal_attention
-    from kafka_tpu_torch.ops.kernels import paged_decode_attention_plain
-
-    q, kp, vp, table, seq_lens = args
-    B, Hq, D = q.shape
-    HD = kp.shape[1]
-    C = table.shape[1] * ps
-    out = paged_decode_attention_plain(*args, page_size=ps)
-    b = int(seq_lens.argmax())
-    win = [t.view(-1, ps, HD)[table[b].long()].reshape(1, C, HD // D, D)
-           for t in (kp, vp)]
-    kv_pos = torch.arange(C, device=q.device)[None]
-    n = int(seq_lens[b])
-    out[b] = causal_attention(
-        q[b][None, None], win[0], win[1],
-        q_positions=torch.tensor([[n]], device=q.device),
-        kv_positions=kv_pos,
-        kv_valid=(kv_pos <= n) & ((kv_pos < 128) | (kv_pos >= 256)),
-    )[0, 0]
-    return out
-
-
 def k1_case(label: str, args, ps: int) -> dict:
     """One K1 case: held to the plain version elementwise and per row,
     then timed (CUDA events per wrapper call, profiler device time) beside
@@ -389,9 +366,7 @@ def k1_case(label: str, args, ps: int) -> dict:
     b1, by1 = bound(
         2 * tok * HD * 2 + 2 * B * Hq * D * 2 + B * P * 4 + B * 4,
         4 * Hq * D * tok)
-    pt = table.long()
-    win = [t.view(-1, ps, HD)[pt].view(B, C, Hkv, D).transpose(1, 2)
-           .contiguous() for t in (k_pool, v_pool)]
+    win = windows(((k_pool, D), (v_pool, D)), table, ps)
     mask = (torch.arange(C, device=q.device)[None]
             <= seq_lens.long()[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
@@ -401,10 +376,10 @@ def k1_case(label: str, args, ps: int) -> dict:
     kern = lambda: paged_decode_attention(*args, page_size=ps)  # noqa: E731
     case = {
         "shape": shape, "max_abs_err": err, "row_rel_err": rel,
-        "ms": time_ms(kern), "device_ms": device_ms(kern, "paged_decode"),
+        "ms": time_ms(kern), "device_ms": device_ms(kern, "paged_"),
         # the two kernels apart: the chunks, and the merge of long lanes
         "device_ms_chunks": device_ms(kern, "paged_decode_chunk"),
-        "device_ms_merge": device_ms(kern, "paged_decode_combine"),
+        "device_ms_merge": device_ms(kern, "paged_merge"),
         "plain_ms": time_ms(
             lambda: paged_decode_attention_plain(*args, page_size=ps),
             iters=10, warmup=2),
@@ -429,19 +404,17 @@ def kernel_k1(head_args, gen) -> None:
 
     ps = 16
     cases = [k1_case("ragged", head_args, ps)]
-    bad = planted_chunk_fault(head_args, ps)
+    q, k_pool, v_pool, table, seq_lens = head_args
     want = paged_decode_attention_plain(*head_args, page_size=ps)
-    f_rel = row_rel_err(bad, want)
-    f_abs = (bad.float() - want.float()).abs()
-    f_exc = (f_abs - KERNEL_RTOL * want.float().abs()).max()
-    cases[0]["planted_fault"] = {
-        "max_abs_err": f_abs.max().item(), "row_rel_err": f_rel,
-        "elementwise_check_passes": bool(f_exc <= KERNEL_ATOL)}
-    log(f"K1 planted fault (the longest lane loses its second chunk): "
-        f"{cases[0]['planted_fault']}")
-    if not f_rel > K2_ROW_RTOL:
-        raise AssertionError("K1's row check does not see a dropped chunk: "
-                             f"row_rel_err {f_rel}")
+    b = int(seq_lens.argmax())
+    D, HD = q.shape[-1], k_pool.shape[1]
+    win = [t.view(-1, ps, HD)[table[b].long()].view(-1, HD // D, D)
+           for t in (k_pool, v_pool)]
+    bad = want.clone()
+    bad[b] = planted_window_fault(q[b][None], *win, int(seq_lens[b]) + 1,
+                                  128, 256)[0]
+    cases[0]["planted_fault"] = fault_check(
+        "K1 (the longest lane loses its second chunk)", bad, want)
     dev = head_args[0].device
     for label, Hq, Hkv, D, P, lens, trash in K1_CASES:
         B, HD = len(lens), Hkv * D
@@ -630,17 +603,9 @@ def kernel_k2(k_pool, v_pool, gen) -> None:
             f"bound {b2:.5f} by {by2}, {case['tflops']:.1f} TFLOP/s")
         if (S, start, clen, D) == (2048, 0, 2048, 64):
             bad = planted_tile_fault(a2, ps)
-            f_abs = (bad[:clen].float() - out_p[:clen].float()).abs()
-            f_exc = (f_abs - KERNEL_RTOL * out_p[:clen].float().abs()).max()
-            f_rel = row_rel_err(bad[:clen], out_p[:clen])
-            case["planted_fault"] = {
-                "max_abs_err": f_abs.max().item(), "row_rel_err": f_rel,
-                "elementwise_check_passes": bool(f_exc <= KERNEL_ATOL)}
-            log(f"K2 planted fault (last 64 rows lose kv tile 1) {shape}: "
-                f"{case['planted_fault']}")
-            if not f_rel > K2_ROW_RTOL:
-                raise AssertionError("K2's row check does not see a dropped "
-                                     f"kv tile: row_rel_err {f_rel}")
+            case["planted_fault"] = fault_check(
+                f"K2 (last 64 rows lose kv tile 1) {shape}", bad[:clen],
+                out_p[:clen])
         cases.append(case)
     head = cases[0]
     RESULTS["K2"] = {
@@ -693,61 +658,351 @@ def sass_count(name: str, opcode: str) -> int:
     return sum(1 for line in sass.splitlines() if f" {opcode}" in line)
 
 
-def kernel_k4(k1_args, gen) -> None:
-    """K4 at K1's shape: the same windows, their rows quantized per slot
-    into an int8 pool as the engine's KV write does."""
+# K3 cases beside the ragged head case (B 8, S 5 = speculative_k 4,
+# lengths 15..2040 with q_lens 1..5, lane 7 a trash lane): (label, Hq, Hkv,
+# D, table pages P, S, seq_lens, q_lens, trash lanes).  Every lane at
+# ~2,040 tokens; every lane at <= 32 slots in a 128-token window (one chunk
+# per lane, no merge); windows (seq_len + q_len) ending on chunk (128) and
+# page (16) boundaries; two trash lanes; G 8 at S 5 (40 rows per kv head);
+# G 4 at S 9 and S 17 (speculative_k 8 and 16: the 36 and 68 rows the
+# 32-row kernel refused, fault C4); G 8 at S 17 (136 rows: two row blocks);
+# and D 128.  Rows j >= q_len must come back as zeros.
+K3_RAGGED = ([15, 16, 31, 255, 511, 700, 2040, 5], [1, 2, 3, 4, 5, 5, 3, 1])
+K3_CASES = (
+    ("long", 32, 8, 64, 128, 5,
+     [2040, 2041, 2042, 2043, 2039, 2038, 2040, 2036], [5] * 8, ()),
+    ("short", 32, 8, 64, 8, 5, [0, 1, 7, 15, 16, 17, 26, 27],
+     [1, 2, 5, 5, 4, 3, 5, 5], ()),
+    ("boundaries", 32, 8, 64, 128, 5,
+     [123, 128, 126, 251, 11, 16, 1019, 2043], [5, 5, 2, 5, 5, 1, 5, 5], ()),
+    ("trash", 32, 8, 64, 128, 5, [900, 40, 2040, 300, 1500, 7, 64, 511],
+     [5, 5, 3, 5, 2, 5, 1, 4], (1, 4)),
+    ("G8", 64, 8, 64, 128, 5, *K3_RAGGED, ()),
+    ("K8", 32, 8, 64, 128, 9, [15, 16, 31, 255, 511, 700, 2030, 5],
+     [1, 9, 3, 9, 5, 9, 9, 2], ()),
+    ("K16", 32, 8, 64, 128, 17, [15, 16, 31, 255, 511, 700, 2020, 5],
+     [1, 17, 3, 9, 17, 5, 17, 2], ()),
+    ("G8_K16", 64, 8, 64, 128, 17, [15, 16, 31, 255, 511, 700, 2020, 5],
+     [1, 17, 3, 9, 17, 5, 17, 2], ()),
+    ("D128", 32, 8, 128, 128, 5, *K3_RAGGED, ()),
+)
+# K4 takes K1's eight cases (the ragged head case and K1_CASES) over an
+# int8 pool: each case's bf16 rows quantized per slot, as the engine's KV
+# write does.
+K4_CASES = K1_CASES
+
+
+def windows(pools, table, ps: int):
+    """Each lane's gathered window [B, Hkv, C, D] of every pool, for the
+    SDPA yardstick (it reads the whole padded window)."""
+    B, P = table.shape
+    out = []
+    for t, D in pools:
+        HD = t.shape[1]
+        out.append(t.view(-1, ps, HD)[table.long()]
+                   .view(B, P * ps, HD // D, D).transpose(1, 2).contiguous())
+    return out
+
+
+def planted_window_fault(q, win_k, win_v, n_valid, lo: int, hi: int):
+    """One lane's rows attending their window with slots [lo, hi) dropped:
+    the fault a kernel's chunk bookkeeping or merge could make.  q [S, Hq,
+    D] at positions n_valid - S .. n_valid - 1 (causal), windows [C, Hkv,
+    D] in any float type; returns [S, Hq, D] in q's type."""
     import torch
 
-    from kafka_tpu_torch.models.quant import dequantize, quantize_array
+    from kafka_tpu_torch.ops.attention import causal_attention
+
+    S = q.shape[0]
+    C = win_k.shape[0]
+    kv_pos = torch.arange(C, device=q.device)[None]
+    qpos = n_valid - S + torch.arange(S, device=q.device)[None]
+    return causal_attention(
+        q[None], win_k[None], win_v[None], q_positions=qpos,
+        kv_positions=kv_pos,
+        kv_valid=(kv_pos < n_valid) & ((kv_pos < lo) | (kv_pos >= hi)),
+    )[0]
+
+
+def fault_check(name: str, bad, want) -> dict:
+    """A planted fault must fail the row check (and is logged)."""
+    f_rel = row_rel_err(bad, want)
+    f_abs = (bad.float() - want.float()).abs()
+    f_exc = (f_abs - KERNEL_RTOL * want.float().abs()).max()
+    out = {"max_abs_err": f_abs.max().item(), "row_rel_err": f_rel,
+           "elementwise_check_passes": bool(f_exc <= KERNEL_ATOL)}
+    log(f"{name} planted fault: {out}")
+    if not f_rel > K2_ROW_RTOL:
+        raise AssertionError(f"{name}'s row check does not see the planted "
+                             f"fault: row_rel_err {f_rel}")
+    return out
+
+
+def k3_case(label: str, a3, ps: int) -> dict:
+    """One K3 case: live rows (j < q_len) held to the plain version
+    elementwise and per row, rows j >= q_len checked to be zeros, then
+    timed (CUDA events per wrapper call; profiler device time with the L2
+    warm and flushed) beside SDPA on the pre-gathered padded window and
+    the bound.  In a baseline run (--root), a case the baseline's wrapper
+    refuses is recorded as refused."""
+    import torch
+
+    from kafka_tpu_torch.ops.kernels import (
+        paged_verify_attention,
+        paged_verify_attention_plain,
+    )
+
+    q, k_pool, v_pool, table, seq, ql = a3
+    B, S, Hq, D = q.shape
+    HD = k_pool.shape[1]
+    Hkv, P = HD // D, table.shape[1]
+    C = P * ps
+    shape = (f"{label}: B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} page={ps} P={P} "
+             f"seq_lens={seq.tolist()} q_lens={ql.tolist()}")
+    try:
+        out_k = paged_verify_attention(*a3, page_size=ps)
+    except ValueError as e:
+        if not BASELINE:
+            raise
+        log(f"K3 {shape}: refused by the baseline ({e})")
+        return {"shape": shape, "refused": str(e)}
+    out_p = paged_verify_attention_plain(*a3, page_size=ps)
+    torch.cuda.synchronize()
+    live = [(b, j) for b in range(B) for j in range(int(ql[b]))]
+    dead = [(b, j) for b in range(B) for j in range(int(ql[b]), S)]
+    bi, ji = (torch.tensor(x, device=q.device) for x in zip(*live))
+    name = f"K3 paged_verify_attention {shape}"
+    err = check_close(name, out_k[bi, ji], out_p[bi, ji])
+    rel = check_rows(name, out_k[bi, ji], out_p[bi, ji])
+    if dead:
+        db, dj = (torch.tensor(x, device=q.device) for x in zip(*dead))
+        if out_k[db, dj].abs().max().item() != 0:
+            raise AssertionError(f"{name}: rows j >= q_len are not zeros")
+    n_win = (seq.long() + ql.long()).clamp(max=C)
+    # each live row j sees slots < min(seq_len + j + 1, n_valid)
+    pairs = sum(min(int(seq[b]) + j + 1, int(n_win[b])) for b, j in live)
+    b3, by3 = bound(
+        2 * int(n_win.sum()) * HD * 2 + 2 * B * S * Hq * D * 2
+        + B * P * 4 + 2 * B * 4,
+        4 * Hq * D * pairs)
+    k_win, v_win = windows(((k_pool, D), (v_pool, D)), table, ps)
+    qpos = seq.long()[:, None] + torch.arange(S, device=q.device)[None]
+    kv = torch.arange(C, device=q.device)[None, None]
+    mask = ((kv <= qpos[:, :, None]) & (kv < n_win[:, None, None]))[:, None]
+    qw = q.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(qw, k_win, v_win, attn_mask=mask,  # noqa: E731
+                       enable_gqa=True)
+    kern = lambda: paged_verify_attention(*a3, page_size=ps)  # noqa: E731
+    case = {
+        "shape": shape, "max_abs_err": err, "row_rel_err": rel,
+        "live_rows": len(live), "window_tokens": int(n_win.sum()),
+        "ms": time_ms(kern),
+        "device_ms": device_ms(kern, "paged_"),
+        "device_ms_cold_l2": device_ms(kern, "paged_", flush=flush_l2),
+        "device_ms_merge": device_ms(kern, "merge"),
+        "plain_ms": time_ms(
+            lambda: paged_verify_attention_plain(*a3, page_size=ps),
+            iters=10, warmup=2),
+        "bound_ms": b3, "bound_by": by3,
+        "library_ms": time_ms(lib), "library_device_ms": device_ms(lib, None),
+    }
+    log(f"K3 {shape}: {case['ms']:.4f} ms (device {case['device_ms']}, "
+        f"L2 flushed {case['device_ms_cold_l2']}, merge "
+        f"{case['device_ms_merge']}), SDPA {case['library_ms']:.4f} (device "
+        f"{case['library_device_ms']}), plain {case['plain_ms']:.4f}, bound "
+        f"{b3:.5f} by {by3}")
+    return case
+
+
+def kernel_k3(k1_args, gen) -> None:
+    """K3 at the ragged head case (K1's pools and table, S 5) and every
+    case of K3_CASES; at the head case a planted fault (the longest lane's
+    rows lose the second 128-token chunk of their window) must fail the
+    row check."""
+    import torch
+
+    from kafka_tpu_torch.ops.kernels import paged_verify_attention_plain
+
+    _, k_pool, v_pool, table, _ = k1_args
+    dev = k_pool.device
+    ps, Hq, D = 16, 32, 64
+    B = table.shape[0]
+    seq3, ql3 = (torch.tensor(x, dtype=torch.int32, device=dev)
+                 for x in K3_RAGGED)
+    q3 = torch.randn(B, 5, Hq, D, generator=gen, device=dev
+                     ).to(torch.bfloat16)
+    head = (q3, k_pool, v_pool, table, seq3, ql3)
+    cases = [k3_case("ragged", head, ps)]
+    if "refused" not in cases[0] and not BASELINE:
+        want = paged_verify_attention_plain(*head, page_size=ps)
+        b = int(seq3.argmax())
+        n = int(ql3[b])
+        n_valid = int(seq3[b]) + n
+        HD = k_pool.shape[1]
+        win = [t.view(-1, ps, HD)[table[b].long()].view(-1, HD // D, D)
+               for t in (k_pool, v_pool)]
+        bad = want.clone()
+        bad[b, :n] = planted_window_fault(q3[b, :n], *win, n_valid, 128, 256)
+        cases[0]["planted_fault"] = fault_check(
+            "K3 (the longest lane loses its second chunk)", bad[b, :n],
+            want[b, :n])
+    for label, Hq, Hkv, D, P, S, lens, qls, trash in K3_CASES:
+        B, HD = len(lens), Hkv * D
+        num_pages = B * P + 1
+        kp, vp = (torch.randn(num_pages * ps, HD, generator=gen, device=dev
+                              ).to(torch.bfloat16) for _ in range(2))
+        q = torch.randn(B, S, Hq, D, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+        tab = perm.view(B, P).to(torch.int32).contiguous()
+        for b in trash:
+            tab[b] = 0
+        seq, ql = (torch.tensor(x, dtype=torch.int32, device=dev)
+                   for x in (lens, qls))
+        cases.append(k3_case(label, (q, kp, vp, tab, seq, ql), ps))
+    done = [c for c in cases if "refused" not in c]
+    head = cases[0]
+    RESULTS["K3"] = {
+        "name": "paged_verify_attention",
+        "route": "cuda",
+        "source": "kafka_tpu_torch/csrc/paged_verify.cu",
+        "replaces": "kafka_tpu/ops/pallas/paged_attention.py:384",
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_device_ms",
+                                "device_ms", "shape") if k in head},
+        "max_abs_err": max(c["max_abs_err"] for c in done),
+        "row_rel_err": max(c["row_rel_err"] for c in done),
+        "cases": cases,
+    }
+
+
+def k4_case(label: str, a4, ps: int) -> dict:
+    """One K4 case: held to the plain version elementwise and per row,
+    then timed (CUDA events; profiler device time with the L2 warm and
+    flushed, and at the other chunk length) beside SDPA on the
+    dequantized, pre-gathered padded window and the bound."""
+    import torch
+
+    from kafka_tpu_torch.models.quant import QTensor, dequantize
     from kafka_tpu_torch.ops.kernels import (
         paged_decode_attention_int8,
         paged_decode_attention_int8_plain,
     )
+    from kafka_tpu_torch.ops.kernels import paged_decode_int8 as k4_module
 
-    q, k_pool, v_pool, table, seq_lens = k1_args
+    q, kq, ks, vq, vs, table, seq_lens = a4
     B, Hq, D = q.shape
-    HD = k_pool.shape[1]
-    Hkv, ps, P = HD // D, 16, table.shape[1]
-    kq, vq = quantize_array(k_pool, (-1,)), quantize_array(v_pool, (-1,))
-    a4 = (q, kq.q, kq.s, vq.q, vq.s, table, seq_lens)
+    HD = kq.shape[1]
+    Hkv, P = HD // D, table.shape[1]
+    C = P * ps
+    shape = (f"{label}: B={B} Hq={Hq} Hkv={Hkv} D={D} page={ps} P={P} "
+             f"seq_lens={seq_lens.tolist()} int8 pool")
     out_k = paged_decode_attention_int8(*a4, page_size=ps)
     out_p = paged_decode_attention_int8_plain(*a4, page_size=ps)
     torch.cuda.synchronize()
-    err4 = check_close("K4 paged_decode_attention_int8", out_k, out_p)
-    tok = int((seq_lens.long() + 1).clamp(max=P * ps).sum())
+    name = f"K4 paged_decode_attention_int8 {shape}"
+    err = check_close(name, out_k, out_p)
+    rel = check_rows(name, out_k, out_p)
+    tok = int((seq_lens.long() + 1).clamp(max=C).sum())
     b4, by4 = bound(
         tok * (2 * HD + 2 * 4) + 2 * B * Hq * D * 2 + B * P * 4 + B * 4,
         4 * Hq * D * tok)
-    # yardstick: SDPA on the dequantized, pre-gathered bf16 window
-    C = P * ps
-    pt = table.long()
-    win = [dequantize(t, torch.bfloat16).view(-1, ps, HD)[pt]
-           .view(B, C, Hkv, D).transpose(1, 2).contiguous()
-           for t in (kq, vq)]
+    win = windows(((dequantize(QTensor(q=kq, s=ks), torch.bfloat16), D),
+                   (dequantize(QTensor(q=vq, s=vs), torch.bfloat16), D)),
+                  table, ps)
     mask = (torch.arange(C, device=q.device)[None]
             <= seq_lens.long()[:, None])[:, None, None, :]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     q4 = q[:, :, None, :]
-    lib4 = lambda: sdpa(q4, win[0], win[1], attn_mask=mask,  # noqa: E731
-                        enable_gqa=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = lambda: sdpa(q4, win[0], win[1], attn_mask=mask,  # noqa: E731
+                       enable_gqa=True)
+    kern = lambda: paged_decode_attention_int8(*a4, page_size=ps)  # noqa
+    case = {
+        "shape": shape, "max_abs_err": err, "row_rel_err": rel,
+        "valid_tokens": tok, "ms": time_ms(kern),
+        "device_ms": device_ms(kern, "paged_"),
+        "device_ms_cold_l2": device_ms(kern, "paged_", flush=flush_l2),
+        "plain_ms": time_ms(
+            lambda: paged_decode_attention_int8_plain(*a4, page_size=ps),
+            iters=10, warmup=2),
+        "bound_ms": b4, "bound_by": by4,
+        "library_ms": time_ms(lib), "library_device_ms": device_ms(lib, None),
+    }
+    # the chunk length: the kernel at 256-token chunks too, same inputs
+    chunk = getattr(k4_module, "CHUNK_TOKENS", None)
+    if chunk is not None:
+        k4_module.CHUNK_TOKENS = 256
+        try:
+            alt = paged_decode_attention_int8(*a4, page_size=ps)
+            check_rows(f"{name} [chunk 256]", alt, out_p)
+            case["device_ms_chunk256"] = device_ms(kern, "paged_")
+        finally:
+            k4_module.CHUNK_TOKENS = chunk
+    log(f"K4 {shape}: {case['ms']:.4f} ms (device {case['device_ms']}, "
+        f"L2 flushed {case['device_ms_cold_l2']}, at 256-token chunks "
+        f"{case.get('device_ms_chunk256')}), SDPA {case['library_ms']:.4f} "
+        f"(device {case['library_device_ms']}), plain "
+        f"{case['plain_ms']:.4f}, bound {b4:.5f} by {by4}")
+    return case
+
+
+def kernel_k4(k1_args, gen) -> None:
+    """K4 at every case of K4_CASES (K1's cases over int8 pools: the same
+    windows, their rows quantized per slot as the engine's KV write does);
+    at the head case a planted fault (the longest lane loses its second
+    256-token chunk) must fail the row check."""
+    import torch
+
+    from kafka_tpu_torch.models.quant import quantize_array
+    from kafka_tpu_torch.ops.kernels import paged_decode_attention_int8_plain
+
+    ps = 16
+
+    def int8_args(q, kp, vp, table, seq):
+        kq, vq = quantize_array(kp, (-1,)), quantize_array(vp, (-1,))
+        return (q, kq.q, kq.s, vq.q, vq.s, table, seq)
+
+    head = int8_args(*k1_args)
+    cases = [k4_case("ragged", head, ps)]
+    if not BASELINE:
+        q, kq, ks, vq, vs, table, seq = head
+        want = paged_decode_attention_int8_plain(*head, page_size=ps)
+        b = int(seq.argmax())
+        HD, D = kq.shape[1], q.shape[-1]
+        win = [(c.float() * s).view(-1, ps, HD)[table[b].long()]
+               .view(-1, HD // D, D) for c, s in ((kq, ks), (vq, vs))]
+        bad = want.clone()
+        bad[b] = planted_window_fault(q[b][None].float(), *win,
+                                      int(seq[b]) + 1, 256, 512)[0]
+        cases[0]["planted_fault"] = fault_check(
+            "K4 (the longest lane loses its second chunk)", bad, want)
+    dev = k1_args[0].device
+    for label, Hq, Hkv, D, P, lens, trash in K4_CASES:
+        B, HD = len(lens), Hkv * D
+        num_pages = B * P + 1
+        kp, vp = (torch.randn(num_pages * ps, HD, generator=gen, device=dev
+                              ).to(torch.bfloat16) for _ in range(2))
+        q = torch.randn(B, Hq, D, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+        tab = perm.view(B, P).to(torch.int32).contiguous()
+        for b in trash:
+            tab[b] = 0
+        seq = torch.tensor(lens, dtype=torch.int32, device=dev)
+        cases.append(k4_case(label, int8_args(q, kp, vp, tab, seq), ps))
+    head = cases[0]
     RESULTS["K4"] = {
         "name": "paged_decode_attention_int8",
         "route": "cuda",
         "source": "kafka_tpu_torch/csrc/paged_decode_int8.cu",
         "replaces": "kafka_tpu/ops/pallas/paged_attention.py:690",
-        "max_abs_err": err4,
-        "ms": time_ms(lambda: paged_decode_attention_int8(*a4, page_size=ps)),
-        "plain_ms": time_ms(
-            lambda: paged_decode_attention_int8_plain(*a4, page_size=ps)),
-        "bound_ms": b4,
-        "bound_by": by4,
-        "library_ms": time_ms(lib4),
-        "library_device_ms": device_ms(lib4, None),
-        "device_ms": device_ms(
-            lambda: paged_decode_attention_int8(*a4, page_size=ps),
-            "paged_decode_int8"),
-        "shape": f"B={B} Hq={Hq} Hkv={Hkv} D={D} page={ps} P={P} "
-                 f"valid_tokens={tok} int8 pool",
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "library_device_ms",
+                                "device_ms", "shape")},
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "row_rel_err": max(c["row_rel_err"] for c in cases),
+        "cases": cases,
     }
 
 
@@ -1030,6 +1285,8 @@ def phase_engine(seed: int) -> None:
         "token_agreement": [s_agree, total], "logits_rel_err": s_worst,
     }
     del spec
+    RESULTS["engine_speculative_k8"] = engine_speculative_k8(
+        cfg, params, prompts, got, max_new)
 
     # (b) prefix reuse: a two-turn thread on the kernel engine; turn 2's
     # prefill must start past the cached pages (K2 at start > 0) and its
@@ -1042,6 +1299,75 @@ def phase_engine(seed: int) -> None:
     RESULTS["engine_int8"] = engine_int8(cfg, params, prompts, max_new, rng)
     del params
     torch.cuda.empty_cache()
+
+
+def _near_ties(got, ref, max_new: int) -> list:
+    """Where two greedy streams first part: each must be a near-tie of the
+    reference's logits.  With logits la = lb + d, |d| <= eps, the argmax of
+    la can beat lb's argmax only if lb's margin between the two tokens is
+    <= 2 eps; anything wider is a fault, not rounding."""
+    out = []
+    for a, b in zip(got, ref):
+        n = 0
+        while n < max_new and a.output_ids[n] == b.output_ids[n]:
+            n += 1
+        if n == max_new:
+            continue
+        la, lb = a.logits[n], b.logits[n]
+        ta, tb = a.output_ids[n], b.output_ids[n]
+        tie = {"request": a.request_id, "position": n,
+               "margin": (lb[tb] - lb[ta]).item(),
+               "max_abs_dlogit": (la - lb).abs().max().item()}
+        if not tie["margin"] <= 2 * tie["max_abs_dlogit"]:
+            raise AssertionError(f"streams part outside the flip bound: "
+                                 f"{tie}")
+        out.append(tie)
+    return out
+
+
+def engine_speculative_k8(cfg, params, prompts, got, max_new: int) -> dict:
+    """Fault C4 on the card: speculative_k = 8 (36 query rows per kv head
+    at G 4, past the 32 the old K3 held) on the full-width model, each
+    lane's proposer offering the spec-off kernel engine's continuation.
+    K3 must launch and tokens be accepted; the greedy streams must equal
+    the spec-off streams, where they part only at a bf16 near-tie of the
+    spec-off logits (_near_ties), with logits within LOGITS_RTOL up to
+    there."""
+    import torch
+
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.runtime import InferenceEngine
+
+    eng = InferenceEngine(cfg, params, _engine_cfg(speculative_k=8))
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    sgot = _drive(eng, prompts, max_new, streams=[r.output_ids for r in got])
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    k3 = kernels.paged_verify_attention.launches
+    prop, acc = eng.speculation_proposed_tokens, \
+        eng.speculation_accepted_tokens
+    same, agree, worst = _compare_streams(cfg, sgot, got, max_new)
+    ties = _near_ties(sgot, got, max_new)
+    total = max_new * len(prompts)
+    log(f"engine (speculative_k=8, forced proposals): 8 requests in "
+        f"{dt:.2f}s over {eng.verify_steps} verify steps, launches K3={k3} "
+        f"K1={kernels.paged_decode_attention.launches}; accepted {acc}/{prop} "
+        f"proposed; vs spec-off: {same}/8 identical greedy streams, token "
+        f"agreement {agree}/{total}, worst logits max|d|/max|ref| = "
+        f"{worst:.4f} (tol {LOGITS_RTOL}); where streams part: {ties}")
+    if k3 == 0 or acc == 0:
+        raise AssertionError(f"speculative_k=8 engine: K3 launches {k3}, "
+                             f"accepted {acc}")
+    if not worst <= LOGITS_RTOL:
+        raise AssertionError(f"speculative_k=8 logits disagree: {worst}")
+    if eng.self_check():
+        raise AssertionError(f"speculative_k=8 engine: {eng.self_check()}")
+    RESULTS["K3"]["engine_launches_k8"] = k3
+    return {"seconds": dt, "verify_steps": eng.verify_steps,
+            "k3_launches": k3, "proposed": prop, "accepted": acc,
+            "identical_streams": same, "token_agreement": [agree, total],
+            "logits_rel_err": worst, "near_ties": ties}
 
 
 def engine_int8(cfg, params, prompts, max_new: int, rng) -> dict:
@@ -1733,10 +2059,18 @@ def phase_server() -> None:
 
 
 def main() -> int:
+    global BASELINE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="kernels,engine,server",
-                    help="comma list (default: all)")
+                    help="comma list of kernels, engine, server (default: "
+                         "all) or attention (K3 and K4 alone, timed)")
+    ap.add_argument("--root", default=None,
+                    help="time another checkout's kernels (the package "
+                         "under this directory) on the same inputs; "
+                         "prints no result line")
+    ap.add_argument("--out", default="chip_smoke.json",
+                    help="the record's file name under chiprun_out/")
     args = ap.parse_args()
     import torch
 
@@ -1744,7 +2078,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
+    BASELINE = args.root is not None
+    sys.path.insert(0, os.path.abspath(args.root) if BASELINE else here)
     try:
         from kafka_tpu_torch.ops.kernels import build
     except ImportError as e:
@@ -1776,14 +2111,16 @@ def main() -> int:
         raise AssertionError("K2 has no tensor-core instructions")
     RESULTS["ptxas"], RESULTS["k2_hmma"] = ptxas, hmma
     RESULTS["build_s"] = build_s
-    if "kernels" in phases:
-        phase_kernels(args.seed)
+    if "kernels" in phases or "attention" in phases:
+        phase_kernels(args.seed, only_attention="kernels" not in phases)
     if "engine" in phases:
         phase_engine(args.seed)
     if "server" in phases:
         phase_server()
     RESULTS["total_s"] = time.monotonic() - t0
     RESULTS["card"] = gpu
+    drops = RESULTS.get("profile_drops", [])
+    log(f"profiles that dropped kernel events: {len(drops)} {drops[:8]}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = {"kernels": [
@@ -1795,8 +2132,11 @@ def main() -> int:
         for n in KERNEL_KEYS if n in RESULTS
     ]}
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(here, "chiprun_out", "chip_smoke.json"), "w") as f:
+    with open(os.path.join(here, "chiprun_out", args.out), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)
+    if BASELINE:  # a measurement of another tree, not this one's result
+        log(f"baseline {args.root}: record in chiprun_out/{args.out}")
+        return 0
     print(json.dumps(kernels_line))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,8 @@
 //   kernel merges, a variable number per row: a row's (m, l) pairs are
 //   read once into shared memory and its acc loads are unrolled, so the
 //   merge of a 16-chunk lane waits out a few memory latencies, not 32.
+//   The chunk enumeration and the merge are shared with K3 and K4
+//   (paged_chunks.cuh).
 //
 // Plain C interface, loaded with ctypes; the launch error code is returned.
 
@@ -48,16 +50,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "paged_chunks.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxG = 8;             // q heads per kv head supported
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 32;            // tokens per staged tile, one per lane
 constexpr int kPad = 8;              // bf16 padding per staged row (16 B)
-constexpr int kMaxChunkPages = 128;  // page ids a chunk may span
 
 template <int D>
 struct Smem {
@@ -70,57 +71,6 @@ struct Smem {
   float l[kMaxG];
   int page[kMaxChunkPages];
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; a false `valid` zero-fills the destination instead
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void bf16x8_to_f32(uint4 raw, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// chunks of one lane: its valid window cut into `chunk`-token pieces (at
-// least one, so every row is written)
-__device__ __forceinline__ int lane_chunks(int seq_len, int cap, int chunk) {
-  const int n = max(0, min(seq_len + 1, cap));
-  return max(1, (n + chunk - 1) / chunk);
-}
 
 // one head's online-softmax step over a tile; the warp's lane = token
 __device__ __forceinline__ void tile_softmax(float s, bool valid, float& m,
@@ -178,16 +128,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_chunk_kernel(
   const int cap = P * page_size;
 
   // this block's lane b and chunk j: the J-th chunk of the prefix sum
-  int J = blockIdx.x / Hkv;
-  int b = 0, n_ch = 1;
-  for (; b < B; ++b) {
-    n_ch = lane_chunks(seq_lens[b], cap, chunk);
-    if (J < n_ch) break;
-    J -= n_ch;
-  }
-  if (b == B) return;
-  const int j = J;
-  const int n_valid = max(0, min(seq_lens[b] + 1, cap));
+  const ChunkWork w =
+      find_chunk(blockIdx.x / Hkv, seq_lens, nullptr, B, 1, cap, chunk);
+  if (w.b == B) return;
+  const int b = w.b, j = w.j, n_ch = w.n_ch;
+  // read again rather than carried: carried, it costs a spill at D 64
+  const int n_valid = lane_window(seq_lens[b], 1, cap);
   const int t0 = j * chunk;                 // page-aligned
   const int t1 = min(t0 + chunk, n_valid);  // t0 < t1 unless n_valid is 0
   const int n_tiles = max(0, (t1 - t0 + kTile - 1) / kTile);
@@ -305,41 +251,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_chunk_kernel(
   }
 }
 
-// grid (B * Hq), block D, max_chunks * 2 floats of dynamic shared memory:
-// merge the chunk partials of one row (lanes with one chunk were written
-// by the chunk kernel).  The row's (m, l) pairs are read once, by as many
-// threads, into shared memory; each thread then reads its element of
-// every partial's acc, unrolled so the loads overlap.
-__global__ void paged_decode_combine_kernel(
-    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out,
-    int Hq, int D, int cap, int chunk, int max_chunks) {
-  extern __shared__ float ml[];  // [n][2]
-  const int row = blockIdx.x;
-  const int b = row / Hq;
-  const int h = row % Hq;
-  const int n = lane_chunks(seq_lens[b], cap, chunk);
-  if (n <= 1) return;
-  const int d = threadIdx.x;
-  const size_t first = (size_t)b * max_chunks * Hq + h;
-  for (int j = d; j < n; j += blockDim.x) {
-    const size_t r = first + (size_t)j * Hq;
-    ml[2 * j] = part_ml[r * 2];
-    ml[2 * j + 1] = part_ml[r * 2 + 1];
-  }
-  __syncthreads();
-  float M = kNegInf;
-  for (int j = 0; j < n; ++j) M = fmaxf(M, ml[2 * j]);
-  float L = 0.f, A = 0.f;
-#pragma unroll 8
-  for (int j = 0; j < n; ++j) {
-    const float c = exp2f(ml[2 * j] - M);
-    L += ml[2 * j + 1] * c;
-    A += part_acc[(first + (size_t)j * Hq) * D + d] * c;
-  }
-  out[(size_t)row * D + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
-}
-
 }  // namespace
 
 extern "C" int kafka_paged_decode_bf16(
@@ -348,14 +259,10 @@ extern "C" int kafka_paged_decode_bf16(
     void* part_ml, int B, int Hq, int Hkv, int D, int P, int page_size,
     int chunk, float scale, void* stream) {
   const int G = Hkv > 0 ? Hq / Hkv : 0;
-  if (G < 1 || G > kMaxG || Hq % Hkv != 0 || B < 1 || P < 1 ||
-      page_size < 1 || chunk < page_size || chunk % page_size != 0 ||
-      chunk / page_size > kMaxChunkPages)
+  const int max_chunks = max_lane_chunks(P, page_size, chunk);
+  if (G < 1 || G > kMaxG || Hq % Hkv != 0 || B < 1 || max_chunks < 1)
     return (int)cudaErrorInvalidValue;
   const int cap = P * page_size;
-  const int max_chunks = (cap + chunk - 1) / chunk;
-  if (max_chunks * 2 * (int)sizeof(float) > 48 * 1024)  // the merge's (m, l)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const long long blocks = (long long)Hkv * B * max_chunks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -378,10 +285,8 @@ extern "C" int kafka_paged_decode_bf16(
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || max_chunks == 1) return (int)err;
-  paged_decode_combine_kernel<<<B * Hq, D, max_chunks * 2 * sizeof(float),
-                                st>>>(pa, pm, sl, op, Hq, D, cap, chunk,
-                                      max_chunks);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_merge(pa, pm, sl, nullptr, op, B, Hq, D, 1, cap, chunk,
+                      max_chunks, st);
 }

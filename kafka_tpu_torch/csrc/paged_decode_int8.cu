@@ -17,33 +17,45 @@
 // flops per slot, about 2 flops per byte, far below the ~295 at which the
 // tensor cores would be the limit.
 //
-// Design:
-// * K1's split grid — (sequence, kv head, split of the valid window) plus
-//   a small combine kernel — but K3's staging: K/V rows go through shared
-//   memory in 32-token tiles with 16-byte loads, so a warp keeps several
-//   loads in flight instead of walking its tokens one dependent load at a
-//   time (on the H100, PERF.md records K3 reading K1's window in less
-//   device time than K1).
-// * The 4 warps of a block take the split's tiles in turn, each staging
-//   its own tile (64 B of int8 K and V per token at D = 64, with the
-//   tile's 32 s_k / s_v as f32 beside them), so a warp waits only on its
-//   own loads (__syncwarp, no block barrier in the loop).  At the end the
-//   warps' (m, l, acc) states merge through shared memory.
-// * Codes are converted to f32 on the read from shared memory.  Each
-//   query row of the kv head is held by 8 lanes (D / 8 elements each, the
-//   G <= 8 rows in RPT = ceil(G / 4) passes of 4 row groups); a dot
-//   product is summed with three shuffles.  Lane `sub` keeps the scores of
-//   tokens sub, sub + 8, ... of the tile, so a tile costs 4 score
-//   registers per row; the PV loop fetches each probability with one
-//   shuffle.
-// * Every shuffle runs with the whole warp: the score loop runs all 32
-//   tokens of a tile whatever is valid, and the PV loop's bound is the
-//   same for all lanes.  Tokens past the window are masked after.
-// * Masking is by seq_len, as in K1: a slot never written holds q = 0,
-//   s = 0 and a reused page stale codes, and neither is read as valid.
+// Design: K1's chunked split (csrc/paged_decode.cu) over int8 tiles.
+// * Work is cut into fixed chunks of whole pages across all lanes
+//   (paged_chunks.cuh): the wrapper passes 128 tokens at page 16, K1's
+//   chunk.  A lane of 2,047 tokens gets 16 chunks per kv head and a lane
+//   of 6 tokens one, so the longest lane no longer sets the time.  An int8
+//   row is half a bf16 one, so 256-token chunks would move K1's 32 KB per
+//   kv head; measured on the H100 (PERF.md) they lost to 128 at six of
+//   K1's eight shapes, tied at one and won only with every lane long:
+//   with half the blocks, each block's serial walk of its tiles is what
+//   the card waits for.
+// * A block reads its chunk's page ids once, then stages the chunk's int8
+//   K and V rows for its kv head, and their f32 slot scales, through
+//   shared memory in tiles of 64 tokens with cp.async (16 bytes a row
+//   piece, 4 bytes a scale), double-buffered: tile i + 1 is in flight while
+//   tile i is computed.  Rows past the window are zero-filled (src-size 0).
+//   Rows are padded by 16 bytes against bank conflicts.
+// * Codes convert to f32 on the read from shared memory (a byte permute
+//   into 2^23 + u and one subtraction: exact, and cheaper than I2F), and
+//   each code once per block: the conversion is the kernel's largest
+//   instruction cost (a first design that converted every K code twice
+//   and every V code once per head took 7-11% longer).
+// * Scores: two lanes per token, each converting half of the token's K
+//   row, form the dot products of every head and meet by a shuffle; the
+//   scales are applied as the plain version applies them,
+//   (q . k_q) * scale * s_k, then folded into log2 units.  A warp runs the
+//   online softmax of two heads (one rescale per tile) and stores p * s_v
+//   token-major.  A product of G <= 8 rows is far too small for the
+//   tensor cores to pay off, and the work is bound by bytes.
+// * P.V: each warp takes every fourth token of the tile, each lane D / 32
+//   elements of it, and adds p * s_v * v into the accumulators of every
+//   head (one float4 read of four heads' weights); the four warps' sums
+//   meet in shared memory at the end of the chunk.
+// * A lane with one chunk writes its rows itself; the other lanes' chunks
+//   write (m, l, acc) partials that K1's merge kernel combines
+//   (paged_chunks.cuh).
+// * Masking is by seq_len, with no NaN path: a slot never written holds
+//   q = 0, s = 0 and a reused page stale codes, and neither is read as
+//   valid (its probability is 0, and rows past the window are zeros).
 //   The trash lane (table row all page 0) reads page 0 and is discarded.
-// This first version multiplies on the CUDA cores in f32; TMA staging and
-// loads issued a tile ahead of the math are later work.
 //
 // Plain C interface, loaded with ctypes; the launch error code is returned.
 
@@ -51,39 +63,92 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "paged_chunks.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
+constexpr int kMaxG = 8;    // q heads per kv head supported
 constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 32;  // tokens a warp stages at a time
-constexpr int kTD = 8;     // lanes per query row
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 64;   // tokens per staged tile
+constexpr int kPad = 16;    // int8 padding per staged row (16 B)
+constexpr int kPVRow = 12;  // floats of a token's p * s_v row (16-B rows)
 
-__device__ __forceinline__ void bf16x8_to_f32(uint4 raw, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
+template <int D>
+struct SmemI8 {
+  int8_t k[2][kTile][D + kPad];  // after the loop: the P.V groups' sums
+  int8_t v[2][kTile][D + kPad];
+  float ks[2][kTile];           // the tile's s_k
+  float vs[2][kTile];           // the tile's s_v
+  alignas(16) float q[kMaxG][D];  // the query rows in f32, unscaled
+  float s[kMaxG][kTile + 1];    // the tile's scores (log2 units)
+  alignas(16) float pv[kTile][kPVRow];  // p * s_v, token-major
+  float alpha[kMaxG];           // the tile's rescale of the running sums
+  float m[kMaxG];
+  float l[kMaxG];
+  int page[kMaxChunkPages];
+};
+
+// four int8 codes (one 32-bit word) to f32, exactly: the byte u = b + 128
+// becomes the float 2^23 + u, less 2^23 + 128
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* out) {
+  const uint32_t u = w ^ 0x80808080u;
+  out[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  out[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  out[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  out[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
 }
 
+// E consecutive codes (E = 2 or 4, suitably aligned) to f32
 template <int E>
-__device__ __forceinline__ void i8_to_f32(const int8_t* p, float* out) {
-#pragma unroll
-  for (int c = 0; c < E; c += 4) {
-    const char4 v = *reinterpret_cast<const char4*>(p + c);
-    out[c] = static_cast<float>(v.x);
-    out[c + 1] = static_cast<float>(v.y);
-    out[c + 2] = static_cast<float>(v.z);
-    out[c + 3] = static_cast<float>(v.w);
+__device__ __forceinline__ void codes_to_f32(const int8_t* p, float* out) {
+  if constexpr (E == 2) {
+    float f[4];
+    i8x4_to_f32(*reinterpret_cast<const uint16_t*>(p), f);
+    out[0] = f[0];
+    out[1] = f[1];
+  } else {
+    i8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), out);
   }
 }
 
-// grid (B, Hkv, n_splits), block kThreads.  RPT = query rows per lane.
-template <int D, int RPT>
-__global__ void __launch_bounds__(kThreads) paged_decode_int8_split_kernel(
+// stage tokens t0 + tile * kTile .. of the chunk [t0, t1) and their scales
+// into buffer buf; rows past t1 are zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(
+    SmemI8<D>& sm, const int8_t* __restrict__ k_q,
+    const float* __restrict__ k_s, const int8_t* __restrict__ v_q,
+    const float* __restrict__ v_s, int t0, int t1, int tile, int buf,
+    int page_size, int HD, int kvh) {
+  constexpr int CPR = D / 16;  // 16-byte pieces of a row
+  const int base = t0 + tile * kTile;
+  for (int i = threadIdx.x; i < kTile * CPR; i += kThreads) {
+    const int tt = i / CPR;
+    const int c = (i % CPR) * 16;
+    const int t = base + tt;
+    const bool ok = t < t1;
+    size_t off = 0;
+    if (ok)
+      off = ((size_t)sm.page[(t - t0) / page_size] * page_size +
+             t % page_size) * HD + (size_t)kvh * D + c;
+    cp_async16(smem_addr(&sm.k[buf][tt][c]), k_q + off, ok);
+    cp_async16(smem_addr(&sm.v[buf][tt][c]), v_q + off, ok);
+  }
+  for (int tt = threadIdx.x; tt < kTile; tt += kThreads) {
+    const int t = base + tt;
+    const bool ok = t < t1;
+    size_t slot = 0;
+    if (ok)
+      slot = (size_t)sm.page[(t - t0) / page_size] * page_size +
+             t % page_size;
+    cp_async4(smem_addr(&sm.ks[buf][tt]), k_s + slot, ok);
+    cp_async4(smem_addr(&sm.vs[buf][tt]), v_s + slot, ok);
+  }
+}
+
+// grid (Hkv * B * max_chunks), block kThreads.
+template <int D>
+__global__ void __launch_bounds__(kThreads) paged_decode_int8_chunk_kernel(
     const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
     const int8_t* __restrict__ k_q,       // [SLOTS, Hkv*D]
     const float* __restrict__ k_s,        // [SLOTS]
@@ -91,225 +156,217 @@ __global__ void __launch_bounds__(kThreads) paged_decode_int8_split_kernel(
     const float* __restrict__ v_s,        // [SLOTS]
     const int* __restrict__ page_table,   // [B, P]
     const int* __restrict__ seq_lens,     // [B]
-    __nv_bfloat16* __restrict__ out,      // [B, Hq, D] (1 split)
-    float* __restrict__ part_acc,         // [B, Hq, n_splits, D]
-    float* __restrict__ part_ml,          // [B, Hq, n_splits, 2]
-    int G, int Hkv, int P, int page_size, int n_splits, float scale) {
-  constexpr int E = D / kTD;      // codes of a row per lane: 8 or 16
-  constexpr int CH = D / 16;      // 16-byte chunks of a token's row
-  constexpr int kRows = 4 * RPT;  // row slots of a warp
-  static_assert(E % 8 == 0, "D must be a multiple of 64");
-  // per warp: a tile of int8 K rows then V rows; after the loop the same
-  // bytes hold the warps' (acc, m, l) for the merge
-  constexpr int kStage = kWarps * kTile * D * 2;
-  constexpr int kMerge = kWarps * kRows * (D + 2) * 4;
-  __shared__ __align__(16) unsigned char smem[kStage > kMerge ? kStage
-                                                              : kMerge];
-  __shared__ float kss[kWarps][kTile];
-  __shared__ float vss[kWarps][kTile];
+    __nv_bfloat16* __restrict__ out,      // [B, Hq, D]
+    float* __restrict__ part_acc,         // [B, max_chunks, Hq, D]
+    float* __restrict__ part_ml,          // [B, max_chunks, Hq, 2]
+    int B, int G, int Hkv, int P, int page_size, int chunk, int max_chunks,
+    float scale) {
+  __shared__ __align__(16) SmemI8<D> sm;
+  constexpr int E = D / 32;        // output elements a P.V lane owns
+  constexpr int PIECES = D / 16;   // 16-code pieces of a K row
+  const int kvh = blockIdx.x % Hkv;
+  const int cap = P * page_size;
 
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int split = blockIdx.z;
-  const int w = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int rg = lane / kTD;   // row group: rows rg, rg + 4
-  const int sub = lane % kTD;  // which D / 8 slice of the row
+  // this block's lane b and chunk j: the J-th chunk of the prefix sum
+  const ChunkWork w =
+      find_chunk(blockIdx.x / Hkv, seq_lens, nullptr, B, 1, cap, chunk);
+  if (w.b == B) return;
+  const int b = w.b, j = w.j, n_ch = w.n_ch;
+  const int t0 = j * chunk;                   // page-aligned
+  const int t1 = min(t0 + chunk, w.n_valid);  // t0 < t1: n_valid >= 1
+  const int n_tiles = (t1 - t0 + kTile - 1) / kTile;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int Hq = Hkv * G;
   const int HD = Hkv * D;
-  int8_t* ks = reinterpret_cast<int8_t*>(smem) + w * kTile * D * 2;
-  int8_t* vs = ks + kTile * D;
 
-  const int seq_len = seq_lens[b];
-  const int n_valid = max(0, min(seq_len + 1, P * page_size));
-  const int per = (n_valid + n_splits - 1) / n_splits;
-  const int t0 = min(split * per, n_valid);
-  const int t1 = min(t0 + per, n_valid);
+  const int n_pages = (t1 - t0 + page_size - 1) / page_size;
+  for (int i = tid; i < n_pages; i += kThreads)
+    sm.page[i] = page_table[(size_t)b * P + t0 / page_size + i];
+  const __nv_bfloat16* qb = q + ((size_t)b * Hq + (size_t)kvh * G) * D;
+  for (int i = tid; i < G * D; i += kThreads)
+    sm.q[i / D][i % D] = __bfloat162float(qb[i]);
+  __syncthreads();
 
-  float qr[RPT][E], acc[RPT][E], m[RPT], l[RPT];
+  // score step: token st, the pieces of its K row of parity sh, every
+  // head; softmax step: heads g0 = warp and g1 = warp + 4; P.V step:
+  // tokens warp, warp + 4, ..., elements pe..pe+E-1 of every head
+  const int st = warp * 16 + lane / 2;
+  const int sh = lane & 1;
+  const int g0 = warp;
+  const int g1 = warp + kWarps;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const int pe = lane * E;
+  float acc[kMaxG][E];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rg + 4 * i;
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int g = 0; g < kMaxG; ++g) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      qr[i][e] = 0.f;
-      acc[i][e] = 0.f;
-    }
-    if (r < G) {
-      const __nv_bfloat16* qp =
-          q + ((size_t)b * Hq + (size_t)kvh * G + r) * D + sub * E;
-#pragma unroll
-      for (int e = 0; e < E; e += 8)
-        bf16x8_to_f32(*reinterpret_cast<const uint4*>(qp + e), qr[i] + e);
-    }
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
-  for (int base = t0 + w * kTile; base < t1; base += kWarps * kTile) {
-    const int n = min(kTile, t1 - base);  // >= 1, the same for the warp
-    for (int i = lane; i < kTile * CH; i += 32) {
-      const int tt = i / CH;
-      const int c = (i % CH) * 16;
-      if (tt < n) {
-        const int t = base + tt;
-        const int page = page_table[(size_t)b * P + t / page_size];
-        const size_t off = ((size_t)page * page_size + t % page_size) * HD +
-                           (size_t)kvh * D + c;
-        *reinterpret_cast<uint4*>(ks + tt * D + c) =
-            *reinterpret_cast<const uint4*>(k_q + off);
-        *reinterpret_cast<uint4*>(vs + tt * D + c) =
-            *reinterpret_cast<const uint4*>(v_q + off);
-      }
-    }
-    if (lane < n) {
-      const int t = base + lane;
-      const int page = page_table[(size_t)b * P + t / page_size];
-      const size_t slot = (size_t)page * page_size + t % page_size;
-      kss[w][lane] = k_s[slot];
-      vss[w][lane] = v_s[slot];
-    }
-    __syncwarp();
+  load_tile<D>(sm, k_q, k_s, v_q, v_s, t0, t1, 0, 0, page_size, HD, kvh);
+  cp_async_commit();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < n_tiles)
+      load_tile<D>(sm, k_q, k_s, v_q, v_s, t0, t1, i + 1, buf ^ 1,
+                   page_size, HD, kvh);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile i has landed for every thread
+    const int nv = min(kTile, t1 - t0 - i * kTile);
 
-    // raw dot products; this lane keeps those of tokens 8 * j + sub
-    float sc[RPT][4];
+    // scores of token st: each code converted once, for every head; the
+    // lane pair's halves meet by a shuffle
+    {
+      float d[kMaxG];
 #pragma unroll
-    for (int tt = 0; tt < kTile; ++tt) {
-      float kf[E];
-      i8_to_f32<E>(ks + tt * D + sub * E, kf);
+      for (int g = 0; g < kMaxG; ++g) d[g] = 0.f;
+      const int8_t* kr = &sm.k[buf][st][0];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        float d = 0.f;
+      for (int i = 0; i < PIECES / 2; ++i) {
+        const int pc = 2 * i + sh;
+        const uint4 raw = *reinterpret_cast<const uint4*>(kr + 16 * pc);
+        float kf[16];
+        i8x4_to_f32(raw.x, kf);
+        i8x4_to_f32(raw.y, kf + 4);
+        i8x4_to_f32(raw.z, kf + 8);
+        i8x4_to_f32(raw.w, kf + 12);
 #pragma unroll
-        for (int e = 0; e < E; ++e) d += qr[i][e] * kf[e];
-        d += __shfl_xor_sync(0xffffffffu, d, 4);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
-        if (sub == (tt & 7)) sc[i][tt >> 3] = d;
+        for (int g = 0; g < kMaxG; ++g) {
+          if (g < G) {  // warp-uniform
+            const float4* qr =
+                reinterpret_cast<const float4*>(&sm.q[g][16 * pc]);
+#pragma unroll
+            for (int e4 = 0; e4 < 4; ++e4) {
+              const float4 qv = qr[e4];
+              d[g] += qv.x * kf[4 * e4] + qv.y * kf[4 * e4 + 1] +
+                      qv.z * kf[4 * e4 + 2] + qv.w * kf[4 * e4 + 3];
+            }
+          }
+        }
       }
-    }
-    // scores with the per-slot k scale, one rescale per tile; sc then
-    // holds this lane's probabilities (0 past the window)
+      const float sk = sm.ks[buf][st];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int tt = 8 * j + sub;
-        sc[i][j] = tt < n ? sc[i][j] * scale * kss[w][tt] : kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = __expf(m[i] - m_new);
-      l[i] *= alpha;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[i][e] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = 8 * j + sub < n ? __expf(sc[i][j] - m_new) : 0.f;
-        sc[i][j] = p;
-        l[i] += p;  // this lane's share; summed over the row's 8 lanes
-      }
-      m[i] = m_new;
-    }
-    // PV with the per-slot v scale; the bound n is the same for the warp
-#pragma unroll
-    for (int tt = 0; tt < kTile; ++tt) {
-      if (tt < n) {
-        float vf[E];
-        i8_to_f32<E>(vs + tt * D + sub * E, vf);
-        const float sv = vss[w][tt];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const float p = __shfl_sync(0xffffffffu, sc[i][tt >> 3],
-                                      (lane & ~7) | (tt & 7)) * sv;
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[i][e] += p * vf[e];
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < G) {
+          d[g] += __shfl_xor_sync(0xffffffffu, d[g], 1);
+          if ((g & 1) == sh)
+            sm.s[g][st] = st < nv ? d[g] * scale * sk * kLog2e : kNegInf;
         }
       }
     }
-    __syncwarp();  // the tile is read before the next one is staged
-  }
+    __syncthreads();  // the tile's scores are in place
+
+    // online softmax, one rescale per tile; p * s_v, token-major
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    for (int h = 0; h < 2; ++h) {
+      const int g = h ? g1 : g0;
+      if (g >= G) continue;  // warp-uniform
+      float& m = h ? m1 : m0;
+      float& l = h ? l1 : l0;
+      const float s0 = sm.s[g][lane];
+      const float s1 = sm.s[g][lane + 32];
+      const bool v0 = lane < nv, v1 = lane + 32 < nv;
+      const float m_new = fmaxf(m, warp_max(fmaxf(s0, s1)));
+      const float a = exp2f(m - m_new);
+      const float p0 = v0 ? exp2f(s0 - m_new) : 0.f;
+      const float p1 = v1 ? exp2f(s1 - m_new) : 0.f;
+      l = l * a + warp_sum(p0 + p1);
+      m = m_new;
+      sm.pv[lane][g] = p0 * sm.vs[buf][lane];
+      sm.pv[lane + 32][g] = p1 * sm.vs[buf][lane + 32];
+      if (lane == 0) sm.alpha[g] = a;
+    }
+    __syncthreads();  // weights and rescales are ready
+
+    // P.V: each V code converted once and applied to every head
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g < G) {
+        const float a = sm.alpha[g];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] *= a;
+      }
+    }
+    for (int tt = warp; tt < nv; tt += kWarps) {
+      float vf[E];
+      codes_to_f32<E>(&sm.v[buf][tt][pe], vf);
+      const float4 pa = *reinterpret_cast<const float4*>(&sm.pv[tt][0]);
+      const float pw[4] = {pa.x, pa.y, pa.z, pa.w};
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        if (g < G) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] += pw[g] * vf[e];
+        }
+      }
+      if (G > 4) {
+        const float4 pb = *reinterpret_cast<const float4*>(&sm.pv[tt][4]);
+        const float px[4] = {pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          if (g + 4 < G) {
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[g + 4][e] += px[g] * vf[e];
+          }
+        }
+      }
+    }
+    __syncthreads();  // buffer `buf` and the weights are free again
   }
 
-  // merge the warps' states; a warp that saw no tile has l = 0, acc = 0
-  __syncthreads();  // every warp is done with its staging bytes
-  float* mrg = reinterpret_cast<float*>(smem);  // [kWarps][kRows][D + 2]
+  // the four token groups' sums meet in the (idle) staging buffers
+  float* red = reinterpret_cast<float*>(&sm.k[0][0][0]);  // [4][G][D]
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    float* row = mrg + ((size_t)w * kRows + rg + 4 * i) * (D + 2);
+  for (int g = 0; g < kMaxG; ++g) {
+    if (g < G) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) row[sub * E + e] = acc[i][e];
-    if (sub == 0) {
-      row[D] = m[i];
-      row[D + 1] = l[i];
+      for (int e = 0; e < E; ++e)
+        red[((size_t)warp * G + g) * D + pe + e] = acc[g][e];
     }
   }
+  if (lane == 0 && g0 < G) {
+    sm.m[g0] = m0;
+    sm.l[g0] = l0;
+  }
+  if (lane == 0 && g1 < G) {
+    sm.m[g1] = m1;
+    sm.l[g1] = l1;
+  }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
-    const int r = idx / D;
+  for (int idx = tid; idx < G * D; idx += kThreads) {
+    const int g = idx / D;
+    float A = 0.f;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) A += red[(size_t)v * G * D + idx];
+    const int h = kvh * G + g;
     const int d = idx % D;
-    float M = kNegInf;
-#pragma unroll
-    for (int v = 0; v < kWarps; ++v)
-      M = fmaxf(M, mrg[((size_t)v * kRows + r) * (D + 2) + D]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int v = 0; v < kWarps; ++v) {
-      const float* row = mrg + ((size_t)v * kRows + r) * (D + 2);
-      const float c = __expf(row[D] - M);
-      L += row[D + 1] * c;
-      A += row[d] * c;
-    }
-    const size_t orow = (size_t)b * Hq + (size_t)kvh * G + r;
-    if (n_splits == 1) {
-      out[orow * D + d] = __float2bfloat16(L > 0.f ? A / L : 0.f);
+    if (n_ch == 1) {
+      out[((size_t)b * Hq + h) * D + d] =
+          __float2bfloat16(A / fmaxf(sm.l[g], 1e-30f));
     } else {
-      part_acc[(orow * n_splits + split) * D + d] = A;
+      const size_t row = ((size_t)b * max_chunks + j) * Hq + h;
+      part_acc[row * D + d] = A;
       if (d == 0) {
-        part_ml[(orow * n_splits + split) * 2] = M;
-        part_ml[(orow * n_splits + split) * 2 + 1] = L;
+        part_ml[row * 2] = sm.m[g];
+        part_ml[row * 2 + 1] = sm.l[g];
       }
     }
   }
 }
 
-// grid (B * Hq), block D: merge the n_splits partial states of one row.
-// An empty split has L = 0 and adds nothing.
-__global__ void paged_decode_int8_combine_kernel(
-    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    __nv_bfloat16* __restrict__ out, int n_splits, int D) {
-  const size_t row = blockIdx.x;
-  const int d = threadIdx.x;
-  float M = kNegInf;
-  for (int s = 0; s < n_splits; ++s)
-    M = fmaxf(M, part_ml[(row * n_splits + s) * 2]);
-  float L = 0.f, A = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const float c = __expf(part_ml[(row * n_splits + s) * 2] - M);
-    L += part_ml[(row * n_splits + s) * 2 + 1] * c;
-    A += part_acc[(row * n_splits + s) * D + d] * c;
-  }
-  out[row * D + d] = __float2bfloat16(L > 0.f ? A / L : 0.f);
-}
-
-template <int D, int RPT>
-void launch_split(dim3 grid, cudaStream_t st, const __nv_bfloat16* q,
-                  const int8_t* kq, const float* ks, const int8_t* vq,
-                  const float* vs, const int* pt, const int* sl,
-                  __nv_bfloat16* out, float* pa, float* pm, int G, int Hkv,
-                  int P, int page_size, int n_splits, float scale) {
-  paged_decode_int8_split_kernel<D, RPT><<<grid, kThreads, 0, st>>>(
-      q, kq, ks, vq, vs, pt, sl, out, pa, pm, G, Hkv, P, page_size, n_splits,
-      scale);
+template <int D>
+void launch_chunks(unsigned blocks, cudaStream_t st, const __nv_bfloat16* q,
+                   const int8_t* kq, const float* ks, const int8_t* vq,
+                   const float* vs, const int* pt, const int* sl,
+                   __nv_bfloat16* out, float* pa, float* pm, int B, int G,
+                   int Hkv, int P, int page_size, int chunk, int max_chunks,
+                   float scale) {
+  paged_decode_int8_chunk_kernel<D><<<blocks, kThreads, 0, st>>>(
+      q, kq, ks, vq, vs, pt, sl, out, pa, pm, B, G, Hkv, P, page_size, chunk,
+      max_chunks, scale);
 }
 
 }  // namespace
@@ -318,13 +375,14 @@ extern "C" int kafka_paged_decode_int8(
     const void* q, const void* k_q, const void* k_s, const void* v_q,
     const void* v_s, const void* page_table, const void* seq_lens, void* out,
     void* part_acc, void* part_ml, int B, int Hq, int Hkv, int D, int P,
-    int page_size, int n_splits, float scale, void* stream) {
-  if (B < 1 || Hkv < 1 || Hq % Hkv != 0 || n_splits < 1 || page_size < 1)
+    int page_size, int chunk, float scale, void* stream) {
+  const int G = Hkv > 0 ? Hq / Hkv : 0;
+  const int max_chunks = max_lane_chunks(P, page_size, chunk);
+  if (G < 1 || G > kMaxG || Hq % Hkv != 0 || B < 1 || max_chunks < 1)
     return (int)cudaErrorInvalidValue;
-  const int G = Hq / Hkv;
-  if (G > 8) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)Hkv * B * max_chunks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  dim3 grid(B, Hkv, n_splits);
   auto* qp = static_cast<const __nv_bfloat16*>(q);
   auto* kq = static_cast<const int8_t*>(k_q);
   auto* ks = static_cast<const float*>(k_s);
@@ -335,25 +393,18 @@ extern "C" int kafka_paged_decode_int8(
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* pa = static_cast<float*>(part_acc);
   auto* pm = static_cast<float*>(part_ml);
-  const bool two = G > 4;
-  if (D == 64 && !two) {
-    launch_split<64, 1>(grid, st, qp, kq, ks, vq, vs, pt, sl, op, pa, pm, G,
-                        Hkv, P, page_size, n_splits, scale);
-  } else if (D == 64) {
-    launch_split<64, 2>(grid, st, qp, kq, ks, vq, vs, pt, sl, op, pa, pm, G,
-                        Hkv, P, page_size, n_splits, scale);
-  } else if (D == 128 && !two) {
-    launch_split<128, 1>(grid, st, qp, kq, ks, vq, vs, pt, sl, op, pa, pm, G,
-                         Hkv, P, page_size, n_splits, scale);
+  const unsigned nb = (unsigned)blocks;
+  if (D == 64) {
+    launch_chunks<64>(nb, st, qp, kq, ks, vq, vs, pt, sl, op, pa, pm, B, G,
+                      Hkv, P, page_size, chunk, max_chunks, scale);
   } else if (D == 128) {
-    launch_split<128, 2>(grid, st, qp, kq, ks, vq, vs, pt, sl, op, pa, pm, G,
-                         Hkv, P, page_size, n_splits, scale);
+    launch_chunks<128>(nb, st, qp, kq, ks, vq, vs, pt, sl, op, pa, pm, B, G,
+                       Hkv, P, page_size, chunk, max_chunks, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_splits == 1) return (int)err;
-  paged_decode_int8_combine_kernel<<<B * Hq, D, 0, st>>>(pa, pm, op, n_splits,
-                                                         D);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_merge(pa, pm, sl, nullptr, op, B, Hq, D, 1, P * page_size,
+                      chunk, max_chunks, st);
 }

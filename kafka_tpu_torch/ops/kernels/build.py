@@ -3,8 +3,9 @@
 Each source compiles with `nvcc` for `sm_90a` into its own shared library
 with a plain C interface, loaded with ctypes.  The build runs at first use,
 from the repository's sources only, into `csrc/build/` (listed in
-.gitignore); a library's file name carries a hash of its source and flags,
-so an edited source rebuilds and a stale library is never loaded.
+.gitignore); a library's file name carries a hash of its source, of the
+shared headers (`csrc/*.cuh`) and of the flags, so an edited source or
+header rebuilds and a stale library is never loaded.
 `build_all` starts one nvcc per source together and waits for all of them.
 
 Nothing here runs at import: the CPU test suite imports every module, and
@@ -62,11 +63,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(
-        src + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of csrc/<name>.cu, named by a hash of the source, every
+    shared header in csrc/ (any of them may be included) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Optional[subprocess.Popen]:

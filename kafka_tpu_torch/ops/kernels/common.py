@@ -2,20 +2,9 @@
 
 from __future__ import annotations
 
-import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def num_sms(device: torch.device) -> int:
-    return _sm_count(device.index if device.index is not None
-                     else torch.cuda.current_device())
 
 
 def stream_ptr(device: torch.device) -> int:
@@ -55,3 +44,51 @@ def check_pool_args(name: str, q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"{name}: pool row {k_pool.shape[1]} is not a "
                          f"multiple of head_dim {d}")
     return n, hq, d
+
+
+# csrc/paged_chunks.cuh: a chunk spans at most this many pages, and the
+# merge keeps a row's (m, l) pairs of every chunk in 48 KB of shared memory
+MAX_CHUNK_PAGES = 128
+MAX_MERGE_CHUNKS = 48 * 1024 // 8
+
+
+class ChunkPlan(NamedTuple):
+    """How K1, K3 and K4 cut the lanes' windows (csrc/paged_chunks.cuh):
+    `chunk` tokens of whole pages, at most `max_chunks` a lane (a lane's
+    window of n slots takes max(1, ceil(n / chunk)) of them).  The chunk
+    kernel's grid is B * max_chunks * Hkv blocks, a bound: the lengths
+    live on the device."""
+
+    chunk: int
+    max_chunks: int
+
+    def scratch_shapes(self, B: int, rows: int, D: int
+                       ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+        """The partials (acc, then m and l) for `rows` output rows a lane:
+        Hq for decode, S * Hq for verify."""
+        return ((B, self.max_chunks, rows, D), (B, self.max_chunks, rows, 2))
+
+
+def chunk_plan(P: int, page_size: int, target: int) -> ChunkPlan:
+    """The whole pages that make ~`target` tokens (one page where a page is
+    longer, at most MAX_CHUNK_PAGES), and the chunks of a full window of P
+    pages; raises for a window the merge cannot hold."""
+    chunk = page_size * min(MAX_CHUNK_PAGES, max(1, target // page_size))
+    plan = ChunkPlan(chunk, -(-P * page_size // chunk))
+    if plan.max_chunks > MAX_MERGE_CHUNKS:
+        raise ValueError(
+            f"a window of {P} pages of {page_size} tokens needs "
+            f"{plan.max_chunks} chunks of {chunk} tokens; the paged "
+            f"attention kernels merge at most {MAX_MERGE_CHUNKS}")
+    return plan
+
+
+def chunk_scratch(plan: ChunkPlan, B: int, rows: int, D: int,
+                  like: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The partials' f32 scratch, or `like` twice where no lane can have two
+    chunks (the kernel then writes every row itself and never reads it)."""
+    if plan.max_chunks <= 1:
+        return like, like
+    acc, ml = plan.scratch_shapes(B, rows, D)
+    return (torch.empty(acc, dtype=torch.float32, device=like.device),
+            torch.empty(ml, dtype=torch.float32, device=like.device))

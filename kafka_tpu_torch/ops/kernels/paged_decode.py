@@ -16,7 +16,7 @@ import torch
 
 from ..attention import causal_attention
 from . import build
-from .common import check_pool_args, stream_ptr
+from .common import check_pool_args, chunk_plan, chunk_scratch, stream_ptr
 
 
 def paged_decode_attention_plain(
@@ -56,12 +56,6 @@ def paged_decode_attention_plain(
 CHUNK_TOKENS = 128
 
 
-def chunk_tokens(page_size: int) -> int:
-    """The kernel's chunk: the whole pages that make ~CHUNK_TOKENS tokens
-    (one page where a page is longer)."""
-    return page_size * max(1, CHUNK_TOKENS // page_size)
-
-
 def paged_decode_attention(
     q: torch.Tensor,
     k_pool: torch.Tensor,
@@ -95,19 +89,15 @@ def paged_decode_attention(
             f"paged decode kernel takes D in (64, 128) and <= 8 q heads per "
             f"kv head; got Hq={Hq} Hkv={Hkv} D={D}")
     P = page_table.shape[1]
-    chunk = chunk_tokens(page_size)
-    max_chunks = -(-P * page_size // chunk)
+    plan = chunk_plan(P, page_size, CHUNK_TOKENS)
     out = torch.empty_like(q)
-    part_acc = torch.empty((B, max_chunks, Hq, D), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, max_chunks, Hq, 2), dtype=torch.float32,
-                          device=q.device)
+    part_acc, part_ml = chunk_scratch(plan, B, Hq, D, out)
     lib = build.load("paged_decode")
     rc = lib.kafka_paged_decode_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(),
-        B, Hq, Hkv, D, P, page_size, chunk,
+        B, Hq, Hkv, D, P, page_size, plan.chunk,
         float(D ** -0.5 if scale is None else scale), stream_ptr(q.device),
     )
     if rc != 0:

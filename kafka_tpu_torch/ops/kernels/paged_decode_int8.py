@@ -8,7 +8,8 @@ at :558).  The pool holds int8 rows and one f32 scale per slot
 to a dense window: `score = (q . k_q) * scale * s_k[slot]` and the PV
 product weighs each row by `p * s_v[slot]`, all in f32.  The kernel is
 csrc/paged_decode_int8.cu (design and bound in its header: bytes-bound,
-the valid window's int8 K+V and their scales — half of K1's bytes).
+the valid window's int8 K+V and their scales — half of K1's bytes; K1's
+chunked split over 128-token chunks).
 `paged_decode_attention_int8` launches it for CUDA tensors and runs
 `paged_decode_attention_int8_plain` — the same function in plain PyTorch
 — for CPU tensors only; it never falls back.
@@ -22,7 +23,7 @@ import torch
 
 from ..attention import NEG_INF
 from . import build
-from .common import num_sms, stream_ptr
+from .common import chunk_plan, chunk_scratch, stream_ptr
 
 
 def paged_decode_attention_int8_plain(
@@ -68,9 +69,9 @@ def paged_decode_attention_int8_plain(
     return (acc / denom).reshape(B, Hq, D).to(q.dtype)
 
 
-def _num_splits(B: int, Hkv: int, device: torch.device) -> int:
-    """Split the window so the grid covers ~2 blocks per SM (K1's rule)."""
-    return max(1, min(16, -(-2 * num_sms(device) // (B * Hkv))))
+# tokens per chunk of work (csrc/paged_decode_int8.cu): whole pages, ~128
+# tokens, K1's chunk (256 lost to it on the H100: PERF.md)
+CHUNK_TOKENS = 128
 
 
 def _check(q, k_q, k_s, v_q, v_s, page_table, seq_lens):
@@ -143,21 +144,15 @@ def paged_decode_attention_int8(
         )
     B, Hq, Hkv, D = _check(q, k_q, k_s, v_q, v_s, page_table, seq_lens)
     P = page_table.shape[1]
-    n_splits = _num_splits(B, Hkv, q.device)
+    plan = chunk_plan(P, page_size, CHUNK_TOKENS)
     out = torch.empty_like(q)
-    if n_splits > 1:
-        part_acc = torch.empty((B, Hq, n_splits, D), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B, Hq, n_splits, 2), dtype=torch.float32,
-                              device=q.device)
-    else:
-        part_acc = part_ml = out  # unused by the one-split launch
+    part_acc, part_ml = chunk_scratch(plan, B, Hq, D, out)
     lib = build.load("paged_decode_int8")
     rc = lib.kafka_paged_decode_int8(
         q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
         v_s.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        B, Hq, Hkv, D, P, page_size, n_splits,
+        B, Hq, Hkv, D, P, page_size, plan.chunk,
         float(D ** -0.5 if scale is None else scale), stream_ptr(q.device),
     )
     if rc != 0:

@@ -3,8 +3,10 @@
 Replaces the Pallas kernel `paged_verify_attention`
 (kafka_tpu/ops/pallas/paged_attention.py:384), the attention of the
 speculative verify step: S = K+1 query tokens per sequence, each causally
-masked to its own position.  The kernel is csrc/paged_verify.cu (design
-and bound in its header: bytes-bound, the valid windows' K+V).
+masked to its own position, for any S (no cap on speculative_k).  The
+kernel is csrc/paged_verify.cu (design and bound in its header:
+bytes-bound, the valid windows' K+V; K1's chunked split, rows on the
+tensor cores).
 `paged_verify_attention` launches it for CUDA tensors and runs
 `paged_verify_attention_plain` — the same function in plain PyTorch — for
 CPU tensors only; it never falls back.
@@ -18,10 +20,11 @@ import torch
 
 from ..attention import causal_attention
 from . import build
-from .common import check_pool_args, num_sms, stream_ptr
+from .common import check_pool_args, chunk_plan, chunk_scratch, stream_ptr
 
-# the kernel's block holds every query row of one kv head (G * S of them)
-MAX_ROWS = 32
+# tokens per chunk of work (csrc/paged_verify.cu): whole pages, ~128 tokens
+# (K1's chunk)
+CHUNK_TOKENS = 128
 
 
 def paged_verify_attention_plain(
@@ -54,11 +57,6 @@ def paged_verify_attention_plain(
         kv_valid=kv_pos < (lens + q_lens.long())[:, None],
         scale=scale,
     )
-
-
-def _num_splits(B: int, Hkv: int, device: torch.device) -> int:
-    """Split the windows so the grid covers ~2 blocks per SM (K1's rule)."""
-    return max(1, min(16, -(-2 * num_sms(device) // (B * Hkv))))
 
 
 def paged_verify_attention(
@@ -97,27 +95,20 @@ def paged_verify_attention(
         raise ValueError(f"seq_lens and q_lens must be [{B}], got "
                          f"{tuple(seq_lens.shape)}, {tuple(q_lens.shape)}")
     Hkv = k_pool.shape[1] // D
-    if Hq % Hkv or (Hq // Hkv) * S > MAX_ROWS or D not in (64, 128):
+    if Hq % Hkv or Hq // Hkv > 8 or D not in (64, 128):
         raise ValueError(
-            f"paged verify kernel takes D in (64, 128) and at most "
-            f"{MAX_ROWS} query rows per kv head (G * S); got Hq={Hq} "
-            f"Hkv={Hkv} S={S} D={D}")
+            f"paged verify kernel takes D in (64, 128) and <= 8 q heads per "
+            f"kv head; got Hq={Hq} Hkv={Hkv} D={D}")
     P = page_table.shape[1]
-    n_splits = _num_splits(B, Hkv, q.device)
+    plan = chunk_plan(P, page_size, CHUNK_TOKENS)
     out = torch.empty_like(q)
-    if n_splits > 1:
-        part_acc = torch.empty((B, S, Hq, n_splits, D), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B, S, Hq, n_splits, 2), dtype=torch.float32,
-                              device=q.device)
-    else:
-        part_acc = part_ml = out  # unused by the one-split launch
+    part_acc, part_ml = chunk_scratch(plan, B, S * Hq, D, out)
     lib = build.load("paged_verify")
     rc = lib.kafka_paged_verify_bf16(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), q_lens.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-        B, S, Hq, Hkv, D, P, page_size, n_splits,
+        B, S, Hq, Hkv, D, P, page_size, plan.chunk,
         float(D ** -0.5 if scale is None else scale), stream_ptr(q.device),
     )
     if rc != 0:

@@ -74,7 +74,10 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, PagedView, forward, params_to
-from ..ops.kernels.paged_verify import MAX_ROWS as MAX_VERIFY_ROWS
+from ..ops.kernels.common import chunk_plan
+from ..ops.kernels.paged_decode import CHUNK_TOKENS as DECODE_CHUNK
+from ..ops.kernels.paged_decode_int8 import CHUNK_TOKENS as DECODE_INT8_CHUNK
+from ..ops.kernels.paged_verify import CHUNK_TOKENS as VERIFY_CHUNK
 from ..ops.sampling import (
     SamplingParams,
     grammar_advance,
@@ -332,6 +335,34 @@ class TokenEvent:
     finish_reason: Optional[str] = None
 
 
+def kernel_backend_problems(cfg: ModelConfig,
+                            ecfg: EngineConfig) -> List[str]:
+    """Why the CUDA attention kernels (K1-K4) cannot serve this model and
+    engine configuration; empty when they can.  The engine refuses a CUDA
+    kernel backend with problems at construction.
+
+    All four take bf16 models with head_dim 64 or 128 and <= 8 q heads per
+    kv head, and K1, K3 and K4 a window whose chunks their merge can hold
+    (ops/kernels/common.py).  K3 (paged verify) sets no bound on
+    speculative_k: it holds any G * (speculative_k + 1) query rows of a kv
+    head, so every speculative_k the window fits (checked at construction)
+    is served, as in the reference engine."""
+    problems = []
+    g, d = cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
+    if cfg.activation_dtype != torch.bfloat16 or d not in (64, 128) \
+            or g > 8 or cfg.num_heads % cfg.num_kv_heads:
+        problems.append(
+            f"the CUDA attention kernels take bf16 models with head_dim 64 "
+            f"or 128 and <= 8 q heads per kv head; {cfg.name} is "
+            f"{cfg.dtype} D={d} G={g}")
+    try:  # the smallest chunk makes the most chunks
+        chunk_plan(ecfg.max_pages_per_seq, ecfg.page_size,
+                   min(DECODE_CHUNK, DECODE_INT8_CHUNK, VERIFY_CHUNK))
+    except ValueError as e:
+        problems.append(str(e))
+    return problems
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -370,22 +401,10 @@ class InferenceEngine:
                 f"attention window ({ecfg.max_window})")
         backend = "kernel" if ecfg.attention_backend == "auto" else "plain"
         if backend == "kernel" and self.device.type == "cuda":
-            g, d = cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
-            if cfg.activation_dtype != torch.bfloat16 or d not in (64, 128) \
-                    or g > 8 or cfg.num_heads % cfg.num_kv_heads:
+            problems = kernel_backend_problems(cfg, ecfg)
+            if problems:
                 raise ValueError(
-                    f"the CUDA attention kernels take bf16 models with "
-                    f"head_dim 64 or 128 and <= 8 q heads per kv head; "
-                    f"{cfg.name} is {cfg.dtype} D={d} G={g} — use "
-                    f"attention_backend='plain'")
-            # an int8 pool's verify steps take the page gather, not K3
-            if not ecfg.kv_quantize and \
-                    g * (ecfg.speculative_k + 1) > MAX_VERIFY_ROWS:
-                raise ValueError(
-                    f"the paged verify kernel holds at most "
-                    f"{MAX_VERIFY_ROWS} query rows per kv head; "
-                    f"speculative_k={ecfg.speculative_k} with {g} q heads "
-                    f"per kv head needs {g * (ecfg.speculative_k + 1)}")
+                    "; ".join(problems) + " — use attention_backend='plain'")
         self.cfg = cfg.replace(attention_backend=backend)
         self.params = params_to(params, device=self.device)
         self.kv_dtype = kv_dtype or cfg.activation_dtype

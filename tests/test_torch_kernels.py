@@ -59,6 +59,12 @@ from kafka_tpu_torch.ops.kernels import (
     paged_verify_attention,
     paged_verify_attention_plain,
 )
+from kafka_tpu_torch.ops.kernels.common import (
+    MAX_CHUNK_PAGES,
+    MAX_MERGE_CHUNKS,
+    chunk_plan,
+    chunk_scratch,
+)
 from kafka_tpu_torch.ops.kernels.flash_prefill import ROW_TILES
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -291,6 +297,9 @@ class TestPagedVerifyPlain:
     @pytest.mark.parametrize("seed,Hq,Hkv,D,S", [
         (0, 4, 2, 16, 4), (1, 4, 2, 16, 4), (2, 8, 2, 16, 5),
         (3, 4, 1, 32, 3),
+        # more than 32 query rows per kv head (G * S), which the CUDA
+        # kernel once refused: G 4 at S 9 (speculative_k 8), G 8 at S 5
+        (4, 16, 4, 16, 9), (5, 16, 2, 16, 5),
     ])
     def test_matches_pallas(self, seed, Hq, Hkv, D, S):
         """Rows j < q_len against the Pallas kernel in interpret mode."""
@@ -351,6 +360,21 @@ class TestPagedDecodeInt8Plain:
         out = paged_decode_attention_int8_plain(*args, page_size=8)
         np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
 
+    def test_window_on_a_chunk_boundary(self):
+        """A window of 256 slots, which ends on a chunk boundary of the
+        CUDA kernel, one slot past it, and shorter ones, page 16."""
+        ps, P = 16, 17
+        args = list(make_int8_case(8, 4, P, ps, 8, 2, 16, 4 * P + 1))
+        # every lane owns its whole window (shuffled pages, none trash)
+        table = np.random.RandomState(9).permutation(4 * P) + 1
+        args[5] = t(table.reshape(4, P).astype(np.int32))
+        args[6] = torch.tensor([255, 256, 127, 100], dtype=torch.int32)
+        ref = np.asarray(pallas_decode_int8(
+            *(jnp.asarray(a.numpy()) for a in args), page_size=ps,
+            interpret=True))
+        out = paged_decode_attention_int8_plain(*args, page_size=ps)
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+
     def test_wrapper_takes_plain_version_on_cpu(self):
         args = make_int8_case(4, 3, 4, 8, 8, 2, 16, 20)
         kernels.reset_launch_counts()
@@ -358,6 +382,60 @@ class TestPagedDecodeInt8Plain:
         b = paged_decode_attention_int8_plain(*args, page_size=8)
         assert torch.equal(a, b)
         assert paged_decode_attention_int8.launches == 0
+
+
+class TestChunkPlan:
+    """The wrappers' chunk arithmetic (ops/kernels/common.py), against a
+    numpy count of each lane's chunks: the grid bound covers every chunk
+    and the scratch holds every partial."""
+
+    @pytest.mark.parametrize("target,ps,P", [
+        (128, 16, 128), (256, 16, 128), (128, 16, 8), (256, 8, 33),
+        (128, 32, 5), (256, 1, 600), (128, 256, 3),
+    ])
+    def test_grid_and_scratch_cover_every_chunk(self, target, ps, P):
+        plan = chunk_plan(P, ps, target)
+        cap = P * ps
+        assert plan.chunk % ps == 0
+        assert 1 <= plan.chunk // ps <= MAX_CHUNK_PAGES
+        assert plan.chunk == max(ps, min(target // ps, MAX_CHUNK_PAGES) * ps)
+        rng = np.random.RandomState(P)
+        B, Hkv, S, Hq, D = 7, 8, 5, 32, 64
+        seq = rng.randint(0, cap + 4, size=B)
+        seq[:4] = [0, cap - 1, plan.chunk - 1, cap + 3]
+        # decode steps add one token, verify steps q_len (clamped to S);
+        # a lane's chunks start at 0, chunk, ... below its window (one for
+        # an empty window, so every row is written)
+        for new in (np.ones(B, np.int64), rng.randint(0, S + 3, size=B)):
+            n_valid = np.clip(seq + np.minimum(new, S), 0, cap)
+            counts = np.array([max(1, len(range(0, n, plan.chunk)))
+                               for n in n_valid])
+            # the grid, B * max_chunks blocks a kv head, covers every chunk
+            assert counts.max() <= plan.max_chunks
+            assert counts.sum() <= B * plan.max_chunks
+        # a full window takes every chunk the scratch holds, no more
+        assert len(range(0, cap, plan.chunk)) == plan.max_chunks
+        assert (plan.max_chunks - 1) * plan.chunk < cap
+        assert plan.scratch_shapes(B, S * Hq, D) == (
+            (B, plan.max_chunks, S * Hq, D), (B, plan.max_chunks, S * Hq, 2))
+
+    def test_wrappers_chunks_and_one_chunk_scratch(self):
+        from kafka_tpu_torch.ops.kernels import (
+            paged_decode as k1, paged_decode_int8 as k4, paged_verify as k3)
+
+        # K1, K3 and K4: 128-token chunks at page 16
+        assert [chunk_plan(128, 16, m.CHUNK_TOKENS).chunk
+                for m in (k1, k3, k4)] == [128, 128, 128]
+        out = torch.zeros(2, 4, 8)
+        plan = chunk_plan(4, 16, 128)  # a 64-token window: one chunk
+        assert plan.max_chunks == 1
+        acc, ml = chunk_scratch(plan, 2, 4, 8, out)
+        assert acc is out and ml is out
+        acc, ml = chunk_scratch(chunk_plan(9, 16, 128), 2, 4, 8, out)
+        assert acc.shape == (2, 2, 4, 8) and ml.shape == (2, 2, 4, 2)
+        assert acc.dtype == ml.dtype == torch.float32
+        with pytest.raises(ValueError, match="merge at most"):
+            chunk_plan(MAX_MERGE_CHUNKS * 8 + 1, 16, 128)
 
 
 def make_mlp_case(seed, B=8, H=256, F=1024):
@@ -508,6 +586,24 @@ class TestCudaKernels:
             n = int(qlens[b])
             self._close(out[b, :n], ref[b, :n])
 
+    @pytest.mark.parametrize("Hq,S", [(32, 9), (32, 17), (64, 5), (64, 17)])
+    def test_paged_verify_kernel_past_32_rows(self, cuda, Hq, S):
+        """G * S above the 32 rows per kv head the kernel once held (fault
+        C4): G 4 at S 9 and 17 (speculative_k 8 and 16), G 8 at S 5 and 17
+        (two row blocks); rows j < q_len held, rows j >= q_len zeros."""
+        q, kp, vp, table, lens, qlens = make_verify_case(
+            1, B=8, P=32, ps=16, Hq=Hq, Hkv=8, D=64, num_pages=8 * 32 + 1,
+            S=S)
+        args = [t(a).to(cuda).to(torch.bfloat16) for a in (q, kp, vp)] + \
+            [t(a).to(cuda) for a in (table, lens, qlens)]
+        out = paged_verify_attention(*args, page_size=16)
+        ref = paged_verify_attention_plain(*args, page_size=16)
+        torch.cuda.synchronize()
+        for b in range(8):
+            n = int(qlens[b])
+            self._close(out[b, :n], ref[b, :n])
+            assert (out[b, n:] == 0).all()
+
     def test_paged_decode_int8_kernel(self, cuda):
         args = [a.to(cuda) for a in make_int8_case(
             0, 8, 32, 16, 32, 8, 64, 8 * 32 + 1)]
@@ -518,6 +614,26 @@ class TestCudaKernels:
         assert paged_decode_attention_int8.launches == before + 1
         self._close(out, paged_decode_attention_int8_plain(*args,
                                                            page_size=16))
+
+    @pytest.mark.parametrize("lens", [
+        [2046] * 8, [0, 1, 7, 15, 16, 17, 30, 31],
+        [255, 256, 511, 512, 15, 16, 1023, 2047]])
+    def test_paged_decode_int8_kernel_chunks(self, cuda, lens):
+        """Every lane long, every lane in one chunk, and windows ending on
+        the 256-token chunk and page boundaries."""
+        args = [a.to(cuda) for a in make_int8_case(
+            2, 8, 128, 16, 32, 8, 64, 8 * 128 + 1)]
+        args[0] = args[0].to(torch.bfloat16)
+        args[5] = t((np.random.RandomState(3).permutation(8 * 128) + 1)
+                    .reshape(8, 128).astype(np.int32)).to(cuda)
+        args[6] = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        out = paged_decode_attention_int8(*args, page_size=16)
+        want = paged_decode_attention_int8_plain(*args, page_size=16)
+        torch.cuda.synchronize()
+        self._close(out, want)
+        rel = ((out.float() - want.float()).norm(dim=-1)
+               / want.float().norm(dim=-1).clamp_min(1e-6)).max().item()
+        assert rel <= 0.02, rel
 
     @pytest.mark.parametrize("int8", [False, True])
     def test_fused_mlp_kernel(self, cuda, int8):

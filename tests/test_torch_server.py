@@ -14,6 +14,7 @@ unless asked for the CPU.
 import asyncio
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -266,6 +267,20 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert build._lib_path("paged_decode") != build._lib_path(
         "flash_prefill")
     assert build._lib_path("paged_decode").parent == tmp_path / "build"
+    # ... and every shared header: an edited or added csrc/*.cuh renames
+    # each library, so a stale one is never loaded
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc, ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = list(build.SIGNATURES)
+    before = {n: build._lib_path(n) for n in names}
+    header = csrc / "paged_chunks.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = {n: build._lib_path(n) for n in names}
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    added = {n: build._lib_path(n) for n in names}
+    for n in names:
+        assert len({before[n], edited[n], added[n]}) == 3, n
 
 
 @pytest.mark.cuda

@@ -40,6 +40,7 @@ from kafka_tpu_torch.models import (
     params_from_jax,
 )
 from kafka_tpu_torch.runtime import EngineConfig, GenRequest, InferenceEngine
+from kafka_tpu_torch.runtime.engine import kernel_backend_problems
 from kafka_tpu_torch.runtime.speculative import LaneSpeculator
 
 SHAPE = dict(max_batch=3, page_size=8, num_pages=40, max_pages_per_seq=8,
@@ -155,6 +156,24 @@ class TestGreedyEqualsSpecOff:
         # five lanes of 18 tokens in far fewer steps than 18 per lane
         assert eng.verify_steps < 18
 
+    @pytest.mark.parametrize("k", [8, 16])
+    def test_oracle_proposals_past_32_rows(self, model, mixed_ref, k):
+        """speculative_k 8 and 16 at G 4: 36 and 68 query rows per kv head
+        in each verify step, past the 32 the CUDA kernel once held (fault
+        C4); the greedy stream still equals the JAX engine's with
+        speculation off."""
+        reqs, ref = mixed_ref
+
+        def spec(rid):
+            return ForcedSpeculator(
+                lambda hist: ref[rid][0][len(hist):len(hist) + k])
+
+        got, eng = run_port(model, reqs, spec=spec, speculative_k=k)
+        assert got == ref
+        assert eng.speculation_accepted_tokens == \
+            eng.speculation_proposed_tokens > 0
+        assert eng.self_check() == []
+
     def test_adversarial_proposals_all_rejected(self, model, mixed_ref):
         reqs, ref = mixed_ref
 
@@ -266,6 +285,34 @@ def test_config_validation(model):
     eng.submit(GenRequest(request_id="x", prompt_ids=[1, 2]))
     assert eng._requests["x"].spec is None  # off by default: no proposer
     assert isinstance(LaneSpeculator([1, 2]).propose(2), list)
+
+
+@pytest.mark.parametrize("name,k", [
+    ("llama-3.2-1b", 8), ("llama-3.2-1b", 16), ("llama-3-70b", 4)])
+def test_kernel_backend_takes_speculative_k_the_reference_serves(name, k):
+    """Fault C4: the CUDA backend once refused G * (speculative_k + 1) > 32
+    query rows per kv head (K3's 32-row block), so speculative_k >= 8 at
+    Llama-3.2-1B's G 4 and >= 4 at a G 8 model.  The reference engine
+    checks only that speculative_k + 2 fits the window; so does the port's
+    kernel backend now."""
+    cfg = get_config(name)
+    g = cfg.num_heads // cfg.num_kv_heads
+    assert g * (k + 1) > 32  # what the 32-row K3 refused
+    shape = dict(page_size=16, num_pages=1100, max_pages_per_seq=128,
+                 speculative_k=k)
+    assert k + 2 <= JEngineConfig(**shape).max_window  # the reference's rule
+    assert kernel_backend_problems(cfg, EngineConfig(**shape)) == []
+
+
+def test_kernel_backend_problems_name_what_the_kernels_refuse():
+    """What the kernels do not take is still refused, and said: a head dim
+    outside 64 and 128, and a window of more chunks than the merge holds."""
+    tiny = get_config("tiny")  # D 16
+    assert len(kernel_backend_problems(tiny, EngineConfig())) == 1
+    long = EngineConfig(page_size=16, num_pages=200_000,
+                        max_pages_per_seq=100_000, speculative_k=4)
+    (why,) = kernel_backend_problems(get_config("llama-3.2-1b"), long)
+    assert "chunks" in why
 
 
 @pytest.mark.parametrize("backend", ["kernel", "plain"])
