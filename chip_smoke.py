@@ -7,15 +7,15 @@ Phases, each of which raises (non-zero exit) on any failure:
   0. build   — compiles every CUDA kernel of the main path from
                kafka_tpu_torch/csrc with nvcc for sm_90a, one nvcc per
                source, all started together; logs each kernel function's
-               ptxas registers and spill bytes, and K2's HMMA count from
-               cuobjdump -sass.  K2 must not spill and must use the
-               tensor cores.
+               ptxas registers and spill bytes, and K2's and K5's HMMA
+               counts from cuobjdump -sass.  K2 and K5 must not spill and
+               must use the tensor cores.
   1. kernels — each kernel (K1 paged decode, K2 flash prefill, K3 paged
                verify, K4 int8 paged decode, K5 fused decode MLP in bf16
                and int8) against its plain PyTorch version on the card at
                Llama-3.2-1B geometry (Hq 32, Hkv 8, D 64, page 16; K3 at
                the K = 4 verify shape; K4 at K1's shape over an int8 pool;
-               K5 at B 8, H 2048, F 8192), then timed beside its plain
+               K5 at H 2048, F 8192), then timed beside its plain
                version, its bound and a PyTorch library call
                (scaled_dot_product_attention on the gathered window — a
                yardstick only; the port never calls it; K5 has none and
@@ -41,9 +41,14 @@ Phases, each of which raises (non-zero exit) on any failure:
                agent turn's chunks, short and long, and D 128), with the
                launcher's block shape and each shape pinned, held
                elementwise and per row, rows past chunk_len checked to be
-               zeros; a planted dropped-tile fault must fail the row check.  K5 is not on the
-               serving path (as in the JAX package): its path is a
-               16-layer decode MLP sweep through the function.
+               zeros; a planted dropped-tile fault must fail the row check.
+               K5 is held to its plain version at B 1, 8, 9 and 64 in bf16
+               and int8 (K5_ATOL) and timed at each with the L2 warm and
+               flushed; it is not on the serving path (as in the JAX
+               package): its path is a 16-layer decode MLP sweep through
+               the function at B 8, held to the port's torch formulation
+               (LOGITS_RTOL) and timed per layer with the weights read
+               from device memory.
   2. engine  — the engine at full llama-3.2-1b width (bf16, vocab 128256,
                random weights from --seed): eight greedy requests, one
                submitted alone and longer than the largest prefill bucket
@@ -70,7 +75,12 @@ Phases, each of which raises (non-zero exit) on any failure:
                model's logit quality against the bf16 model must hold the
                analytic flip bound (flip_margin_max <= 2 max|dlogit|);
                decode-step profiles of both engines are printed.
-  3. server  — the HTTP server built by create_app for llama-3.2-1b as the
+  3. server  — first fault C5: the tiny_model=True (float32, D 16) server on
+               the card, which the kernels cannot take: "auto" must
+               resolve to plain attention with logged reasons, the
+               provider must report attention_backend "plain", and one
+               streamed thread turn must end with `data: [DONE]` without a
+               kernel launch.  Then the HTTP server built by create_app for llama-3.2-1b as the
                provider builder does with no checkpoint: byte tokenizer, so
                the vocab is 262 (full width otherwise), serving the agent
                turn with the built-in tools at a 4096-token window with
@@ -109,10 +119,11 @@ it, the script exits non-zero and prints no result.
 
 Comparing two trees on one card: unpack the other commit (`git archive`)
 into a git-ignored directory and run, in one call,
-    python3 chip_smoke.py --phases attention --root DIR --out base.json
-    python3 chip_smoke.py --phases attention --out new.json
-(and the two again, in reverse order): both time the K3 and K4 cases on the
-same inputs (made from --seed); the first with DIR's kernels.
+    python3 chip_smoke.py --phases attention,mlp --root DIR --out base.json
+    python3 chip_smoke.py --phases attention,mlp --out new.json
+(and the two again, in reverse order): both time the K3, K4 and K5 cases
+on the same inputs (made from --seed); the first with DIR's kernels.
+`--phases kernels --root DIR` does the same for all five.
 """
 
 from __future__ import annotations
@@ -189,7 +200,7 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, name_part, iters: int = 20, flush=None):
+def device_ms(fn, name_part, iters: int = 20, flush=None, span_from=None):
     """Device time per call of the CUDA kernels whose name holds
     name_part (None: of every kernel the call runs), from torch.profiler
     (excludes the wrapper's host work).  flush: run before every call (an
@@ -199,7 +210,13 @@ def device_ms(fn, name_part, iters: int = 20, flush=None):
     Each kernel is averaged over the launches the profile caught, times
     its launches per call: a profile may drop events (now and then all of
     them), and a sum over the caught ones divided by `iters` reads low.
-    Profiles that dropped events are listed in RESULTS["profile_drops"]."""
+    Profiles that dropped events are listed in RESULTS["profile_drops"].
+
+    span_from: for a call whose launches overlap (K5's passes start while
+    the launch before them finishes), the span from the start of its
+    first kernel (name holds span_from) to the end of its last kernel,
+    averaged over the calls the profile caught whole, instead of the sum
+    of kernel durations, which would count the overlap twice."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -212,6 +229,11 @@ def device_ms(fn, name_part, iters: int = 20, flush=None):
                     flush()
                 fn()
             torch.cuda.synchronize()
+        if span_from is not None:
+            ms = _span_ms(prof, span_from, name_part, iters)
+            if ms is not None:
+                return ms
+            continue
         cuda = [e for e in prof.key_averages() if e.count and
                 e.device_type == torch.autograd.DeviceType.CUDA]
         rows = [e for e in cuda if name_part is None or name_part in e.key]
@@ -230,19 +252,80 @@ def device_ms(fn, name_part, iters: int = 20, flush=None):
     return None
 
 
+def _span_ms(prof, first: str, name_part: str, iters: int):
+    """device_ms's span mode over one profile: the calls split where a
+    kernel named `first` starts, those caught whole averaged."""
+    import torch
+
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and name_part in e.name),
+                 key=lambda e: e.time_range.start)
+    calls, cur = [], []
+    for e in evs:
+        if first in e.name and cur:
+            calls.append(cur)
+            cur = []
+        cur.append(e)
+    if cur:
+        calls.append(cur)
+    n = max((len(c) for c in calls), default=0)
+    whole = [c for c in calls if len(c) == n and first in c[0].name]
+    if len(whole) < iters:
+        RESULTS.setdefault("profile_drops", []).append(
+            {"kernels": name_part, "caught": len(whole) / iters})
+    if not whole:
+        return None
+    return sum(max(e.time_range.end for e in c) - c[0].time_range.start
+               for c in whole) / len(whole) / 1e3
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device wall time per call of fn: `reps` calls captured in one CUDA
+    graph, replayed `replays` times between CUDA events.  No host launch
+    gaps, and launches that overlap (K5's passes) counted once."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * replays)
+
+
 _FLUSH = []
 
 
-def flush_l2() -> None:
-    """Overwrite 128 MB, more than the H100's 50 MB L2, so the next call
-    reads its inputs from device memory (a fill kernel: no "paged_" in its
-    name)."""
+def flush_l2(read_only: bool = False) -> None:
+    """Pass 128 MB, more than the H100's 50 MB L2, through it, so the
+    next call reads its inputs from device memory.  By default an
+    overwrite (a fill kernel: no "paged_" or "mlp_" in its name), which
+    leaves the L2 full of dirty lines; read_only: a sum over the buffer
+    instead, which leaves it full of clean ones."""
     import torch
 
     if not _FLUSH:
-        _FLUSH.append(torch.empty(128 << 20, dtype=torch.uint8,
+        _FLUSH.append(torch.zeros(128 << 20, dtype=torch.uint8,
                                   device="cuda"))
-    _FLUSH[0].zero_()
+    if read_only:
+        _FLUSH[0].sum()
+    else:
+        _FLUSH[0].zero_()
 
 
 def check_close(name: str, got, want) -> float:
@@ -270,9 +353,9 @@ def bound(bytes_moved: float, flops: float):
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels(seed: int, only_attention: bool = False) -> None:
-    """Phase 1.  only_attention: K3 and K4 alone (their cases, timed), the
-    inputs the same as in the full phase."""
+def phase_kernels(seed: int, only: str = "") -> None:
+    """Phase 1.  only="attention": K3 and K4 alone (their cases, timed);
+    only="mlp": K5 alone; the inputs the same as in the full phase."""
     import torch
 
     dev = torch.device("cuda")
@@ -295,16 +378,18 @@ def phase_kernels(seed: int, only_attention: bool = False) -> None:
     seq_lens = torch.tensor([15, 16, 31, 255, 511, 700, 2046, 5],
                             dtype=torch.int32, device=dev)
     args = (q, k_pool, v_pool, table, seq_lens)
-    # the other cases of K1, K3 and K4 draw from generators of their own,
-    # so each kernel's inputs do not depend on which ran before it
-    if not only_attention:
+    # the other cases of K1, K3 and K4, and K5, draw from generators of
+    # their own, so each kernel's inputs do not depend on which ran before
+    if not only:
         kernel_k1(args, torch.Generator(device=dev).manual_seed(seed + 1))
         kernel_k2(k_pool, v_pool, gen)
-    kernel_k3(args, torch.Generator(device=dev).manual_seed(seed + 3))
-    kernel_k4(args, torch.Generator(device=dev).manual_seed(seed + 4))
-    if only_attention:
+    if only in ("", "attention"):
+        kernel_k3(args, torch.Generator(device=dev).manual_seed(seed + 3))
+        kernel_k4(args, torch.Generator(device=dev).manual_seed(seed + 4))
+    if only in ("", "mlp"):
+        kernel_k5(torch.Generator(device=dev).manual_seed(seed + 5))
+    if only:
         return
-    kernel_k5(gen)
     for k in KERNEL_KEYS:
         r = RESULTS[k]
         lib = r["library_ms"]
@@ -1006,12 +1091,31 @@ def kernel_k4(k1_args, gen) -> None:
     }
 
 
+# K5's rows: one N tile of the product (1, 8), a ragged second (9), four
+# (32) and the most a launch takes (64), so every N-tile count the kernel
+# picks (1, 2, 4, 8) runs; each is held to the plain version in bf16 and
+# int8, and timed with the L2 warm and flushed.  B 8 is the kernel line's
+# case and the sweep's.
+K5_ROWS = (1, 8, 9, 32, 64)
+
+
 def kernel_k5(gen) -> None:
-    """K5 at the llama-3.2-1b decode MLP shape (B 8, H 2048, F 8192),
-    bf16 and int8 weights.  K5 is not on the serving path (as in the JAX
-    package): its path is the function itself, driven over the 16-layer
-    MLP stack of a full-width layer stack below, with the counter read
-    around that sweep alone."""
+    """K5 at the llama-3.2-1b decode MLP shape (H 2048, F 8192), bf16 and
+    int8 weights, at K5_ROWS rows.  K5 is not on the serving path (as in
+    the JAX package): its path is the function itself, driven over the
+    16-layer MLP stack of a full-width layer stack below at B 8, with the
+    counter read around that sweep alone.  That stack's weights (1.6 GB
+    bf16, 0.8 GB int8) cannot sit in the 50 MB L2, so the sweep's
+    per-layer device time reads every layer's weights from device memory;
+    the single-layer times are taken with the L2 warm (layer 0 again and
+    again: its 50 MB int8 layer may partly hit) and flushed.
+
+    K5's passes start while the launch before them finishes, so a sum of
+    kernel durations would count the overlap twice: the warm and sweep
+    times are CUDA-graph replays between events (graph_ms), the flushed
+    time the span of each call's launches (device_ms's span mode).  At B
+    8 the flushed time is also taken after a read-only eviction, which
+    leaves no dirty lines to write back."""
     import torch
 
     from kafka_tpu_torch.models.quant import (
@@ -1041,7 +1145,9 @@ def kernel_k5(gen) -> None:
     qstack = dict(stack)
     for name in ("wg", "wu", "wd"):
         qstack[name] = quantize_array(stack[name], (1,))
-    h0 = torch.randn(B, H, generator=gen, device=dev).to(torch.bfloat16)
+    h_rows = torch.randn(max(K5_ROWS), H, generator=gen, device=dev
+                         ).to(torch.bfloat16)
+    h0 = h_rows[:B].contiguous()
 
     def torch_formulation(h, ln, wg, wu, wd, sg=None, su=None, sd=None):
         # the port's decode MLP (models/llama.py): norm, dequant, matmuls
@@ -1052,37 +1158,67 @@ def kernel_k5(gen) -> None:
         g, u = x @ wg, x @ wu
         return h + (torch.nn.functional.silu(g) * u) @ wd
 
+    def sweep(layers, h):
+        for l in range(L):
+            h = fused_mlp_block(h, *fused_mlp_args(layers, l), eps=eps)
+        return h
+
+    # each input read once (h, ln, the weights and scales), the output
+    # written once; flops of the three products
     w_bytes = {"bf16": 3 * H * F * 2, "int8": 3 * H * F + (2 * F + H) * 4}
     for key, label, layers in (("K5", "bf16", stack),
                                ("K5_int8", "int8", qstack)):
         a5 = fused_mlp_args(layers, 0)
-        out_k = fused_mlp_block(h0, *a5, eps=eps)
-        out_p = fused_mlp_block_plain(h0, *a5, eps=eps)
-        torch.cuda.synchronize()
-        err = (out_k.float() - out_p.float()).abs().max().item()
-        log(f"K5 fused_mlp_block ({label}) max_abs_err={err:.3e} "
-            f"(tol {K5_ATOL})")
-        if not err <= K5_ATOL:
-            raise AssertionError(f"K5 ({label}) disagrees with its plain "
-                                 f"version: {err}")
+        cases = []
+        for rows in K5_ROWS:
+            hb = h_rows[:rows].contiguous()
+            out_k = fused_mlp_block(hb, *a5, eps=eps)
+            out_p = fused_mlp_block_plain(hb, *a5, eps=eps)
+            torch.cuda.synchronize()
+            err = (out_k.float() - out_p.float()).abs().max().item()
+            bnd, _ = bound(w_bytes[label] + 2 * rows * H * 2 + H * 2,
+                           2 * rows * 3 * H * F)
+            run = lambda: fused_mlp_block(hb, *a5, eps=eps)  # noqa: E731
+            case = {"B": rows, "max_abs_err": err,
+                    "device_ms": graph_ms(run),
+                    "device_ms_cold_l2": device_ms(run, "mlp_",
+                                                   flush=flush_l2,
+                                                   span_from="rmsnorm"),
+                    "bound_ms": bnd}
+            if rows == B:
+                case["device_ms_cold_l2_read"] = device_ms(
+                    run, "mlp_", flush=lambda: flush_l2(read_only=True),
+                    span_from="rmsnorm")
+            log(f"K5 fused_mlp_block ({label}) B {rows}: max_abs_err="
+                f"{err:.3e} (tol {K5_ATOL}); device {case['device_ms']} ms, "
+                f"L2 flushed {case['device_ms_cold_l2']} ms (read-only "
+                f"eviction {case.get('device_ms_cold_l2_read')}), bound "
+                f"{bnd:.5f} ms")
+            if not err <= K5_ATOL:
+                raise AssertionError(f"K5 ({label}) at B {rows} disagrees "
+                                     f"with its plain version: {err}")
+            cases.append(case)
         # its path: one decode MLP sweep over the layer stack
         kernels.reset_launch_counts()
-        h = h_ref = h0
+        h = sweep(layers, h0)
+        launches = fused_mlp_block.launches
+        h_ref = h0
         for l in range(L):
-            h = fused_mlp_block(h, *fused_mlp_args(layers, l), eps=eps)
             h_ref = torch_formulation(h_ref, *fused_mlp_args(layers, l))
         torch.cuda.synchronize()
-        launches = fused_mlp_block.launches
-        sweep = ((h.float() - h_ref.float()).abs().max()
-                 / h_ref.float().abs().max()).item()
+        rel = ((h.float() - h_ref.float()).abs().max()
+               / h_ref.float().abs().max()).item()
+        per_layer = graph_ms(lambda: sweep(layers, h0), reps=2) / L
         log(f"K5 ({label}) path: {L}-layer MLP sweep, launches {launches}, "
-            f"max|d|/max|ref| vs the torch formulation {sweep:.4f} "
-            f"(tol {LOGITS_RTOL})")
+            f"max|d|/max|ref| vs the torch formulation {rel:.4f} "
+            f"(tol {LOGITS_RTOL}); device {per_layer} ms a layer (weights "
+            f"from device memory)")
         if launches != L or not torch.isfinite(h).all() \
-                or not sweep <= LOGITS_RTOL:
+                or not rel <= LOGITS_RTOL:
             raise AssertionError(f"K5 ({label}) sweep: launches {launches}, "
-                                 f"rel err {sweep}")
-        b5, by5 = bound(w_bytes[label] + 3 * B * H * 2 + H * 2,
+                                 f"rel err {rel}")
+        head = cases[K5_ROWS.index(B)]
+        b5, by5 = bound(w_bytes[label] + 2 * B * H * 2 + H * 2,
                         2 * B * 3 * H * F)
         RESULTS[key] = {
             "name": f"fused_mlp_block ({label})",
@@ -1090,7 +1226,7 @@ def kernel_k5(gen) -> None:
             "source": "kafka_tpu_torch/csrc/fused_mlp.cu",
             "replaces": "kafka_tpu/ops/pallas/fused_mlp.py:153",
             "launches": launches,
-            "max_abs_err": err,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": time_ms(lambda: fused_mlp_block(h0, *a5, eps=eps)),
             "plain_ms": time_ms(
                 lambda: fused_mlp_block_plain(h0, *a5, eps=eps)),
@@ -1100,9 +1236,12 @@ def kernel_k5(gen) -> None:
             # torch formulation is timed beside it instead
             "library_ms": None,
             "torch_ms": time_ms(lambda: torch_formulation(h0, *a5)),
-            "device_ms": device_ms(
-                lambda: fused_mlp_block(h0, *a5, eps=eps), "mlp_"),
-            "sweep_rel_err": sweep,
+            "device_ms": head["device_ms"],
+            "device_ms_cold_l2": head["device_ms_cold_l2"],
+            "device_ms_cold_l2_read": head["device_ms_cold_l2_read"],
+            "sweep_layer_device_ms": per_layer,
+            "sweep_rel_err": rel,
+            "cases": cases,
             "shape": f"B={B} H={H} F={F} {label} weights",
         }
     del stack, qstack
@@ -1115,8 +1254,12 @@ def kernel_k5(gen) -> None:
 
 
 def _engine_cfg(**kw):
+    """The main-path engines' configuration: attention_backend "kernel"
+    unless a caller asks for "plain", so a model or window the kernels
+    refuse raises here instead of switching to plain attention."""
     from kafka_tpu_torch.runtime import EngineConfig
 
+    kw.setdefault("attention_backend", "kernel")
     return EngineConfig(max_batch=8, page_size=16, num_pages=1100,
                         max_pages_per_seq=128,
                         prefill_buckets=(64, 128, 256, 512),
@@ -1998,14 +2141,87 @@ async def _serve_int8(db_path: str) -> dict:
     return out
 
 
+async def _serve_tiny(db_path: str) -> dict:
+    """Fault C5: the tiny float32 model (D 16) served on the card.  The
+    kernels do not take it, so "auto" resolves to plain attention, the
+    engine logs why, and the provider reports "plain"; one streamed thread
+    turn must end in [DONE] without a kernel launch."""
+    import logging
+
+    import aiohttp
+    from aiohttp import web
+
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.server import ServingConfig, create_app
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    class Catch(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    catch = Catch()
+    engine_log = logging.getLogger("kafka_tpu_torch.engine")
+    engine_log.addHandler(catch)
+    try:
+        # the agent's idle tool alone needs a ~1024-token window
+        app = await create_app(ServingConfig(
+            tiny_model=True, max_batch=2, page_size=16, num_pages=2 * 64 + 8,
+            max_pages_per_seq=64, prefill_buckets=(64, 128, 256, 512),
+            max_new_tokens_default=16, db_path=db_path,
+            system_prompt="You are a terse assistant."), tools=[])
+    finally:
+        engine_log.removeHandler(catch)
+    llm = app[STATE_KEY]["llm"]
+    info = llm.get_model_info()
+    logged = [m for m in catch.messages if "resolved to 'plain'" in m]
+    out = {"attention_backend": info["attention_backend"],
+           "reasons": llm.engine.attention_backend_reasons, "logged": logged,
+           "device": info["device"], "dtype": llm.engine.cfg.dtype}
+    if info["attention_backend"] != "plain" or not out["reasons"] or \
+            not logged:
+        raise AssertionError(f"tiny server: {out}")
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    kernels.reset_launch_counts()
+    try:
+        async with aiohttp.ClientSession() as s:
+            t0 = time.monotonic()
+            ev = await _stream(
+                s, f"http://127.0.0.1:{port}/v1/threads/tiny/chat/completions",
+                {"model": "tiny", "stream": True, "temperature": 0,
+                 "max_tokens": 16, "messages": [{"role": "user",
+                                                 "content": "Hello!"}]})
+            out["seconds"] = time.monotonic() - t0
+        out["usage"] = _usage(ev)
+    finally:
+        out["launches"] = {f.__name__: f.launches for f in kernels.KERNELS}
+        await runner.cleanup()
+    if any(out["launches"].values()):
+        raise AssertionError(f"tiny server launched kernels: {out}")
+    return out
+
+
 def phase_server() -> None:
     with tempfile.TemporaryDirectory() as td:
+        tiny = asyncio.run(_serve_tiny(os.path.join(td, "tiny.db")))
         out = asyncio.run(_serve_and_query(os.path.join(td, "threads.db")))
         con = asyncio.run(_serve_constrained(os.path.join(td, "c3.db")))
         spec = asyncio.run(_serve_speculative(
             os.path.join(td, "spec.db"),
             con["turns"]["required"]["output_ids"]))
         int8 = asyncio.run(_serve_int8(os.path.join(td, "int8.db")))
+    log(f"server (tiny_model=True, {tiny['dtype']}, fault C5): "
+        f"attention_backend {tiny['attention_backend']!r} on "
+        f"{tiny['device']}, logged: {tiny['logged'][0]}; 1 thread turn of "
+        f"{tiny['usage']['completion_tokens']} tokens ended with [DONE] in "
+        f"{tiny['seconds']:.2f}s, no kernel launched")
+    RESULTS["server_tiny"] = tiny
     log(f"server (KAFKA_TORCH_QUANTIZE=int8 KAFKA_TORCH_KV_QUANTIZE=int8): "
         f"2 thread turns ended with [DONE] in {int8['seconds']:.2f}s; turn 2 "
         f"prompt {int8['turn2']['prompt_tokens']} tokens, cached "
@@ -2064,7 +2280,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="kernels,engine,server",
                     help="comma list of kernels, engine, server (default: "
-                         "all) or attention (K3 and K4 alone, timed)")
+                         "all), or attention (K3 and K4 alone, timed) or "
+                         "mlp (K5 alone, timed)")
     ap.add_argument("--root", default=None,
                     help="time another checkout's kernels (the package "
                          "under this directory) on the same inputs; "
@@ -2111,8 +2328,14 @@ def main() -> int:
         raise AssertionError("K2 has no tensor-core instructions")
     RESULTS["ptxas"], RESULTS["k2_hmma"] = ptxas, hmma
     RESULTS["build_s"] = build_s
-    if "kernels" in phases or "attention" in phases:
-        phase_kernels(args.seed, only_attention="kernels" not in phases)
+    k5_hmma = sass_count("fused_mlp", "HMMA")
+    log(f"K5 SASS: {k5_hmma} HMMA instructions (tensor cores)")
+    RESULTS["k5_hmma"] = k5_hmma
+    if "kernels" in phases:
+        phase_kernels(args.seed)
+    for only in ("attention", "mlp"):
+        if only in phases and "kernels" not in phases:
+            phase_kernels(args.seed, only=only)
     if "engine" in phases:
         phase_engine(args.seed)
     if "server" in phases:
@@ -2126,14 +2349,24 @@ def main() -> int:
     kernels_line = {"kernels": [
         {**{k: RESULTS[n].get(k) for k in keys},
          **{k: RESULTS[n][k] for k in ("engine_launches", "server_launches",
-                                       "device_ms", "library_device_ms",
-                                       "torch_ms", "cases")
+                                       "device_ms", "device_ms_cold_l2",
+                                       "sweep_layer_device_ms",
+                                       "library_device_ms", "torch_ms",
+                                       "cases")
             if k in RESULTS[n]}}
         for n in KERNEL_KEYS if n in RESULTS
     ]}
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
     with open(os.path.join(here, "chiprun_out", args.out), "w") as f:
         json.dump(RESULTS, f, indent=1, default=str)
+    # K5 runs on the tensor cores without spilling (checked after the
+    # phases and the record, so that a failing build leaves its numbers)
+    k5_fns = ptxas.get("fused_mlp", [])
+    k5_spills = [r for r in k5_fns if r.get("spill_stores") or
+                 r.get("spill_loads")]
+    if not BASELINE and (k5_hmma == 0 or k5_spills or
+                         (build_logs.get("fused_mlp") and not k5_fns)):
+        raise AssertionError(f"K5: {k5_hmma} HMMA; ptxas {k5_fns}")
     if BASELINE:  # a measurement of another tree, not this one's result
         log(f"baseline {args.root}: record in chiprun_out/{args.out}")
         return 0

@@ -148,7 +148,11 @@ class TorchLLMProvider(LLMProvider):
             "supports_tools": True,
             "supports_streaming": True,
             "device": str(self.engine.device),
+            # what EngineConfig.attention_backend resolved to; "plain" on
+            # CUDA comes with the engine's attention_backend_reasons
             "attention_backend": self.model_cfg.attention_backend,
+            # draft-free speculative decoding depth (0 = off)
+            "speculative_k": self.engine.ecfg.speculative_k,
             # on-device grammar FSM for constrained tool-call decoding
             # (KAFKA_TORCH_GRAMMAR_ONDEVICE; llm/constrained.py)
             "grammar_ondevice": grammar_ondevice_enabled(),

@@ -11,15 +11,19 @@ projection's f32 output).  As in the JAX package it is not wired into
 serving: the port's decode MLP stays the torch formulation
 (models/llama.py) until a chip run shows this kernel beating it.  The
 kernel is csrc/fused_mlp.cu (design and bound in its header: bytes-bound,
-the three weight matrices read once).  `fused_mlp_block` launches it for
-CUDA tensors and runs `fused_mlp_block_plain` — the same function in plain
-PyTorch, with the JAX kernel's rounding points — for CPU tensors only; it
-never falls back.
+the three weight matrices read once, products on the tensor cores).  A
+call makes three launches: the norm, the gate/up pass and the down pass,
+whose contraction over F the kernel splits up to 8 ways (one thread block
+cluster per column tile); its only scratch is nx [B, H] and the gate/up
+product [B, F], both bf16.
+`fused_mlp_block` launches it for CUDA tensors and runs
+`fused_mlp_block_plain` — the same function in plain PyTorch, with the
+JAX kernel's rounding points — for CPU tensors only; it never falls back.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -27,10 +31,11 @@ from . import build
 from .common import stream_ptr
 
 # rows a launch takes (decode batches); the kernel reads the weights once
-# per 8 rows
+# for any of them
 MAX_ROWS = 64
-# the kernel stages the contraction axis 256 columns at a time
-_K_CHUNK = 256
+# H and F must be multiples of this: the kernel's stages are 128 rows of
+# int8 (64 of bf16), its column tiles 32 (gate/up) and 64 (down) wide
+TILE = 128
 
 
 def fused_mlp_block_plain(
@@ -69,11 +74,10 @@ def fused_mlp_block_plain(
     return h + acc.to(dt)
 
 
-def _check(h, ln_w, wg, wu, wd, scales):
+def check_args(h, ln_w, wg, wu, wd, scales) -> Tuple[int, int, int, bool]:
+    """What the kernel takes, on tensors of any one device: raises
+    ValueError naming the limit; returns (B, H, F, int8)."""
     name = "fused_mlp_block"
-    if h.device.type != "cuda":
-        raise ValueError(f"{name}: h must be a CUDA or CPU tensor, "
-                         f"got {h.device}")
     tensors = [h, ln_w, wg, wu, wd] + [s for s in scales if s is not None]
     for t in tensors:
         if t.device != h.device:
@@ -94,10 +98,16 @@ def _check(h, ln_w, wg, wu, wd, scales):
             f"{name}: want ln [H], wg/wu [H, F], wd [F, H] with H={H}; got "
             f"{tuple(ln_w.shape)}, {tuple(wg.shape)}, {tuple(wu.shape)}, "
             f"{tuple(wd.shape)}")
-    if not 1 <= B <= MAX_ROWS or H % _K_CHUNK or F % _K_CHUNK:
-        raise ValueError(
-            f"{name}: the kernel takes 1..{MAX_ROWS} rows and H, F "
-            f"multiples of {_K_CHUNK}; got B={B} H={H} F={F}")
+    if not 1 <= B <= MAX_ROWS:
+        raise ValueError(f"{name}: the kernel takes 1..{MAX_ROWS} rows "
+                         f"(B <= {MAX_ROWS}); got B={B}")
+    if H % TILE or F % TILE:
+        raise ValueError(f"{name}: the kernel takes H and F multiples of "
+                         f"{TILE}; got H={H} F={F}")
+    if any(w.data_ptr() % 16 for w in (wg, wu, wd)):
+        raise ValueError(f"{name}: the kernel copies weight rows in "
+                         "16-byte pieces; the weights must be 16-byte "
+                         "aligned")
     int8 = wg.dtype == torch.int8
     want = torch.int8 if int8 else torch.bfloat16
     if any(w.dtype != want for w in (wg, wu, wd)):
@@ -131,14 +141,19 @@ def fused_mlp_block(
 
     CPU tensors: the plain version.  CUDA tensors: the csrc kernel (bf16
     h and ln_w, bf16 or int8 weights, f32 scales for int8, contiguous,
-    B <= 64, H and F multiples of 256) or an error.
+    16-byte aligned weights, B <= 64, H and F multiples of 128) or an
+    error.
     """
     if h.device.type == "cpu":
         return fused_mlp_block_plain(h, ln_w, wg, wu, wd, sg, su, sd,
                                      eps=eps)
-    B, H, F, int8 = _check(h, ln_w, wg, wu, wd, (sg, su, sd))
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_mlp_block: h must be a CUDA or CPU tensor, "
+                         f"got {h.device}")
+    B, H, F, int8 = check_args(h, ln_w, wg, wu, wd, (sg, su, sd))
+    dev = h.device
     nx = torch.empty_like(h)
-    p = torch.empty((B, F), dtype=h.dtype, device=h.device)
+    p = torch.empty((B, F), dtype=h.dtype, device=dev)
     out = torch.empty_like(h)
     lib = build.load("fused_mlp")
     rc = lib.kafka_fused_mlp(
@@ -146,7 +161,7 @@ def fused_mlp_block(
         wd.data_ptr(), sg.data_ptr() if int8 else None,
         su.data_ptr() if int8 else None, sd.data_ptr() if int8 else None,
         nx.data_ptr(), p.data_ptr(), out.data_ptr(), B, H, F, int(int8),
-        float(eps), stream_ptr(h.device),
+        float(eps), stream_ptr(dev),
     )
     if rc != 0:
         raise RuntimeError(f"fused MLP kernel launch failed: CUDA error {rc}")

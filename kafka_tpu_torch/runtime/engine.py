@@ -123,10 +123,13 @@ class EngineConfig:
     max_pages_per_seq: int = 16  # attention window = this * page_size
     prefill_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256, 512)
     max_new_tokens_default: int = 512
-    # "auto": the hand-written kernels (ops/kernels) — launched on CUDA
-    # tensors, their plain versions on CPU tensors.  "plain": the page
-    # gather + plain attention everywhere; exists for the tests and the
-    # chip smoke's comparison, never picked silently.
+    # "kernel": the hand-written kernels (ops/kernels) — launched on CUDA
+    # tensors, their plain versions on CPU tensors; refused on CUDA for a
+    # model or window the kernels cannot take (kernel_backend_problems).
+    # "plain": the page gather + plain attention everywhere.  "auto" (the
+    # reference's rule): "kernel" where the kernels take the model,
+    # otherwise "plain", logged with the reasons
+    # (resolve_attention_backend).
     attention_backend: str = "auto"
     # Request lifecycle bounds (None = disabled): max_ttft_s times out a
     # request still waiting for its FIRST token; max_total_s bounds total
@@ -338,8 +341,9 @@ class TokenEvent:
 def kernel_backend_problems(cfg: ModelConfig,
                             ecfg: EngineConfig) -> List[str]:
     """Why the CUDA attention kernels (K1-K4) cannot serve this model and
-    engine configuration; empty when they can.  The engine refuses a CUDA
-    kernel backend with problems at construction.
+    engine configuration; empty when they can.  On CUDA, "auto" then
+    resolves to "plain" with these as its reasons, and an explicit
+    "kernel" is refused at construction (resolve_attention_backend).
 
     All four take bf16 models with head_dim 64 or 128 and <= 8 q heads per
     kv head, and K1, K3 and K4 a window whose chunks their merge can hold
@@ -363,6 +367,32 @@ def kernel_backend_problems(cfg: ModelConfig,
     return problems
 
 
+def resolve_attention_backend(cfg: ModelConfig, ecfg: EngineConfig,
+                              device_type: str) -> Tuple[str, List[str]]:
+    """EngineConfig.attention_backend resolved for a device type:
+    (backend, reasons).  "auto" is "kernel" on the CPU (the wrappers run
+    their plain versions on CPU tensors) and on CUDA where
+    kernel_backend_problems is empty; otherwise "plain", with those
+    problems as the reasons.  An explicit "kernel" with problems on CUDA
+    raises ValueError; "plain" stays "plain"."""
+    choice = ecfg.attention_backend
+    if choice not in ("auto", "kernel", "plain"):
+        raise ValueError(
+            f"attention_backend must be 'auto', 'kernel' or 'plain', got "
+            f"{choice!r}")
+    if choice == "plain":
+        return "plain", []
+    problems = (kernel_backend_problems(cfg, ecfg)
+                if device_type == "cuda" else [])
+    if not problems:
+        return "kernel", []
+    if choice == "kernel":
+        raise ValueError(
+            "; ".join(problems) + " — use attention_backend='auto' or "
+            "'plain'")
+    return "plain", problems
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -377,10 +407,6 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.ecfg = engine_cfg or EngineConfig()
         ecfg = self.ecfg
-        if ecfg.attention_backend not in ("auto", "plain"):
-            raise ValueError(
-                f"attention_backend must be 'auto' or 'plain', got "
-                f"{ecfg.attention_backend!r}")
         if ecfg.num_pages - 1 < ecfg.max_pages_per_seq:
             raise ValueError(
                 "num_pages must exceed max_pages_per_seq: a lone sequence "
@@ -399,12 +425,12 @@ class InferenceEngine:
             raise ValueError(
                 f"speculative_k={ecfg.speculative_k} does not fit the "
                 f"attention window ({ecfg.max_window})")
-        backend = "kernel" if ecfg.attention_backend == "auto" else "plain"
-        if backend == "kernel" and self.device.type == "cuda":
-            problems = kernel_backend_problems(cfg, ecfg)
-            if problems:
-                raise ValueError(
-                    "; ".join(problems) + " — use attention_backend='plain'")
+        backend, self.attention_backend_reasons = resolve_attention_backend(
+            cfg, ecfg, self.device.type)
+        if self.attention_backend_reasons:
+            logger.warning(
+                "attention_backend 'auto' resolved to 'plain' on %s: %s",
+                self.device, "; ".join(self.attention_backend_reasons))
         self.cfg = cfg.replace(attention_backend=backend)
         self.params = params_to(params, device=self.device)
         self.kv_dtype = kv_dtype or cfg.activation_dtype

@@ -66,6 +66,7 @@ from kafka_tpu_torch.ops.kernels.common import (
     chunk_scratch,
 )
 from kafka_tpu_torch.ops.kernels.flash_prefill import ROW_TILES
+from kafka_tpu_torch.ops.kernels.fused_mlp import check_args
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -483,6 +484,24 @@ class TestFusedMLPPlain:
         assert torch.equal(a, b)
         assert fused_mlp_block.launches == 0
 
+    @pytest.mark.parametrize("B,H,F,limit", [
+        (65, 256, 1024, "B <= 64"), (8, 192, 1024, "multiples of 128"),
+        (8, 256, 1000, "multiples of 128"),
+    ])
+    def test_argument_checks_name_the_kernels_limits(self, B, H, F, limit):
+        """What the CUDA kernel refuses, checked on CPU tensors: more than
+        64 rows, and H or F off its 128-row tiles."""
+        h, ln, wg, wu, wd = (t(a).to(torch.bfloat16) for a in
+                             make_mlp_case(2, B=B, H=H, F=F))
+        with pytest.raises(ValueError, match=limit):
+            check_args(h, ln, wg, wu, wd, (None, None, None))
+
+    def test_argument_checks_pass_the_llama_shape(self):
+        h, ln, wg, wu, wd = (t(a).to(torch.bfloat16) for a in
+                             make_mlp_case(2, B=64, H=256, F=1024))
+        assert check_args(h, ln, wg, wu, wd, (None,) * 3) == (
+            64, 256, 1024, False)
+
 
 # ---------------------------------------------------------------------------
 # the CUDA kernels (card only)
@@ -635,12 +654,19 @@ class TestCudaKernels:
                / want.float().norm(dim=-1).clamp_min(1e-6)).max().item()
         assert rel <= 0.02, rel
 
-    @pytest.mark.parametrize("int8", [False, True])
-    def test_fused_mlp_kernel(self, cuda, int8):
-        """The llama-3.2-1b decode MLP shape, within the JAX kernel test's
-        0.05 (chip_smoke.py states the same tolerance)."""
+    @pytest.mark.parametrize("int8,B", [
+        pytest.param(False, 8, id="False"), pytest.param(True, 8, id="True"),
+        *(pytest.param(q, b, id=f"{q}-B{b}")
+          for b in (1, 9, 32, 64) for q in (False, True)),
+    ])
+    def test_fused_mlp_kernel(self, cuda, int8, B):
+        """The llama-3.2-1b decode MLP shape at B 8 (and 1, 9, 32 and 64:
+        one N tile, a ragged second, four, and the largest batch, so every
+        N-tile count the kernel picks runs), within the
+        JAX kernel test's 0.05 (chip_smoke.py states the same
+        tolerance)."""
         h, ln, wg, wu, wd = (t(a).to(cuda) for a in make_mlp_case(
-            1, B=8, H=2048, F=8192))
+            1, B=B, H=2048, F=8192))
         h, ln = h.to(torch.bfloat16), ln.to(torch.bfloat16)
         ws = [w.to(torch.bfloat16) for w in (wg, wu, wd)]
         if int8:
