@@ -53,14 +53,25 @@ Phases, each of which raises (non-zero exit) on any failure:
                random weights from --seed): eight greedy requests, one
                submitted alone and longer than the largest prefill bucket
                (so it chunks through the flash prefill kernel), then seven
-               together.  Both kernel launch counters must move.  The same
+               together.  Both kernel launch counters must move (K1's
+               counts graph replays: every decode is a replay of a
+               captured step program, and a replay of a k-step graph adds
+               k x 16 layers to K1's counter).  The same
                requests run through a plain-attention engine on the same
                weights; logits must agree within the stated bf16 tolerance
                and the token agreement is printed.  Then (a) the same
-               requests on an engine with speculative_k = 4 whose
-               proposers offer the first engine's own continuation: K3
-               must launch, tokens must be accepted, and the emitted
+               requests on an engine with speculative_k = 4 and fetch_lag
+               0 (every dispatch drains in its own step, so a lane with a
+               proposal proposes at once) whose proposers offer the first
+               engine's own continuation: verify steps must run, K3 must
+               launch, tokens must be accepted, and the emitted
                positions' logits must agree with the spec-off engine's;
+               then on that engine a device-FSM grammar lane (the idle
+               tool, tool_choice "required") whose proposer offers the
+               spec-off engine's stream for it: the verify step's grammar
+               branch must run and accept, the stream equal the spec-off
+               one (or part at a bf16 near-tie) and the text be a valid
+               tool call;
                (a') the same at speculative_k = 8 (fault C4: 36 query rows
                per kv head): K3 must launch, and the greedy streams must
                equal the spec-off streams wherever the spec-off logits
@@ -73,9 +84,35 @@ Phases, each of which raises (non-zero exit) on any failure:
                must launch K4 (and no K1 or K2), logits must agree with
                the same int8 engine on plain attention, and the int8
                model's logit quality against the bf16 model must hold the
-               analytic flip bound (flip_margin_max <= 2 max|dlogit|);
-               decode-step profiles of both engines are printed.
-  3. server  — first fault C5: the tiny_model=True (float32, D 16) server on
+               analytic flip bound (flip_margin_max <= 2 max|dlogit|).
+  2b. graphs — the decode pipeline at full llama-3.2-1b width (bf16,
+               random weights from --seed, page 16, 2048 window, kernel
+               attention): eight greedy requests through engines at
+               multi_step 1 and 16, through the same engine class running
+               its step body eagerly instead of replaying graphs, and
+               through plain attention.  The three streams must be equal,
+               the logits within LOGITS_RTOL of plain attention's (max|d|
+               against the eager body printed); K1's counter must equal
+               (replayed steps + each capture's warm-up steps) x 16 layers
+               (bookkeeping: the proof that the replays ran K1 is their
+               logits equal to the eager body's bit for bit, which is
+               asserted, and the K1 and K4 chunk-kernel events the
+               profiler catches inside replays, which must be > 0);
+               the 16-step engine must fuse.  A sampled lane (temperature
+               0.8, top_p 0.95) riding fused bursts must give the eager
+               body's stream; 12 requests on 8 slots must bring the four
+               parked requests' first tokens to the host while every slot
+               lane still holds its slot.  Then the profile at 8 lanes x
+               ~256 tokens for bf16 and for int8 weights + int8 KV at
+               multi_step 1 and 16: host-clock ms per step and per
+               generated token over a steady window ending in a
+               synchronize, device ms per step from CUDA events around
+               each replay, the device busy share and tokens/s; the int8
+               engines' K4 counter is checked like K1's.  And the host's
+               own cost per step() and per replay call at 8 and 32 lanes,
+               multi_step 1 and 16, with no fetch popped in the window.
+  3. server  — served at the reference's fused depth
+               (ServingConfig.multi_step 16).  First fault C5: the tiny_model=True (float32, D 16) server on
                the card, which the kernels cannot take: "auto" must
                resolve to plain attention with logged reasons, the
                provider must report attention_backend "plain", and one
@@ -108,8 +145,10 @@ Phases, each of which raises (non-zero exit) on any failure:
                tokenizer vocab); the "required" turn again with
                KAFKA_TORCH_GRAMMAR_ONDEVICE=0 must take the host mask and
                give the same tokens; and the speculative server's
-               "required" turn (a grammar lane with a proposer) must give
-               them too.
+               "required" turn (a grammar lane whose proposer offers those
+               tokens, the engine at fetch_lag 0) must give them too, with
+               verify steps run and tokens accepted; the speculative
+               request must run verify steps as well.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
@@ -1260,7 +1299,8 @@ def _engine_cfg(**kw):
     from kafka_tpu_torch.runtime import EngineConfig
 
     kw.setdefault("attention_backend", "kernel")
-    return EngineConfig(max_batch=8, page_size=16, num_pages=1100,
+    kw.setdefault("max_batch", 8)
+    return EngineConfig(page_size=16, num_pages=1100,
                         max_pages_per_seq=128,
                         prefill_buckets=(64, 128, 256, 512),
                         keep_logits=True, **kw)
@@ -1396,8 +1436,13 @@ def phase_engine(seed: int) -> None:
         raise AssertionError(f"engine logits disagree: {worst}")
 
     # (a) speculation: K = 4, each lane's proposer offering the spec-off
-    # kernel engine's own continuation, so acceptance is exercised
-    spec = InferenceEngine(cfg, params, _engine_cfg(speculative_k=4))
+    # kernel engine's own continuation, so acceptance is exercised.  At
+    # fetch_lag 0 every dispatch drains in the step that made it, so a
+    # lane proposes at every step (at the default 96 the host runs ahead
+    # of the device and a lane rarely has its history drained: PERF.md
+    # section 7)
+    spec = InferenceEngine(cfg, params, _engine_cfg(speculative_k=4,
+                                                    fetch_lag=0))
     kernels.reset_launch_counts()
     t0 = time.monotonic()
     sgot = _drive(spec, prompts, max_new,
@@ -1414,9 +1459,10 @@ def phase_engine(seed: int) -> None:
         f"{acc}/{prop} proposed; vs spec-off: {s_same}/8 identical greedy "
         f"streams, token agreement {s_agree}/{total}, worst logits "
         f"max|d|/max|ref| = {s_worst:.4f} (tol {LOGITS_RTOL})")
-    if k3 == 0 or acc == 0:
-        raise AssertionError(f"speculative engine: K3 launches {k3}, "
-                             f"accepted {acc}")
+    if spec.verify_steps == 0 or k3 == 0 or acc == 0:
+        raise AssertionError(f"speculative engine: {spec.verify_steps} "
+                             f"verify steps, K3 launches {k3}, accepted "
+                             f"{acc}")
     if not s_worst <= LOGITS_RTOL:
         raise AssertionError(f"speculative engine logits disagree: {s_worst}")
     if spec.self_check():
@@ -1427,6 +1473,7 @@ def phase_engine(seed: int) -> None:
         "proposed": prop, "accepted": acc, "identical_streams": s_same,
         "token_agreement": [s_agree, total], "logits_rel_err": s_worst,
     }
+    RESULTS["engine_speculative_fsm"] = engine_fsm_speculation(eng, spec)
     del spec
     RESULTS["engine_speculative_k8"] = engine_speculative_k8(
         cfg, params, prompts, got, max_new)
@@ -1435,7 +1482,6 @@ def phase_engine(seed: int) -> None:
     # prefill must start past the cached pages (K2 at start > 0) and its
     # first logits row agree with a cold engine's
     RESULTS["engine_prefix"] = prefix_turns(eng, plain, cfg, rng)
-    RESULTS["decode_profile"] = decode_profile(eng, cfg, rng)
     del eng, plain
     torch.cuda.empty_cache()
     # (c) int8 serving: the same weights quantized, an int8 KV pool
@@ -1468,6 +1514,100 @@ def _near_ties(got, ref, max_new: int) -> list:
     return out
 
 
+def engine_fsm_speculation(ref_eng, spec_eng) -> dict:
+    """The verify step's grammar branch on the card: a device-FSM lane
+    (tool_choice "required" over the agent's idle tool, byte tokenizer,
+    the grammar compiled at the model's vocab) greedy on the spec-off
+    kernel engine, then on the speculative_k 4 engine (fetch_lag 0) with
+    its proposer offering that stream, so every verify step masks each
+    position with the automaton state reached through the candidates,
+    accepts on the device and rolls the state back to the accepted
+    prefix.  Verify steps must run and accept; the lane must stay on the
+    device FSM; both texts must be tool calls validate_tool_call_json
+    accepts; the streams must be equal, or part only at a bf16 near-tie
+    of the spec-off logits, with logits within LOGITS_RTOL up to there."""
+    import torch
+
+    from kafka_tpu_torch.agents import IDLE_TOOL
+    from kafka_tpu_torch.llm import constrained as con
+    from kafka_tpu_torch.models import ByteTokenizer
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.runtime import GenRequest
+
+    tok, tools = ByteTokenizer(), [IDLE_TOOL]
+    grammar = con.compile_tool_call_grammar(
+        tok, tools, vocab_size=ref_eng.cfg.vocab_size)
+    if grammar is None:
+        raise AssertionError("the idle tool's grammar did not compile")
+    keys = ("constrained_ondevice_tokens", "constrained_host_mask_steps",
+            "constrained_degrades", "verify_steps",
+            "speculation_proposed_tokens", "speculation_accepted_tokens")
+
+    def lane(eng, rid, stream=None):
+        before = {k: getattr(eng, k) for k in keys}
+        req = GenRequest(request_id=rid,
+                         prompt_ids=tok.encode(CONSTRAINED_PROMPT),
+                         max_new_tokens=CONSTRAINED_MAX_TOKENS,
+                         stop_token_ids=tuple(tok.stop_ids),
+                         logits_mask_fn=con.ToolCallMaskFn(tok, tools),
+                         grammar=grammar)
+        eng.submit(req)
+        if stream is not None:
+            req.spec = ForcedSpeculator(stream)
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        text = tok.decode([t for t in req.output_ids
+                           if t not in tok.stop_ids])
+        moved = {k: getattr(eng, k) - before[k] for k in keys}
+        if moved["constrained_ondevice_tokens"] <= 0 or \
+                moved["constrained_host_mask_steps"] or \
+                moved["constrained_degrades"] or \
+                not con.validate_tool_call_json(text, tools):
+            raise AssertionError(f"{rid}: {moved}, text {text!r}")
+        return req, moved
+
+    ref, _ = lane(ref_eng, "fsm-off")
+    kernels.reset_launch_counts()
+    got, moved = lane(spec_eng, "fsm-spec", stream=list(ref.output_ids))
+    k3 = kernels.paged_verify_attention.launches
+    a, b = got.output_ids, ref.output_ids
+    n = 0
+    while n < min(len(a), len(b)) and a[n] == b[n]:
+        n += 1
+    worst = max(((got.logits[i] - ref.logits[i]).abs().max()
+                 / ref.logits[i].abs().max()).item()
+                for i in range(min(n + 1, len(a), len(b))))
+    tie = None
+    if a != b:
+        if n == min(len(a), len(b)):
+            raise AssertionError(f"FSM lane: one stream ends inside the "
+                                 f"other: {a} vs {b}")
+        la, lb = got.logits[n], ref.logits[n]
+        tie = {"position": n, "margin": (lb[b[n]] - lb[a[n]]).item(),
+               "max_abs_dlogit": (la - lb).abs().max().item()}
+        if not tie["margin"] <= 2 * tie["max_abs_dlogit"]:
+            raise AssertionError(f"FSM lane streams part outside the flip "
+                                 f"bound: {tie}")
+    out = {"tokens": len(a), "ref_tokens": len(b), "same_tokens": n,
+           "identical": a == b, "logits_rel_err": worst, "near_tie": tie,
+           "k3_launches": k3, "finish_reason": got.finish_reason, **moved}
+    log(f"engine (speculative_k=4, fetch_lag 0, a device-FSM grammar lane "
+        f"with forced proposals): {moved['verify_steps']} verify steps, "
+        f"K3={k3}, accepted {moved['speculation_accepted_tokens']}/"
+        f"{moved['speculation_proposed_tokens']} proposed; FSM tokens "
+        f"{moved['constrained_ondevice_tokens']}; {len(a)} tokens, equal to "
+        f"speculation off: {a == b} ({n} shared), worst logits "
+        f"max|d|/max|ref| = {worst:.4f} (tol {LOGITS_RTOL}); near-tie {tie}")
+    if moved["verify_steps"] == 0 or k3 == 0 or \
+            moved["speculation_accepted_tokens"] == 0:
+        raise AssertionError(f"the grammar lane did not speculate: {out}")
+    if not worst <= LOGITS_RTOL:
+        raise AssertionError(f"FSM lane logits disagree: {worst}")
+    if spec_eng.self_check():
+        raise AssertionError(f"FSM lane: {spec_eng.self_check()}")
+    return out
+
+
 def engine_speculative_k8(cfg, params, prompts, got, max_new: int) -> dict:
     """Fault C4 on the card: speculative_k = 8 (36 query rows per kv head
     at G 4, past the 32 the old K3 held) on the full-width model, each
@@ -1481,7 +1621,8 @@ def engine_speculative_k8(cfg, params, prompts, got, max_new: int) -> dict:
     from kafka_tpu_torch.ops import kernels
     from kafka_tpu_torch.runtime import InferenceEngine
 
-    eng = InferenceEngine(cfg, params, _engine_cfg(speculative_k=8))
+    eng = InferenceEngine(cfg, params, _engine_cfg(speculative_k=8,
+                                                   fetch_lag=0))
     kernels.reset_launch_counts()
     t0 = time.monotonic()
     sgot = _drive(eng, prompts, max_new, streams=[r.output_ids for r in got])
@@ -1499,9 +1640,10 @@ def engine_speculative_k8(cfg, params, prompts, got, max_new: int) -> dict:
         f"proposed; vs spec-off: {same}/8 identical greedy streams, token "
         f"agreement {agree}/{total}, worst logits max|d|/max|ref| = "
         f"{worst:.4f} (tol {LOGITS_RTOL}); where streams part: {ties}")
-    if k3 == 0 or acc == 0:
-        raise AssertionError(f"speculative_k=8 engine: K3 launches {k3}, "
-                             f"accepted {acc}")
+    if eng.verify_steps == 0 or k3 == 0 or acc == 0:
+        raise AssertionError(f"speculative_k=8 engine: {eng.verify_steps} "
+                             f"verify steps, K3 launches {k3}, accepted "
+                             f"{acc}")
     if not worst <= LOGITS_RTOL:
         raise AssertionError(f"speculative_k=8 logits disagree: {worst}")
     if eng.self_check():
@@ -1576,17 +1718,10 @@ def engine_int8(cfg, params, prompts, max_new: int, rng) -> dict:
     dequant_ms = time_ms(dequant_all, iters=5, warmup=1)
     log(f"int8 decode step: weight dequant materialised per step "
         f"{dequant_ms:.3f} ms (CUDA events, all layers + LM head)")
-    profile = decode_profile(eng, cfg, rng)
-    bf16 = RESULTS.get("decode_profile", {})
-    log(f"decode step bf16 vs int8: host {bf16.get('step_ms')} vs "
-        f"{profile['step_ms']:.2f} ms, device {bf16.get('device_ms_per_step')} "
-        f"vs {profile['device_ms_per_step']:.3f} ms, busy share "
-        f"{bf16.get('device_busy_share')} vs {profile['device_busy_share']:.3f}")
     RESULTS["K4"]["engine_launches"] = k4
     return {"seconds": dt, "launches": launched, "identical_streams": same,
             "token_agreement": [agree, total], "logits_rel_err": worst,
-            "logit_quality": quality, "dequant_ms_per_step": dequant_ms,
-            "decode_profile": profile}
+            "logit_quality": quality, "dequant_ms_per_step": dequant_ms}
 
 
 def prefix_turns(eng, cold, cfg, rng) -> dict:
@@ -1635,59 +1770,512 @@ def prefix_turns(eng, cold, cfg, rng) -> dict:
     return out
 
 
-def decode_profile(eng, cfg, rng, width: int = 8, ctx: int = 256) -> dict:
-    """Where a decode step's time goes: `width` lanes with `ctx`-token
-    prompts, host-clock step time over 8 synchronized steps, then
-    torch.profiler over 4 steps for the device kernels by name and the
-    device's busy share of the wall time."""
+# ---------------------------------------------------------------------------
+# phase 2b: the decode pipeline's CUDA graphs at full width
+# ---------------------------------------------------------------------------
+
+
+class ReplayClock:
+    """Stands in for an engine's _run_step: counts the decode steps each
+    dispatch runs and, while `timing`, brackets each replay with CUDA
+    events (the device time of the graph, whatever the host does around
+    it) and records the host's time inside the replay call."""
+
+    def __init__(self, eng):
+        self.real = eng._run_step
+        self.steps = 0
+        self.timed_steps = 0
+        self.pairs = []
+        self.host_s = []
+        self.timing = False
+        eng._run_step = self
+
+    def __call__(self, k, *args):
+        import torch
+
+        self.steps += k
+        if not self.timing:
+            return self.real(k, *args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        self.real(k, *args)
+        self.host_s.append(time.perf_counter() - t0)
+        end.record()
+        self.pairs.append((start, end))
+        self.timed_steps += k
+
+    def device_ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def eager_body(eng):
+    """Run an engine's step body eagerly on the card instead of replaying
+    its graphs: the smoke's reference for the graphs (the engine itself
+    never runs the body outside a graph on CUDA)."""
+    def run(k, fsm, mode, masked):
+        keep = eng.ecfg.keep_logits
+        eng._step_buffers(k, keep)
+        eng._decode_body(k, fsm, mode, masked, keep)
+
+    eng._run_step = run
+
+
+def _graph_engine_run(cfg, params, prompts, max_new, name, eager=False,
+                      sampled=(), **kw):
+    """8 requests submitted together through one engine; returns (requests,
+    engine, clock, K1/K4 launches).  The counters are zeroed just before
+    and read just after; `sampled` indexes take temperature 0.8, top_p
+    0.95."""
+    import torch
+
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.runtime import GenRequest, InferenceEngine
+
+    eng = InferenceEngine(cfg, params, _engine_cfg(**kw))
+    clock = None
+    if eager:
+        eager_body(eng)
+    else:
+        clock = ReplayClock(eng)
+    reqs = [GenRequest(request_id=f"{name}{i}", prompt_ids=p,
+                       max_new_tokens=max_new,
+                       **(dict(temperature=0.8, top_p=0.95, seed=7 + i)
+                          if i in sampled else {}))
+            for i, p in enumerate(prompts)]
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launched = {f.__name__: f.launches for f in kernels.KERNELS}
+    if eng.self_check():
+        raise AssertionError(f"{name}: {eng.self_check()}")
+    return reqs, eng, clock, launched, dt
+
+
+def _check_replay_launches(name, eng, clock, launched, kernel, layers):
+    """The decode kernel's counter against the graphs that ran: each
+    replay of a k-step graph adds k x layers (a replay launches without
+    Python), each capture's eager warm-up k x layers.  Both sides are
+    derived from the same bookkeeping, so this holds the accounting, not
+    the launches: the proof that a replay ran the kernel is the graph
+    logits equal to the eager body's bit for bit (phase_graphs), and the
+    kernel events the profiler catches inside replays (replay_kernels)."""
+    warm = sum(key[0] for key in eng._graphs)
+    want = (clock.steps + warm) * layers
+    got = launched[kernel]
+    log(f"  {name}: {kernel} launches {got} = ({clock.steps} replayed "
+        f"steps + {warm} warm-up steps) x {layers} layers; "
+        f"{eng.graph_replays} replays, {eng.multi_step_dispatches} fused, "
+        f"graphs {sorted(eng._graphs)}")
+    if got != want or got == 0:
+        raise AssertionError(f"{name}: {kernel} launches {got}, want {want}")
+
+
+def replay_kernels(eng, clock, steps: int = 4) -> dict:
+    """Device time by kernel name inside the graph replays of `steps`
+    scheduler steps (torch.profiler), beside the CUDA-event time of the
+    same replays: the profiler may drop events (PERF.md §7), so the
+    caught share is reported with the split."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kafka_tpu_torch.runtime import GenRequest
-
-    eng.ecfg.keep_logits = False  # no per-step logits copy in the window
-    for i in range(width):
-        eng.submit(GenRequest(
-            request_id=f"prof{i}", max_new_tokens=64,
-            prompt_ids=rng.randint(0, cfg.vocab_size, size=ctx).tolist()))
-    while any(s is None or s.state != "active" for s in eng.slots):
-        eng.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(8):
-        eng.step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 8 * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(4):
+    clock.pairs, clock.timed_steps, clock.timing = [], 0, True
+    try:
+        prof_ctx = profile(activities=[ProfilerActivity.CUDA],
+                           acc_events=True)
+    except TypeError:  # a torch without acc_events
+        prof_ctx = profile(activities=[ProfilerActivity.CUDA])
+    with prof_ctx as prof:
+        for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
+    clock.timing = False
+    event_ms = clock.device_ms()
+    n = max(clock.timed_steps, 1)
     kern = [(e.key, getattr(e, "device_time_total",
                             getattr(e, "cuda_time_total", 0)))
             for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA]
-    busy_us = sum(t for _, t in kern)
+    caught_ms = sum(t for _, t in kern) / 1e3
     kern.sort(key=lambda kv: -kv[1])
-    for i in range(width):
-        eng.cancel(f"prof{i}")
-    # device time per step from the profiled steps, against the host-clock
-    # step time of the unprofiled ones (the profiler slows the host side)
-    device_ms = busy_us / 4 / 1e3
-    out = {
-        "lanes": width, "ctx": ctx, "step_ms": step_ms,
-        "device_ms_per_step": device_ms,
-        "device_busy_share": device_ms / step_ms,
-        "top_kernels": [(k[:60], t / 4 / 1e3, t / busy_us if busy_us
-                         else None) for k, t in kern[:8]],
-    }
-    log(f"decode step, {width} lanes at ~{ctx} tokens: {step_ms:.2f} ms "
-        f"(host clock), device {device_ms:.3f} ms/step, busy share "
-        f"{out['device_busy_share']:.3f}")
-    for name, ms, share in out["top_kernels"]:
-        log(f"  {ms:.4f} ms/step  {share}  {name}")
+    # the decode kernels' launches the profiler saw inside the replays, a
+    # direct count beside the engine's derived one (its counters add the
+    # capture's ticks per replay)
+    caught = {name: sum(e.count for e in prof.key_averages()
+                        if getattr(e, "device_type", None) == DeviceType.CUDA
+                        and name in e.key)
+              for name in ("paged_decode_chunk_kernel",
+                           "paged_decode_int8_chunk_kernel")}
+    out = {"steps": clock.timed_steps, "event_ms_per_step": event_ms / n,
+           "profiler_ms_per_step": caught_ms / n,
+           "profiler_decode_kernel_launches": caught,
+           "top": [(k[:70], t / 1e3 / n) for k, t in kern[:10]]}
+    log(f"    by kernel over {clock.timed_steps} replayed steps: profiler "
+        f"{out['profiler_ms_per_step']:.3f} ms/step of the events' "
+        f"{out['event_ms_per_step']:.3f}; decode chunk kernel launches "
+        f"caught {caught}")
+    for name, ms in out["top"]:
+        log(f"      {ms:.4f} ms/step  {name}")
     return out
+
+
+def graph_profile(eng, clock, cfg, rng, width: int = 8, ctx: int = 256,
+                  max_new: int = 200, sampled: bool = False,
+                  by_kernel: bool = False) -> dict:
+    """The decode pipeline at `width` lanes of ~`ctx` tokens: host-clock
+    wall time over a steady window of scheduler steps (every lane active,
+    ending in a synchronize), CUDA events around each graph replay in it,
+    and the tokens the window dispatched.  `sampled`: every lane at
+    temperature 0.8, top_p 0.95 (the threefry draw and the filter's sort
+    inside each step).  `by_kernel`: first a profiled pass over a few
+    steps (replay_kernels)."""
+    import torch
+
+    from kafka_tpu_torch.runtime import GenRequest
+
+    eng.ecfg.keep_logits = False  # no per-step logits copy in the window
+    kw = dict(temperature=0.8, top_p=0.95) if sampled else {}
+    reqs = [GenRequest(request_id=f"prof{i}", max_new_tokens=max_new,
+                       prompt_ids=rng.randint(0, cfg.vocab_size,
+                                              size=ctx).tolist(),
+                       seed=i, **kw)
+            for i in range(width)]
+    for r in reqs:
+        eng.submit(r)
+    while any(r.state != "active" for r in reqs):
+        eng.step()
+    # one fused burst and every graph captured before the window
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    split = replay_kernels(eng, clock) if by_kernel else None
+    k = eng.ecfg.multi_step
+    clock.pairs, clock.timed_steps, clock.timing = [], 0, True
+    d0 = sum(r.dispatched for r in reqs)
+    t0 = time.perf_counter()
+    while all(r.state == "active" and r.max_new_tokens - r.dispatched > k + 1
+              for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    clock.timing = False
+    tokens = sum(r.dispatched for r in reqs) - d0
+    dev_ms = clock.device_ms()
+    steps = clock.timed_steps
+    for r in reqs:
+        eng.cancel(r.request_id)
+    while eng.has_work:
+        eng.step()
+    out = {
+        "lanes": width, "ctx": ctx, "multi_step": k, "sampled": sampled,
+        "steps": steps,
+        "tokens": tokens, "wall_ms": wall_ms,
+        "host_ms_per_step": wall_ms / steps,
+        "host_ms_per_token": wall_ms / tokens,
+        "device_ms_per_step": dev_ms / steps,
+        "device_busy_share": dev_ms / wall_ms,
+        "tokens_per_s": tokens / wall_ms * 1e3,
+        "by_kernel": split,
+    }
+    log(f"  decode, {width} {'sampled' if sampled else 'greedy'} lanes at "
+        f"~{ctx} tokens, multi_step {k}: "
+        f"{out['host_ms_per_step']:.3f} ms host clock per step (each "
+        f"lane's token), {out['host_ms_per_token']:.4f} ms per generated "
+        f"token, device {out['device_ms_per_step']:.3f} ms/step (CUDA "
+        f"events around replays), busy share "
+        f"{out['device_busy_share']:.3f}, {out['tokens_per_s']:.0f} "
+        f"tokens/s over {steps} steps")
+    return out
+
+
+def host_step_cost(eng, clock, cfg, rng, width: int, reps: int = 32) -> dict:
+    """The host's own time per scheduler step() at `width` lanes of ~64
+    tokens, at multi_step 1 and 16 (the engine's depth is switched
+    between windows), with the device kept out of it: fetch_lag and
+    fetch_wait_s are raised inside each window so no step() pops, and so
+    waits on, a fetch; a step() then only enqueues its work.  Each depth
+    runs a warm window (captures, pinned staging blocks) and a measured
+    one, each followed by a full drain.  Reports the median host ms per
+    step() and per replay call, the per-decode-step host ms, and the
+    device ms per step from CUDA events around the measured replays: the
+    pipeline is host-bound at a depth where the host's ms per decode step
+    exceeds the device's."""
+    import torch
+
+    from kafka_tpu_torch.runtime import GenRequest
+
+    eng.ecfg.keep_logits = False
+    ecfg = eng.ecfg
+    lag, wait, depth = ecfg.fetch_lag, ecfg.fetch_wait_s, ecfg.multi_step
+    reqs = [GenRequest(request_id=f"host{width}_{i}",
+                       max_new_tokens=2 * (reps + 2) * 16 + 32,
+                       prompt_ids=rng.randint(0, cfg.vocab_size,
+                                              size=64).tolist())
+            for i in range(width)]
+    for r in reqs:
+        eng.submit(r)
+    while any(r.state != "active" for r in reqs):
+        eng.step()
+    out = {"lanes": width}
+    try:
+        for k in (1, 16):
+            ecfg.multi_step = k
+            n = reps if k == 1 else max(4, reps // 8)
+            for measured in (False, True):
+                ecfg.fetch_lag, ecfg.fetch_wait_s = 1 << 30, 1e9
+                clock.pairs, clock.host_s, clock.timed_steps = [], [], 0
+                clock.timing = True
+                d0 = sum(r.dispatched for r in reqs)
+                calls = []
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    eng.step()
+                    calls.append(time.perf_counter() - t0)
+                clock.timing = False
+                steps = (sum(r.dispatched for r in reqs) - d0) // width
+                ecfg.fetch_lag, ecfg.fetch_wait_s = lag, wait
+                dev_ms = clock.device_ms()
+                eng._drain(block=True)
+                if not measured:
+                    continue
+                if any(r.state != "active" for r in reqs) or \
+                        steps != n * k:
+                    raise AssertionError(
+                        f"host cost window at {width} lanes, multi_step "
+                        f"{k}: {steps} steps of {n * k}, states "
+                        f"{[r.state for r in reqs]}")
+                step_ms = 1e3 * sorted(calls)[n // 2]
+                out[k] = {
+                    "step_calls": n, "decode_steps": steps,
+                    "host_ms_per_step_call": step_ms,
+                    "host_ms_per_decode_step": step_ms / k,
+                    "host_ms_per_replay_call":
+                        1e3 * sorted(clock.host_s)[len(clock.host_s) // 2],
+                    "device_ms_per_step": dev_ms / clock.timed_steps,
+                }
+    finally:
+        ecfg.fetch_lag, ecfg.fetch_wait_s, ecfg.multi_step = lag, wait, depth
+        clock.timing = False
+    for r in reqs:
+        eng.cancel(r.request_id)
+    while eng.has_work:
+        eng.step()
+    for k in (1, 16):
+        o = out[k]
+        log(f"  host cost, {width} lanes, multi_step {k}: "
+            f"{o['host_ms_per_step_call']:.3f} ms host per step() call "
+            f"({o['host_ms_per_decode_step']:.3f} per decode step), "
+            f"{o['host_ms_per_replay_call']:.3f} ms inside the replay call; "
+            f"device {o['device_ms_per_step']:.3f} ms/step (median of "
+            f"{o['step_calls']} calls, no fetch popped)")
+    return out
+
+
+def _parked_first_token(eng, cfg, rng) -> dict:
+    """12 requests on 8 slots: each of the 4 past the slots must reach the
+    host with its first token (prefilled off-slot, parked) while all 8
+    slot lanes still hold their slots."""
+    import torch
+
+    from kafka_tpu_torch.runtime import GenRequest
+
+    max_new = 120
+    reqs = [GenRequest(request_id=f"park{i}", max_new_tokens=max_new,
+                       prompt_ids=rng.randint(0, cfg.vocab_size,
+                                              size=64).tolist())
+            for i in range(12)]
+    t0 = time.monotonic()
+    for r in reqs:
+        eng.submit(r)
+    extra = reqs[8:]
+    parked_seen = 0
+    while any(r.first_token_time is None for r in extra):
+        eng.step()
+        parked_seen = max(parked_seen, len(eng.parked))
+        if any(r.state in ("draining", "finished") for r in reqs[:8]):
+            raise AssertionError("a slot freed before the parked requests' "
+                                 "first tokens arrived")
+    last = max(r.first_token_time for r in extra) - t0
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    done = [len(r.output_ids) for r in reqs]
+    out = {"parked_max": parked_seen, "finished_tokens": done,
+           "last_parked_first_token_s": last}
+    log(f"  parking: 12 requests on 8 slots, up to {parked_seen} parked; "
+        f"the four past the slots had their first tokens {last:.3f}s after "
+        f"submit, every slot lane still active; tokens {done}")
+    if parked_seen == 0 or done != [max_new] * 12:
+        raise AssertionError(f"parking: {out}")
+    return out
+
+
+def _caught_launches(split: dict, key: str, kernel: str, layers: int):
+    """The profiler's count of a decode kernel inside the profiled
+    replays, beside the engine's derived count (replayed steps x
+    layers); the profiler may drop events, so it must only see some."""
+    caught = split["profiler_decode_kernel_launches"][kernel]
+    derived = split["steps"] * layers
+    log(f"  {kernel}: the profiler caught {caught} launches inside "
+        f"{split['steps']} replayed steps; the counter's derived count "
+        f"is {derived}")
+    if caught == 0:
+        raise AssertionError(f"no {kernel} event inside the replays")
+    if key in RESULTS:
+        RESULTS[key]["replay_profiler_launches"] = {
+            "caught": caught, "derived": derived, "steps": split["steps"]}
+        RESULTS[key]["launch_count_basis"] = (
+            "decode graph replays x layers, ticked per replay from the "
+            "capture (derived); replay_profiler_launches is the "
+            "profiler's direct count")
+
+
+def _profile_engine(cfg, params, **kw):
+    from kafka_tpu_torch.runtime import InferenceEngine
+
+    eng = InferenceEngine(cfg, params, _engine_cfg(**kw))
+    return eng, ReplayClock(eng)
+
+
+def phase_graphs(seed: int) -> None:
+    """The decode pipeline on the card: every decode a graph replay, at
+    multi_step 1 and 16, against the eager body and plain attention, K1
+    and K4 counted per replay, a sampled lane, a parked request, and the
+    host / device / busy / tokens-per-second profile."""
+    import numpy as np
+    import torch
+
+    from kafka_tpu_torch.models import get_config, init_params
+    from kafka_tpu_torch.models.quant import quantize_params
+
+    cfg = get_config("llama-3.2-1b")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    rng = np.random.RandomState(seed + 1)
+    lens = [40, 50, 90, 120, 200, 300, 450, 600]
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
+    max_new = 40
+    L = cfg.num_layers
+    res = {}
+    log("graphs: llama-3.2-1b, 8 greedy requests, every decode a replay")
+    runs = {}
+    for name, kw in (("g1_", dict(multi_step=1)),
+                     ("g16_", dict(multi_step=16)),
+                     ("eager_", dict(multi_step=16, eager=True)),
+                     ("plain_", dict(multi_step=16,
+                                     attention_backend="plain"))):
+        reqs, eng, clock, launched, dt = _graph_engine_run(
+            cfg, params, prompts, max_new, name, **kw)
+        if clock is not None and name != "plain_":
+            _check_replay_launches(name, eng, clock, launched,
+                                   "paged_decode_attention", L)
+        if name == "g16_" and eng.multi_step_dispatches == 0:
+            raise AssertionError("multi_step=16 never fused a burst")
+        runs[name] = (reqs, eng, clock)
+        log(f"  {name}: {dt:.2f}s, launches {launched}")
+    streams = {n: [r.output_ids for r in v[0]] for n, v in runs.items()}
+    same = streams["g1_"] == streams["g16_"] == streams["eager_"]
+    d_eager = max(
+        (a - b).abs().max().item()
+        for ra, rb in zip(runs["g16_"][0], runs["eager_"][0])
+        for a, b in zip(ra.logits, rb.logits))
+    d_g1 = max(
+        (a - b).abs().max().item()
+        for ra, rb in zip(runs["g16_"][0], runs["g1_"][0])
+        for a, b in zip(ra.logits, rb.logits))
+    p_same, p_agree, p_worst = _compare_streams(
+        cfg, runs["g16_"][0], runs["plain_"][0], max_new)
+    log(f"  streams multi_step 1 == 16 == eager body: {same}; logits "
+        f"max|d| graph16 vs eager {d_eager}, vs graph1 {d_g1}; vs plain "
+        f"attention: {p_same}/8 identical, worst max|d|/max|ref| "
+        f"{p_worst:.4f} (tol {LOGITS_RTOL})")
+    if not same:
+        raise AssertionError("graph streams differ from the eager body's")
+    # the replays run the eager body's kernels in its order: their logits
+    # equal it bit for bit, which shows K1 ran inside the graphs
+    if d_eager != 0.0 or d_g1 != 0.0:
+        raise AssertionError(f"graph logits differ from the eager body's: "
+                             f"{d_eager} (16-step), {d_g1} (1-step vs "
+                             f"16-step)")
+    if not p_worst <= LOGITS_RTOL:
+        raise AssertionError(f"graph logits vs plain: {p_worst}")
+    res["streams_equal"] = same
+    res["logits_max_abs_vs_eager"] = d_eager
+    res["logits_max_abs_g16_vs_g1"] = d_g1
+    res["vs_plain"] = {"identical_streams": p_same,
+                       "token_agreement": p_agree, "logits_rel_err": p_worst}
+    del runs["plain_"], runs["g1_"]
+    torch.cuda.empty_cache()
+
+    # a sampled lane riding fused bursts beside three greedy ones
+    samp = {}
+    for name, kw in (("s16_", {}), ("seager_", dict(eager=True))):
+        reqs, eng, _, _, _ = _graph_engine_run(
+            cfg, params, prompts[:4], max_new, name, sampled=(1,),
+            multi_step=16, **kw)
+        samp[name] = [r.output_ids for r in reqs]
+        if name == "s16_" and eng.multi_step_dispatches == 0:
+            raise AssertionError("the sampled batch never fused")
+    log(f"  sampled lane (temperature 0.8, top_p 0.95) in fused bursts: "
+        f"stream equals the eager body's: {samp['s16_'] == samp['seager_']}")
+    if samp["s16_"] != samp["seager_"]:
+        raise AssertionError("sampled graph stream differs from eager")
+    res["sampled_equal"] = True
+
+    eng16, clock16 = runs["g16_"][1], runs["g16_"][2]
+    del runs
+    res["parking"] = _parked_first_token(eng16, cfg, rng)
+    profiles = {"bf16": {}, "int8": {}}
+    profiles["bf16"][16] = graph_profile(eng16, clock16, cfg, rng)
+    profiles["bf16"]["16_sampled"] = graph_profile(eng16, clock16, cfg, rng,
+                                                   sampled=True)
+    del eng16
+    eng1, clock1 = _profile_engine(cfg, params, multi_step=1)
+    profiles["bf16"][1] = graph_profile(eng1, clock1, cfg, rng,
+                                        by_kernel=True)
+    _caught_launches(profiles["bf16"][1]["by_kernel"], "K1",
+                     "paged_decode_chunk_kernel", L)
+    del eng1
+    torch.cuda.empty_cache()
+    # the host's own cost per step, at the 8 lanes of the profile and at
+    # a 32-lane batch: the device step time below which fusion would pay
+    host = {}
+    for width in (8, 32):
+        eng, clock = _profile_engine(cfg, params, multi_step=16,
+                                     max_batch=width)
+        host[width] = host_step_cost(eng, clock, cfg, rng, width)
+        del eng
+        torch.cuda.empty_cache()
+    res["host_cost"] = host
+
+    qparams = quantize_params(params)
+    del params
+    torch.cuda.empty_cache()
+    for k in (1, 16):
+        reqs, eng, clock, launched, dt = _graph_engine_run(
+            cfg, qparams, prompts, max_new, f"q{k}_", multi_step=k,
+            kv_quantize="int8")
+        _check_replay_launches(f"int8 KV, multi_step {k}", eng, clock,
+                               launched, "paged_decode_attention_int8", L)
+        if launched["paged_decode_attention"]:
+            raise AssertionError("the int8-KV engine launched K1")
+        profiles["int8"][k] = graph_profile(eng, clock, cfg, rng,
+                                            by_kernel=k == 1)
+        if k == 1:
+            _caught_launches(profiles["int8"][1]["by_kernel"], "K4",
+                             "paged_decode_int8_chunk_kernel", L)
+        del eng
+        torch.cuda.empty_cache()
+    res["profiles"] = profiles
+    RESULTS["graphs"] = res
 
 
 # ---------------------------------------------------------------------------
@@ -1751,7 +2339,7 @@ async def _serve_and_query(db_path: str) -> dict:
         model_name="llama-3.2-1b", max_batch=8, page_size=16,
         num_pages=8 * 256 + 64, max_pages_per_seq=256,
         prefill_buckets=(64, 128, 256, 512, 1024, 2048),
-        max_new_tokens_default=32, db_path=db_path,
+        max_new_tokens_default=32, db_path=db_path, multi_step=16,
         system_prompt="You are a terse assistant.",
     )
     t0 = time.monotonic()
@@ -1884,7 +2472,8 @@ async def _constrained_turn(session, url: str, tool_choice, engine, seen,
     from kafka_tpu_torch.llm.constrained import validate_tool_call_json
 
     keys = ("constrained_ondevice_tokens", "constrained_host_mask_steps",
-            "constrained_mask_overtight", "constrained_degrades")
+            "constrained_mask_overtight", "constrained_degrades",
+            "graph_captures", "graph_capture_s")
     before = {k: getattr(engine, k) for k in keys}
     n0 = len(seen)
     ev = await _stream(session, url, {
@@ -2001,8 +2590,14 @@ async def _serve_speculative(db_path: str, constrained_ref: list) -> dict:
     """One streamed request to a server configured from the environment
     with KAFKA_TORCH_SPECULATIVE_K=4, as an operator would enable it; then
     the constrained server's greedy "required" turn, whose grammar lane
-    speculates: its tokens must be constrained_ref, the spec-off stream.
-    No prefix cache, so that turn prefills cold as it did there."""
+    speculates with its proposer offering constrained_ref, the spec-off
+    stream: its tokens must be constrained_ref.  The engine's fetch_lag
+    is set to 0 (an EngineConfig field ServingConfig does not carry, as
+    in the reference), so every dispatch drains in the step that made it
+    and a lane proposes at every step; at the default 96 a lone stream's
+    host runs ahead of the device and never proposes (PERF.md section 7).
+    Both must run verify steps.  No prefix cache, so that turn prefills
+    cold as it did there."""
     import aiohttp
     from aiohttp import web
 
@@ -2026,6 +2621,16 @@ async def _serve_speculative(db_path: str, constrained_ref: list) -> dict:
     app = await create_app(cfg, tools=[])
     llm = app[STATE_KEY]["llm"]
     engine = llm.engine
+    engine.ecfg.fetch_lag = 0
+    real_submit = engine.submit
+
+    def submit(req, *a, **kw):  # on the engine thread, before any step
+        out = real_submit(req, *a, **kw)
+        if req.grammar is not None:
+            req.spec = ForcedSpeculator(list(constrained_ref))
+        return out
+
+    engine.submit = submit
     seen = _spy_submits(engine)
     port = _free_port()
     runner = web.AppRunner(app)
@@ -2049,14 +2654,16 @@ async def _serve_speculative(db_path: str, constrained_ref: list) -> dict:
                    "verify_steps": engine.verify_steps}
             from kafka_tpu_torch.agents import IDLE_TOOL
 
-            p0, a0 = (engine.speculation_proposed_tokens,
-                      engine.speculation_accepted_tokens)
+            p0, a0, v0 = (engine.speculation_proposed_tokens,
+                          engine.speculation_accepted_tokens,
+                          engine.verify_steps)
             turn = await _constrained_turn(
                 s, f"http://127.0.0.1:{port}/v1/threads/spec-c3/chat/"
                    "completions", "required", engine, seen, llm.tokenizer,
                 [IDLE_TOOL])
             turn.update(proposed=engine.speculation_proposed_tokens - p0,
-                        accepted=engine.speculation_accepted_tokens - a0)
+                        accepted=engine.speculation_accepted_tokens - a0,
+                        verify_steps=engine.verify_steps - v0)
             turn.pop("grammar")
             out["constrained"] = turn
     finally:
@@ -2067,7 +2674,11 @@ async def _serve_speculative(db_path: str, constrained_ref: list) -> dict:
         await runner.cleanup()
     out.update(out_k)
     turn = out["constrained"]
-    if seen[-1].spec is None or turn["constrained_ondevice_tokens"] <= 0:
+    if out["verify_steps"] <= 0:
+        raise AssertionError(f"the speculative request ran no verify step: "
+                             f"{out}")
+    if turn["verify_steps"] <= 0 or turn["proposed"] <= 0 or \
+            turn["accepted"] <= 0 or turn["constrained_ondevice_tokens"] <= 0:
         raise AssertionError(f"the grammar lane did not speculate on the "
                              f"device FSM: {turn}")
     if turn["output_ids"] != constrained_ref:
@@ -2242,7 +2853,7 @@ def phase_server() -> None:
         f"{out['turn2']['prompt_tokens_details']['cached_tokens']}) "
         f"chat={out['turn3']['prompt_tokens']}; history {out['history']}; "
         f"launches K1={out['K1']} K2={out['K2']}")
-    log(f"server (KAFKA_TORCH_SPECULATIVE_K=4): 1 stream of "
+    log(f"server (KAFKA_TORCH_SPECULATIVE_K=4, fetch_lag 0): 1 stream of "
         f"{spec['usage']['completion_tokens']} tokens in "
         f"{spec['seconds']:.2f}s; {spec['verify_steps']} verify steps, "
         f"accepted {spec['accepted']}/{spec['proposed']} proposed; "
@@ -2253,15 +2864,19 @@ def phase_server() -> None:
             f"{json.dumps(t['tool_choice'])}): {t['tokens']} tokens, finish "
             f"tool_calls, call {t['call']['name']}({t['call']['arguments']}); "
             f"device-FSM tokens {t['constrained_ondevice_tokens']}, host-mask "
-            f"steps {t['constrained_host_mask_steps']}")
+            f"steps {t['constrained_host_mask_steps']}; graphs captured "
+            f"{t['graph_captures']} in {t['graph_capture_s']:.3f}s")
     sc = spec["constrained"]
     host = con["turns"]["required_host"]
     log(f"server constrained turns: the host-mask rerun equals the device "
         f"FSM's first {host['same_tokens_before_wrap_up']} tokens (all "
         f"before either wrap-up window; whole stream equal: "
         f"{host['whole_stream_equal']}); with speculation "
-        f"({sc['accepted']}/{sc['proposed']} proposed accepted) the grammar "
-        f"lane's {sc['tokens']} tokens equal speculation off; launches "
+        f"({sc['verify_steps']} verify steps, {sc['accepted']}/"
+        f"{sc['proposed']} proposed accepted, forced proposals) the grammar "
+        f"lane's {sc['tokens']} tokens equal speculation off; graphs "
+        f"captured in that turn {sc['graph_captures']} in "
+        f"{sc['graph_capture_s']:.3f}s; launches "
         f"K1={con['K1']} in {con['seconds']:.2f}s")
     RESULTS["server_constrained"] = con
     if "K3" in RESULTS:
@@ -2278,10 +2893,10 @@ def main() -> int:
     global BASELINE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,engine,server",
-                    help="comma list of kernels, engine, server (default: "
-                         "all), or attention (K3 and K4 alone, timed) or "
-                         "mlp (K5 alone, timed)")
+    ap.add_argument("--phases", default="kernels,engine,graphs,server",
+                    help="comma list of kernels, engine, graphs, server "
+                         "(default: all), or attention (K3 and K4 alone, "
+                         "timed) or mlp (K5 alone, timed)")
     ap.add_argument("--root", default=None,
                     help="time another checkout's kernels (the package "
                          "under this directory) on the same inputs; "
@@ -2338,6 +2953,8 @@ def main() -> int:
             phase_kernels(args.seed, only=only)
     if "engine" in phases:
         phase_engine(args.seed)
+    if "graphs" in phases:
+        phase_graphs(args.seed)
     if "server" in phases:
         phase_server()
     RESULTS["total_s"] = time.monotonic() - t0
@@ -2349,6 +2966,8 @@ def main() -> int:
     kernels_line = {"kernels": [
         {**{k: RESULTS[n].get(k) for k in keys},
          **{k: RESULTS[n][k] for k in ("engine_launches", "server_launches",
+                                       "launch_count_basis",
+                                       "replay_profiler_launches",
                                        "device_ms", "device_ms_cold_l2",
                                        "sweep_layer_device_ms",
                                        "library_device_ms", "torch_ms",

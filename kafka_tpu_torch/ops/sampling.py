@@ -2,22 +2,25 @@
 
 Counterpart of kafka_tpu/ops/sampling.py: per-row temperature / top-k /
 top-p, greedy as the temperature <= 0 limit.  Greedy is exact (argmax of
-the same logits).  A sampled row draws from a `torch.Generator` seeded
-from (seed, position), so a request's draws depend only on its own seed
-and position — reproducible under preemption and re-batching, the JAX
-package's per-(seed, position) contract (kafka_tpu/runtime/engine.py,
-fold_in(key(seed), position)).  The bits differ from JAX's threefry, so
-sampled streams are held to determinism within the port, not to JAX's
-tokens.  `grammar_allowed_mask` / `grammar_advance` are the on-device
-grammar FSM's mask and step (kafka_tpu/ops/sampling.py:132-187): gathers
-over the compiled tables (llm/constrained.py), plain PyTorch on device
-tensors — the JAX package has no kernel for them either.
+the same logits).  A sampled row draws with the JAX engine's own key,
+fold_in(key(seed), position) (kafka_tpu/runtime/engine.py), reproduced
+bit for bit on the device: threefry-2x32 in int64 tensors masked to 32
+bits, jax.random.bits' counter layout, uniform's bits-to-float step and
+gumbel's -log(-log(u)).  So a request's draws depend only on its seed and
+position (reproducible under preemption, re-batching and speculation),
+and equal JAX's tokens except where two perturbed scores tie within the
+two libraries' log rounding.  Nothing reads back from the device, so the
+sampler runs inside a captured CUDA graph.  `grammar_allowed_mask` /
+`grammar_advance` are the on-device grammar FSM's mask and step
+(kafka_tpu/ops/sampling.py:132-187): gathers over the compiled tables
+(llm/constrained.py), plain PyTorch on device tensors — the JAX package
+has no kernel for them either.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
 
@@ -92,17 +95,6 @@ def _filtered(scaled: torch.Tensor, params: SamplingParams) -> torch.Tensor:
     return torch.where(keep, scaled, torch.full_like(scaled, NEG_INF))
 
 
-def draw_seed(seed: int, position: int) -> int:
-    """A 63-bit generator seed from (request seed, position): splitmix64
-    of the pair, so neighbouring positions give unrelated streams."""
-    z = ((seed & 0xFFFFFFFF) << 32 | (position & 0xFFFFFFFF)) \
-        + 0x9E3779B97F4A7C15
-    z &= 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
-
-
 def grammar_allowed_mask(
     fsm_state: torch.Tensor,
     fsm_g: torch.Tensor,
@@ -160,44 +152,113 @@ def grammar_advance(
     return torch.where(on, nxt, fsm_state)
 
 
+# ---------------------------------------------------------------------------
+# the per-(seed, position) draw: JAX's threefry-2x32, bit for bit
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+# f32 finfo.tiny: jax.random.gumbel's uniform draw starts there
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
+                 x2: torch.Tensor):
+    """The Threefry-2x32 hash (20 rounds) of counter pairs (x1, x2) under
+    key (k1, k2), as jax._src.prng's unrolled lowering computes it.  All
+    four are int64 tensors holding uint32 values (broadcastable); every
+    sum is masked back to 32 bits, so nothing overflows.  Returns the two
+    output words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x = [(x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32]
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x[0] = (x[0] + x[1]) & _M32
+            x[1] = x[0] ^ (((x[1] << r) & _M32) | (x[1] >> (32 - r)))
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _M32
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & _M32
+    return x[0], x[1]
+
+
+def fold_in_keys(seeds: torch.Tensor, positions: torch.Tensor):
+    """Per-row keys `jax.random.fold_in(jax.random.key(seed), position)`
+    for [N] integer tensors (seeds taken as uint32, as the JAX engine
+    holds them; positions as the uint32 of an int32).  key(seed) is the
+    pair (0, seed); fold_in hashes the counter pair (0, position)."""
+    s = seeds.long() & _M32
+    zero = torch.zeros_like(s)
+    return threefry2x32(zero, s, zero, positions.long() & _M32)
+
+
+def random_bits(keys, n: int) -> torch.Tensor:
+    """`jax.random.bits(key, (n,), uint32)` for each row's key: [N, n]
+    int64 holding the uint32 draws.  With jax_threefry_partitionable (the
+    JAX default) element i hashes the counter pair (0, i) and the two
+    output words are xor-ed."""
+    k1, k2 = keys
+    dev = k1.device
+    lo = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
+    b1, b2 = threefry2x32(k1[:, None], k2[:, None],
+                          torch.zeros(1, 1, dtype=torch.int64, device=dev), lo)
+    return b1 ^ b2
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """jax.random.gumbel (mode "low") of float32 from uniform bits: the
+    top 23 bits as a mantissa in [1, 2), minus 1, lifted to [tiny, 1),
+    then -log(-log(u))."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    u = torch.clamp_min(f * (1.0 - _TINY) + _TINY, _TINY)
+    return -torch.log(-torch.log(u))
+
+
 def sample_tokens_per_slot(
     logits: torch.Tensor,
     params: SamplingParams,
-    seeds: Sequence[int],
-    positions: Sequence[int],
+    seeds,
+    positions,
     allowed_mask: Optional[torch.Tensor] = None,
+    *,
+    sampled: Optional[bool] = None,
+    filtered: Optional[bool] = None,
 ) -> torch.Tensor:
     """One token per row: [B, V] float32 logits -> [B] int64.
 
-    seeds/positions: per-row host ints — row i draws from a generator
-    seeded with draw_seed(seeds[i], positions[i]) (Gumbel-max over the
-    filtered, temperature-scaled logits).  allowed_mask [B, V] bool
-    excludes tokens first; an all-False row falls back to unconstrained.
-    """
+    Row i draws with the key fold_in(key(seeds[i]), positions[i]) — the
+    JAX engine's per-(seed, position) key — as jax.random.categorical
+    does: argmax of the filtered, temperature-scaled logits plus the
+    key's Gumbel field.  seeds/positions: [B] integer tensors on the
+    logits' device (host sequences are converted).  allowed_mask [B, V]
+    bool excludes tokens first; an all-False row falls back to
+    unconstrained.
+
+    sampled / filtered: whether any row samples (temperature > 0) and
+    whether any sampled row filters (top_k > 0 or top_p < 1).  The
+    engine passes them from the lanes' host parameters, so the call
+    reads nothing back from the device and can be captured in a CUDA
+    graph; None derives them from `params` (a device read).  Like the
+    reference's lax.cond, they only skip work: a greedy row is the
+    argmax and an unfiltered row's logits pass the filter unchanged."""
+    dev = logits.device
+    if sampled is None:
+        sampled = bool((params.temperature > 0.0).any())
+    if filtered is None:
+        filtered = bool(((params.temperature > 0.0)
+                         & ((params.top_k > 0) | (params.top_p < 1.0))).any())
     if allowed_mask is not None:
         usable = allowed_mask.any(dim=-1, keepdim=True)
         mask = torch.where(usable, allowed_mask,
                            torch.ones_like(allowed_mask))
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     greedy = torch.argmax(logits, dim=-1)
-    sampled_rows = [i for i, t in enumerate(params.temperature.tolist())
-                    if t > 0.0]
-    if not sampled_rows:
+    if not sampled:
         return greedy
-    temp = params.temperature.clamp_min(1e-6)[:, None]
-    scaled = logits / temp
-    needs_filter = bool((
-        (params.temperature > 0.0)
-        & ((params.top_k > 0) | (params.top_p < 1.0))
-    ).any())
-    if needs_filter:
+    scaled = logits / params.temperature.clamp_min(1e-6)[:, None]
+    if filtered:
         scaled = _filtered(scaled, params)
-    out = greedy.clone()
-    vocab = logits.shape[-1]
-    for i in sampled_rows:
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(draw_seed(int(seeds[i]), int(positions[i])))
-        u = torch.rand(vocab, generator=gen, device=logits.device)
-        gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-        out[i] = torch.argmax(scaled[i] + gumbel)
-    return out
+    seeds = torch.as_tensor(seeds, device=dev)
+    positions = torch.as_tensor(positions, device=dev)
+    noise = gumbel_from_bits(random_bits(fold_in_keys(seeds, positions),
+                                         logits.shape[-1]))
+    drawn = torch.argmax(noise + scaled, dim=-1)
+    return torch.where(params.temperature <= 0.0, greedy, drawn)

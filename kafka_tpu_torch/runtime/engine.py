@@ -4,19 +4,25 @@ Counterpart of kafka_tpu/runtime/engine.py, main-path slice.  The
 scheduler keeps the JAX engine's semantics:
 
 * `submit` queues a request (bounded by `max_waiting` -> AdmissionError);
-* each `step()` checks deadlines, admits waiting requests into free batch
-  slots when their prompt's pages fit, advances the oldest prefilling
-  lanes one chunk each, then decodes every active lane one token;
+* each `step()` checks deadlines, drains matured token fetches, admits
+  waiting requests into free batch slots when their prompt's pages fit,
+  advances the oldest prefilling lanes one chunk each, then dispatches one
+  decode for every active lane;
 * a prompt longer than the largest bucket prefills in chunks, one chunk
   per step, interleaved with the decode batch;
-* several admissions that share a bucket prefill together in one batched
-  dispatch (plain attention, as in the JAX package); a lone admission —
-  and any bucket over 128 on the kernel backend — takes the
-  single-sequence prefill, which runs the flash prefill kernel (K2);
+* several unconstrained admissions that share a bucket prefill together
+  in one batched dispatch (plain attention, as in the JAX package); a
+  lone admission, a constrained one and any bucket over 128 on the kernel
+  backend take the single-sequence prefill, which runs the flash prefill
+  kernel (K2);
 * decode runs the paged decode kernel (K1) for every layer — over an
   int8 KV pool (`kv_quantize="int8"`) the int8 paged decode kernel (K4),
   while every prefill chunk and verify step reads that pool through the
   dequantizing page gather, as the JAX package does;
+* off-slot admission (`max_parked`): with every slot busy, waiting
+  requests prefill and sample their first token without a slot, then
+  wait PARKED for one; page pressure rolls parked lanes back before it
+  preempts an active one;
 * a request with a `prefix_key` (the serving layer passes the thread id)
   attaches the longest whole-page prefix the radix prefix cache holds
   (runtime/prefix_cache.py) before the admission page gate, and its
@@ -25,39 +31,46 @@ scheduler keeps the JAX engine's semantics:
   before they go back to the pool, and page pressure evicts cache leaves
   before it preempts a live request;
 * with `speculative_k > 0` each lane's n-gram proposer
-  (runtime/speculative.py) may offer up to K candidate tokens; one
-  [B, K+1]-query forward — the paged verify kernel (K3) — checks them
-  all, every position is sampled with the sequential path's own
-  (seed, position) draw, and the longest matching run plus the bonus
-  token is emitted, so the stream is the one plain decode would give;
+  (runtime/speculative.py) may offer up to K candidate tokens once its
+  history is drained; one [B, K+1]-query forward — the paged verify
+  kernel (K3) — checks them all, every position is sampled with the
+  sequential path's own (seed, position) draw, and acceptance runs on the
+  device, so the stream is the one plain decode would give;
 * a request with a `logits_mask_fn` (llm/constrained.ToolCallMaskFn, the
   provider's tool_choice mask) is constrained: with its compiled
   `grammar` (the same automaton lowered to a token DFA) the lane carries
   a device FSM state that masks and advances inside the decode and verify
-  steps (`grammar_allowed_mask` / `grammar_advance`); without one, or
-  when the grammar cannot register or its replay stops validating, the
-  lane takes the host mask path: a [1, V] row from
-  `logits_mask_fn(output_ids)` per token.  Device-FSM lanes speculate
-  (the verify step masks each position with the state reached through
-  the candidate prefix); host-masked lanes do not;
-* when the pool runs out of pages mid-decode the youngest request is
-  rolled back to the waiting queue (re-prefilled later over prompt +
-  generated-so-far; its resumed prefill's token is the deterministic
-  duplicate and is dropped);
+  steps (`grammar_allowed_mask` / `grammar_advance`) and rides every
+  dispatch, fused ones included; without one, or when the grammar cannot
+  register or its replay stops validating, the lane takes the host mask
+  path: a [V] row from `logits_mask_fn(output_ids)` per token, dispatched
+  as its own micro-batch once its previous token has been fetched;
+* when the pool runs out of pages mid-decode the pipeline is drained,
+  parked lanes roll back, then the youngest request is rolled back to the
+  waiting queue (re-prefilled later over prompt + generated-so-far; its
+  resumed prefill's token is the deterministic duplicate and is dropped);
 * `recover_from_failure` rebuilds a servable engine after a step fault.
 
-What the port does differently: PyTorch runs eagerly, so there are no
-compiled step programs, and the sampled tokens are fetched synchronously
-at each dispatch (the JAX engine's fetch_lag pipeline, multi-step fusion,
-off-slot parking, KV tiers, flight recorder and metrics wait for later
-slices; multi_step=1 in the JAX engine is token-identical,
-engine.py:1450-1455).  For constrained lanes this means the host mask
-needs no singleton-mask chaining (`predicted`): every mask row is built
-from complete output_ids.  Requests therefore never sit in a draining state:
-a token is processed in the step that produced it.  For speculation this
-means a verify step is accepted and emitted in the step that ran it: the
-JAX engine's in-flight verify bookkeeping (`spec_ahead`, device-side
-seq_lens that run ahead of the host's) has no counterpart here.
+The decode pipeline is the JAX engine's, in PyTorch's idiom.  The decode
+batch's control state lives on the device in fixed tensors (page table,
+last tokens, lengths, sampling parameters, seeds, FSM states), updated in
+place and re-uploaded from one pinned staging buffer only when scheduling
+changes it; each step derives its write slots, validity mask and
+positions there.  One step body — forward, mask, sample, FSM advance,
+`seq_lens += run`, `last = toks` — runs unrolled `k` times: on CUDA it is
+captured once per (k, fsm, sampling mode, host mask, kept logits) into a
+`torch.cuda.CUDAGraph` (all graphs share one memory pool) and every decode
+is a replay, `multi_step=1` included; on CPU tensors the same function
+runs eagerly.  A busy, stable batch (>= 3 lanes, no host-masked lane, no
+prefill in progress, every budget and window >= k) dispatches `multi_step`
+steps at once (`_pick_multi_step`), as the reference's lax.scan does.
+Sampled tokens reach the host through a FIFO of asynchronous copies
+(`_Fetch`: pinned host memory, `non_blocking`, a `torch.cuda.Event`), at
+most `fetch_lag` steps deep and popped by age (`fetch_wait_s`, ~RTT for a
+lone stream) once landed; a stop token found in flight retires the lane
+and the tokens dispatched after it are dropped.  Prefill and verify run
+eagerly (captured graphs for them, singleton-mask chaining, the flight
+recorder, metrics and KV tiers wait for later slices).
 """
 
 from __future__ import annotations
@@ -97,8 +110,12 @@ from .speculative import LaneSpeculator
 
 logger = logging.getLogger("kafka_tpu_torch.engine")
 
-WAITING, PREFILLING, ACTIVE, FINISHED = (
-    "waiting", "prefilling", "active", "finished")
+WAITING, PREFILLING, ACTIVE, PARKED, DRAINING, FINISHED = (
+    "waiting", "prefilling", "active", "parked", "draining", "finished")
+
+# a dispatch's sampling work, from its lanes' host parameters: argmax only,
+# the Gumbel draw, or the draw over top-k / top-p filtered logits
+GREEDY, SAMPLED, FILTERED = 0, 1, 2
 
 
 class AdmissionError(RuntimeError):
@@ -123,6 +140,29 @@ class EngineConfig:
     max_pages_per_seq: int = 16  # attention window = this * page_size
     prefill_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256, 512)
     max_new_tokens_default: int = 512
+    # In-flight decode STEPS tolerated in the fetch pipeline before the
+    # host force-pops the oldest entry (a fused k-step dispatch counts k).
+    # 0 pops every entry in the step that dispatched it.
+    fetch_lag: int = 96
+    # Also pop a fetch once it has been in flight this long (seconds) and
+    # its copy has landed; with <= 2 active lanes the bound tightens to
+    # ~1.25x the measured device->host round trip (_emit_wait).
+    fetch_wait_s: float = 0.15
+    # Decode steps fused into one dispatch (one k-step CUDA graph) when
+    # the batch is busy and stable (_pick_multi_step): >= 3 active lanes,
+    # no host-masked lane, no prefill in progress, every lane's budget and
+    # window >= k.  1 disables fusion.
+    multi_step: int = 16
+    # Off-slot admission: with every decode slot busy, up to this many
+    # waiting requests prefill and emit their first token without a slot
+    # ("parked"), then join the decode batch as slots free.  Parked lanes
+    # pin their pages, so parking is page-gated (park_reserve_pages stay
+    # free) and rolled back under page pressure before any active lane is
+    # preempted.  0 disables.
+    max_parked: int = 64
+    # Pool pages kept free of parked pinning (headroom for active lanes'
+    # decode growth).  None -> 2 * max_batch.
+    park_reserve_pages: Optional[int] = None
     # "kernel": the hand-written kernels (ops/kernels) — launched on CUDA
     # tensors, their plain versions on CPU tensors; refused on CUDA for a
     # model or window the kernels cannot take (kernel_backend_problems).
@@ -192,7 +232,10 @@ class GenRequest:
     finish_reason: Optional[str] = None
     submit_time: float = 0.0
     first_token_time: Optional[float] = None
+    # tokens sampled on the device / processed on the host (emission lags
+    # dispatch by up to fetch_lag steps)
     dispatched: int = 0
+    drained: int = 0
     # True while re-entering after preemption: the resumed prefill's token
     # is the deterministic duplicate of output_ids[-1] and is dropped
     resumed: bool = False
@@ -212,8 +255,13 @@ class GenRequest:
     # the FIRST admission's share, frozen when its prefill starts (usage
     # reports this: a preemption's re-attach is not client-saved compute)
     usage_cached_tokens: Optional[int] = None
-    # n-gram proposer (EngineConfig.speculative_k > 0), built at submit
+    # n-gram proposer (EngineConfig.speculative_k > 0), built at submit.
+    # spec_ahead > 0 while a verify dispatch for this lane is in flight:
+    # the lane's host seq.length / dispatched are then confirmed-only (the
+    # advance, 1..K+1 tokens, reconciles at drain) and the lane sits out
+    # every dispatch until then
     spec: Optional[LaneSpeculator] = None
+    spec_ahead: int = 0
     # constrained decoding: fn(output_ids) -> allowed token id list or None
     logits_mask_fn: Optional[Callable[[List[int]], Optional[List[int]]]] = None
     # the on-device grammar FSM (llm/constrained.CompiledGrammar) of the
@@ -225,6 +273,10 @@ class GenRequest:
     grammar: Optional[Any] = None
     # over-tight mask rows log once per request (the counter counts all)
     overtight_logged: bool = False
+    # off-slot (parked) admission: the prefill's sampled token as a device
+    # tensor, held until a decode slot frees and seeds the lane's last
+    # token at seating (None for resumed lanes: output_ids[-1] is known)
+    pending_tok: Optional[torch.Tensor] = None
 
 
 class _GrammarTables:
@@ -240,7 +292,11 @@ class _GrammarTables:
     across registrations; shapes grow geometrically, as in the reference.
     A full registry (MAX_LIVE), a vocab mismatch or a table set over the
     KAFKA_TORCH_GRAMMAR_TABLE_MB budget returns None and the request
-    degrades to the host mask path.
+    degrades to the host mask path.  The padded tables are fixed device
+    buffers, refilled in place (stream-ordered behind the steps already
+    dispatched) when a grammar registers; they are reallocated only when
+    a padded size grows.  `version` counts reallocations: a captured step
+    graph reads the buffers of its version, so only a growth recaptures.
     """
 
     MAX_LIVE = 8
@@ -252,6 +308,7 @@ class _GrammarTables:
         self.grammars: List[Any] = []
         self.offsets: List[int] = []
         self._total_states = 0
+        self.version = 0
         # device tensors (padded); None until the first registration
         self.token_class: Optional[torch.Tensor] = None  # [G_pad, V] int32
         self.trans: Optional[torch.Tensor] = None        # [S_pad, C_pad]
@@ -313,14 +370,26 @@ class _GrammarTables:
             block[block >= 0] += off
             trans[off:off + g.num_states, : g.num_classes] = block
             dist[off:off + g.num_states] = g.dist
-        dev = self.device
-        self.token_class = torch.from_numpy(tc).to(dev)
-        self.trans = torch.from_numpy(trans).to(dev)
-        self.dist = torch.from_numpy(dist).to(dev)
+        if self.token_class is None or \
+                self.trans.shape != trans.shape or \
+                self.token_class.shape != tc.shape:
+            dev = self.device
+            self.token_class = torch.empty(tc.shape, dtype=torch.int32,
+                                           device=dev)
+            self.trans = torch.empty(trans.shape, dtype=torch.int32,
+                                     device=dev)
+            self.dist = torch.empty(dist.shape, dtype=torch.int32, device=dev)
+            self.slack = torch.empty((), dtype=torch.int32, device=dev)
+            self.version += 1
+        for buf, arr in ((self.token_class, tc), (self.trans, trans),
+                         (self.dist, dist)):
+            src = torch.from_numpy(arr)
+            if buf.is_cuda:
+                src = src.pin_memory()
+            buf.copy_(src, non_blocking=True)
         # conservative across grammars: extra slack engages wrap earlier
         # but never breaks closure
-        self.slack = torch.tensor(max(g.wrap_slack for g in self.grammars),
-                                  dtype=torch.int32, device=dev)
+        self.slack.fill_(max(g.wrap_slack for g in self.grammars))
 
     def args(self) -> Tuple[torch.Tensor, ...]:
         """(token_class, trans, dist, slack): grammar_allowed_mask's
@@ -336,6 +405,87 @@ class TokenEvent:
     token_id: Optional[int]
     finished: bool = False
     finish_reason: Optional[str] = None
+
+
+@dataclasses.dataclass
+class _SpecMeta:
+    """Per-lane candidate widths of one verify dispatch: cand_lens[i] == 0
+    marks a rider (an ordinary one-token decode, at-dispatch accounting),
+    > 0 a proposer whose advance reconciles at drain."""
+
+    cand_lens: List[int]
+    width: int  # K + 1 sample columns per lane in the fetched array
+
+
+@dataclasses.dataclass(eq=False)  # identity semantics (list.remove / `is`)
+class _Fetch:
+    """One in-flight sampled-token transfer awaiting host processing
+    (kafka_tpu/runtime/engine.py _Fetch).
+
+    `toks` is host memory the copy lands in: [steps, lanes] for a decode
+    dispatch, [1, lanes] for a prefill, [B, K+2] for a verify (K+1 samples
+    and the accepted count per lane).  `items[i]` is the request lane i
+    belonged to at dispatch (None for idle lanes); `final[j][i]` marks a
+    lane's last dispatched token (a host-known limit) with its reason.
+    `event` (CUDA) completes when the copy has landed; None on the CPU,
+    where the tokens are there at once.  `logits` holds the sampled rows
+    (EngineConfig.keep_logits) shaped like `toks` plus a vocab axis."""
+
+    toks: torch.Tensor
+    items: List[Optional[GenRequest]]
+    final: List[List[Optional[str]]]
+    t0: float = 0.0  # dispatch time (fetch_wait_s aging)
+    steps: int = 1
+    # first time the copy was observed landed (_stamp_ready)
+    t_ready: Optional[float] = None
+    spec: Optional[_SpecMeta] = None
+    event: Optional[Any] = None
+    logits: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    """A captured decode step program and the launches one replay makes
+    of each kernel wrapper (captured calls tick the wrappers' counters
+    once; a replay launches them again without Python)."""
+
+    graph: Any
+    launches: List[Tuple[Callable, int]]
+
+
+_NP_DTYPE = {torch.int32: np.int32, torch.int64: np.int64,
+             torch.float32: np.float32, torch.bool: np.bool_}
+
+
+class _ControlState:
+    """Fixed device tensors that are views of ONE device buffer, refreshed
+    from one pinned host staging buffer with one non-blocking copy: the
+    decode batch's host-authored control arrays.  A captured step graph
+    reads the views; an upload never rebinds them."""
+
+    def __init__(self, fields: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+                 device: torch.device):
+        self.layout: Dict[str, Tuple[int, int, Tuple[int, ...],
+                                     torch.dtype]] = {}
+        off = 0
+        for name, (shape, dtype) in fields.items():
+            n = int(np.prod(shape)) * torch.empty((), dtype=dtype
+                                                  ).element_size()
+            self.layout[name] = (off, n, shape, dtype)
+            off += -(-n // 16) * 16  # every view 16-byte aligned
+        self.buf = torch.zeros(off, dtype=torch.uint8, device=device)
+        self.views = {
+            name: self.buf[o:o + n].view(dtype).view(shape)
+            for name, (o, n, shape, dtype) in self.layout.items()
+        }
+
+    def pack(self, arrays: Dict[str, Any]) -> np.ndarray:
+        """The staging bytes for a full set of host arrays."""
+        host = np.zeros(self.buf.numel(), np.uint8)
+        for name, (o, n, shape, dtype) in self.layout.items():
+            arr = np.ascontiguousarray(arrays[name], dtype=_NP_DTYPE[dtype])
+            host[o:o + n] = arr.reshape(-1).view(np.uint8)
+        return host
 
 
 def kernel_backend_problems(cfg: ModelConfig,
@@ -393,6 +543,17 @@ def resolve_attention_backend(cfg: ModelConfig, ecfg: EngineConfig,
     return "plain", problems
 
 
+def sampling_mode(reqs: Sequence[Optional[GenRequest]]) -> int:
+    """GREEDY, SAMPLED or FILTERED for the lanes of one dispatch, from
+    their host parameters (the reference's lax.cond predicates)."""
+    hot = [r for r in reqs if r is not None and r.temperature > 0.0]
+    if not hot:
+        return GREEDY
+    if any(r.top_k > 0 or r.top_p < 1.0 for r in hot):
+        return FILTERED
+    return SAMPLED
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -425,6 +586,9 @@ class InferenceEngine:
             raise ValueError(
                 f"speculative_k={ecfg.speculative_k} does not fit the "
                 f"attention window ({ecfg.max_window})")
+        if ecfg.multi_step < 1 or ecfg.fetch_lag < 0 or ecfg.max_parked < 0:
+            raise ValueError("multi_step must be >= 1, fetch_lag and "
+                             "max_parked >= 0")
         backend, self.attention_backend_reasons = resolve_attention_backend(
             cfg, ecfg, self.device.type)
         if self.attention_backend_reasons:
@@ -440,36 +604,87 @@ class InferenceEngine:
         self.k_pool, self.v_pool = make_kv_pool_arrays(
             cfg, ecfg.num_pages, ps, self.kv_dtype, device=self.device,
             quantize=ecfg.kv_quantize)
-        B = ecfg.max_batch
+        B, P = ecfg.max_batch, ecfg.max_pages_per_seq
+        dev = self.device
         self.slots: List[Optional[GenRequest]] = [None] * B
         self.waiting: List[GenRequest] = []
+        # off-slot lanes (PREFILLING with slot -1, or PARKED), FIFO
+        self.parked: List[GenRequest] = []
+        # scheduler iterations left before off-slot admission may resume
+        # after a page-pressure rollback (_ensure_pages)
+        self._park_cooldown = 0
         self._requests: Dict[str, GenRequest] = {}
         self._counter = itertools.count()
         self._out_events: List[TokenEvent] = []
-        # device page table of the decode batch, re-uploaded only when
-        # scheduling changes it (admit / retire / page growth)
-        self._d_table: Optional[torch.Tensor] = None
+        # device-resident decode control state.  Host-authored arrays are
+        # views of one buffer, re-uploaded only after a scheduling change
+        # (_refresh_ctl); the last tokens and lengths are advanced by the
+        # step programs and patched per lane at admission, never rebuilt
+        # from host values that may still be in flight.
+        self._ctl = _ControlState({
+            "table": ((B, P), torch.int32),
+            "lens": ((B,), torch.int32),
+            "keep": ((B,), torch.bool),
+            "temps": ((B,), torch.float32),
+            "top_ks": ((B,), torch.int64),
+            "top_ps": ((B,), torch.float32),
+            "seeds": ((B,), torch.int64),
+        }, dev)
+        v = self._ctl.views
+        self._d_table, self._d_seeds = v["table"], v["seeds"]
+        self._d_sampling = SamplingParams(v["temps"], v["top_ks"],
+                                          v["top_ps"])
+        self._d_last = torch.zeros(B, dtype=torch.int64, device=dev)
+        self._d_seq_lens = torch.zeros(B, dtype=torch.int32, device=dev)
+        # the lanes one dispatch advances (uploaded per dispatch)
+        self._d_run = torch.zeros(B, dtype=torch.bool, device=dev)
+        # host mask rows of a host-masked micro-batch (allocated at first
+        # use: [B, V])
+        self._d_allowed: Optional[torch.Tensor] = None
         self._ctl_dirty = True
-        # EWMA of decode step wall time (Retry-After estimate)
+        # step program outputs per fused depth k: tokens [k, B], and with
+        # keep_logits the sampled rows [k, B, V] f32
+        self._toks_buf: Dict[int, torch.Tensor] = {}
+        self._logits_buf: Dict[int, torch.Tensor] = {}
+        # captured step programs (CUDA), one shared memory pool
+        self._graphs: Dict[Tuple, _StepGraph] = {}
+        self._graph_pool = None
+        self.graph_replays = 0
+        # graphs captured and the host seconds their warm-ups and captures
+        # took (each capture synchronizes the device)
+        self.graph_captures = 0
+        self.graph_capture_s = 0.0
+        # fused k-step dispatches made (k > 1)
+        self.multi_step_dispatches = 0
+        # the fetch pipeline: in-flight token copies, FIFO, and the device
+        # steps they represent (fused entries count k)
+        self._pending: List[_Fetch] = []
+        self._pending_steps = 0
+        # the host-masked micro-batch's in-flight fetch (at most one):
+        # those lanes redispatch only after it is processed
+        self._constrained_fetch: Optional[_Fetch] = None
+        # tokens dispatched after their request had finished (a stop token
+        # found in flight, a cancel): dropped at drain
+        self.fetch_pipeline_wasted = 0
+        # EWMA of decode dispatch wall time (Retry-After estimate)
         self._tpot_s: Optional[float] = None
         self.preemptions = 0
         self.prefix_cache: Optional[PrefixCache] = (
             PrefixCache(self.pool, max_pages=ecfg.prefix_cache_pages)
             if ecfg.prefix_cache_entries > 0 and ecfg.prefix_cache_pages != 0
             else None)
-        # speculation counters: candidates proposed / accepted, and the
-        # verify forwards that checked them
+        # speculation counters: candidates proposed (at dispatch) and
+        # accepted (at drain), and the verify forwards that checked them
         self.speculation_proposed_tokens = 0
         self.speculation_accepted_tokens = 0
         self.verify_steps = 0
         # on-device grammar FSM lanes: per-slot automaton state (-1 =
         # unconstrained), grammar index into the shared table set, and
         # remaining token budget, all on the device and advanced there
-        self._grammars = _GrammarTables(cfg.vocab_size, self.device)
-        self._fsm = torch.full((B,), -1, dtype=torch.int32,
-                               device=self.device)
-        self._fsm_g = torch.zeros(B, dtype=torch.int32, device=self.device)
-        self._budget = torch.zeros(B, dtype=torch.int32, device=self.device)
+        self._grammars = _GrammarTables(cfg.vocab_size, dev)
+        self._fsm = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        self._fsm_g = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._budget = torch.zeros(B, dtype=torch.int32, device=dev)
         # constrained-decoding counters: tokens emitted by device-FSM
         # lanes, host mask rows built from logits_mask_fn, over-tight
         # rows (no allowed token: the sampler degrades the row to
@@ -478,6 +693,42 @@ class InferenceEngine:
         self.constrained_host_mask_steps = 0
         self.constrained_mask_overtight = 0
         self.constrained_degrades = 0
+        self._rtt_est = self._measure_rtt()
+
+    def _measure_rtt(self) -> float:
+        """Time a device-to-host copy of a fresh small tensor: the seed of
+        the adaptive emit cadence (_emit_wait), kept honest by an EWMA
+        over blocking pops in _process_entry."""
+        samples = []
+        for _ in range(2):
+            probe = torch.zeros(self.ecfg.max_batch, dtype=torch.int32,
+                                device=self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t0 = time.monotonic()
+            probe.cpu()
+            samples.append(time.monotonic() - t0)
+        self._rtt_probe = min(samples)
+        return self._rtt_probe
+
+    def _to_device(self, arr: np.ndarray,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A host array on the device: on CUDA through pinned host memory
+        and a non-blocking copy (the caching host allocator keeps the
+        staging block until the copy has landed), into `out` — a fixed
+        tensor a step graph reads — when given."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+            if out is None:
+                out = torch.empty(src.shape, dtype=src.dtype,
+                                  device=self.device)
+            out.copy_(src, non_blocking=True)
+            return out
+        if out is None:
+            return src
+        out.copy_(src)
+        return out
 
     # ------------------------------------------------------------------
     # public API
@@ -524,7 +775,8 @@ class InferenceEngine:
         self._requests[req.request_id] = req
 
     def cancel(self, request_id: str, reason: str = "cancelled") -> bool:
-        """Abort a request (client disconnect); frees its slot and pages.
+        """Abort a request (client disconnect); frees its slot and pages
+        at once.  Its tokens still in flight are dropped as they mature.
         Runs on the thread that drives step().  False for unknown or
         already finished ids."""
         req = self._requests.get(request_id)
@@ -544,16 +796,25 @@ class InferenceEngine:
 
     @property
     def has_work(self) -> bool:
-        return self.num_active > 0 or bool(self.waiting)
+        return (self.num_active > 0 or bool(self.waiting)
+                or bool(self.parked) or bool(self._pending))
 
     def step(self) -> List[TokenEvent]:
-        """One scheduler iteration: deadlines, admit, advance one prefill
-        chunk per prefilling lane, decode every active lane."""
+        """One scheduler iteration: deadlines, drain matured fetches,
+        admit, advance one prefill chunk per prefilling lane, dispatch the
+        decode batch.  With nothing left to dispatch the pipeline is
+        flushed."""
+        if self._park_cooldown > 0:
+            self._park_cooldown -= 1
         self._check_deadlines()
+        self._drain(block=False)
         self._admit()
         self._advance_prefills()
         if any(s is not None and s.state == ACTIVE for s in self.slots):
             self._dispatch_decode()
+            self._drain(block=False)
+        if not self.num_active and not self.waiting and self._pending:
+            self._drain(block=True)
         out, self._out_events = self._out_events, []
         return out
 
@@ -624,6 +885,10 @@ class InferenceEngine:
             if req.slot >= 0 and self.slots[req.slot] is not req:
                 problems.append(f"{req.request_id} claims slot {req.slot} "
                                 "but the slot holds someone else")
+        for req in self.parked:
+            if req.state not in (PARKED, PREFILLING):
+                problems.append(f"parked lane {req.request_id} in state "
+                                f"{req.state}")
         problems += self.pool.check_consistency()
         problems += self.pool.reconcile(self._expected_page_owners(),
                                         repair=repair)
@@ -632,15 +897,21 @@ class InferenceEngine:
     def recover_from_failure(self) -> List[TokenEvent]:
         """Rebuild a servable engine after a step() exception: every
         request that had started compute gets exactly one terminal error
-        event; WAITING requests stay queued; page accounting is verified
-        and repaired."""
+        event; WAITING requests stay queued; the fetch pipeline is
+        dropped (its tokens' producing work may have died), the captured
+        step graphs are discarded, the decode control state is rebuilt
+        from zero, and page accounting is verified and repaired."""
         events: List[TokenEvent] = list(self._out_events)
         self._out_events = []
+        self._pending.clear()
+        self._pending_steps = 0
+        self._constrained_fetch = None
         for req in list(self._requests.values()):
             if req.state == WAITING:
                 if req.seq is not None:
                     self.pool.free_sequence(req.seq)
                     req.seq = None
+                req.spec_ahead = 0  # any in-flight verify was discarded
                 if req not in self.waiting:
                     self.waiting.append(req)
                 continue
@@ -651,8 +922,15 @@ class InferenceEngine:
             events.append(TokenEvent(req.request_id, None, finished=True,
                                      finish_reason="error:engine"))
         self.waiting.sort(key=lambda r: r.submit_time)
-        self._ctl_dirty = True
+        self._graphs.clear()
+        self._d_last.zero_()
+        self._d_seq_lens.zero_()
+        self._d_run.zero_()
         self._fsm.fill_(-1)
+        self._fsm_g.zero_()
+        self._budget.zero_()
+        self._ctl_dirty = True
+        self._park_cooldown = 0
         problems = self.self_check(repair=True)
         if problems:
             logger.error("post-failure self-check repaired %d problem(s): %s",
@@ -664,10 +942,13 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def _check_deadlines(self) -> None:
+        """Time out requests past their TTFT / total deadline.  DRAINING
+        requests are exempt: their dispatching stopped and a terminal
+        event is imminent."""
         ecfg = self.ecfg
         now = time.monotonic()
         for req in list(self._requests.values()):
-            if req.state == FINISHED:
+            if req.state in (FINISHED, DRAINING):
                 continue
             total = req.deadline_s if req.deadline_s is not None \
                 else ecfg.max_total_s
@@ -693,7 +974,232 @@ class InferenceEngine:
                                            finish_reason="timeout"))
 
     # ------------------------------------------------------------------
-    # scheduler internals
+    # the fetch pipeline
+    # ------------------------------------------------------------------
+
+    def _fetch(self, toks: torch.Tensor, items: List[Optional[GenRequest]],
+               final: List[List[Optional[str]]], steps: int = 1,
+               logits: Optional[torch.Tensor] = None,
+               spec: Optional[_SpecMeta] = None) -> _Fetch:
+        """Start the host copy of a dispatch's device tokens (and kept
+        logits) and enqueue it.  On CUDA the copy goes into pinned host
+        memory with non_blocking=True and an event marks its landing;
+        the device buffers may be overwritten by the next dispatch, which
+        the stream orders after the copy."""
+        keep = logits if self.ecfg.keep_logits else None
+        if self.device.type == "cuda":
+            host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+            host.copy_(toks, non_blocking=True)
+            if keep is not None:
+                lh = torch.empty(keep.shape, dtype=torch.float32,
+                                 pin_memory=True)
+                lh.copy_(keep, non_blocking=True)
+                keep = lh
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = toks.clone()
+            keep = keep.float().clone() if keep is not None else None
+            event = None
+        entry = _Fetch(toks=host, items=items, final=final,
+                       t0=time.monotonic(), steps=steps, spec=spec,
+                       event=event, logits=keep)
+        self._pending.append(entry)
+        self._pending_steps += entry.steps
+        return entry
+
+    def _entry_ready(self, entry: _Fetch) -> bool:
+        """Has the entry's copy landed?  (Non-blocking; the CPU's entries
+        are ready at once.)"""
+        return entry.event is None or entry.event.query()
+
+    def _stamp_ready(self) -> None:
+        now = time.monotonic()
+        for e in self._pending[:8]:
+            if e.t_ready is None and self._entry_ready(e):
+                e.t_ready = now
+
+    def _rtt_age_bound(self) -> float:
+        return max(1.25 * self._rtt_est, 0.002)
+
+    def _emit_wait(self) -> float:
+        """Age at which a landed fetch is popped without depth pressure:
+        with <= 2 active lanes ~the device->host round trip (a lone
+        interactive stream gets smooth per-token cadence), otherwise
+        fetch_wait_s."""
+        if self.num_active <= 2:
+            return min(self.ecfg.fetch_wait_s, self._rtt_age_bound())
+        return self.ecfg.fetch_wait_s
+
+    def _drain(self, block: bool) -> None:
+        """Process matured fetches into events (self._out_events).
+
+        Non-blocking mode pops the head entry when the pipeline is deeper
+        than fetch_lag steps (a forced pop: it waits on that entry's
+        event, never on the device), or when it has landed and is older
+        than _emit_wait — with speculation on, a landed entry pops at
+        once (a lane proposes only from a drained history)."""
+        wait = self._emit_wait()
+        self._stamp_ready()
+        while self._pending:
+            if not block:
+                entry = self._pending[0]
+                within_lag = self._pending_steps <= self.ecfg.fetch_lag
+                aged = time.monotonic() - entry.t0 >= wait
+                landed = entry.t_ready is not None
+                if within_lag and not aged:
+                    if not (self.ecfg.speculative_k > 0 and landed):
+                        break
+                elif within_lag and not landed:
+                    break
+            popped = self._pending.pop(0)
+            self._pending_steps -= popped.steps
+            self._process_entry(popped)
+
+    def _pop_entry_now(self, entry: _Fetch) -> None:
+        """Take one entry out of the FIFO and process it now: safe out of
+        order only for a request that has no older entry (a just-finished
+        prefill)."""
+        self._pending.remove(entry)
+        self._pending_steps -= entry.steps
+        self._process_entry(entry)
+
+    def _pop_through(self, entry: _Fetch) -> None:
+        """Process pending entries in FIFO order up to and including
+        `entry` (per-request token order must hold)."""
+        while self._pending:
+            e = self._pending.pop(0)
+            self._pending_steps -= e.steps
+            self._process_entry(e)
+            if e is entry:
+                break
+
+    def _process_entry(self, entry: _Fetch) -> int:
+        """Materialize one fetch (waiting on its event if the copy has not
+        landed) and process its tokens.  Returns the tokens processed."""
+        if entry.event is not None and not entry.event.query():
+            t0 = time.monotonic()
+            entry.event.synchronize()
+            # dispatch -> landed bounds the round trip from above but also
+            # holds the device backlog: shrink freely, grow slowly and
+            # never past 2x the compute-free probe
+            sample = time.monotonic() - entry.t0
+            if time.monotonic() - t0 > 0.001:
+                if sample < self._rtt_est:
+                    self._rtt_est = 0.75 * self._rtt_est + 0.25 * sample
+                else:
+                    self._rtt_est = min(0.9 * self._rtt_est + 0.1 * sample,
+                                        max(2.0 * self._rtt_probe, 0.001))
+        if entry.spec is not None:
+            return self._finish_verify_entry(entry)
+        vals = entry.toks.view(entry.steps, -1).tolist()
+        n = 0
+        for j in range(entry.steps):
+            row, finals = vals[j], entry.final[j]
+            for i, req in enumerate(entry.items):
+                if req is None:
+                    continue
+                if req.state == FINISHED:
+                    # dispatched after the request finished (a stop token
+                    # found in flight, a cancel)
+                    self.fetch_pipeline_wasted += 1
+                    continue
+                if entry.logits is not None:
+                    req.logits.append(entry.logits[j, i])
+                n += 1
+                self._process_token(req, row[i], finals[i])
+        return n
+
+    def _finish_verify_entry(self, entry: _Fetch) -> int:
+        """Drain one verify dispatch: each proposer's host accounting is
+        reconciled to its accepted run (the device already clamped its
+        length and last token at dispatch) and its 1..K+1 tokens are
+        emitted with plain decode's host limits applied token by token;
+        riders drain like a plain decode row."""
+        meta = entry.spec
+        vals = entry.toks.tolist()
+        finals = entry.final[0]
+        n = 0
+        for i, req in enumerate(entry.items):
+            if req is None:
+                continue
+            row, cl = vals[i], meta.cand_lens[i]
+            if cl == 0:
+                if req.state == FINISHED:
+                    self.fetch_pipeline_wasted += 1
+                    continue
+                if entry.logits is not None:
+                    req.logits.append(entry.logits[i, 0])
+                n += 1
+                self._process_token(req, row[0], finals[i])
+                continue
+            m = row[meta.width]  # accepted candidates (0..cl)
+            req.spec_ahead = 0
+            if req.state == FINISHED:
+                self.fetch_pipeline_wasted += m + 1
+                continue
+            self.speculation_accepted_tokens += m
+            if req.spec is not None:
+                req.spec.observe(m, cl)
+            emit = m + 1  # the accepted run and the bonus token
+            old_len, old_disp = req.seq.length, req.dispatched
+            req.seq.length += emit
+            req.dispatched += emit
+            for j in range(emit):
+                final = None
+                if old_disp + j + 1 >= req.max_new_tokens or \
+                        old_len + j + 2 >= self.ecfg.max_window:
+                    final = "length"
+                if entry.logits is not None:
+                    req.logits.append(entry.logits[i, j])
+                n += 1
+                self._process_token(req, row[j], final)
+                if req.state == FINISHED:
+                    self.fetch_pipeline_wasted += emit - (j + 1)
+                    break
+        return n
+
+    def _process_token(self, req: GenRequest, token: int,
+                       final_reason: Optional[str]) -> None:
+        req.drained += 1
+        req.output_ids.append(token)
+        if req.grammar is not None:
+            self.constrained_ondevice_tokens += 1
+        if req.spec is not None:
+            req.spec.push(token)  # keep the n-gram index tail-accurate
+        if req.first_token_time is None:
+            req.first_token_time = time.monotonic()
+        if token in req.stop_token_ids:
+            reason = "stop"
+        elif final_reason is not None:
+            reason = final_reason
+        else:
+            self._out_events.append(TokenEvent(req.request_id, token))
+            return
+        req.finish_reason = reason
+        req.state = FINISHED
+        if req.seq is not None and req.prefix_key is not None \
+                and self.prefix_cache is not None:
+            # Cache the thread's KV before the pages go back to the pool
+            # (the cache takes its own retains).  Store only tokens whose
+            # KV is materialized: seq.length counts them — the final
+            # sampled token's KV is never written (it is the pending
+            # decode input), so a page-aligned next turn must not share a
+            # page holding an unwritten slot.  Positions past the stored
+            # range may hold discarded in-flight KV; only whole pages
+            # inside it are ever shared.
+            self.prefix_cache.store(
+                req.prefix_key,
+                (req.prompt_ids + req.output_ids)[: req.seq.length],
+                req.seq.pages)
+        self._release_slot(req)
+        self._requests.pop(req.request_id, None)
+        self._out_events.append(TokenEvent(req.request_id, token,
+                                           finished=True,
+                                           finish_reason=reason))
+
+    # ------------------------------------------------------------------
+    # admission
     # ------------------------------------------------------------------
 
     def _free_slot(self) -> Optional[int]:
@@ -709,12 +1215,29 @@ class InferenceEngine:
         return max(0, -(-total // self.ecfg.page_size) - have)
 
     def _admit(self) -> None:
-        """Strict submit-order FIFO: the waiting head takes each free slot
-        once its prompt's pages fit."""
-        while self.waiting:
+        """Strict submit-order FIFO across the waiting queue and the
+        parked lanes: each free slot goes to the older of the waiting head
+        and the oldest parked lane.  A page-blocked waiting head yields
+        the slot to parked lanes (seating them needs no pages, and their
+        completions free pages for the head)."""
+        while True:
             slot = self._free_slot()
-            if slot is None or not self._admit_waiting_head(slot):
+            if slot is None:
                 break
+            oldest = (min(self.parked, key=lambda r: r.submit_time)
+                      if self.parked else None)
+            head = self.waiting[0] if self.waiting else None
+            if head is None and oldest is None:
+                break
+            head_first = head is not None and (
+                oldest is None or head.submit_time < oldest.submit_time)
+            if head_first and self._admit_waiting_head(slot):
+                continue
+            if oldest is None:
+                break  # head page-blocked, nothing parked to seat
+            self.parked.remove(oldest)
+            self._seat(oldest, slot)
+        self._admit_offslot()
 
     def _admit_waiting_head(self, slot: int) -> bool:
         """Start the waiting head's prefill in `slot`; False (queue
@@ -736,6 +1259,53 @@ class InferenceEngine:
             self.waiting.insert(0, req)
             return False
         return True
+
+    def _seat(self, req: GenRequest, slot: int) -> None:
+        """Move an off-slot lane into a decode slot: a PARKED lane joins
+        decode at once (its pages and first token exist), a PREFILLING
+        one finishes its chunks as a slot lane."""
+        req.slot = slot
+        self.slots[slot] = req
+        self._ctl_dirty = True
+        if req.state == PARKED:
+            req.state = ACTIVE
+            if req.pending_tok is not None:
+                self._d_last[slot:slot + 1].copy_(req.pending_tok)
+            else:  # resumed: the pending token is host-known
+                self._d_last[slot] = req.output_ids[-1]
+            req.pending_tok = None
+            self._set_fsm_lane(req, slot)
+
+    def _admit_offslot(self) -> None:
+        """Start off-slot prefills for waiting requests when every slot is
+        busy (EngineConfig.max_parked): their first token comes from the
+        prefill, which needs pages but no slot.  Gated on pool headroom:
+        park_reserve_pages stay free for active lanes' decode growth."""
+        ecfg = self.ecfg
+        if ecfg.max_parked <= 0 or not self.waiting:
+            return
+        if self._park_cooldown > 0:
+            return  # a recent page-pressure rollback: let active lanes grow
+        if self._free_slot() is not None:
+            return  # slot admission (or its page gate) owns the queue head
+        reserve = (ecfg.park_reserve_pages
+                   if ecfg.park_reserve_pages is not None
+                   else 2 * ecfg.max_batch)
+        while self.waiting and len(self.parked) < ecfg.max_parked:
+            req = self.waiting[0]
+            self._attach_prefix(req)
+            if self._pages_needed(req) > self.pool.free_pages - reserve:
+                self._detach_prefix(req)
+                break
+            self.waiting.pop(0)
+            try:
+                self._start_prefill(req, -1)
+            except OutOfPagesError:
+                self._detach_prefix(req)
+                req.state = WAITING
+                self.waiting.insert(0, req)
+                break
+            self.parked.append(req)
 
     def _attach_prefix(self, req: GenRequest) -> None:
         """Share the longest cached prefix before the admission page gate:
@@ -770,6 +1340,8 @@ class InferenceEngine:
             self.prefix_cache.reclaim(pages_needed)
 
     def _start_prefill(self, req: GenRequest, slot: int) -> None:
+        """Reserve the prompt's pages and the slot (-1: off-slot); chunks
+        run via _advance_prefills."""
         req.seq = req.seq or SequencePages(seq_id=req.request_id)
         self.pool.ensure_capacity(req.seq, len(req.prefill_ids) + 1)
         if req.cached_tokens and self.prefix_cache is not None:
@@ -779,8 +1351,13 @@ class InferenceEngine:
             req.usage_cached_tokens = req.cached_tokens
         req.state = PREFILLING
         req.slot = slot
-        self.slots[slot] = req
-        self._ctl_dirty = True
+        if slot >= 0:
+            self.slots[slot] = req
+            self._ctl_dirty = True
+
+    # ------------------------------------------------------------------
+    # prefill
+    # ------------------------------------------------------------------
 
     def _prefill_bucket_for(self, req: GenRequest) -> int:
         remaining = len(req.prefill_ids) - req.seq.length
@@ -788,12 +1365,14 @@ class InferenceEngine:
                     self.ecfg.prefill_buckets[-1])
 
     def _advance_prefills(self) -> None:
-        """Advance the OLDEST <= W prefilling lanes one chunk (W = the
-        batched-prefill width).  Same-bucket lanes fuse into one batched
-        dispatch; on the kernel backend only buckets <= 128 do, so long
-        chunks keep the flash prefill kernel."""
+        """Advance the OLDEST <= W prefilling lanes (slot and off-slot)
+        one chunk (W = the batched-prefill width).  Same-bucket free lanes
+        fuse into one batched dispatch; on the kernel backend only buckets
+        <= 128 do, so long chunks keep the flash prefill kernel;
+        constrained lanes take the single-sequence path."""
         prefilling = [s for s in self.slots
-                      if s is not None and s.state == PREFILLING]
+                      if s is not None and s.state == PREFILLING] + \
+            [r for r in self.parked if r.state == PREFILLING]
         if not prefilling:
             return
         W = min(4, self.ecfg.max_batch)
@@ -804,8 +1383,10 @@ class InferenceEngine:
         singles: List[GenRequest] = []
         for req in prefilling:
             bucket = self._prefill_bucket_for(req)
-            if W >= 2 and (self.cfg.attention_backend != "kernel"
-                           or bucket <= 128):
+            if W >= 2 and req.logits_mask_fn is None \
+                    and req.grammar is None and (
+                        self.cfg.attention_backend != "kernel"
+                        or bucket <= 128):
                 groups.setdefault(bucket, []).append(req)
             else:
                 singles.append(req)
@@ -836,7 +1417,7 @@ class InferenceEngine:
 
     def _advance_prefill(self, req: GenRequest) -> None:
         """Dispatch ONE single-sequence prefill chunk; the final chunk
-        samples the first token and activates the lane."""
+        samples the first token and activates (or parks) the lane."""
         ps, dev = self.ecfg.page_size, self.device
         start = req.seq.length
         prompt = req.prefill_ids
@@ -848,29 +1429,29 @@ class InferenceEngine:
         C = self.ecfg.max_window
         kv_pos = torch.arange(C, device=dev)[None]
         paged = PagedView(
-            write_idx=torch.from_numpy(
-                self._write_slots(row, start, chunk_len, bucket)[None]
-            ).to(dev),
+            write_idx=self._to_device(
+                self._write_slots(row, start, chunk_len, bucket)[None]),
             read_idx=None,
             kv_positions=kv_pos,
             kv_valid=kv_pos < start + chunk_len,
-            page_table=torch.from_numpy(row[None]).to(dev),
+            page_table=self._to_device(row[None]),
             page_size=ps,
             start=start,
             chunk_len=chunk_len,
         )
         positions = (start + torch.arange(bucket, device=dev))[None]
         logits, _ = forward(
-            self.params, self.cfg, torch.from_numpy(chunk[None]).to(dev),
+            self.params, self.cfg, self._to_device(chunk[None]),
             positions, kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged,
-            logits_at=torch.tensor([chunk_len - 1], device=dev),
+            logits_at=self._to_device(np.asarray([chunk_len - 1])),
         )
         req.seq.length = start + chunk_len
         if req.seq.length < len(prompt):
             return  # more chunks to go; decode proceeds meanwhile
-        tok = self._sample(logits[:, 0], [req], [start + chunk_len - 1],
-                           allowed=self._prefill_masks([req]))[0]
-        self._finish_prefill(req, tok)
+        rows = logits[:, 0]
+        toks = self._sample(rows, [req], [start + chunk_len - 1],
+                            allowed=self._prefill_masks([req]))
+        self._finish_prefills([req], toks, rows)
 
     def _advance_prefill_batch(self, bucket: int, reqs: List[GenRequest],
                                W: int) -> None:
@@ -894,23 +1475,22 @@ class InferenceEngine:
         active = np.zeros(W, bool)
         active[: len(reqs)] = True
         kv_pos = torch.arange(C, device=dev).expand(W, C)
-        ends = torch.from_numpy(starts + lens).to(dev)
+        ends = self._to_device(np.where(active, starts + lens, 0))
         paged = PagedView(
-            write_idx=torch.from_numpy(write).to(dev),
+            write_idx=self._to_device(write),
             read_idx=None,
             kv_positions=kv_pos,
-            kv_valid=(kv_pos < ends[:, None])
-            & torch.from_numpy(active).to(dev)[:, None],
-            page_table=torch.from_numpy(rows).to(dev),
+            kv_valid=kv_pos < ends[:, None],
+            page_table=self._to_device(rows),
             page_size=ps,
         )
-        positions = torch.from_numpy(starts).to(dev)[:, None] + \
+        positions = self._to_device(starts)[:, None] + \
             torch.arange(bucket, device=dev)[None]
         last = np.clip(lens - 1, 0, bucket - 1)
         logits, _ = forward(
-            self.params, self.cfg, torch.from_numpy(chunks).to(dev),
+            self.params, self.cfg, self._to_device(chunks),
             positions, kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged,
-            logits_at=torch.from_numpy(last).to(dev),
+            logits_at=self._to_device(last),
         )
         done = []
         for i, req in enumerate(reqs):
@@ -920,160 +1500,444 @@ class InferenceEngine:
         if not done:
             return
         finished = [reqs[i] for i in done]
-        toks = self._sample(
-            logits[done, 0], finished,
-            [int(starts[i] + lens[i] - 1) for i in done],
-            allowed=self._prefill_masks(finished))
-        for i, tok in zip(done, toks):
-            self._finish_prefill(reqs[i], tok)
+        rows_l = logits[done, 0]
+        toks = self._sample(rows_l, finished,
+                            [int(starts[i] + lens[i] - 1) for i in done])
+        self._finish_prefills(finished, toks, rows_l)
 
-    def _finish_prefill(self, req: GenRequest, tok: int) -> None:
-        """Last chunk done: the lane joins the decode batch."""
-        req.state = ACTIVE
-        self._ctl_dirty = True
-        if req.resumed:
-            # re-entry after preemption: the pending last token is already
-            # output_ids[-1]; the freshly sampled token is its duplicate
-            req.resumed = False
-            if req.logits:
-                req.logits.pop()
-        else:
+    def _finish_prefills(self, reqs: List[GenRequest], toks: torch.Tensor,
+                         logits: torch.Tensor) -> None:
+        """Last chunks dispatched: each lane joins the decode batch (or
+        parks awaiting a slot when it prefilled off-slot).  Its first
+        token seeds the lane's device last token straight from the
+        device; its value reaches the host through the fetch pipeline.  A
+        resumed lane's token is the duplicate of output_ids[-1] and is
+        dropped.  Host-masked lanes pop their token at once: their first
+        decode mask needs it."""
+        items: List[Optional[GenRequest]] = [None] * len(reqs)
+        finals: List[Optional[str]] = [None] * len(reqs)
+        for i, req in enumerate(reqs):
+            slot = req.slot
+            tok = toks[i:i + 1]
+            if slot < 0:
+                req.state = PARKED
+                if req.resumed:
+                    req.resumed = False
+                    req.pending_tok = None  # host-known: output_ids[-1]
+                    continue
+                req.pending_tok = tok
+            else:
+                req.state = ACTIVE
+                self._ctl_dirty = True
+                if req.resumed:
+                    req.resumed = False
+                    self._d_last[slot] = req.output_ids[-1]
+                    self._set_fsm_lane(req, slot)
+                    continue
+                self._d_last[slot:slot + 1].copy_(tok)
             req.dispatched += 1
-            self._process_token(req, tok,
-                                self._limit_reason_after_dispatch(req))
-        if req.state == ACTIVE:
-            self._set_fsm_lane(req)
+            if slot >= 0:
+                self._set_fsm_lane(req, slot)
+            items[i], finals[i] = req, self._limit_reason_after_dispatch(req)
+        if all(m is None for m in items):
+            return
+        entry = self._fetch(toks[None], items, [finals],
+                            logits=logits[None])
+        for req, fin in zip(items, finals):
+            if req is not None and fin is not None:
+                self._to_draining(req)
+        if any(r is not None and self._host_constrained(r) for r in items):
+            self._pop_entry_now(entry)
 
     def _limit_reason_after_dispatch(self, req: GenRequest) -> Optional[str]:
+        """After a dispatch, has the request hit a host-known limit?  Stop
+        tokens are the only finish the host cannot predict; those are
+        found when the fetch matures."""
         if req.dispatched >= req.max_new_tokens:
             return "length"
         if req.seq is not None and req.seq.length + 1 >= self.ecfg.max_window:
             return "length"
         return None
 
-    def _process_token(self, req: GenRequest, token: int,
-                       final_reason: Optional[str]) -> None:
-        req.output_ids.append(token)
-        if req.grammar is not None:
-            self.constrained_ondevice_tokens += 1
-        if req.spec is not None:
-            req.spec.push(token)  # keep the n-gram index tail-accurate
-        if req.first_token_time is None:
-            req.first_token_time = time.monotonic()
-        if token in req.stop_token_ids:
-            reason = "stop"
-        elif final_reason is not None:
-            reason = final_reason
-        else:
-            self._out_events.append(TokenEvent(req.request_id, token))
-            return
-        req.finish_reason = reason
-        req.state = FINISHED
-        if req.seq is not None and req.prefix_key is not None \
-                and self.prefix_cache is not None:
-            # Cache the thread's KV before the pages go back to the pool
-            # (the cache takes its own retains).  Store only tokens whose
-            # KV is materialized: seq.length counts them — the final
-            # sampled token's KV is never written (it is the pending
-            # decode input), so a page-aligned next turn must not share a
-            # page holding an unwritten slot.
-            self.prefix_cache.store(
-                req.prefix_key,
-                (req.prompt_ids + req.output_ids)[: req.seq.length],
-                req.seq.pages)
-        self._release_slot(req)
-        self._requests.pop(req.request_id, None)
-        self._out_events.append(TokenEvent(req.request_id, token,
-                                           finished=True,
-                                           finish_reason=reason))
+    def _to_draining(self, req: GenRequest) -> None:
+        """Stop dispatching for a request whose last tokens are in flight.
+        Its slot frees at once; so do its pages, unless it carries a
+        prefix_key (kept until the final fetch matures, so the exact
+        materialized tokens are stored into the prefix cache with them)."""
+        req.state = DRAINING
+        if req.slot >= 0:
+            self._vacate(req.slot)
+            req.slot = -1
+        elif req in self.parked:
+            self.parked.remove(req)  # finished at prefill (1-token budget)
+        req.pending_tok = None
+        if req.prefix_key is None or self.prefix_cache is None:
+            if req.seq is not None:
+                self.pool.free_sequence(req.seq)
+                req.seq = None
+
+    # ------------------------------------------------------------------
+    # decode dispatch
+    # ------------------------------------------------------------------
 
     def _dispatch_decode(self) -> None:
-        # grow pages for lanes about to write past their capacity
+        """Grow pages, then dispatch: a speculative verify when a lane
+        proposes, else a fused k-step burst when the batch allows it,
+        else one step — the host-masked lanes as their own micro-batch at
+        fetch cadence beside the pipelined ones."""
         for req in [s for s in self.slots if s is not None]:
-            if req.state != ACTIVE or req.seq is None:
-                continue  # preempted/retired by an earlier iteration
+            # lanes with a verify in flight are skipped: their host length
+            # is confirmed-only and their pages cover the whole span
+            if req.state != ACTIVE or req.seq is None or req.spec_ahead:
+                continue
             self._ensure_pages(req)
-        members = [s if s is not None and s.state == ACTIVE else None
-                   for s in self.slots]
-        live = [m for m in members if m is not None]
-        if not live:
+        active = [s for s in self.slots if s is not None
+                  and s.state == ACTIVE and s.spec_ahead == 0]
+        spec_wait = any(s is not None and s.state == ACTIVE and s.spec_ahead
+                        for s in self.slots)
+        if not active:
             return
         t0 = time.monotonic()
-        verified = self.ecfg.speculative_k > 0 and \
-            self._try_dispatch_verify(live)
-        toks = [] if verified else self._decode(members)
-        dt = time.monotonic() - t0
-        self._tpot_s = dt if self._tpot_s is None else \
-            0.9 * self._tpot_s + 0.1 * dt
-        for req, tok in zip(live, toks):
-            req.seq.length += 1  # the dispatched token's kv slot
-            req.dispatched += 1
-            self._process_token(req, tok,
-                                self._limit_reason_after_dispatch(req))
+        try:
+            if self.ecfg.speculative_k > 0 and \
+                    self._try_dispatch_verify(active):
+                return
+            k = 1 if spec_wait else self._pick_multi_step(active)
+            if k > 1:
+                self._dispatch_multi(k)
+                return
+            if self._ctl_dirty:
+                self._refresh_ctl()
+            ids = {id(s) for s in active}
+            members = [s if id(s) in ids else None for s in self.slots]
+            if not any(self._host_constrained(s) for s in active):
+                self._dispatch_group(
+                    members, None,
+                    fsm=any(s.grammar is not None for s in active))
+                return
+            self._dispatch_mixed(members)
+        finally:
+            dt = time.monotonic() - t0
+            self._tpot_s = dt if self._tpot_s is None else \
+                0.9 * self._tpot_s + 0.1 * dt
 
-    def _device_table(self) -> torch.Tensor:
-        """The decode batch's page table on the device, re-uploaded only
-        after a scheduling change."""
-        if self._ctl_dirty:
-            self._d_table = torch.from_numpy(page_table_array(
-                [s.seq if s is not None else None for s in self.slots],
-                self.ecfg.max_pages_per_seq)).to(self.device)
-            self._ctl_dirty = False
-        return self._d_table
-
-    def _decode(self, members: List[Optional[GenRequest]]) -> List[int]:
-        """One decode step for the active lanes of the batch; returns the
-        sampled tokens of the non-None members, in slot order."""
-        ps, dev, B = self.ecfg.page_size, self.device, self.ecfg.max_batch
-        C = self.ecfg.max_window
-        table = self._device_table()
-        lens = np.zeros(B, np.int32)
-        last = np.zeros(B, np.int64)
-        write = np.zeros(B, np.int64)
-        active = np.zeros(B, bool)
-        for i, m in enumerate(members):
-            if m is None:
+    def _dispatch_mixed(self, members: List[Optional[GenRequest]]) -> None:
+        """A batch with host-masked lanes.  Their next mask depends on
+        every token they emitted, so they cannot be pipelined — but nobody
+        else waits for them: the free and device-FSM lanes dispatch as in
+        the common case, and the host-masked lanes run as their own
+        micro-batch at fetch cadence (dispatch, let the fetch land, build
+        the next mask rows from the complete output_ids, redispatch)."""
+        uncon = [m if m is not None and not self._host_constrained(m)
+                 else None for m in members]
+        n_uncon = sum(m is not None for m in uncon)
+        if n_uncon:
+            self._dispatch_group(
+                uncon, None,
+                fsm=any(m is not None and m.grammar is not None
+                        for m in uncon))
+        if self._constrained_inflight():
+            # pop once landed; with no pipelined lane nobody is stalled by
+            # waiting, so pop at once
+            entry = self._constrained_fetch
+            if self._entry_ready(entry) or not n_uncon:
+                self._pop_through(entry)
+                self._constrained_fetch = None
+        if self._constrained_inflight():
+            return
+        B, V = self.ecfg.max_batch, self.cfg.vocab_size
+        amb: List[Optional[GenRequest]] = [None] * B
+        rows: Dict[int, Optional[np.ndarray]] = {}
+        for i, s in enumerate(members):
+            # a lane whose tokens are not all processed (one that just
+            # degraded off the device FSM) sits out until they are: the
+            # host mask needs complete output_ids
+            if s is None or not self._host_constrained(s) \
+                    or s.state != ACTIVE or s.dispatched != s.drained:
                 continue
-            n = m.seq.length
-            lens[i], last[i], active[i] = n, m.output_ids[-1], True
-            write[i] = m.seq.pages[n // ps] * ps + n % ps
-        d_lens = torch.from_numpy(lens).to(dev)
-        d_active = torch.from_numpy(active).to(dev)
-        kv_pos = torch.arange(C, device=dev).expand(B, C)
-        paged = PagedView(
-            write_idx=torch.from_numpy(write[:, None]).to(dev),
-            read_idx=None,
-            kv_positions=kv_pos,
-            kv_valid=(kv_pos <= d_lens.long()[:, None]) & d_active[:, None],
-            page_table=table,
-            seq_lens=d_lens,
-            page_size=ps,
-        )
-        logits, _ = forward(
-            self.params, self.cfg, torch.from_numpy(last[:, None]).to(dev),
-            d_lens.long()[:, None], kv_cache=KVCache(self.k_pool, self.v_pool),
-            paged=paged,
-        )
-        idx = [i for i, m in enumerate(members) if m is not None]
-        fsm = any(members[i].grammar is not None for i in idx)
-        mask = None
+            amb[i] = s
+            rows[i] = self._host_mask_row(s)
+        if not rows:
+            return
+        allowed = None
+        if any(r is not None for r in rows.values()):
+            allowed = np.ones((B, V), bool)
+            for i, r in rows.items():
+                if r is not None:
+                    allowed[i] = r
+        self._constrained_fetch = self._dispatch_group(amb, allowed,
+                                                       fsm=False)
+
+    def _constrained_inflight(self) -> bool:
+        """Is the host-masked micro-batch still waiting on its fetch?"""
+        e = self._constrained_fetch
+        if e is None:
+            return False
+        if any(p is e for p in self._pending):
+            return True
+        self._constrained_fetch = None  # processed (or force-drained)
+        return False
+
+    def _pick_multi_step(self, active: List[GenRequest]) -> int:
+        """How many decode steps to fuse into the next dispatch: one
+        configured depth (kafka_tpu/runtime/engine.py _pick_multi_step),
+        only when scheduling granularity is cheap — >= 3 active lanes, no
+        host-masked lane, no lane or parked request mid-prefill, no
+        page-blocked admission (a free slot with a waiting queue) — and
+        no lane can reach a budget or window limit inside the burst.
+        Pages are grown for all k steps first; a pool that cannot falls
+        back to single steps, whose growth path reclaims and preempts."""
+        ecfg = self.ecfg
+        if (ecfg.multi_step <= 1 or len(active) < 3
+                or any(self._host_constrained(s) for s in active)
+                or any(s is not None and s.state == PREFILLING
+                       for s in self.slots)
+                or any(r.state == PREFILLING for r in self.parked)
+                or (self.waiting and self._free_slot() is not None)):
+            return 1
+        k = ecfg.multi_step
+        for req in active:
+            if req.max_new_tokens - req.dispatched < k \
+                    or ecfg.max_window - 1 - req.seq.length < k:
+                return 1
+        for req in active:
+            if not self._grow(req.seq, req.seq.length + k):
+                return 1
+        return k
+
+    def _dispatch_multi(self, k: int) -> None:
+        """One fused k-step decode dispatch over every active lane;
+        grammar lanes take the FSM variant, so their masks apply inside
+        the burst."""
+        if self._ctl_dirty:
+            self._refresh_ctl()
+        members = [s if s is not None and s.state == ACTIVE else None
+                   for s in self.slots]
+        self._dispatch_group(
+            members, None, steps=k,
+            fsm=any(m is not None and m.grammar is not None
+                    for m in members))
+        self.multi_step_dispatches += 1
+
+    def _dispatch_group(self, members: List[Optional[GenRequest]],
+                        allowed: Optional[np.ndarray], fsm: bool,
+                        steps: int = 1) -> _Fetch:
+        """Run the decode step program `steps` times for the lanes in
+        `members` (slot-aligned; None = not in this dispatch: their KV
+        writes go to the trash page, their lengths, last tokens and FSM
+        states stay), with `allowed` [B, V] host mask rows, then book it."""
+        self._to_device(np.array([m is not None for m in members]),
+                        out=self._d_run)
+        if allowed is not None:
+            if self._d_allowed is None:
+                self._d_allowed = torch.ones(
+                    (self.ecfg.max_batch, self.cfg.vocab_size),
+                    dtype=torch.bool, device=self.device)
+            self._to_device(allowed, out=self._d_allowed)
+        self._run_step(steps, fsm, sampling_mode(members),
+                       allowed is not None)
+        return self._book_dispatch(members, steps)
+
+    def _book_dispatch(self, members: List[Optional[GenRequest]],
+                       steps: int) -> _Fetch:
+        """Post-dispatch accounting: advance each member's length and
+        dispatched count by `steps`, enqueue the fetch, and start draining
+        lanes that hit a host-known limit.  `steps` is chosen so limits
+        trigger only on the last row (_pick_multi_step); stop tokens may
+        land on any row and are reconciled when the fetch matures."""
+        items: List[Optional[GenRequest]] = []
+        last: List[Optional[str]] = []
+        for req in members:
+            if req is None:
+                items.append(None)
+                last.append(None)
+                continue
+            req.seq.length += steps  # the dispatched tokens' kv slots
+            req.dispatched += steps
+            items.append(req)
+            last.append(self._limit_reason_after_dispatch(req))
+        finals = [[None] * len(items) for _ in range(steps - 1)] + [last]
+        entry = self._fetch(self._toks_buf[steps], items, finals,
+                            steps=steps,
+                            logits=self._logits_buf.get(steps))
+        for req, fin in zip(items, last):
+            if req is not None and fin is not None:
+                self._to_draining(req)
+        return entry
+
+    def _refresh_ctl(self) -> None:
+        """Re-upload the host-authored control arrays after a scheduling
+        change, in one pinned staging buffer.  Lengths come from the host
+        except for lanes with a verify in flight, whose device length is
+        the truth until their entry drains."""
+        slots = self.slots
+        keep = np.array([s is not None and s.state == ACTIVE
+                         and s.spec_ahead > 0 for s in slots])
+        self._to_device(self._ctl.pack({
+            "table": page_table_array(
+                [s.seq if s is not None else None for s in slots],
+                self.ecfg.max_pages_per_seq),
+            "lens": [s.seq.length if s is not None and s.seq else 0
+                     for s in slots],
+            "keep": keep,
+            "temps": [s.temperature if s else 0.0 for s in slots],
+            "top_ks": [s.top_k if s else 0 for s in slots],
+            "top_ps": [s.top_p if s else 1.0 for s in slots],
+            "seeds": [(s.seed if s else 0) & 0xFFFFFFFF for s in slots],
+        }), out=self._ctl.buf)
+        v = self._ctl.views
+        if keep.any():
+            self._d_seq_lens.copy_(
+                torch.where(v["keep"], self._d_seq_lens, v["lens"]))
+        else:
+            self._d_seq_lens.copy_(v["lens"])
+        self._ctl_dirty = False
+
+    # ------------------------------------------------------------------
+    # the step program
+    # ------------------------------------------------------------------
+
+    def _step_buffers(self, k: int, keep: bool) -> None:
+        """The fixed outputs of a k-step program (allocated before any
+        capture, outside the graph pool)."""
+        B = self.ecfg.max_batch
+        if k not in self._toks_buf:
+            self._toks_buf[k] = torch.zeros((k, B), dtype=torch.int64,
+                                            device=self.device)
+        if keep and k not in self._logits_buf:
+            self._logits_buf[k] = torch.zeros(
+                (k, B, self.cfg.vocab_size), dtype=torch.float32,
+                device=self.device)
+
+    def _decode_body(self, k: int, fsm: bool, mode: int, masked: bool,
+                     keep: bool) -> None:
+        """k decode steps over the fixed device state (the counterpart of
+        the reference's _decode_step_body, unrolled k times): for the
+        lanes in _d_run, write the new token's KV at its position,
+        attend, mask (host rows and/or the device FSM), sample at (seed,
+        position), advance the FSM and budget, then lengths += 1 and
+        last = the sampled token.  Step j's tokens (and, kept, its
+        logits) go to row j of the k-step output buffers.  Reads nothing
+        back to the host, so on CUDA it is captured as one graph."""
+        ecfg = self.ecfg
+        B, ps, C = ecfg.max_batch, ecfg.page_size, ecfg.max_window
+        P = ecfg.max_pages_per_seq
+        toks_out = self._toks_buf[k]
+        logits_out = self._logits_buf[k] if keep else None
+        run = self._d_run
+        step = run.int()
+        kv_pos = torch.arange(C, device=self.device).expand(B, C)
+        tables = self._grammars.args() if fsm else None
+        for j in range(k):
+            lens = torch.where(run, self._d_seq_lens, 0)
+            page = self._d_table.gather(
+                1, (lens // ps).clamp_max(P - 1).long()[:, None])
+            write = torch.where(run[:, None],
+                                page.long() * ps + (lens % ps).long()[:, None],
+                                0)  # idle lanes: the trash page
+            paged = PagedView(
+                write_idx=write,
+                read_idx=None,
+                kv_positions=kv_pos,
+                kv_valid=(kv_pos <= lens.long()[:, None]) & run[:, None],
+                page_table=self._d_table,
+                seq_lens=lens,
+                page_size=ps,
+            )
+            logits, _ = forward(
+                self.params, self.cfg, self._d_last[:, None],
+                lens.long()[:, None],
+                kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged)
+            logits = logits[:, 0]
+            mask = self._d_allowed if masked else None
+            if fsm:
+                g = grammar_allowed_mask(self._fsm, self._fsm_g, self._budget,
+                                         run, *tables)
+                mask = g if mask is None else mask & g
+            toks = sample_tokens_per_slot(
+                logits, self._d_sampling, self._d_seeds, lens,
+                allowed_mask=mask, sampled=mode != GREEDY,
+                filtered=mode == FILTERED)
+            toks_out[j].copy_(toks)
+            if logits_out is not None:
+                logits_out[j].copy_(logits)
+            if fsm:
+                self._fsm.copy_(grammar_advance(self._fsm, self._fsm_g, toks,
+                                                run, tables[0], tables[1]))
+                self._budget.sub_(step)
+            self._d_seq_lens.add_(step)
+            self._d_last.copy_(torch.where(run, toks, self._d_last))
+
+    def _run_step(self, k: int, fsm: bool, mode: int, masked: bool) -> None:
+        """Run the k-step program: eagerly on CPU tensors, as a replay of
+        its captured CUDA graph on the card (captured at first use).  A
+        capture or replay failure raises; nothing falls back to the eager
+        body on the card."""
+        keep = self.ecfg.keep_logits
+        self._step_buffers(k, keep)
+        if self.device.type != "cuda":
+            self._decode_body(k, fsm, mode, masked, keep)
+            return
+        key = (k, fsm, mode, masked, keep,
+               self._grammars.version if fsm else 0)
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._capture(key)
+        try:
+            g.graph.replay()
+        except Exception as e:
+            raise RuntimeError(f"decode step graph {key} failed to "
+                               f"replay: {e}") from e
+        for fn, n in g.launches:
+            fn.launches += n
+        self.graph_replays += 1
+
+    def _capture(self, key: Tuple) -> _StepGraph:
+        """Capture the step program `key` into a CUDA graph.  A warm-up
+        run on a side stream first, with every lane masked off (so no
+        state moves: writes land in the trash page, lengths and tokens
+        stay), builds and loads every kernel library and library handle
+        the body needs; the capture itself then records without host
+        work.  Graphs whose FSM tables were rebuilt are dropped."""
+        from ..ops import kernels
+
+        t0 = time.monotonic()
+        k, fsm, mode, masked, keep, version = key
         if fsm:
-            # device-FSM lanes: mask from each lane's state (all-True rows
-            # for the others), then advance by the sampled token
-            mask = grammar_allowed_mask(self._fsm, self._fsm_g, self._budget,
-                                        d_active, *self._grammars.args())
-        mask = self._host_rows(mask, [(i, members[i]) for i in idx])
-        toks = self._sample(logits[idx, 0], [members[i] for i in idx],
-                            [int(lens[i]) for i in idx],
-                            allowed=None if mask is None else mask[idx])
-        if fsm:
-            full = np.zeros(B, np.int64)
-            full[idx] = toks
-            self._fsm = grammar_advance(
-                self._fsm, self._fsm_g, torch.from_numpy(full).to(dev),
-                d_active, self._grammars.token_class, self._grammars.trans)
-            self._budget = self._budget - d_active.int()
-        return toks
+            for old in [g for g in self._graphs if g[1] and g[5] != version]:
+                del self._graphs[old]
+        dev = self.device
+        cur = torch.cuda.current_stream(dev)
+        saved = self._d_run.clone()
+        self._d_run.zero_()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._decode_body(k, fsm, mode, masked, keep)
+        cur.wait_stream(side)
+        self._d_run.copy_(saved)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        before = [fn.launches for fn in kernels.KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self._graph_pool):
+                self._decode_body(k, fsm, mode, masked, keep)
+        except Exception as e:
+            raise RuntimeError(f"capturing decode step graph {key} "
+                               f"failed: {e}") from e
+        finally:
+            # the captured calls launched nothing: take their ticks back,
+            # and let every replay add them instead
+            ticks = [(fn, fn.launches - b)
+                     for fn, b in zip(kernels.KERNELS, before)]
+            for fn, b in zip(kernels.KERNELS, before):
+                fn.launches = b
+        g = _StepGraph(graph, [(fn, n) for fn, n in ticks if n])
+        self._graphs[key] = g
+        self.graph_captures += 1
+        self.graph_capture_s += time.monotonic() - t0
+        return g
 
     # ------------------------------------------------------------------
     # speculative decoding
@@ -1098,20 +1962,23 @@ class InferenceEngine:
                 f"speculative write span of {req.request_id} covers "
                 "radix-cached pages")
 
-    def _try_dispatch_verify(self, live: List[GenRequest]) -> bool:
-        """Propose, then run one [B, K+1] verify step for the active
-        lanes.  False when no lane has a usable candidate run (plain
-        decode then runs exactly as without speculation).  Candidate runs
-        are clamped so a fully accepted run stays inside the token budget
-        and the attention window; lanes without a proposal ride the same
-        forward as an ordinary one-token decode (cand_len 0)."""
+    def _try_dispatch_verify(self, lanes: List[GenRequest]) -> bool:
+        """Propose, then dispatch one [B, K+1] verify step.  A lane
+        proposes only when its history is fully drained (the n-gram anchor
+        must be the true tail).  False when no lane has a usable candidate
+        run (plain decode then dispatches exactly as without
+        speculation).  Runs are clamped so a fully accepted run stays
+        inside the token budget and the window; free and device-FSM lanes
+        without a proposal ride as an ordinary one-token decode (cand_len
+        0); host-masked lanes sit the dispatch out."""
         ecfg = self.ecfg
+        K = ecfg.speculative_k
         proposals: Dict[int, List[int]] = {}
-        for s in live:
-            if s.spec is None or self._host_constrained(s):
+        for s in lanes:
+            if s.spec is None or self._host_constrained(s) \
+                    or s.dispatched != s.drained:
                 continue
-            room = min(ecfg.speculative_k,
-                       s.max_new_tokens - s.dispatched - 1,
+            room = min(K, s.max_new_tokens - s.dispatched - 1,
                        ecfg.max_window - 2 - s.seq.length)
             cands = s.spec.propose(room)
             if cands:
@@ -1119,79 +1986,102 @@ class InferenceEngine:
         # grow pages over each proposer's whole write span (positions
         # seq_len..seq_len+cl); a page-blocked proposal shrinks to a
         # plain ride rather than preempt anyone for speculative work
-        for s in live:
-            cands = proposals.get(s.slot)
-            if cands is None:
-                continue
+        for slot, cands in list(proposals.items()):
+            s = self.slots[slot]
             need = s.seq.length + len(cands) + 1
             if self._grow(s.seq, need):
                 continue
             short = -(-need // ecfg.page_size) - len(s.seq.pages)
-            if not (self._reclaim_cache(short) and self._grow(s.seq, need)):
-                del proposals[s.slot]
+            if not (self._reclaim_cache(max(1, short))
+                    and self._grow(s.seq, need)):
+                del proposals[slot]
         if not proposals:
             return False
+        if self._ctl_dirty:
+            self._refresh_ctl()
+        B = ecfg.max_batch
+        members: List[Optional[GenRequest]] = [None] * B
+        for s in lanes:
+            if not self._host_constrained(s):
+                members[s.slot] = s
+        cand_arr = np.zeros((B, K), np.int64)
+        cand_lens = [0] * B
         for slot, cands in proposals.items():
-            self._assert_private_tail(self.slots[slot], len(cands))
-        self._verify(live, proposals)
+            s = self.slots[slot]
+            cand_arr[slot, :len(cands)] = cands
+            cand_lens[slot] = len(cands)
+            self._assert_private_tail(s, len(cands))
+            s.spec_ahead = len(cands) + 1
+        out, logits = self._verify_step(members, cand_arr, cand_lens)
+        self.verify_steps += 1
+        self.speculation_proposed_tokens += sum(cand_lens)
+        finals: List[Optional[str]] = [None] * B
+        for i, req in enumerate(members):
+            if req is None or cand_lens[i] > 0:
+                continue  # proposers: accounting at drain
+            req.seq.length += 1
+            req.dispatched += 1
+            finals[i] = self._limit_reason_after_dispatch(req)
+        self._fetch(out, list(members), [finals],
+                    steps=max(cand_lens) + 1, logits=logits,
+                    spec=_SpecMeta(cand_lens=cand_lens, width=K + 1))
+        for req, fin in zip(members, finals):
+            if req is not None and fin is not None:
+                self._to_draining(req)
         return True
 
-    def _verify(self, live: List[GenRequest],
-                proposals: Dict[int, List[int]]) -> None:
-        """The verify forward and its acceptance.
+    def _verify_step(self, members: List[Optional[GenRequest]],
+                     cand_arr: np.ndarray, cand_lens: List[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The verify forward and its acceptance, on the device state
+        (the reference's _get_verify_fn body, eager).
 
         Lane i feeds [last_token, c_1..c_K] at positions seq_len..seq_len+K
         and writes the KV of its first cand_len + 1 of them (the rest, and
         idle lanes, write the trash page).  Every position is sampled with
         the sequential path's own (seed, position) draw; candidates are
         kept while sample == candidate, so the emitted tokens are the ones
-        plain decode would have produced.  The rejected tail is rolled
-        back by seq.length alone: its stale KV lies past the length,
-        masked until those positions are written again."""
+        plain decode would have produced.  The lanes' lengths advance by
+        the accepted run + 1 and their last token becomes the bonus token
+        (the rejected tail's stale KV lies past the length, masked until
+        those positions are written again); FSM lanes keep the state
+        reached through the accepted prefix, advanced by the bonus.
+        Returns ([B, K+2] samples and accepted counts, [B, K+1, V]
+        logits)."""
         ecfg, dev = self.ecfg, self.device
         ps, B, C = ecfg.page_size, ecfg.max_batch, ecfg.max_window
-        S = ecfg.speculative_k + 1
-        toks = np.zeros((B, S), np.int64)
-        lens = np.zeros(B, np.int32)
-        q_lens = np.ones(B, np.int32)
-        write = np.tile(np.arange(S, dtype=np.int64) % ps, (B, 1))
-        active = np.zeros(B, bool)
-        for s in live:
-            i, n = s.slot, s.seq.length
-            cands = proposals.get(i, [])
-            run = [s.output_ids[-1]] + cands
-            toks[i, :len(run)] = run
-            lens[i], q_lens[i], active[i] = n, len(run), True
-            pos = n + np.arange(len(run))
-            pages = np.asarray(s.seq.pages, np.int64)[pos // ps]
-            write[i, :len(run)] = pages * ps + pos % ps
-        table = self._device_table()
-        d_lens = torch.from_numpy(lens).to(dev)
-        ends = torch.from_numpy(lens.astype(np.int64) + q_lens).to(dev)
+        K = ecfg.speculative_k
+        S = K + 1
+        P = ecfg.max_pages_per_seq
+        act = self._to_device(np.array([m is not None for m in members]))
+        cands = self._to_device(cand_arr)
+        cl = self._to_device(np.asarray(cand_lens, np.int32))
+        lens = torch.where(act, self._d_seq_lens, 0)
+        toks_in = torch.cat([self._d_last[:, None], cands], dim=1)
+        local = torch.arange(S, device=dev)[None]
+        pos = lens.long()[:, None] + local
+        in_run = (local <= cl.long()[:, None]) & act[:, None]
+        page = self._d_table.long().gather(1, (pos // ps).clamp_max(P - 1))
+        write = torch.where(in_run, page * ps + pos % ps, local % ps)
         kv_pos = torch.arange(C, device=dev).expand(B, C)
-        positions = d_lens.long()[:, None] + torch.arange(S, device=dev)[None]
         paged = PagedView(
-            write_idx=torch.from_numpy(write).to(dev),
+            write_idx=write,
             read_idx=None,
             kv_positions=kv_pos,
-            kv_valid=(kv_pos < ends[:, None])
-            & torch.from_numpy(active).to(dev)[:, None],
-            page_table=table,
-            seq_lens=d_lens,
+            kv_valid=(kv_pos <= (lens + cl).long()[:, None]) & act[:, None],
+            page_table=self._d_table,
+            seq_lens=lens,
             page_size=ps,
-            q_lens=torch.from_numpy(q_lens).to(dev),
+            q_lens=cl + 1,
         )
         logits, _ = forward(
-            self.params, self.cfg, torch.from_numpy(toks).to(dev), positions,
+            self.params, self.cfg, toks_in, pos,
             kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged)
-        self.verify_steps += 1
-        # sample only the rows acceptance can read: 0..cand_len per lane
-        rows = [(s, j) for s in live for j in range(int(q_lens[s.slot]))]
-        slots = [s.slot for s, _ in rows]
-        flat = logits[slots, [j for _, j in rows]]
-        d_active = torch.from_numpy(active).to(dev)
-        fsm = any(s.grammar is not None for s in live)
+        V = logits.shape[-1]
+        sp = self._d_sampling
+        rep = lambda x: x.repeat_interleave(S)  # noqa: E731
         mask = states = None
+        fsm = any(m is not None and m.grammar is not None for m in members)
         if fsm:
             # the FSM state BEFORE each position: states[:, j] is the
             # automaton after the first j candidates (what sequential
@@ -1199,101 +2089,58 @@ class InferenceEngine:
             # budget - j.  Positions past cand_len walk candidates that
             # acceptance never reads.
             tc, trans, _, _ = self._grammars.args()
-            cands = torch.from_numpy(toks[:, 1:]).to(dev)
             sts = [self._fsm]
-            for j in range(S - 1):
-                sts.append(grammar_advance(sts[-1], self._fsm_g, cands[:, j],
-                                           d_active, tc, trans))
+            for j in range(K):
+                sts.append(grammar_advance(sts[-1], self._fsm_g,
+                                           cands[:, j], act, tc, trans))
             states = torch.stack(sts, dim=1)                     # [B, S]
-            per_pos = torch.stack([
+            mask = torch.stack([
                 grammar_allowed_mask(sts[j], self._fsm_g, self._budget - j,
-                                     d_active, *self._grammars.args())
-                for j in range(S)], dim=1)                       # [B, S, V]
-            mask = per_pos[slots, [j for _, j in rows]]
-        # host-masked lanes ride with no candidates: one row each
-        mask = self._host_rows(
-            mask, [(r, s) for r, (s, j) in enumerate(rows)
-                   if j == 0 and self._host_constrained(s)], n=len(rows))
-        samples = self._sample(flat, [s for s, _ in rows],
-                               [int(lens[s.slot]) + j for s, j in rows],
-                               keep=False, allowed=mask)
-        at = 0
-        runs = []
-        accepted = np.zeros(B, np.int64)
-        bonus = np.zeros(B, np.int64)
-        for s in live:
-            cands = proposals.get(s.slot, [])
-            row = samples[at:at + len(cands) + 1]
-            kept = flat[at:at + len(cands) + 1]
-            at += len(cands) + 1
-            m = 0
-            while m < len(cands) and row[m] == cands[m]:
-                m += 1
-            if cands:
-                self.speculation_proposed_tokens += len(cands)
-                self.speculation_accepted_tokens += m
-                s.spec.observe(m, len(cands))
-            accepted[s.slot], bonus[s.slot] = m, row[m]
-            runs.append((s, row[:m + 1], kept[:m + 1]))
+                                     act, *self._grammars.args())
+                for j in range(S)], dim=1).reshape(B * S, V)
+        mode = sampling_mode(members)
+        samples = sample_tokens_per_slot(
+            logits.reshape(B * S, V),
+            SamplingParams(rep(sp.temperature), rep(sp.top_k),
+                           rep(sp.top_p)),
+            rep(self._d_seeds), pos.reshape(-1), allowed_mask=mask,
+            sampled=mode != GREEDY, filtered=mode == FILTERED).view(B, S)
+        good = (samples[:, :K] == cands) & (
+            torch.arange(K, device=dev)[None] < cl.long()[:, None])
+        m = good.long().cumprod(dim=1).sum(dim=1)
+        adv = torch.where(act, m + 1, 0)
+        bonus = samples.gather(1, m[:, None])[:, 0]
+        self._d_seq_lens.add_(adv.int())
+        self._d_last.copy_(torch.where(act, bonus, self._d_last))
         if fsm:
-            # rejected-tail FSM rollback: the lane keeps the state reached
-            # through its accepted candidates, advanced by the bonus token
-            # (the mirror of the seq.length rollback)
-            d_m = torch.from_numpy(accepted).to(dev)
-            s_m = states.gather(1, d_m[:, None])[:, 0]
-            self._fsm = grammar_advance(
-                s_m, self._fsm_g, torch.from_numpy(bonus).to(dev), d_active,
-                self._grammars.token_class, self._grammars.trans)
-            self._budget = self._budget - torch.where(
-                d_active, d_m + 1, torch.zeros_like(d_m)).int()
-        for s, run, kept in runs:
-            self._emit_run(s, run, kept)
-
-    def _emit_run(self, req: GenRequest, run: List[int],
-                  logits: torch.Tensor) -> None:
-        """Emit an accepted run (candidates + bonus token) with plain
-        decode's host limits applied token by token: a stop token, the
-        token budget or the window cuts the run exactly where sequential
-        decode would have stopped."""
-        old_len, old_disp = req.seq.length, req.dispatched
-        req.seq.length += len(run)
-        req.dispatched += len(run)
-        if self.ecfg.keep_logits:
-            req.logits.extend(logits.float().cpu())
-        for j, tok in enumerate(run):
-            final = None
-            if old_disp + j + 1 >= req.max_new_tokens or \
-                    old_len + j + 2 >= self.ecfg.max_window:
-                final = "length"
-            self._process_token(req, tok, final)
-            if req.state == FINISHED:
-                if self.ecfg.keep_logits:
-                    del req.logits[len(req.output_ids):]
-                return
+            s_m = states.gather(1, m[:, None])[:, 0]
+            self._fsm.copy_(grammar_advance(
+                s_m, self._fsm_g, bonus, act, self._grammars.token_class,
+                self._grammars.trans))
+            self._budget.sub_(adv.int())
+        return torch.cat([samples, m[:, None]], dim=1), logits
 
     def _sample(self, logits: torch.Tensor, reqs: Sequence[GenRequest],
-                positions: Sequence[int], keep: bool = True,
-                allowed: Optional[torch.Tensor] = None) -> List[int]:
-        """Sample one token per row; row i draws at (seed, positions[i]).
-        keep=False leaves EngineConfig.keep_logits to the caller; allowed
-        [rows, V] bool is the constrained-decoding mask (None: free)."""
-        dev = logits.device
+                positions: Sequence[int],
+                allowed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A prefill's tokens on the device: row i draws at (seed,
+        positions[i]); allowed [rows, V] bool is the constrained mask."""
         params = SamplingParams(
-            temperature=torch.tensor([r.temperature for r in reqs],
-                                     dtype=torch.float32, device=dev),
-            top_k=torch.tensor([r.top_k for r in reqs], dtype=torch.int64,
-                               device=dev),
-            top_p=torch.tensor([r.top_p for r in reqs], dtype=torch.float32,
-                               device=dev),
+            temperature=self._to_device(np.array(
+                [r.temperature for r in reqs], np.float32)),
+            top_k=self._to_device(np.array([r.top_k for r in reqs],
+                                           np.int64)),
+            top_p=self._to_device(np.array([r.top_p for r in reqs],
+                                           np.float32)),
         )
-        toks = sample_tokens_per_slot(logits, params,
-                                      [r.seed for r in reqs], positions,
-                                      allowed_mask=allowed)
-        if self.ecfg.keep_logits and keep:
-            host = logits.float().cpu()
-            for i, r in enumerate(reqs):
-                r.logits.append(host[i])
-        return [int(t) for t in toks.tolist()]
+        mode = sampling_mode(reqs)
+        return sample_tokens_per_slot(
+            logits, params,
+            self._to_device(np.array([r.seed & 0xFFFFFFFF for r in reqs],
+                                     np.int64)),
+            self._to_device(np.asarray(positions, np.int64)),
+            allowed_mask=allowed, sampled=mode != GREEDY,
+            filtered=mode == FILTERED)
 
     # ------------------------------------------------------------------
     # constrained decoding
@@ -1305,13 +2152,14 @@ class InferenceEngine:
         masked and advanced on the device instead."""
         return req.logits_mask_fn is not None and req.grammar is None
 
-    def _set_fsm_lane(self, req: GenRequest) -> None:
-        """Seed the lane's device FSM state and budget as it joins the
-        decode batch (prefill finish, resume after preemption): free lanes
-        park the slot at -1; grammar lanes replay their output through
-        the compiled table.  A grammar that cannot register or a replay
-        that stops validating degrades the lane to the host mask path."""
-        slot = req.slot
+    def _set_fsm_lane(self, req: GenRequest, slot: int) -> None:
+        """Seed the lane's device FSM state and budget as it takes a
+        decode slot (prefill finish, seating, resume): free lanes park
+        the slot at -1; grammar lanes replay their host-known output
+        through the compiled table and, when the prefill's token is still
+        in flight, advance by it on the device (no round trip).  A grammar
+        that cannot register or a replay that stops validating degrades
+        the lane to the host mask path."""
         if req.grammar is None:
             self._fsm[slot] = -1
             return
@@ -1322,7 +2170,17 @@ class InferenceEngine:
                           else "replay stopped validating")
             self._fsm[slot] = -1
             return
-        self._fsm[slot] = self._grammars.offsets[g_idx] + state
+        off = self._grammars.offsets[g_idx]
+        if req.drained == req.dispatched:
+            self._fsm[slot] = off + state
+        else:
+            # exactly the prefill's token is in flight: it sits in
+            # _d_last[slot]; advance the replayed state by it on device
+            tc = self._grammars.token_class[g_idx]
+            cls = tc.index_select(0, self._d_last[slot:slot + 1])
+            nxt = self._grammars.trans[off + state].index_select(
+                0, cls.long())
+            self._fsm[slot:slot + 1].copy_(nxt)
         self._fsm_g[slot] = g_idx
         self._budget[slot] = req.max_new_tokens - req.dispatched
 
@@ -1337,7 +2195,8 @@ class InferenceEngine:
         """[len(reqs), V] mask for the tokens a prefill samples, None when
         no lane is constrained.  Grammar lanes take their compiled row at
         the state their output replays to, under the decode step's
-        wrap-up rule; host-masked lanes call their mask fn."""
+        wrap-up rule; host-masked lanes call their mask fn (a prefill's
+        output_ids are complete: preemption drains the pipeline first)."""
         rows: List[Optional[np.ndarray]] = []
         for req in reqs:
             row = None
@@ -1355,29 +2214,8 @@ class InferenceEngine:
         if all(r is None for r in rows):
             return None
         V = self.cfg.vocab_size
-        return torch.from_numpy(np.stack(
-            [np.ones(V, bool) if r is None else r for r in rows])
-        ).to(self.device)
-
-    def _host_rows(self, mask: Optional[torch.Tensor],
-                   lanes: Sequence[Tuple[int, GenRequest]],
-                   n: Optional[int] = None) -> Optional[torch.Tensor]:
-        """Write the host mask rows of the host-masked lanes among
-        `lanes` ((row, request) pairs) into `mask` ([n or max_batch, V],
-        created all-True when None).  Returns the mask, None when no row
-        constrains."""
-        for i, req in lanes:
-            if not self._host_constrained(req):
-                continue
-            row = self._host_mask_row(req)
-            if row is None:
-                continue
-            if mask is None:
-                mask = torch.ones((n or self.ecfg.max_batch,
-                                   self.cfg.vocab_size), dtype=torch.bool,
-                                  device=self.device)
-            mask[i] = torch.from_numpy(row).to(self.device)
-        return mask
+        return self._to_device(np.stack(
+            [np.ones(V, bool) if r is None else r for r in rows]))
 
     def _host_mask_row(self, req: GenRequest) -> Optional[np.ndarray]:
         """[V] bool row from the lane's mask fn over its complete output
@@ -1415,15 +2253,33 @@ class InferenceEngine:
                        "sampler degrades this row to unconstrained",
                        req.request_id, desc)
 
+    # ------------------------------------------------------------------
+    # pages, release, preemption
+    # ------------------------------------------------------------------
+
     def _ensure_pages(self, req: GenRequest) -> None:
-        """Grow req's pages for one more token.  Under pressure, evict
-        prefix-cache leaves first (rebuilding one costs a prefill, no
-        victim), then roll the youngest request back to the waiting
-        queue; if that is not enough, roll req itself back rather than
-        let it write into the trash page."""
+        """Grow req's pages for one more token.  Remedies under pressure,
+        cheapest first: evict prefix-cache leaves (rebuilding one costs a
+        prefill, no victim), drain the pipeline (stop tokens in flight may
+        retire lanes), roll parked lanes back to the waiting queue
+        (youngest first), roll the youngest request back; if that is not
+        enough, roll req itself back rather than let it write into the
+        trash page."""
         need = req.seq.length + 1
         if self._grow(req.seq, need) or (
                 self._reclaim_cache(1) and self._grow(req.seq, need)):
+            return
+        self._drain(block=True)
+        if req.state != ACTIVE or req.seq is None:
+            return
+        while not self._grow(req.seq, need):
+            if not self.parked:
+                break
+            self._preempt(max(self.parked, key=lambda r: r.submit_time))
+            # hysteresis: the freed pages feed active growth, not an
+            # immediate re-park of the same lane
+            self._park_cooldown = 32
+        else:
             return
         self._preempt_youngest()
         if req.state != ACTIVE or req.seq is None:
@@ -1441,13 +2297,22 @@ class InferenceEngine:
         except OutOfPagesError:
             return False
 
+    def _vacate(self, slot: int) -> None:
+        self.slots[slot] = None
+        self._fsm[slot] = -1  # the next occupant starts free
+        self._ctl_dirty = True
+
     def _release_slot(self, req: GenRequest) -> None:
-        """Free a request's batch slot and pages."""
+        """Free a request's batch slot (or parked place) and pages.  Pages
+        freed here may be reallocated while dispatched steps still write
+        into them: safe by stream order — the new owner's writes come
+        later, or stay masked by the lengths."""
         if req.slot >= 0:
-            self.slots[req.slot] = None
-            self._fsm[req.slot] = -1  # the next occupant starts free
+            self._vacate(req.slot)
             req.slot = -1
-            self._ctl_dirty = True
+        if req in self.parked:
+            self.parked.remove(req)
+        req.pending_tok = None
         if req.seq is not None:
             self.pool.free_sequence(req.seq)
             req.seq = None
@@ -1459,12 +2324,18 @@ class InferenceEngine:
         self._preempt(max(cands, key=lambda r: r.submit_time))
 
     def _preempt(self, victim: GenRequest) -> None:
+        """Roll a request back to the waiting queue: re-prefilled later
+        over prompt + generated-so-far, minus the final output token (its
+        KV was never written: it is the pending decode input).  Needs
+        complete outputs — the caller drained the pipeline.  A victim
+        caught mid-prefill restarts as a fresh prefill."""
         logger.warning("preempting %s (out of KV pages)", victim.request_id)
+        assert not self._pending, "preempt with in-flight fetches"
+        assert victim.dispatched == victim.drained, (
+            "preempt victim has unprocessed dispatched tokens")
         self.preemptions += 1
+        victim.spec_ahead = 0
         self._release_slot(victim)
-        # re-prefill later over prompt + generated-so-far, minus the final
-        # output token: its KV was never written (it is the pending decode
-        # input).  A victim caught mid-prefill restarts as a fresh prefill.
         victim.prefill_ids = victim.prompt_ids + victim.output_ids[:-1]
         victim.state = WAITING
         victim.resumed = bool(victim.output_ids)

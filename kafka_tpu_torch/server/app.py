@@ -98,6 +98,7 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
         max_pages_per_seq=cfg.max_pages_per_seq,
         prefill_buckets=cfg.prefill_buckets,
         max_new_tokens_default=cfg.max_new_tokens_default,
+        multi_step=cfg.multi_step,
         max_ttft_s=cfg.max_ttft_s,
         max_total_s=cfg.request_timeout_s,
         max_waiting=cfg.max_queue_depth,
@@ -111,8 +112,11 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
         # parallel), before the worker thread drives the engine; one lone
         # prompt over 128 tokens then takes the single-sequence prefill
         # (flash prefill kernel, or the page gather over an int8 pool) and
-        # one decode step (the paged decode kernel, int8 or not).  No
-        # prefix_key: warmup must not seed the prefix cache.
+        # one decode step (the paged decode kernel, int8 or not, captured
+        # as the 1-step graph).  With fused decode on, three concurrent
+        # short requests then capture the multi_step graph, as the
+        # reference's warmup compiles its fused program.  No prefix_key:
+        # warmup must not seed the prefix cache.
         if dev.type == "cuda":
             from ..ops.kernels import build
 
@@ -121,6 +125,14 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
         engine.submit(GenRequest(request_id="__warmup", prompt_ids=[3] * n,
                                  max_new_tokens=2))
         engine.run_to_completion()
+        k = engine_cfg.multi_step
+        if k > 1 and engine_cfg.max_batch >= 3 and \
+                engine_cfg.max_window > k + 12:
+            for i in range(3):
+                engine.submit(GenRequest(request_id=f"__warmup_{i}",
+                                         prompt_ids=[3] * 8,
+                                         max_new_tokens=k + 2))
+            engine.run_to_completion()
     return TorchLLMProvider(engine, tokenizer, model_name=cfg.model_name)
 
 

@@ -31,6 +31,10 @@ class ServingConfig:
     max_pages_per_seq: int = 512
     prefill_buckets: Tuple[int, ...] = (64, 128, 256, 512, 1024, 2048)
     max_new_tokens_default: int = 1024
+    # fused decode depth (EngineConfig.multi_step, KAFKA_TORCH_MULTI_STEP):
+    # steps per dispatch — one captured CUDA graph replay — when the batch
+    # is busy; 1 disables fusion
+    multi_step: int = 16
     # request lifecycle: first-token and total deadlines (None = off), the
     # bounded waiting queue (429 + Retry-After past it; 0 = unbounded)
     max_ttft_s: Optional[float] = None
@@ -78,6 +82,7 @@ class ServingConfig:
             num_pages=get("NUM_PAGES", cls.num_pages, int),
             max_pages_per_seq=get("MAX_PAGES_PER_SEQ", cls.max_pages_per_seq,
                                   int),
+            multi_step=get("MULTI_STEP", cls.multi_step, int),
             max_ttft_s=get("MAX_TTFT_S", None, float),
             request_timeout_s=get("REQUEST_TIMEOUT_S", None, float),
             max_queue_depth=get("MAX_QUEUE_DEPTH", cls.max_queue_depth, int),

@@ -247,7 +247,9 @@ class TestLifecycle:
 
     def test_cancel_frees_slot_and_pages(self, model):
         _, _, cfg, params = model
-        eng = port_engine(cfg, params)
+        # fetch_lag=0: the step's token is processed in that step, so no
+        # fetch is in flight (has_work counts in-flight fetches)
+        eng = port_engine(cfg, params, fetch_lag=0)
         eng.submit(GenRequest(request_id="c", prompt_ids=[4] * 20,
                               max_new_tokens=30))
         eng.step()
@@ -261,24 +263,26 @@ class TestLifecycle:
         """A step that raises: started requests get one terminal error
         event, waiting ones stay queued and are served afterwards."""
         _, _, cfg, params = model
-        eng = port_engine(cfg, params, max_batch=1)
+        # max_parked=0: "b" must still be waiting (not prefilled off-slot)
+        # when the step fails
+        eng = port_engine(cfg, params, max_batch=1, max_parked=0)
         eng.submit(GenRequest(request_id="a", prompt_ids=[1, 2, 3],
                               max_new_tokens=6))
         eng.submit(GenRequest(request_id="b", prompt_ids=[4, 5],
                               max_new_tokens=3))
         eng.step()  # "a" prefills and takes the only slot
-        real = eng._decode
+        real = eng._run_step
 
-        def boom(members):
+        def boom(*args):
             raise RuntimeError("injected")
 
-        monkeypatch.setattr(eng, "_decode", boom)
+        monkeypatch.setattr(eng, "_run_step", boom)
         with pytest.raises(RuntimeError):
             eng.step()
         events = eng.recover_from_failure()
         assert [(e.request_id, e.finish_reason) for e in events] == \
             [("a", "error:engine")]
-        monkeypatch.setattr(eng, "_decode", real)
+        monkeypatch.setattr(eng, "_run_step", real)
         done = eng.run_to_completion()
         assert len(done["b"].output_ids) == 3
         assert eng.self_check() == []
