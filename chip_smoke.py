@@ -149,6 +149,32 @@ Phases, each of which raises (non-zero exit) on any failure:
                tokens, the engine at fetch_lag 0) must give them too, with
                verify steps run and tokens accepted; the speculative
                request must run verify steps as well.
+               Turn 1 of the built-in-tools server carries X-Request-Id:
+               its span tree from /debug/trace breaks its TTFT down
+               (serving layer, engine.queue, engine.prefill, emit).
+               Then the thread API on a server of the same configuration
+               with an API token, `python -m kafka_tpu_torch.sandbox.server`
+               as a subprocess and the stub MCP server over stdio (their
+               tools only: beside the built-in ones they would not fit the
+               4096 window): a request without the token gets 401; signup,
+               login, a profile, a thread created from it and its config
+               set; a streamed agent/run forcing `create_shell` (its
+               arguments carry no command) and one forcing the MCP `echo`,
+               each ending with the tool's result, agent_done and [DONE],
+               both tool messages in the history; the cold run's span
+               tree; then `engine.step=error(chip):nth=2` armed once four
+               streams have each had 16 tokens and decode in fused graphs
+               with the fetch FIFO at least half full: every stream must
+               end with an error event and
+               [DONE], no event may follow a terminal one, /health's
+               free_pages must return to idle, and the next turn's tokens
+               must equal the same turn before the failure (recovery and
+               recapture times logged); last a thread DELETE (404 after)
+               and a shutdown with a stream in flight, which must still
+               end with agent_done and [DONE].  The graphs phase also runs
+               its bf16 profile and the 8-lane host cost with every
+               request traced; traced decode must stay device-bound
+               (busy share >= TRACED_BUSY_MIN).
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
@@ -203,6 +229,10 @@ LOGITS_RTOL = 0.05
 # package's own kernel tolerance (tests/test_fused_mlp.py).
 K5_ATOL = 0.05
 KERNEL_KEYS = ("K1", "K2", "K3", "K4", "K5", "K5_int8")
+# decode busy share with every request traced (graphs phase): spans are
+# stamped on the host as fetches land, so the device stays the bound; an
+# untraced window reads 0.992-0.997 on the card
+TRACED_BUSY_MIN = 0.97
 
 RESULTS: dict = {}
 # a baseline run (--root): the kernels of another checkout, timed on the
@@ -1928,27 +1958,59 @@ def replay_kernels(eng, clock, steps: int = 4) -> dict:
     return out
 
 
+def _trace_requests(reqs) -> list:
+    """Give each request a trace of its own, as the server's tracing
+    middleware does: the engine then records its queue, prefill, decode
+    and emit spans.  Returns the root spans (finish_trace them)."""
+    from kafka_tpu_torch import tracing
+
+    roots = []
+    for r in reqs:
+        root = tracing.start_trace(request_id=r.request_id,
+                                   name="smoke.request")
+        r.trace = tracing.current()
+        if r.trace is None:
+            raise AssertionError("tracing is off (KAFKA_TORCH_TRACE_SAMPLE)")
+        roots.append((root, r.trace.trace_id))
+    return roots
+
+
+def _finish_traces(roots) -> int:
+    """Close the traces; the engine.decode spans they recorded."""
+    from kafka_tpu_torch import tracing
+
+    n = 0
+    for root, trace_id in roots:
+        tracing.finish_trace(root)
+        trace = tracing.get_trace(trace_id)
+        n += sum(sp.name == "engine.decode" for sp in trace.spans)
+    return n
+
+
 def graph_profile(eng, clock, cfg, rng, width: int = 8, ctx: int = 256,
                   max_new: int = 200, sampled: bool = False,
-                  by_kernel: bool = False) -> dict:
+                  by_kernel: bool = False, traced: bool = False) -> dict:
     """The decode pipeline at `width` lanes of ~`ctx` tokens: host-clock
     wall time over a steady window of scheduler steps (every lane active,
     ending in a synchronize), CUDA events around each graph replay in it,
     and the tokens the window dispatched.  `sampled`: every lane at
     temperature 0.8, top_p 0.95 (the threefry draw and the filter's sort
     inside each step).  `by_kernel`: first a profiled pass over a few
-    steps (replay_kernels)."""
+    steps (replay_kernels).  `traced`: every request carries a trace, so
+    the engine records its spans (decode spans as each fetch lands)."""
     import torch
 
     from kafka_tpu_torch.runtime import GenRequest
 
     eng.ecfg.keep_logits = False  # no per-step logits copy in the window
     kw = dict(temperature=0.8, top_p=0.95) if sampled else {}
-    reqs = [GenRequest(request_id=f"prof{i}", max_new_tokens=max_new,
+    reqs = [GenRequest(request_id=f"prof{'t' if traced else ''}{i}",
+                       max_new_tokens=max_new,
                        prompt_ids=rng.randint(0, cfg.vocab_size,
                                               size=ctx).tolist(),
                        seed=i, **kw)
             for i in range(width)]
+    roots = _trace_requests(reqs) if traced else []
     for r in reqs:
         eng.submit(r)
     while any(r.state != "active" for r in reqs):
@@ -1975,9 +2037,12 @@ def graph_profile(eng, clock, cfg, rng, width: int = 8, ctx: int = 256,
         eng.cancel(r.request_id)
     while eng.has_work:
         eng.step()
+    decode_spans = _finish_traces(roots)
+    if traced and decode_spans == 0:
+        raise AssertionError("traced requests recorded no engine.decode span")
     out = {
         "lanes": width, "ctx": ctx, "multi_step": k, "sampled": sampled,
-        "steps": steps,
+        "traced": traced, "decode_spans": decode_spans, "steps": steps,
         "tokens": tokens, "wall_ms": wall_ms,
         "host_ms_per_step": wall_ms / steps,
         "host_ms_per_token": wall_ms / tokens,
@@ -1986,8 +2051,9 @@ def graph_profile(eng, clock, cfg, rng, width: int = 8, ctx: int = 256,
         "tokens_per_s": tokens / wall_ms * 1e3,
         "by_kernel": split,
     }
-    log(f"  decode, {width} {'sampled' if sampled else 'greedy'} lanes at "
-        f"~{ctx} tokens, multi_step {k}: "
+    log(f"  decode, {width} {'sampled' if sampled else 'greedy'}"
+        f"{' traced' if traced else ''} lanes at ~{ctx} tokens, multi_step "
+        f"{k}: "
         f"{out['host_ms_per_step']:.3f} ms host clock per step (each "
         f"lane's token), {out['host_ms_per_token']:.4f} ms per generated "
         f"token, device {out['device_ms_per_step']:.3f} ms/step (CUDA "
@@ -1997,7 +2063,8 @@ def graph_profile(eng, clock, cfg, rng, width: int = 8, ctx: int = 256,
     return out
 
 
-def host_step_cost(eng, clock, cfg, rng, width: int, reps: int = 32) -> dict:
+def host_step_cost(eng, clock, cfg, rng, width: int, reps: int = 32,
+                   traced: bool = False) -> dict:
     """The host's own time per scheduler step() at `width` lanes of ~64
     tokens, at multi_step 1 and 16 (the engine's depth is switched
     between windows), with the device kept out of it: fetch_lag and
@@ -2008,7 +2075,10 @@ def host_step_cost(eng, clock, cfg, rng, width: int, reps: int = 32) -> dict:
     step() and per replay call, the per-decode-step host ms, and the
     device ms per step from CUDA events around the measured replays: the
     pipeline is host-bound at a depth where the host's ms per decode step
-    exceeds the device's."""
+    exceeds the device's.  The window's fetches are then processed after
+    a synchronize, so that drain is host work alone: reported per step()
+    call (`host_ms_per_drained_call`).  `traced`: every request carries a
+    trace; its decode spans are recorded in that drain."""
     import torch
 
     from kafka_tpu_torch.runtime import GenRequest
@@ -2016,11 +2086,12 @@ def host_step_cost(eng, clock, cfg, rng, width: int, reps: int = 32) -> dict:
     eng.ecfg.keep_logits = False
     ecfg = eng.ecfg
     lag, wait, depth = ecfg.fetch_lag, ecfg.fetch_wait_s, ecfg.multi_step
-    reqs = [GenRequest(request_id=f"host{width}_{i}",
+    reqs = [GenRequest(request_id=f"host{width}{'t' if traced else ''}_{i}",
                        max_new_tokens=2 * (reps + 2) * 16 + 32,
                        prompt_ids=rng.randint(0, cfg.vocab_size,
                                               size=64).tolist())
             for i in range(width)]
+    roots = _trace_requests(reqs) if traced else []
     for r in reqs:
         eng.submit(r)
     while any(r.state != "active" for r in reqs):
@@ -2044,7 +2115,10 @@ def host_step_cost(eng, clock, cfg, rng, width: int, reps: int = 32) -> dict:
                 steps = (sum(r.dispatched for r in reqs) - d0) // width
                 ecfg.fetch_lag, ecfg.fetch_wait_s = lag, wait
                 dev_ms = clock.device_ms()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 eng._drain(block=True)
+                drain_ms = (time.perf_counter() - t0) * 1e3
                 if not measured:
                     continue
                 if any(r.state != "active" for r in reqs) or \
@@ -2061,6 +2135,7 @@ def host_step_cost(eng, clock, cfg, rng, width: int, reps: int = 32) -> dict:
                     "host_ms_per_replay_call":
                         1e3 * sorted(clock.host_s)[len(clock.host_s) // 2],
                     "device_ms_per_step": dev_ms / clock.timed_steps,
+                    "host_ms_per_drained_call": drain_ms / n,
                 }
     finally:
         ecfg.fetch_lag, ecfg.fetch_wait_s, ecfg.multi_step = lag, wait, depth
@@ -2069,14 +2144,20 @@ def host_step_cost(eng, clock, cfg, rng, width: int, reps: int = 32) -> dict:
         eng.cancel(r.request_id)
     while eng.has_work:
         eng.step()
+    out["traced"], out["decode_spans"] = traced, _finish_traces(roots)
+    if traced and out["decode_spans"] == 0:
+        raise AssertionError("traced requests recorded no engine.decode span")
     for k in (1, 16):
         o = out[k]
-        log(f"  host cost, {width} lanes, multi_step {k}: "
+        log(f"  host cost, {width}{' traced' if traced else ''} lanes, "
+            f"multi_step {k}: "
             f"{o['host_ms_per_step_call']:.3f} ms host per step() call "
             f"({o['host_ms_per_decode_step']:.3f} per decode step), "
             f"{o['host_ms_per_replay_call']:.3f} ms inside the replay call; "
             f"device {o['device_ms_per_step']:.3f} ms/step (median of "
-            f"{o['step_calls']} calls, no fetch popped)")
+            f"{o['step_calls']} calls, no fetch popped); then "
+            f"{o['host_ms_per_drained_call']:.3f} ms host per call's fetch "
+            f"processed")
     return out
 
 
@@ -2237,10 +2318,19 @@ def phase_graphs(seed: int) -> None:
     profiles["bf16"][16] = graph_profile(eng16, clock16, cfg, rng)
     profiles["bf16"]["16_sampled"] = graph_profile(eng16, clock16, cfg, rng,
                                                    sampled=True)
+    profiles["bf16"]["16_traced"] = graph_profile(eng16, clock16, cfg, rng,
+                                                  traced=True)
     del eng16
     eng1, clock1 = _profile_engine(cfg, params, multi_step=1)
     profiles["bf16"][1] = graph_profile(eng1, clock1, cfg, rng,
                                         by_kernel=True)
+    profiles["bf16"]["1_traced"] = graph_profile(eng1, clock1, cfg, rng,
+                                                 traced=True)
+    # tracing keeps decode device-bound: spans are stamped as fetches land
+    for key in ("16_traced", "1_traced"):
+        if profiles["bf16"][key]["device_busy_share"] < TRACED_BUSY_MIN:
+            raise AssertionError(f"traced decode busy share "
+                                 f"{profiles['bf16'][key]}")
     _caught_launches(profiles["bf16"][1]["by_kernel"], "K1",
                      "paged_decode_chunk_kernel", L)
     del eng1
@@ -2252,6 +2342,11 @@ def phase_graphs(seed: int) -> None:
         eng, clock = _profile_engine(cfg, params, multi_step=16,
                                      max_batch=width)
         host[width] = host_step_cost(eng, clock, cfg, rng, width)
+        if width == 8:
+            # the host's cost of tracing: the same windows, every request
+            # traced
+            host["8_traced"] = host_step_cost(eng, clock, cfg, rng, width,
+                                              traced=True)
         del eng
         torch.cuda.empty_cache()
     res["host_cost"] = host
@@ -2289,13 +2384,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-async def _stream(session, url: str, body: dict, timing=None) -> list:
+async def _stream(session, url: str, body: dict, timing=None,
+                  headers=None, allow_error: bool = False) -> list:
     """POST a streamed request; its parsed events.  timing (a dict), if
     given, gets `ttft_s`: host-clock seconds from the request to the first
-    event carrying generated content or a tool call."""
+    event carrying generated content or a tool call.  An error event
+    raises unless allow_error."""
     events = []
     t0 = time.monotonic()
-    async with session.post(url, json=body) as resp:
+    async with session.post(url, json=body, headers=headers) as resp:
         if resp.status != 200:
             raise AssertionError(f"{url}: HTTP {resp.status} "
                                  f"{await resp.text()}")
@@ -2311,7 +2408,7 @@ async def _stream(session, url: str, body: dict, timing=None) -> list:
                              f"{events[-3:]}")
     parsed = [json.loads(e) for e in events[:-1]]
     errors = [e for e in parsed if e.get("type") == "error"]
-    if errors:
+    if errors and not allow_error:
         raise AssertionError(f"{url}: error event {errors[0]}")
     return parsed
 
@@ -2343,7 +2440,8 @@ async def _serve_and_query(db_path: str) -> dict:
         system_prompt="You are a terse assistant.",
     )
     t0 = time.monotonic()
-    app = await create_app(cfg)
+    # no MCP server: the reference's default dials a remote one
+    app = await create_app(cfg, mcp_servers=[])
     log(f"server: create_app(llama-3.2-1b) built in "
         f"{time.monotonic() - t0:.1f}s")
     state = app[STATE_KEY]
@@ -2371,7 +2469,7 @@ async def _serve_and_query(db_path: str) -> dict:
                                  "messages": [{"role": "user", "content":
                                                "Tell me about paged "
                                                "attention on a GPU."}]},
-                                timing)
+                                timing, headers={"X-Request-Id": "turn1"})
             ev2 = await _stream(s, f"{base}/v1/threads/smoke/chat/completions",
                                 {"model": "llama-3.2-1b", "stream": True,
                                  "temperature": 0, "max_tokens": 16,
@@ -2415,6 +2513,10 @@ async def _serve_and_query(db_path: str) -> dict:
                 health = await r.json()
             async with s.get(f"{base}/v1/models") as r:
                 models = await r.json()
+            # the cold turn's TTFT from its span tree
+            async with s.get(f"{base}/debug/trace/turn1") as r:
+                out["turn1_spans"] = ttft_breakdown(await r.json(),
+                                                    timing.get("ttft_s"))
             out.update(turn1=u1, turn2=u2, turn3=_usage(ev3),
                        history=roles, health=health,
                        models=[m["id"] for m in models["data"]],
@@ -2427,6 +2529,55 @@ async def _serve_and_query(db_path: str) -> dict:
         out["K2"] = kernels.paged_prefill_attention.launches
         await runner.cleanup()
     return out
+
+
+def ttft_breakdown(trace: dict, client_ttft_s) -> dict:
+    """A turn's time to first token from its span tree (Chrome trace
+    JSON of /debug/trace): the serving layer before the engine
+    (http.request start -> the first engine.queue start: auth, the agent's
+    setup, prompt render, tokenize), then the first model call's
+    engine.queue (submit -> first prefill chunk), engine.prefill (first
+    chunk -> last chunk dispatched) and emit (last dispatch -> first token
+    on the host).  Their sum is the server's time to its first token;
+    beside it the client's host-clock TTFT, every engine.prefill, the
+    first engine.decode and every tool.exec."""
+    spans = sorted((e for e in trace["traceEvents"] if e["ph"] == "X"),
+                   key=lambda e: e["ts"])
+    by: dict = {}
+    for e in spans:
+        by.setdefault(e["name"], []).append(e)
+    root = by["http.request"][0]
+    queue, prefill, emit = (by[n][0] for n in ("engine.queue",
+                                               "engine.prefill", "emit"))
+    out = {
+        "serving_before_engine_ms": (queue["ts"] - root["ts"]) / 1e3,
+        "engine.queue_ms": queue["dur"] / 1e3,
+        "engine.prefill_ms": prefill["dur"] / 1e3,
+        "emit_ms": emit["dur"] / 1e3,
+        "first_token_on_host_ms": (emit["ts"] + emit["dur"]
+                                   - root["ts"]) / 1e3,
+        "client_ttft_ms": client_ttft_s * 1e3 if client_ttft_s else None,
+        "engine.prefill_all_ms": [e["dur"] / 1e3 for e in by["engine.prefill"]],
+        "prefill_tokens": [e["args"].get("tokens")
+                           for e in by["engine.prefill"]],
+        "first_engine.decode_ms": by["engine.decode"][0]["dur"] / 1e3
+        if "engine.decode" in by else None,
+        "tool.exec_ms": [e["dur"] / 1e3 for e in by.get("tool.exec", [])],
+    }
+    out["sum_ms"] = (out["serving_before_engine_ms"] + out["engine.queue_ms"]
+                     + out["engine.prefill_ms"] + out["emit_ms"])
+    return out
+
+
+def _fmt_spans(b: dict) -> str:
+    tools = ", ".join(f"{t:.2f}" for t in b["tool.exec_ms"]) or "none"
+    return (f"serving before the engine {b['serving_before_engine_ms']:.2f} "
+            f"+ engine.queue {b['engine.queue_ms']:.2f} + engine.prefill "
+            f"{b['engine.prefill_ms']:.2f} ({b['prefill_tokens'][0]} tokens) "
+            f"+ emit {b['emit_ms']:.2f} = {b['sum_ms']:.2f} ms to the first "
+            f"token on the host (client host-clock TTFT "
+            f"{b['client_ttft_ms']} ms); first engine.decode "
+            f"{b['first_engine.decode_ms']} ms; tool.exec {tools} ms")
 
 
 CONSTRAINED_PROMPT = "List what you can do for me, then finish."
@@ -2522,7 +2673,7 @@ async def _serve_constrained(db_path: str) -> dict:
         num_pages=1100, max_pages_per_seq=128,
         prefill_buckets=(64, 128, 256, 512), db_path=db_path,
         system_prompt="You are a terse assistant.", prefix_cache_pages=0)
-    app = await create_app(cfg, tools=[])
+    app = await create_app(cfg, tools=[], mcp_servers=[])
     llm = app[STATE_KEY]["llm"]
     engine, tok = llm.engine, llm.tokenizer
     if engine.cfg.vocab_size != tok.vocab_size:
@@ -2618,7 +2769,7 @@ async def _serve_speculative(db_path: str, constrained_ref: list) -> dict:
         raise AssertionError(f"KAFKA_TORCH_SPECULATIVE_K not read: {cfg}")
     # no tools but the agent's idle tool: the built-in schemas would not
     # fit this 2048-token window (the first server phase serves them)
-    app = await create_app(cfg, tools=[])
+    app = await create_app(cfg, tools=[], mcp_servers=[])
     llm = app[STATE_KEY]["llm"]
     engine = llm.engine
     engine.ecfg.fetch_lag = 0
@@ -2713,7 +2864,8 @@ async def _serve_int8(db_path: str) -> dict:
             del os.environ[k]
     if (cfg.quantize, cfg.kv_quantize) != ("int8", "int8"):
         raise AssertionError(f"int8 knobs not read: {cfg}")
-    app = await create_app(cfg, tools=[])  # 2048-token window, as above
+    # 2048-token window, as above
+    app = await create_app(cfg, tools=[], mcp_servers=[])
     engine = app[STATE_KEY]["llm"].engine
     if not isinstance(engine.k_pool, QTensor) or \
             not isinstance(engine.params["layers"]["wq"], QTensor):
@@ -2783,7 +2935,8 @@ async def _serve_tiny(db_path: str) -> dict:
             tiny_model=True, max_batch=2, page_size=16, num_pages=2 * 64 + 8,
             max_pages_per_seq=64, prefill_buckets=(64, 128, 256, 512),
             max_new_tokens_default=16, db_path=db_path,
-            system_prompt="You are a terse assistant."), tools=[])
+            system_prompt="You are a terse assistant."), tools=[],
+            mcp_servers=[])
     finally:
         engine_log.removeHandler(catch)
     llm = app[STATE_KEY]["llm"]
@@ -2818,10 +2971,357 @@ async def _serve_tiny(db_path: str) -> dict:
     return out
 
 
+SMOKE_TOKEN = "smoke-api-token"
+
+
+async def _sandbox_server(port: int):
+    """`python -m kafka_tpu_torch.sandbox.server` on `port`, from this
+    checkout; returns the process once /health answers."""
+    import aiohttp
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kafka_tpu_torch.sandbox.server",
+         "--port", str(port)], cwd=here, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+    deadline = time.monotonic() + 60
+    async with aiohttp.ClientSession() as s:
+        while True:
+            try:
+                async with s.get(f"http://127.0.0.1:{port}/health") as r:
+                    if r.status == 200:
+                        return proc
+            except aiohttp.ClientError:
+                pass
+            if proc.poll() is not None or time.monotonic() > deadline:
+                proc.kill()
+                raise AssertionError(f"sandbox server did not start "
+                                     f"(exit {proc.poll()})")
+            await asyncio.sleep(0.1)
+
+
+def _tool_results(events: list) -> list:
+    return [e for e in events if e.get("type") == "tool_result"]
+
+
+async def _serve_thread_api(db_path: str, device=None,
+                            small: bool = False) -> dict:
+    """The thread API on the full-width bf16 server of _serve_and_query's
+    configuration (llama-3.2-1b, 4096 window, multi_step 16, kernel
+    attention), with an API token, the port's sandbox server as a
+    subprocess and the stub MCP server over stdio.  Its tools are the
+    sandbox's and the stub's (the built-in tools' schemas beside them
+    would not fit the 4096 window).  In order: auth and thread setup; a
+    forced `create_shell` and a forced MCP `echo` run; the cold run's span
+    tree; a step failure in the middle of four decoding streams; graceful
+    drain.  `small`: the tiny model on the CPU, to try the flow."""
+    import aiohttp
+    from aiohttp import web
+
+    from kafka_tpu_torch import failpoints
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.sandbox.tools import sandbox_builtin_tools
+    from kafka_tpu_torch.server import ServingConfig, create_app
+    from kafka_tpu_torch.server.app import STATE_KEY
+    from kafka_tpu_torch.tools import MCPServerConfig
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sport = _free_port()
+    sandbox = await _sandbox_server(sport)
+    sandbox_url = f"http://127.0.0.1:{sport}"
+    shape = dict(tiny_model=True, warmup=False) if small else dict(
+        model_name="llama-3.2-1b")
+    cfg = ServingConfig(
+        max_batch=8, page_size=16, num_pages=8 * 256 + 64,
+        max_pages_per_seq=256,
+        prefill_buckets=(64, 128, 256, 512, 1024, 2048),
+        max_new_tokens_default=32, db_path=db_path, multi_step=16,
+        api_token=SMOKE_TOKEN,
+        local_sandbox_url=sandbox_url, drain_timeout_s=60.0,
+        system_prompt="You are a terse assistant.", **shape)
+    stub = os.path.join(here, "tests", "mcp_stub_server.py")
+    runner = None
+    out: dict = {}
+    try:
+        t0 = time.monotonic()
+        app = await create_app(
+            cfg, tools=sandbox_builtin_tools(sandbox_url),
+            mcp_servers=[MCPServerConfig(name="stub",
+                                         command=sys.executable,
+                                         args=[stub])],
+            device=device)
+        out["boot_s"] = time.monotonic() - t0
+        state = app[STATE_KEY]
+        llm = state["llm"]
+        engine, worker = llm.engine, llm.worker
+        names = sorted(t["function"]["name"]
+                       for t in state["kafka"].get_tools())
+        want = {"create_shell", "shell_exec", "notebook_run_cell", "echo",
+                "progress_echo", "fail"}
+        if not want <= set(names):
+            raise AssertionError(f"thread-API server tools {names}")
+        out["tools"] = names
+        port = _free_port()
+        runner = web.AppRunner(app)
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", port).start()
+        base = f"http://127.0.0.1:{port}"
+        kernels.reset_launch_counts()
+        async with aiohttp.ClientSession() as s:
+            # 1. auth and thread setup
+            async with s.get(f"{base}/v1/threads") as r:
+                if r.status != 401:
+                    raise AssertionError(f"no token: HTTP {r.status}")
+            machine = {"Authorization": f"Bearer {SMOKE_TOKEN}"}
+            cred = {"email": "smoke@example.com", "password": "smoke-pass"}
+            async with s.post(f"{base}/v1/auth/signup", json=cred,
+                              headers=machine) as r:
+                if r.status != 200:
+                    raise AssertionError(f"signup: HTTP {r.status}")
+            async with s.post(f"{base}/v1/auth/login", json=cred) as r:
+                session = (await r.json())["token"]
+            user = {"Authorization": f"Bearer {session}"}
+            async with s.post(f"{base}/v1/profiles", headers=user, json={
+                    "name": "smoke", "config": {
+                        "global_prompt": "Call the tool you are asked "
+                                         "for."}}) as r:
+                profile = await r.json()
+                if r.status != 201:
+                    raise AssertionError(f"profile: {profile}")
+            async with s.post(f"{base}/v1/threads", headers=user, json={
+                    "profile_id": profile["profile_id"]}) as r:
+                tid = (await r.json())["thread_id"]
+            thread_cfg = {"global_prompt": "Use the tools.",
+                          "profile_id": profile["profile_id"]}
+            async with s.put(f"{base}/v1/threads/{tid}/config",
+                             headers=user, json=thread_cfg) as r:
+                if r.status != 200 or (await r.json())["config"] != \
+                        thread_cfg:
+                    raise AssertionError(f"thread config: HTTP {r.status}")
+            async with s.get(f"{base}/v1/threads", headers=user) as r:
+                if [t["thread_id"] for t in (await r.json())["threads"]] \
+                        != [tid]:
+                    raise AssertionError("session user's threads")
+            out["auth"] = {"no_token": 401, "thread": tid}
+
+            # 2. forced tool calls: the sandbox's create_shell (cold, traced)
+            # and the stub's MCP echo
+            runs = {}
+            for name, rid in (("create_shell", "cold-run"),
+                              ("echo", "mcp-run")):
+                timing: dict = {}
+                t1 = time.monotonic()
+                ev = await _stream(
+                    s, f"{base}/v1/threads/{tid}/agent/run",
+                    {"model": "llama-3.2-1b", "temperature": 0,
+                     "max_tokens": 64,
+                     "tool_choice": {"type": "function",
+                                     "function": {"name": name}},
+                     "messages": [{"role": "user",
+                                   "content": f"Call {name}."}]},
+                    timing, headers={**user, "X-Request-Id": rid})
+                results = _tool_results(ev)
+                if not results or results[0]["name"] != name or \
+                        ev[-1].get("type") != "agent_done":
+                    raise AssertionError(f"{name} run: {results} "
+                                         f"{ev[-1:]}")
+                runs[name] = {"seconds": time.monotonic() - t1,
+                              "result": results[0]["data"],
+                              "kind": results[0]["kind"],
+                              "agent_done": ev[-1]["reason"],
+                              "client_ttft_s": timing.get("ttft_s")}
+            if "shell_id" not in runs["create_shell"]["result"] or \
+                    not runs["echo"]["result"].startswith("echo: "):
+                raise AssertionError(f"tool results {runs}")
+            async with s.get(f"{base}/v1/threads/{tid}/messages",
+                             headers=user) as r:
+                msgs = (await r.json())["messages"]
+            tool_msgs = [m for m in msgs if m["role"] == "tool"]
+            if len(tool_msgs) < 2:
+                raise AssertionError(f"thread history "
+                                     f"{[m['role'] for m in msgs]}")
+            out["runs"], out["history"] = runs, [m["role"] for m in msgs]
+
+            # 3. the cold run's span tree
+            async with s.get(f"{base}/debug/trace/cold-run",
+                             headers=user) as r:
+                out["cold_run_spans"] = ttft_breakdown(
+                    await r.json(), runs["create_shell"]["client_ttft_s"])
+            if not out["cold_run_spans"]["tool.exec_ms"]:
+                raise AssertionError("the cold run's trace has no tool.exec")
+
+            # 5. a step failure while four streams decode in fused graphs
+            # with the fetch FIFO full
+            chat = {"model": "llama-3.2-1b", "stream": True,
+                    "temperature": 0, "max_tokens": 48,
+                    "messages": [{"role": "user", "content": "Say hello."}]}
+            seen = _spy_submits(engine)
+            await _stream(s, f"{base}/v1/chat/completions", chat,
+                          headers=user)
+            before = list(seen[0].output_ids)
+            async with s.get(f"{base}/health") as r:
+                idle_free = (await r.json())["engine"]["free_pages"]
+            rec: dict = {}
+            real_recover = engine.recover_from_failure
+
+            def recover():
+                rec.update(pending_steps=engine._pending_steps,
+                           pending_entries=len(engine._pending),
+                           active=engine.num_active,
+                           graphs=len(engine._graphs))
+                t = time.monotonic()
+                evs = real_recover()
+                rec["recover_s"] = time.monotonic() - t
+                rec["terminal"] = sorted({e.finish_reason for e in evs
+                                          if e.finished})
+                return evs
+
+            terminal, late, delivered = set(), [], {}
+            real_deliver = worker._deliver
+
+            def deliver(ev):
+                if ev.request_id in terminal:
+                    late.append(ev)
+                if ev.finished:
+                    terminal.add(ev.request_id)
+                else:
+                    delivered[ev.request_id] = \
+                        delivered.get(ev.request_id, 0) + 1
+                return real_deliver(ev)
+
+            engine.recover_from_failure = recover
+            worker._deliver = deliver
+            long = {**chat, "max_tokens": 900,
+                    "messages": [{"role": "user",
+                                  "content": "Write a long story."}]}
+            streams = [asyncio.create_task(_stream(
+                s, f"{base}/v1/threads/fail-{i}/chat/completions", long,
+                headers=user, allow_error=True)) for i in range(4)]
+            # every stream has had tokens, and on the card the host runs
+            # up to fetch_lag steps ahead (the CPU's steps land at once and
+            # pop by age)
+            fifo = 16 if small else engine.ecfg.fetch_lag // 2
+            deadline = time.monotonic() + 120
+            while not (engine.num_active == 4 and engine._pending_steps
+                       >= fifo and engine.multi_step_dispatches > 0 and
+                       len(delivered) == 4 and
+                       min(delivered.values()) >= 16):
+                if time.monotonic() > deadline or all(
+                        t.done() for t in streams):
+                    raise AssertionError(
+                        f"the four streams never filled the fetch FIFO: "
+                        f"{engine.num_active} active, "
+                        f"{engine._pending_steps} steps in flight, "
+                        f"tokens delivered {sorted(delivered.values())}, "
+                        f"{[t.done() for t in streams]} done")
+                await asyncio.sleep(0.005)
+            failpoints.configure("engine.step", "error", "chip", nth=2)
+            try:
+                failed = await asyncio.wait_for(asyncio.gather(*streams),
+                                                120)
+            finally:
+                failpoints.clear()
+                engine.recover_from_failure = real_recover
+            worker._deliver = real_deliver
+            for ev in failed:
+                if ev[-1].get("type") != "error":
+                    raise AssertionError(f"failed stream ended {ev[-1]}")
+            if late:
+                raise AssertionError(f"{len(late)} events after a terminal "
+                                     f"event")
+            deadline = time.monotonic() + 30
+            while True:
+                async with s.get(f"{base}/health") as r:
+                    health = (await r.json())["engine"]
+                if health["free_pages"] == idle_free and \
+                        health["active"] == 0:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"pages after recovery {health}, "
+                                         f"idle {idle_free}")
+                await asyncio.sleep(0.05)
+            cap0, ncap0 = engine.graph_capture_s, engine.graph_captures
+            t1 = time.monotonic()
+            n_seen = len(seen)
+            await _stream(s, f"{base}/v1/chat/completions", chat,
+                          headers=user)
+            after = list(seen[n_seen].output_ids)
+            rec["next_turn_s"] = time.monotonic() - t1
+            rec["recapture_s"] = engine.graph_capture_s - cap0
+            rec["recaptures"] = engine.graph_captures - ncap0
+            rec["streams_error"] = [ev[-1]["error"] for ev in failed]
+            # tokens each failed stream received before its terminal event
+            rec["tokens_before_failure"] = sorted(
+                n for rid, n in delivered.items() if rid in terminal)
+            rec["next_turn_equal"] = after == before
+            rec["next_turn_tokens"] = len(after)
+            if not rec.get("terminal") or after != before:
+                raise AssertionError(f"failure mid-stream: {rec}; next turn "
+                                     f"{after} != {before}")
+            out["failure"] = rec
+
+            # 6. graceful drain: shut down mid-stream, after a thread
+            # DELETE that reads 404.  The stream is a prompt seen to run
+            # to its token budget (greedy: the same prompt, the same
+            # tokens), so no stop token ends it before the shutdown
+            for i in range(8):
+                budget = {**chat, "max_tokens": 256, "messages": [{
+                    "role": "user", "content": f"Write story number {i}."}]}
+                n_seen = len(seen)
+                await _stream(s, f"{base}/v1/chat/completions", budget,
+                              headers=user)
+                if seen[n_seen].finish_reason == "length":
+                    break
+            else:
+                raise AssertionError("no prompt ran to its token budget")
+            n_seen = len(seen)
+            drained = asyncio.create_task(_stream(
+                s, f"{base}/v1/chat/completions", budget, headers=user))
+            deadline = time.monotonic() + 60
+            while len(seen) == n_seen or len(seen[n_seen].output_ids) < 8:
+                if time.monotonic() > deadline or drained.done():
+                    raise AssertionError("the drain stream never decoded")
+                await asyncio.sleep(0.002)
+            async with s.delete(f"{base}/v1/threads/{tid}",
+                                headers=user) as r:
+                deleted = r.status
+            async with s.get(f"{base}/v1/threads/{tid}", headers=user) as r:
+                gone = r.status
+            in_flight = not drained.done() and \
+                seen[n_seen].state != "finished"
+            t1 = time.monotonic()
+            await runner.cleanup()
+            runner = None
+            ev = await asyncio.wait_for(drained, 60)
+            out["drain"] = {"shutdown_s": time.monotonic() - t1,
+                            "in_flight_at_shutdown": in_flight,
+                            "stream_end": ev[-1].get("type"),
+                            "delete": deleted, "get_after_delete": gone,
+                            "draining": state["draining"],
+                            "engine_idle": not engine.has_work}
+            if (deleted, gone) != (200, 404) or \
+                    ev[-1].get("type") != "agent_done" or \
+                    not state["draining"] or engine.has_work or \
+                    not (in_flight or small):
+                raise AssertionError(f"drain: {out['drain']}")
+    finally:
+        out["launches"] = {f.__name__: f.launches for f in kernels.KERNELS}
+        if runner is not None:
+            await runner.cleanup()
+        sandbox.terminate()
+        try:
+            sandbox.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            sandbox.kill()
+            sandbox.wait()
+    return out
+
+
 def phase_server() -> None:
     with tempfile.TemporaryDirectory() as td:
         tiny = asyncio.run(_serve_tiny(os.path.join(td, "tiny.db")))
         out = asyncio.run(_serve_and_query(os.path.join(td, "threads.db")))
+        api = asyncio.run(_serve_thread_api(os.path.join(td, "api.db")))
         con = asyncio.run(_serve_constrained(os.path.join(td, "c3.db")))
         spec = asyncio.run(_serve_speculative(
             os.path.join(td, "spec.db"),
@@ -2853,6 +3353,38 @@ def phase_server() -> None:
         f"{out['turn2']['prompt_tokens_details']['cached_tokens']}) "
         f"chat={out['turn3']['prompt_tokens']}; history {out['history']}; "
         f"launches K1={out['K1']} K2={out['K2']}")
+    log(f"server turn 1 span tree (cold, built-in tools): "
+        f"{_fmt_spans(out['turn1_spans'])}")
+    runs = api["runs"]
+    log(f"server thread API (llama-3.2-1b, API token, sandbox subprocess, "
+        f"stub MCP over stdio; booted in {api['boot_s']:.1f}s): no token "
+        f"-> 401; signup, login, profile, thread {api['auth']['thread']} "
+        f"from it, config set; forced create_shell -> "
+        f"{runs['create_shell']['result'][:60]!r} "
+        f"({runs['create_shell']['seconds']:.2f}s, agent_done "
+        f"{runs['create_shell']['agent_done']}); forced MCP echo -> "
+        f"{runs['echo']['result'][:60]!r} ({runs['echo']['seconds']:.2f}s); "
+        f"history {api['history']}")
+    log(f"server thread API cold run span tree (create_shell forced): "
+        f"{_fmt_spans(api['cold_run_spans'])}")
+    f = api["failure"]
+    log(f"server thread API step failure (engine.step=error(chip):nth=2) "
+        f"with {f['active']} lanes decoding, {f['pending_steps']} steps "
+        f"({f['pending_entries']} fetches) in flight, {f['graphs']} graphs "
+        f"captured: every stream ended with an error event and [DONE] "
+        f"({f['streams_error'][0]!r}) after {f['tokens_before_failure']} "
+        f"tokens, no event after a terminal one, free "
+        f"pages back to idle; recovery {f['recover_s'] * 1e3:.2f} ms, then "
+        f"{f['recaptures']} graph recaptures in {f['recapture_s']:.3f}s "
+        f"inside the next turn ({f['next_turn_s']:.2f}s), whose "
+        f"{f['next_turn_tokens']} tokens equal the same turn before the "
+        f"failure: {f['next_turn_equal']}")
+    d = api["drain"]
+    log(f"server thread API drain: DELETE -> {d['delete']}, GET -> "
+        f"{d['get_after_delete']}; shutdown with a stream in flight "
+        f"({d['in_flight_at_shutdown']}) took {d['shutdown_s']:.2f}s and the "
+        f"stream ended with {d['stream_end']} and [DONE]")
+    RESULTS["server_thread_api"] = api
     log(f"server (KAFKA_TORCH_SPECULATIVE_K=4, fetch_lag 0): 1 stream of "
         f"{spec['usage']['completion_tokens']} tokens in "
         f"{spec['seconds']:.2f}s; {spec['verify_steps']} verify steps, "
@@ -2919,6 +3451,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     phases = args.phases.split(",")
+    # the card's machine has no network: no server booted here may fall
+    # back to the reference's remote MCP default (each passes its own)
+    os.environ.setdefault("KAFKA_TORCH_MCP_SERVERS", "[]")
     gpu = gpu_line()
     log(f"card: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.monotonic()

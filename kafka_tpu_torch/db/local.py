@@ -26,6 +26,7 @@ import time
 import uuid
 from typing import Any, Dict, List, Optional
 
+from ..failpoints import failpoint
 from .base import DBClient
 
 _SCHEMA_VERSION = 2
@@ -121,6 +122,8 @@ class LocalDBClient(DBClient):
 
     def _execute(self, sql: str, params: tuple = (), fetch: Optional[str] = None):
         assert self._conn is not None, "call initialize() first"
+        if not sql.lstrip().upper().startswith("SELECT"):
+            failpoint("db.write")
         with self._lock:
             cur = self._conn.execute(sql, params)
             if fetch == "one":

@@ -1,8 +1,8 @@
 """Failpoint fault injection: named sites where tests (or an operator
 chasing a production bug) can make the serving stack fail on purpose.
 
-(A copy of kafka_tpu/failpoints.py, whole, read from KAFKA_TORCH_FAILPOINTS;
-the port fires `agent.tool` from the tool provider.)
+(A copy of kafka_tpu/failpoints.py, read from KAFKA_TORCH_FAILPOINTS;
+SITES lists the nine sites the port fires.)
 
 Production LLM servers treat injectable faults as first-class (TiKV's
 `fail_point!`, FreeBSD's KFAIL_POINT, gofail): the only way to *prove* the
@@ -15,9 +15,8 @@ demand.  This module is that seam for kafka_tpu:
   (chunk dispatch), ``kv.alloc`` (page allocation), ``worker.dispatch``
   (token-event routing), ``sandbox.exec`` (tool execution, client side),
   ``sandbox.boot`` (subprocess sandbox spawn), ``sandbox.server.exec``
-  (tool execution INSIDE the sandbox subprocess), ``dist.init``
-  (jax.distributed initialization), ``dist.step`` (a guarded multi-host
-  collective), ``db.write`` (thread-store mutation).  The registry is
+  (tool execution INSIDE the sandbox subprocess), ``agent.tool`` (one
+  tool call), ``db.write`` (thread-store mutation).  The registry is
   open — any string works — but those are the wired ones (see SITES).
 * **Rules** attach an action to a site: ``error`` raises
   :class:`FailpointError`, ``delay`` sleeps, ``exit`` hard-kills the
@@ -57,69 +56,32 @@ logger = logging.getLogger("kafka_tpu_torch.failpoints")
 ENV_VAR = "KAFKA_TORCH_FAILPOINTS"
 
 # The sites wired into call paths.  This is the DOCUMENTED REGISTRY: a
-# static check (tests/test_failpoints.py) asserts every failpoint("<site>")
-# call in kafka_tpu/ appears here and vice versa, so new sites cannot ship
-# undocumented.  The runtime registry itself stays open (any string works).
+# static check (tests/test_torch_failpoints.py) asserts every
+# failpoint("<site>") call in kafka_tpu_torch/ appears here and vice versa,
+# so new sites cannot ship undocumented.  The runtime registry itself stays
+# open (any string works).
 SITES = (
+    # the scheduler iteration, before any dispatch (runtime/engine.py)
     "engine.step",
+    # each prefill chunk dispatch, single-sequence and batched
     "engine.prefill",
+    # every page allocation (runtime/kv_cache.py PagePool.alloc)
     "kv.alloc",
-    # Tiered-KV copies (runtime/kv_tier.py): fired once per shipped chunk
-    # of a demote (D2H) / promote (H2D), so `error` with nth=2 on a
-    # multi-chunk run produces a genuinely TORN copy — a torn demote is
-    # discarded before anything is stored, a torn promote frees its
-    # destination pages and degrades to re-prefill; `delay` simulates a
-    # slow link.
-    "kv.demote",
-    "kv.promote",
-    # Cross-replica page shipping (runtime/kv_tier.CrossReplicaPageShipper,
-    # disaggregated prefill/decode): fired once per shipped chunk, so
-    # `error` with nth=2 on a multi-chunk run produces a genuinely TORN
-    # cross-replica copy — the destination frees every partially-written
-    # page and the thread degrades to re-prefill on the decode replica,
-    # never partial KV; `delay` simulates a slow inter-replica link.
-    "kv.ship",
-    # Object-store KV tier (runtime/object_tier.py): fired once per OBJECT
-    # (run payload or sleep manifest).  `error` on a put = torn write
-    # discarded before the ref/manifest commit (atomic rename; no partial
-    # object, no dangling reference — the archive degrades to plain
-    # eviction and a sleep entry is skipped); `error` on a get = miss —
-    # the whole wake aborts with ALL partially-promoted pages freed and
-    # the request degrades to the disk-tier/local hit or a plain
-    # re-prefill; `delay` simulates a slow store.
-    "kv.object_put",
-    "kv.object_get",
-    # Store metadata probes (runtime/object_tier.py): `kv.object_head`
-    # fires on existence checks — wake truncation's has_run probes and
-    # read_manifest's head validation.  `error` = the probe fails closed
-    # (absent-shaped): a wake truncates at that run, the router's
-    # manifest probe is negatively cached for the breaker's open window;
-    # `delay` simulates a slow store stat.  `kv.object_list` fires on
-    # listing walks — release's last-ref scan and the fsck scrubber.
-    # `error` on release leaves a crash-window orphan (exactly what fsck
-    # repairs); `error` on fsck degrades it to a partial report.
-    "kv.object_head",
-    "kv.object_list",
-    # Wake prefetch (runtime/object_tier.WakePrefetcher): fired once per
-    # PREFETCHED run, on the prefetch worker thread, before the object
-    # GET.  `error` = that run's prefetch is dropped and the wake falls
-    # back to today's synchronous fetch (never a failed wake — prefetch
-    # is an overlap optimization, not a correctness dependency); `delay`
-    # simulates a prefetch racing admission.
-    "kv.prefetch",
     # Tool execution (tools/provider.py run_tool_stream): fired once per
-    # tool call, before the tool runs.  `delay` injects tool latency —
-    # the agent-gap bench arms this to model a slow tool (the gap the
-    # agent-native scheduler exploits) without a sandbox round trip;
+    # tool call, before the tool runs.  `delay` injects tool latency;
     # `error` surfaces as a tool-error event, the shape a crashed tool
     # produces, so the agent loop's error turn is reachable in tests.
     "agent.tool",
+    # the worker's event routing (llm/worker.py): a fault drops a token or
+    # parks a terminal event for a paced retry, never the loop
     "worker.dispatch",
+    # sandbox tool execution, client side (sandbox/local.py), the
+    # subprocess boot (sandbox/process.py) and execution inside the
+    # sandbox server subprocess (sandbox/server.py)
     "sandbox.exec",
     "sandbox.boot",
     "sandbox.server.exec",
-    "dist.init",
-    "dist.step",
+    # every thread-store mutation (db/local.py)
     "db.write",
 )
 

@@ -19,6 +19,11 @@ go straight into the continuous-batching engine via the dispatch thread
   (KAFKA_TORCH_GRAMMAR_ONDEVICE, on by default); the mask fn stays on the
   request as the host-mask fallback.
 
+* each request carries the ambient trace context (tracing.py) across the
+  thread boundary, so the engine records its queue, prefill, decode and
+  emit spans against the request's trace;
+* `drain` lets in-flight requests finish on shutdown, then cancels.
+
 Images, data-parallel replicas and resizing wait for later slices of the
 port.
 """
@@ -27,6 +32,8 @@ from __future__ import annotations
 
 import asyncio
 import itertools
+import logging
+import time
 from typing import Any, AsyncIterator, Dict, List, Optional, Sequence
 
 from ..core.types import (
@@ -38,6 +45,7 @@ from ..core.types import (
     Usage,
     new_completion_id,
 )
+from .. import tracing
 from ..models.config import ModelConfig
 from ..models.tokenizer import BaseTokenizer, parse_tool_call_text
 from ..runtime.engine import GenRequest, InferenceEngine, TokenEvent
@@ -48,6 +56,21 @@ from .constrained import (
     grammar_ondevice_enabled,
 )
 from .worker import EngineWorker
+
+logger = logging.getLogger("kafka_tpu_torch.llm.torch_provider")
+
+
+def _torn_keys(d) -> list:
+    """Snapshot the keys of a dict the engine thread mutates
+    concurrently: list() can raise "dictionary changed size" mid-copy, so
+    retry; a torn read is fine (a request finishing during the copy needs
+    no attention)."""
+    for _ in range(8):
+        try:
+            return list(d)
+        except RuntimeError:
+            continue
+    return []
 
 
 def _count_images(dicts: List[Dict[str, Any]]) -> int:
@@ -222,6 +245,9 @@ class TorchLLMProvider(LLMProvider):
             prefix_key=prefix_key,
             logits_mask_fn=logits_mask_fn,
             grammar=grammar,
+            # the engine thread records its spans against this context
+            # (None = untraced, one branch per span site)
+            trace=tracing.current(),
         )
         events = self.worker.submit(req, asyncio.get_running_loop())
 
@@ -319,6 +345,29 @@ class TorchLLMProvider(LLMProvider):
         chunks.append(StreamChunk(finish_reason=finish, id=completion_id,
                                   model=model_id, usage=usage.to_dict()))
         return chunks
+
+    async def drain(self, timeout_s: float = 30.0) -> bool:
+        """Graceful drain: let in-flight requests finish, then cancel the
+        rest.  True when everything finished within the timeout.  The
+        server has stopped admitting; reads only the engine's own host
+        state (has_work, the request table), never the device."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if not self.engine.has_work:
+                return True
+            await asyncio.sleep(0.05)
+        leftover = _torn_keys(self.engine._requests)
+        if leftover:
+            logger.warning("drain timeout after %.1fs: cancelling %d "
+                           "in-flight request(s)", timeout_s, len(leftover))
+            for rid in leftover:
+                self.worker.cancel(rid)
+            # let the engine thread process the cancels so every stream
+            # sees its terminal event before teardown
+            settle = time.monotonic() + min(2.0, timeout_s)
+            while time.monotonic() < settle and self.engine.has_work:
+                await asyncio.sleep(0.02)
+        return not leftover
 
     async def aclose(self) -> None:
         self.worker.stop()

@@ -6,7 +6,10 @@ through a thread-safe inbox, and each request's TokenEvents are delivered
 to its own asyncio queue with `loop.call_soon_threadsafe`.  The thread is
 the engine's only mutator, so engine state needs no locks.  A step that
 raises is recovered with `engine.recover_from_failure()`; if recovery
-itself fails, every request gets a terminal error event.
+itself fails, every request gets a terminal error event.  Event routing
+fires the `worker.dispatch` failpoint, and a routing fault never kills
+the loop: a lost token is dropped, a terminal event is retried once per
+loop iteration and finally delivered with the failpoint bypassed.
 """
 
 from __future__ import annotations
@@ -18,12 +21,14 @@ import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from ..failpoints import failpoint
 from ..runtime.engine import (
     AdmissionError,
     GenRequest,
     InferenceEngine,
     TokenEvent,
 )
+from ..tracing import add_event
 
 logger = logging.getLogger("kafka_tpu_torch.llm.worker")
 
@@ -45,6 +50,9 @@ class EngineWorker:
         self._thread: Optional[threading.Thread] = None
         self._stopped = threading.Event()
         self._lock = threading.Lock()  # guards _routes (submit vs dispatch)
+        # terminal events whose dispatch failed, awaiting a paced retry
+        # (worker thread only; _dispatch_guarded / _retry_redispatches)
+        self._redispatches: list = []
 
     # -- lifecycle -----------------------------------------------------
 
@@ -104,6 +112,9 @@ class EngineWorker:
                 pass
             if self._stopped.is_set():
                 break
+            # one retry round of parked terminal events per iteration,
+            # before the idle `continue` so an idle engine drains them too
+            self._retry_redispatches()
             if not self.engine.has_work:
                 continue
             try:
@@ -117,8 +128,45 @@ class EngineWorker:
                         "engine recovery failed; failing all requests")
                     events = self._fail_all()
             for ev in events:
-                self._dispatch(ev)
+                self._dispatch_guarded(ev)
         logger.info("engine worker stopped")
+
+    def _dispatch_guarded(self, ev: TokenEvent, attempts: int = 0) -> None:
+        """Dispatch one event without letting a bad route (or an armed
+        worker.dispatch failpoint) take the loop down or lose a terminal
+        event: a consumer awaits its terminal event forever, so a failed
+        one is parked and retried once per loop iteration; when the
+        budget is spent a last delivery runs with the failpoint bypassed.
+        A lost token is dropped; the stream continues."""
+        try:
+            self._dispatch(ev)
+        except Exception:
+            logger.exception("event dispatch failed for %s", ev.request_id)
+            if not ev.finished:
+                return
+            if attempts < 8:
+                self._redispatches.append((ev, attempts + 1))
+                return
+            logger.error(
+                "terminal event for %s still undeliverable after %d "
+                "attempts; trying once more without fault injection",
+                ev.request_id, attempts)
+            try:
+                self._deliver(ev)
+            except Exception:
+                logger.exception("final delivery failed for %s; dropping "
+                                 "its route", ev.request_id)
+                with self._lock:
+                    self._routes.pop(ev.request_id, None)
+
+    def _retry_redispatches(self) -> None:
+        """One fresh attempt for each parked terminal event (re-parking
+        itself on failure)."""
+        if not self._redispatches:
+            return
+        pending, self._redispatches = self._redispatches, []
+        for ev, attempts in pending:
+            self._dispatch_guarded(ev, attempts=attempts)
 
     def _handle(self, kind: str, payload: object) -> None:
         if kind == "submit":
@@ -129,18 +177,19 @@ class EngineWorker:
                 # queue-full backstop behind the server's admission gate:
                 # a distinct reason prefix the provider maps to HTTP 429
                 logger.warning("submit rejected for %s: %s", req.request_id, e)
-                self._dispatch(TokenEvent(
+                self._dispatch_guarded(TokenEvent(
                     req.request_id, None, finished=True,
                     finish_reason=f"rejected:{e.retry_after_s:.0f}:{e}"))
             except Exception as e:  # surfaced to the consumer as an error
                 logger.warning("submit rejected for %s: %s", req.request_id, e)
-                self._dispatch(TokenEvent(req.request_id, None, finished=True,
-                                          finish_reason=f"error:{e}"))
+                self._dispatch_guarded(TokenEvent(
+                    req.request_id, None, finished=True,
+                    finish_reason=f"error:{e}"))
         elif kind == "cancel":
             rid: str = payload  # type: ignore[assignment]
             if self.engine.cancel(rid):
-                self._dispatch(TokenEvent(rid, None, finished=True,
-                                          finish_reason="cancelled"))
+                self._dispatch_guarded(TokenEvent(
+                    rid, None, finished=True, finish_reason="cancelled"))
             else:
                 with self._lock:
                     self._routes.pop(rid, None)
@@ -150,14 +199,30 @@ class EngineWorker:
         engine-error event."""
         events = []
         for rid in list(self.engine._requests):
+            req = self.engine._requests.get(rid)
+            if req is not None:
+                # recovery itself died: the trace still says why
+                add_event(req.trace, "engine.recover",
+                          {"reason": "error:engine", "fail_all": True})
             self.engine.cancel(rid, reason="error:engine")
             events.append(TokenEvent(rid, None, finished=True,
                                      finish_reason="error:engine"))
         return events
 
+    def check_routes(self) -> List[str]:
+        """Route-table consistency probe: ids with a live route but no
+        engine-side request.  Call only at quiescence."""
+        with self._lock:
+            routed = list(self._routes)
+        return [rid for rid in routed if rid not in self.engine._requests]
+
     def _dispatch(self, ev: TokenEvent) -> None:
-        """Route one event to its consumer queue; a failed delivery never
-        takes the loop down."""
+        failpoint("worker.dispatch")
+        self._deliver(ev)
+
+    def _deliver(self, ev: TokenEvent) -> None:
+        """Route one event to its consumer queue (no fault injection:
+        _dispatch_guarded's last resort calls this directly)."""
         with self._lock:
             route = self._routes.get(ev.request_id)
         if route is None:

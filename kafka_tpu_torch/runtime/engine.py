@@ -49,7 +49,11 @@ scheduler keeps the JAX engine's semantics:
   parked lanes roll back, then the youngest request is rolled back to the
   waiting queue (re-prefilled later over prompt + generated-so-far; its
   resumed prefill's token is the deterministic duplicate and is dropped);
-* `recover_from_failure` rebuilds a servable engine after a step fault.
+* `recover_from_failure` rebuilds a servable engine after a step fault
+  (the `engine.step` and `engine.prefill` failpoints inject one);
+* a request carrying a trace (`GenRequest.trace`, tracing.py) gets
+  engine.queue, engine.prefill and emit spans, and an engine.decode span
+  each time one of its fetches lands.
 
 The decode pipeline is the JAX engine's, in PyTorch's idiom.  The decode
 batch's control state lives on the device in fixed tensors (page table,
@@ -85,6 +89,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..failpoints import failpoint
 from ..models.config import ModelConfig
 from ..models.llama import KVCache, PagedView, forward, params_to
 from ..ops.kernels.common import chunk_plan
@@ -97,6 +102,7 @@ from ..ops.sampling import (
     grammar_allowed_mask,
     sample_tokens_per_slot,
 )
+from ..tracing import add_event, record_span
 from .kv_cache import (
     OutOfPagesError,
     PagePool,
@@ -277,6 +283,15 @@ class GenRequest:
     # tensor, held until a decode slot frees and seeds the lane's last
     # token at seating (None for resumed lanes: output_ids[-1] is known)
     pending_tok: Optional[torch.Tensor] = None
+    # request tracing (tracing.py): the trace context this request
+    # carries — None = untraced, and every engine span site is then one
+    # branch.  t_prefill_start / t_first_dispatch stamp the first prefill
+    # chunk and the last chunk's dispatch (engine.queue, engine.prefill,
+    # emit); trace_last_t is when the lane's previous decode span ended
+    trace: Optional[Any] = None
+    trace_last_t: Optional[float] = None
+    t_prefill_start: Optional[float] = None
+    t_first_dispatch: Optional[float] = None
 
 
 class _GrammarTables:
@@ -441,6 +456,8 @@ class _Fetch:
     spec: Optional[_SpecMeta] = None
     event: Optional[Any] = None
     logits: Optional[torch.Tensor] = None
+    # False for a prefill's first-token fetch (no engine.decode span)
+    decode: bool = True
 
 
 @dataclasses.dataclass
@@ -804,6 +821,7 @@ class InferenceEngine:
         admit, advance one prefill chunk per prefilling lane, dispatch the
         decode batch.  With nothing left to dispatch the pipeline is
         flushed."""
+        failpoint("engine.step")
         if self._park_cooldown > 0:
             self._park_cooldown -= 1
         self._check_deadlines()
@@ -900,7 +918,18 @@ class InferenceEngine:
         event; WAITING requests stay queued; the fetch pipeline is
         dropped (its tokens' producing work may have died), the captured
         step graphs are discarded, the decode control state is rebuilt
-        from zero, and page accounting is verified and repaired."""
+        from zero, and page accounting is verified and repaired.
+
+        On CUDA the host may be up to fetch_lag steps ahead: graph
+        replays and their copies into pinned host buffers can still be in
+        flight.  One device synchronize (cold path) lets them finish
+        before their entries are dropped — no token of theirs is ever
+        processed, so none reaches a stream after its terminal event —
+        and before the graphs, their memory pool and the control tensors
+        are released or re-seeded.  A device that cannot synchronize
+        raises here, and the worker fails every request."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         events: List[TokenEvent] = list(self._out_events)
         self._out_events = []
         self._pending.clear()
@@ -917,12 +946,17 @@ class InferenceEngine:
                 continue
             req.state = FINISHED
             req.finish_reason = "error:engine"
+            add_event(req.trace, "engine.recover", {"reason": "error:engine"})
             self._release_slot(req)
             self._requests.pop(req.request_id, None)
             events.append(TokenEvent(req.request_id, None, finished=True,
                                      finish_reason="error:engine"))
         self.waiting.sort(key=lambda r: r.submit_time)
+        # the graphs go, and with the last of them their memory pool: the
+        # next capture opens a new one (capturing into the freed pool's
+        # handle fails in the caching allocator)
         self._graphs.clear()
+        self._graph_pool = None
         self._d_last.zero_()
         self._d_seq_lens.zero_()
         self._d_run.zero_()
@@ -980,7 +1014,8 @@ class InferenceEngine:
     def _fetch(self, toks: torch.Tensor, items: List[Optional[GenRequest]],
                final: List[List[Optional[str]]], steps: int = 1,
                logits: Optional[torch.Tensor] = None,
-               spec: Optional[_SpecMeta] = None) -> _Fetch:
+               spec: Optional[_SpecMeta] = None,
+               decode: bool = True) -> _Fetch:
         """Start the host copy of a dispatch's device tokens (and kept
         logits) and enqueue it.  On CUDA the copy goes into pinned host
         memory with non_blocking=True and an event marks its landing;
@@ -1003,7 +1038,7 @@ class InferenceEngine:
             event = None
         entry = _Fetch(toks=host, items=items, final=final,
                        t0=time.monotonic(), steps=steps, spec=spec,
-                       event=event, logits=keep)
+                       event=event, logits=keep, decode=decode)
         self._pending.append(entry)
         self._pending_steps += entry.steps
         return entry
@@ -1090,6 +1125,10 @@ class InferenceEngine:
                 else:
                     self._rtt_est = min(0.9 * self._rtt_est + 0.1 * sample,
                                         max(2.0 * self._rtt_probe, 0.001))
+        if entry.decode:
+            # decode spans end when the tokens land on the host: a
+            # dispatch is only an enqueue, up to fetch_lag steps ahead
+            self._trace_decode(entry)
         if entry.spec is not None:
             return self._finish_verify_entry(entry)
         vals = entry.toks.view(entry.steps, -1).tolist()
@@ -1109,6 +1148,28 @@ class InferenceEngine:
                 n += 1
                 self._process_token(req, row[i], finals[i])
         return n
+
+    def _trace_decode(self, entry: _Fetch) -> None:
+        """One engine.decode span per traced lane of a landed decode or
+        verify fetch: from the lane's previous span end (or its first
+        dispatch) to the landing, with the fused-step count and batch
+        occupancy — on a verify also the candidates proposed and kept.
+        An untraced lane costs one branch."""
+        now = None
+        for i, req in enumerate(entry.items):
+            if req is None or req.trace is None or req.state == FINISHED:
+                continue
+            if now is None:
+                now = entry.t_ready or time.monotonic()
+                busy = sum(m is not None for m in entry.items)
+            attrs = {"steps": entry.steps, "busy": busy}
+            if entry.spec is not None and entry.spec.cand_lens[i]:
+                attrs["proposed"] = entry.spec.cand_lens[i]
+                attrs["accepted"] = int(entry.toks[i, entry.spec.width])
+            record_span(req.trace, "engine.decode",
+                        now - (req.trace_last_t or req.t_first_dispatch
+                               or now), attrs=attrs)
+            req.trace_last_t = now
 
     def _finish_verify_entry(self, entry: _Fetch) -> int:
         """Drain one verify dispatch: each proposer's host accounting is
@@ -1169,6 +1230,13 @@ class InferenceEngine:
             req.spec.push(token)  # keep the n-gram index tail-accurate
         if req.first_token_time is None:
             req.first_token_time = time.monotonic()
+            if req.trace is not None and req.t_first_dispatch is not None:
+                # first dispatch -> first token on the host
+                record_span(
+                    req.trace, "emit",
+                    req.first_token_time - req.t_first_dispatch,
+                    attrs={"ttft_ms": round(
+                        (req.first_token_time - req.submit_time) * 1e3, 2)})
         if token in req.stop_token_ids:
             reason = "stop"
         elif final_reason is not None:
@@ -1342,6 +1410,16 @@ class InferenceEngine:
     def _start_prefill(self, req: GenRequest, slot: int) -> None:
         """Reserve the prompt's pages and the slot (-1: off-slot); chunks
         run via _advance_prefills."""
+        if req.t_prefill_start is None:  # keep the FIRST start on resume
+            req.t_prefill_start = time.monotonic()
+            if req.trace is not None:
+                record_span(req.trace, "engine.queue",
+                            req.t_prefill_start - req.submit_time,
+                            attrs={"depth": len(self.waiting)})
+        elif req.trace is not None:
+            # re-prefill after preemption: an instant event with the
+            # radix-cache share
+            add_event(req.trace, "resume", self._prefill_attrs(req))
         req.seq = req.seq or SequencePages(seq_id=req.request_id)
         self.pool.ensure_capacity(req.seq, len(req.prefill_ids) + 1)
         if req.cached_tokens and self.prefix_cache is not None:
@@ -1418,6 +1496,7 @@ class InferenceEngine:
     def _advance_prefill(self, req: GenRequest) -> None:
         """Dispatch ONE single-sequence prefill chunk; the final chunk
         samples the first token and activates (or parks) the lane."""
+        failpoint("engine.prefill")
         ps, dev = self.ecfg.page_size, self.device
         start = req.seq.length
         prompt = req.prefill_ids
@@ -1457,6 +1536,7 @@ class InferenceEngine:
                                W: int) -> None:
         """One fused chunk dispatch for 2..W same-bucket lanes (plain
         attention over each lane's page-gathered window)."""
+        failpoint("engine.prefill")
         ps, dev, C = self.ecfg.page_size, self.device, self.ecfg.max_window
         rows = np.full((W, self.ecfg.max_pages_per_seq), TRASH_PAGE, np.int32)
         chunks = np.zeros((W, bucket), np.int64)
@@ -1516,9 +1596,21 @@ class InferenceEngine:
         decode mask needs it."""
         items: List[Optional[GenRequest]] = [None] * len(reqs)
         finals: List[Optional[str]] = [None] * len(reqs)
+        fused = len(reqs) > 1
         for i, req in enumerate(reqs):
             slot = req.slot
             tok = toks[i:i + 1]
+            if req.t_first_dispatch is None:
+                req.t_first_dispatch = time.monotonic()
+                if req.trace is not None:
+                    attrs = self._prefill_attrs(req)
+                    if fused:
+                        attrs["fused"] = True
+                    record_span(req.trace, "engine.prefill",
+                                req.t_first_dispatch - (
+                                    req.t_prefill_start
+                                    or req.t_first_dispatch),
+                                attrs=attrs)
             if slot < 0:
                 req.state = PARKED
                 if req.resumed:
@@ -1542,12 +1634,23 @@ class InferenceEngine:
         if all(m is None for m in items):
             return
         entry = self._fetch(toks[None], items, [finals],
-                            logits=logits[None])
+                            logits=logits[None], decode=False)
         for req, fin in zip(items, finals):
             if req is not None and fin is not None:
                 self._to_draining(req)
         if any(r is not None and self._host_constrained(r) for r in items):
             self._pop_entry_now(entry)
+
+    @staticmethod
+    def _prefill_attrs(req: GenRequest) -> Dict[str, Any]:
+        """engine.prefill span attrs: prompt size plus the radix-cache
+        share when the prefill resumed past cached pages.  Traced
+        requests only — cold path."""
+        attrs: Dict[str, Any] = {"tokens": len(req.prefill_ids)}
+        if req.cached_tokens:
+            attrs["cached_tokens"] = req.cached_tokens
+            attrs["cache_source"] = req.cache_source
+        return attrs
 
     def _limit_reason_after_dispatch(self, req: GenRequest) -> Optional[str]:
         """After a dispatch, has the request hit a host-known limit?  Stop
@@ -1906,6 +2009,8 @@ class InferenceEngine:
         if fsm:
             for old in [g for g in self._graphs if g[1] and g[5] != version]:
                 del self._graphs[old]
+            if not self._graphs:
+                self._graph_pool = None  # freed with its last graph
         dev = self.device
         cur = torch.cuda.current_stream(dev)
         saved = self._d_run.clone()
@@ -2334,6 +2439,8 @@ class InferenceEngine:
         assert victim.dispatched == victim.drained, (
             "preempt victim has unprocessed dispatched tokens")
         self.preemptions += 1
+        add_event(victim.trace, "preempt",
+                  {"generated": len(victim.output_ids)})
         victim.spec_ahead = 0
         self._release_slot(victim)
         victim.prefill_ids = victim.prompt_ids + victim.output_ids[:-1]

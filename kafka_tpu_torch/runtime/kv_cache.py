@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..failpoints import failpoint
 from ..models.config import ModelConfig
 from ..models.quant import QTensor
 
@@ -58,6 +59,7 @@ class PagePool:
         return len(self._free)
 
     def alloc(self, n: int = 1) -> List[int]:
+        failpoint("kv.alloc")
         if n > len(self._free):
             raise OutOfPagesError(f"need {n} pages, have {len(self._free)} free")
         out = [self._free.pop() for _ in range(n)]

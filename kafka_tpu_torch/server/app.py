@@ -1,30 +1,55 @@
-"""The HTTP API server, main-path slice: OpenAI-compatible endpoints and
-the SSE protocol, served by aiohttp.
+"""The HTTP API server: OpenAI-compatible endpoints and the SSE protocol,
+served by aiohttp.
 
 Counterpart of kafka_tpu/server/app.py:
-  POST /v1/chat/completions                  stateless chat
+  POST /v1/chat/completions                  stateless chat (agent loop)
   POST /v1/threads/{id}/chat/completions     thread chat w/ server-side history
+  POST /v1/agent/run                         stateless agent run (SSE)
+  POST /v1/threads/{id}/agent/run            thread agent run (SSE)
+  POST /v1/threads                           create thread (optional profile)
+  GET  /v1/threads                           list threads (per user)
+  GET  /v1/threads/{id}                      thread metadata
   GET  /v1/threads/{id}/messages             thread history
+  DELETE /v1/threads/{id}                    delete thread
+  DELETE /v1/threads/{id}/messages           clear history
+  PUT  /v1/threads/{id}/config               set per-thread config
+  GET/POST /v1/profiles                      list / create config profiles
+  POST /v1/auth/signup, /v1/auth/login       user sessions
   GET  /v1/models                            served models
-  GET  /health                               liveness + engine stats
+  GET  /health                               liveness + engine stats (503
+                                             while draining)
+  GET  /debug/traces, /debug/trace/{id}      recent traces / one span tree
+  GET  /playground                           the in-tree chat client
 
-Both chat routes run the reference's agent turn (`_agent_events`,
-kafka_tpu/server/app.py:803-900): `KafkaV1Provider` renders the system
-prompt (`PromptProviderV1`, or the configured `system_prompt`), passes the
-server's tools (the built-in weather, counter and planner tools by
-default) to the LLM, executes the tools the model calls and loops, and
-streams OpenAI chunks, `tool_result` and cumulative `tool_messages`
-events, ending with `agent_done` and `data: [DONE]` (`"stream": true`) or
-one JSON completion.  The thread route keeps history server-side through
-`KafkaAgent.run_with_thread`, one provider per request; the stateless
-route shares `state["kafka"]`.  MCP servers, sandbox tools, auth,
-admin/debug routes and Prometheus wait for later slices of the port.
+Every serving route runs the reference's agent turn (`_agent_events`):
+`KafkaV1Provider` renders the system prompt (`PromptProviderV1`, or the
+configured `system_prompt`), passes the server's tools (the built-in
+weather, counter and planner tools, the sandbox's shell and notebook tools
+when `local_sandbox_url` is set, and every configured MCP server's tools)
+to the LLM, executes the tools the model calls and loops, and streams
+OpenAI chunks, `tool_result` and cumulative `tool_messages` events, ending
+with `agent_done` and `data: [DONE]` (`"stream": true`) or one JSON
+completion.  Thread routes keep history server-side through
+`KafkaAgent.run_with_thread`, one provider per request.
+
+Middlewares, outermost first: CORS; tracing (every serving request gets or
+adopts a trace id from X-Request-Id / traceparent, echoed back, and runs
+inside its `http.request` span); auth (the static bearer token
+`api_token` and per-user `sess_` tokens; thread ownership per user).  On
+shutdown the server drains: /health answers 503, serving routes answer
+503 + Retry-After, and in-flight streams get `drain_timeout_s` to finish.
+/metrics, the admin routes and the profiling/flight/compile/kernel debug
+routes wait for later slices of the port.
 """
 
 from __future__ import annotations
 
+import asyncio
 import hashlib
+import hmac
 import json
+import logging
+import os
 from typing import Any, AsyncIterator, Dict, List, Optional
 
 import torch
@@ -38,7 +63,8 @@ from ..core.types import (
     Usage,
     new_completion_id,
 )
-from ..core.wire import ChatCompletionRequest
+from .. import failpoints, tracing
+from ..core.wire import AgentRunRequest, ChatCompletionRequest
 from ..db import DBClient, LocalDBClient
 from ..device import DeviceLike, resolve_device
 from ..kafka import KafkaV1Provider, MessageAccumulator
@@ -47,6 +73,8 @@ from ..tools import MCPServerConfig, Tool
 from .config import ServingConfig
 from .sse import sse_response
 
+
+logger = logging.getLogger("kafka_tpu_torch.server")
 
 STATE_KEY = web.AppKey("kafka_torch_state", dict)
 
@@ -145,11 +173,23 @@ async def create_app(
     device: DeviceLike = None,
 ) -> web.Application:
     """Build the application; the keyword seams override config-driven
-    wiring (tests inject a provider, a DB or a tool set).  tools=None
-    serves the built-in tools; mcp_servers defaults to none, and any
-    configured server raises NotImplementedError until tools/mcp.py is
-    ported."""
+    wiring (tests inject a provider, a DB, a tool set or MCP servers).
+    tools=None serves the built-in tools (plus the sandbox's when
+    `local_sandbox_url` is set); mcp_servers=None reads
+    KAFKA_TORCH_MCP_SERVERS, and with it unset the reference's remote
+    `fetch` server — an unreachable server is skipped with a warning."""
     cfg = cfg or ServingConfig.from_env()
+    # late env injection (KAFKA_TORCH_FAILPOINTS set after import): arm
+    # any configured failpoints before the engine builds
+    failpoints.load_env()
+    # tracing / slow-log config is per deployment, applied before the
+    # engine builds so every request is eligible from boot
+    tracing.configure(
+        sample=cfg.trace_sample,
+        ring=cfg.trace_ring,
+        slow_ttft_ms=cfg.slow_ttft_ms or 0,
+        slow_total_ms=cfg.slow_total_ms or 0,
+    )
     if llm_provider is None:
         llm_provider = build_provider(cfg, device=device)
     if db is None:
@@ -158,7 +198,11 @@ async def create_app(
     if tools is None:
         from ..server_tools import builtin_tools
 
-        tools = builtin_tools()
+        tools = builtin_tools(sandbox_url=cfg.local_sandbox_url)
+    if mcp_servers is None:
+        from ..server_tools.mcp_servers import default_mcp_servers
+
+        mcp_servers = default_mcp_servers()
     kafka = KafkaV1Provider(
         llm_provider,
         thread_db=db,
@@ -168,19 +212,62 @@ async def create_app(
         system_prompt=cfg.system_prompt,
     )
     await kafka.initialize()
-    app = web.Application(middlewares=[cors_middleware(cfg.cors_origins)])
+    app = web.Application(middlewares=[
+        cors_middleware(cfg.cors_origins),
+        tracing_middleware(),
+        auth_middleware(cfg.api_token),
+    ])
     app[STATE_KEY] = {"cfg": cfg, "db": db, "llm": llm_provider,
                       "tools": tools, "mcp_servers": list(mcp_servers or []),
-                      "kafka": kafka}
+                      "kafka": kafka, "draining": False}
     r = app.router
     r.add_post("/v1/chat/completions", chat_completions)
     r.add_post("/v1/threads/{thread_id}/chat/completions",
                thread_chat_completions)
+    r.add_post("/v1/agent/run", agent_run)
+    r.add_post("/v1/threads/{thread_id}/agent/run", thread_agent_run)
+    r.add_post("/v1/threads", create_thread)
+    r.add_get("/v1/threads", list_threads)
+    r.add_get("/v1/threads/{thread_id}", get_thread)
     r.add_get("/v1/threads/{thread_id}/messages", get_thread_messages)
+    r.add_delete("/v1/threads/{thread_id}", delete_thread)
+    r.add_delete("/v1/threads/{thread_id}/messages", delete_thread_messages)
+    r.add_put("/v1/threads/{thread_id}/config", set_thread_config)
+    r.add_get("/v1/profiles", list_profiles)
+    r.add_post("/v1/profiles", create_profile)
     r.add_get("/v1/models", list_models)
+    r.add_post("/v1/auth/signup", auth_signup)
+    r.add_post("/v1/auth/login", auth_login)
     r.add_get("/health", health)
+    r.add_get("/debug/traces", debug_traces)
+    r.add_get("/debug/trace/{request_id}", debug_trace)
+    r.add_get("/playground", playground)
+    app.on_shutdown.append(_drain_on_shutdown)
     app.on_cleanup.append(_cleanup)
     return app
+
+
+async def _drain_on_shutdown(app: web.Application) -> None:
+    """Graceful drain: stop admitting, let in-flight streams finish.
+
+    Runs while connections are still open (aiohttp on_shutdown): /health
+    flips to 503 "draining" so load balancers pull the instance, the
+    admission gate rejects serving requests with 503, and the engine gets
+    drain_timeout_s to finish what it holds before the leftovers are
+    cancelled (each still receives its terminal event)."""
+    state = app[STATE_KEY]
+    if state["draining"]:
+        return
+    state["draining"] = True
+    drain = getattr(state["llm"], "drain", None)
+    if drain is None:
+        return
+    timeout = state["cfg"].drain_timeout_s
+    logger.info("draining: waiting up to %.1fs for in-flight requests",
+                timeout)
+    clean = await drain(timeout)
+    logger.info("drain %s", "complete" if clean
+                else "timed out (cancelled remaining requests)")
 
 
 async def _cleanup(app: web.Application) -> None:
@@ -199,9 +286,12 @@ def cors_middleware(origins: str):
             try:
                 resp = await handler(request)
             except web.HTTPException as e:
+                # error responses need CORS headers too, or browsers hide
+                # the 400/404 body behind a CORS failure
                 resp = e
         resp.headers["Access-Control-Allow-Origin"] = origins
-        resp.headers["Access-Control-Allow-Methods"] = "GET,POST,OPTIONS"
+        resp.headers["Access-Control-Allow-Methods"] = \
+            "GET,POST,PUT,DELETE,OPTIONS"
         resp.headers["Access-Control-Allow-Headers"] = \
             "Content-Type,Authorization"
         if isinstance(resp, web.HTTPException):
@@ -211,24 +301,142 @@ def cors_middleware(origins: str):
     return mw
 
 
+# paths that never start a trace: health probes, the playground and the
+# observability surface itself would churn the ring with noise
+_TRACE_SKIP = ("/health", "/playground", "/debug")
+
+
+def _incoming_trace(request: web.Request):
+    """Adopt an incoming trace identity: X-Request-Id (the id verbatim) or
+    a W3C traceparent (00-<32hex trace>-<16hex span>-<flags>: the trace id
+    is adopted and the caller's span becomes the root's parent)."""
+    rid = request.headers.get("X-Request-Id", "").strip()
+    if rid:
+        return rid[:128], None
+    tp = request.headers.get("traceparent", "").strip()
+    parts = tp.split("-")
+    if len(parts) == 4 and len(parts[1]) == 32 and len(parts[2]) == 16:
+        return parts[1], parts[2]
+    return None, None
+
+
+def tracing_middleware():
+    """Root-span middleware: every serving request gets (or adopts) a
+    trace id, and the whole handler — auth, agent loop, SSE stream — runs
+    inside its http.request span.  Sampled-out requests pass through
+    untouched (tracing.start_trace returns None)."""
+
+    @web.middleware
+    async def mw(request: web.Request, handler):
+        if request.method == "OPTIONS" or request.path.startswith(
+                _TRACE_SKIP):
+            return await handler(request)
+        trace_id, parent_id = _incoming_trace(request)
+        root = tracing.start_trace(
+            request_id=trace_id,
+            trace_id=trace_id,
+            parent_id=parent_id,
+            name="http.request",
+            attrs={"method": request.method, "path": request.path},
+        )
+        if root is None:
+            return await handler(request)
+        ctx = tracing.current()
+        status = None
+        try:
+            resp = await handler(request)
+            status = resp.status
+            if not resp.prepared and ctx is not None:
+                # streamed responses are already on the wire; buffered
+                # ones tell the client which id to ask /debug/trace for
+                resp.headers["X-Request-Id"] = ctx.trace_id
+            return resp
+        except web.HTTPException as e:
+            status = e.status
+            raise
+        finally:
+            tracing.finish_trace(root, status=status)
+
+    return mw
+
+
+def auth_middleware(api_token: Optional[str]):
+    """Two bearer tiers: the static machine token (ServingConfig.api_token)
+    and per-user session tokens from /v1/auth/login (`sess_...`, stored in
+    the DB).  A valid session resolves request["user_id"] (thread
+    ownership) and also satisfies the api_token gate.  An invalid or
+    expired session answers 401 even on an open server: a client that
+    presents credentials is never silently downgraded to anonymous.
+    /health, /playground and /v1/auth/login stay open; signup runs under
+    the api_token gate when one is set (an open signup would mint sessions
+    that bypass the static token).  No api_token = anonymous access."""
+    open_paths = ("/health", "/playground", "/v1/auth/login")
+
+    @web.middleware
+    async def mw(request: web.Request, handler):
+        if request.path in open_paths:
+            return await handler(request)
+        supplied = request.headers.get("Authorization", "")
+        if supplied.startswith("Bearer sess_"):
+            token = supplied[len("Bearer "):]
+            try:
+                user_id = await _state(request)["db"].get_session_user(token)
+            except NotImplementedError:
+                user_id = None
+            if user_id is None:
+                return web.json_response(
+                    {"error": {"message": "invalid or expired session",
+                               "type": "authentication_error"}},
+                    status=401)
+            request["user_id"] = user_id
+            return await handler(request)
+        if api_token:
+            # compare as bytes: compare_digest raises TypeError on
+            # non-ASCII str inputs, which would turn a malformed
+            # credential into a 500
+            if not hmac.compare_digest(
+                    supplied.encode("utf-8", "surrogateescape"),
+                    f"Bearer {api_token}".encode()):
+                return web.json_response(
+                    {"error": {"message": "invalid or missing bearer token",
+                               "type": "authentication_error"}},
+                    status=401)
+        return await handler(request)
+
+    return mw
+
+
 def _state(request: web.Request) -> dict:
     return request.app[STATE_KEY]
 
 
-async def _parse(request: web.Request) -> ChatCompletionRequest:
+async def _parse(request: web.Request, model_cls):
     try:
-        return ChatCompletionRequest.model_validate(await request.json())
+        return model_cls.model_validate(await request.json())
     except ValidationError as e:
         raise web.HTTPBadRequest(text=e.json(),
                                  content_type="application/json")
-    except ValueError:
+    except Exception:
         raise web.HTTPBadRequest(text='{"error": "invalid JSON body"}',
                                  content_type="application/json")
 
 
 def _admission_gate(request: web.Request) -> None:
-    """HTTP 429 + Retry-After when the engine's waiting queue is full."""
-    check = getattr(_state(request)["llm"], "admission_check", None)
+    """Reject serving requests while draining (HTTP 503) or when the
+    engine's waiting queue is full (429), each with Retry-After.  Thread
+    CRUD and health stay open: only routes that submit engine work are
+    gated."""
+    state = _state(request)
+    if state["draining"]:
+        raise web.HTTPServiceUnavailable(
+            text=json.dumps({"error": {
+                "message": "server is draining for shutdown",
+                "type": "server_draining",
+            }}),
+            content_type="application/json",
+            headers={"Retry-After": str(int(state["cfg"].drain_timeout_s))},
+        )
+    check = getattr(state["llm"], "admission_check", None)
     retry_after = check() if check is not None else None
     if retry_after is None:
         return
@@ -373,7 +581,7 @@ async def _completion_response(events, model: str) -> web.Response:
 
 async def chat_completions(request: web.Request) -> web.StreamResponse:
     _admission_gate(request)
-    body = await _parse(request)
+    body = await _parse(request, ChatCompletionRequest)
     events = _agent_events(request, body, thread_id=None)
     if body.stream:
         return await sse_response(request, events)
@@ -384,22 +592,255 @@ async def thread_chat_completions(request: web.Request
                                   ) -> web.StreamResponse:
     _admission_gate(request)
     thread_id = request.match_info["thread_id"]
-    body = await _parse(request)
+    await _check_thread_owner(request, thread_id, create=True)
+    body = await _parse(request, ChatCompletionRequest)
     events = _agent_events(request, body, thread_id=thread_id)
     if body.stream:
         return await sse_response(request, events)
     return await _completion_response(events, body.model)
 
 
-async def get_thread_messages(request: web.Request) -> web.Response:
+async def agent_run(request: web.Request) -> web.StreamResponse:
+    _admission_gate(request)
+    body = await _parse(request, AgentRunRequest)
+    return await sse_response(request,
+                              _agent_events(request, body, thread_id=None))
+
+
+async def thread_agent_run(request: web.Request) -> web.StreamResponse:
+    _admission_gate(request)
+    thread_id = request.match_info["thread_id"]
+    await _check_thread_owner(request, thread_id, create=True)
+    body = await _parse(request, AgentRunRequest)
+    return await sse_response(
+        request, _agent_events(request, body, thread_id=thread_id))
+
+
+# ---------------------------------------------------------------------------
+# threads and profiles
+# ---------------------------------------------------------------------------
+
+
+def _not_found(tid: str) -> web.HTTPNotFound:
+    return web.HTTPNotFound(text=json.dumps(
+        {"error": f"thread {tid} not found"}),
+        content_type="application/json")
+
+
+async def create_thread(request: web.Request) -> web.Response:
     db = _state(request)["db"]
-    tid = request.match_info["thread_id"]
-    if not await db.thread_exists(tid):
-        raise web.HTTPNotFound(text=json.dumps(
-            {"error": f"thread {tid} not found"}),
+    body = {}
+    if request.can_read_body:
+        try:
+            body = await request.json()
+        except Exception:
+            body = {}
+    # profile inheritance: a thread created with profile_id copies that
+    # profile's config as its own.  Validated BEFORE the thread is created,
+    # so a 400 leaves no orphan row.
+    pid = body.get("profile_id")
+    profile = None
+    if pid:
+        get_profile = getattr(db, "get_profile", None)
+        profile = await get_profile(pid) if get_profile else None
+        if profile is None:
+            raise web.HTTPBadRequest(
+                text=json.dumps({"error": f"unknown profile {pid!r}"}),
+                content_type="application/json")
+    tid = await db.create_thread(thread_id=body.get("thread_id"),
+                                 metadata=body.get("metadata"))
+    if request.get("user_id") is not None:
+        try:
+            await db.set_thread_owner(tid, request["user_id"])
+        except NotImplementedError:
+            pass
+    if profile is not None:
+        await db.set_thread_config(tid, {**profile["config"],
+                                         "profile_id": pid})
+    return web.json_response(await db.get_thread_metadata(tid), status=201)
+
+
+def _profiles_fn(request: web.Request, name: str):
+    fn = getattr(_state(request)["db"], name, None)
+    if fn is None:
+        raise web.HTTPNotImplemented(
+            text='{"error": "profiles unsupported by this DB backend"}',
             content_type="application/json")
-    return web.json_response({"thread_id": tid,
-                              "messages": await db.get_thread_messages(tid)})
+    return fn
+
+
+async def list_profiles(request: web.Request) -> web.Response:
+    return web.json_response(
+        {"profiles": await _profiles_fn(request, "list_profiles")()})
+
+
+async def create_profile(request: web.Request) -> web.Response:
+    fn = _profiles_fn(request, "create_profile")
+    try:
+        body = await request.json()
+    except Exception:
+        raise web.HTTPBadRequest(text='{"error": "invalid JSON body"}',
+                                 content_type="application/json")
+    name = body.get("name")
+    if not name:
+        raise web.HTTPBadRequest(text='{"error": "profile name required"}',
+                                 content_type="application/json")
+    profile = await fn(name, config=body.get("config") or {})
+    return web.json_response(profile, status=201)
+
+
+async def list_threads(request: web.Request) -> web.Response:
+    """A session user sees their own threads; anonymous requests see only
+    unowned ones (all, on a DB backend without a user store)."""
+    db = _state(request)["db"]
+    user = request.get("user_id")
+    if user is not None:
+        return web.json_response(
+            {"threads": await db.list_threads_for_user(user)})
+    try:
+        threads = await db.list_threads_unowned()
+    except NotImplementedError:
+        threads = await db.list_threads()
+    return web.json_response({"threads": threads})
+
+
+async def _check_thread_owner(request: web.Request, tid: str,
+                              create: bool = False) -> None:
+    """Enforce, or on a write path establish, thread ownership.  Another
+    user's thread answers 404 (existence is not leaked).  A session user
+    writing to an unowned or new thread claims it (create=True: the run
+    routes); a read never transfers ownership away from the anonymous
+    client that created the thread.  A DB backend without a user store
+    skips enforcement."""
+    db = _state(request)["db"]
+    user = request.get("user_id")
+    try:
+        owner = await db.get_thread_owner(tid)
+    except NotImplementedError:
+        return
+    if owner is not None and owner != user:
+        raise _not_found(tid)
+    if create and user is not None and owner is None:
+        if not await db.thread_exists(tid):
+            await db.create_thread(tid)
+        await db.set_thread_owner(tid, user)
+
+
+async def _require_thread(request: web.Request) -> str:
+    tid = request.match_info["thread_id"]
+    if not await _state(request)["db"].thread_exists(tid):
+        raise _not_found(tid)
+    await _check_thread_owner(request, tid)
+    return tid
+
+
+async def get_thread(request: web.Request) -> web.Response:
+    tid = await _require_thread(request)
+    return web.json_response(
+        await _state(request)["db"].get_thread_metadata(tid))
+
+
+async def get_thread_messages(request: web.Request) -> web.Response:
+    tid = await _require_thread(request)
+    msgs = await _state(request)["db"].get_thread_messages(tid)
+    return web.json_response({"thread_id": tid, "messages": msgs})
+
+
+async def delete_thread(request: web.Request) -> web.Response:
+    tid = await _require_thread(request)
+    await _state(request)["db"].delete_thread(tid)
+    return web.json_response({"deleted": tid})
+
+
+async def delete_thread_messages(request: web.Request) -> web.Response:
+    tid = await _require_thread(request)
+    await _state(request)["db"].delete_thread_messages(tid)
+    return web.json_response({"cleared": tid})
+
+
+async def set_thread_config(request: web.Request) -> web.Response:
+    tid = await _require_thread(request)
+    cfg = await request.json()
+    await _state(request)["db"].set_thread_config(tid, cfg)
+    return web.json_response({"thread_id": tid, "config": cfg})
+
+
+# ---------------------------------------------------------------------------
+# auth
+# ---------------------------------------------------------------------------
+
+
+def _no_user_store() -> web.HTTPNotImplemented:
+    return web.HTTPNotImplemented(
+        text='{"error": "this DB backend has no user store"}',
+        content_type="application/json")
+
+
+async def _session_response(db, user_id: str, email: str) -> web.Response:
+    from .auth import new_session_token, session_expiry
+
+    token = new_session_token()
+    await db.create_session(user_id, token, session_expiry())
+    return web.json_response({"token": token, "user_id": user_id,
+                              "email": email})
+
+
+async def _auth_body(request: web.Request) -> tuple:
+    try:
+        body = await request.json()
+        assert isinstance(body, dict)
+    except Exception:
+        raise web.HTTPBadRequest(text='{"error": "invalid JSON body"}',
+                                 content_type="application/json")
+    return ((body.get("email") or "").strip().lower(),
+            body.get("password") or "")
+
+
+async def auth_signup(request: web.Request) -> web.Response:
+    """Create a user and open a session."""
+    from .auth import hash_password, new_salt
+
+    db = _state(request)["db"]
+    email, password = await _auth_body(request)
+    if "@" not in email or len(password) < 6:
+        raise web.HTTPBadRequest(
+            text='{"error": "need a valid email and a password of 6+ chars"}',
+            content_type="application/json")
+    salt = new_salt()
+    # scrypt is ~50 ms of CPU: off the event loop, or every in-flight SSE
+    # stream hiccups for its duration
+    pw_hash = await asyncio.to_thread(hash_password, password, salt)
+    try:
+        user_id = await db.create_user(email, pw_hash, salt)
+    except ValueError:
+        return web.json_response(
+            {"error": {"message": "email already registered",
+                       "type": "invalid_request_error"}}, status=409)
+    except NotImplementedError:
+        raise _no_user_store()
+    return await _session_response(db, user_id, email)
+
+
+async def auth_login(request: web.Request) -> web.Response:
+    from .auth import verify_password
+
+    db = _state(request)["db"]
+    email, password = await _auth_body(request)
+    try:
+        user = await db.get_user_by_email(email)
+    except NotImplementedError:
+        raise _no_user_store()
+    if user is None or not await asyncio.to_thread(
+            verify_password, password, user["salt"], user["password_hash"]):
+        return web.json_response(
+            {"error": {"message": "invalid email or password",
+                       "type": "authentication_error"}}, status=401)
+    return await _session_response(db, user["user_id"], user["email"])
+
+
+# ---------------------------------------------------------------------------
+# models, health, debug, playground
+# ---------------------------------------------------------------------------
 
 
 async def list_models(request: web.Request) -> web.Response:
@@ -409,9 +850,15 @@ async def list_models(request: web.Request) -> web.Response:
 
 
 async def health(request: web.Request) -> web.Response:
-    llm = _state(request)["llm"]
-    payload: Dict[str, Any] = {"status": "ok"}
-    engine = getattr(llm, "engine", None)
+    """Liveness and engine stats; "draining" with 503 pulls the instance
+    from load-balancer rotation while in-flight streams finish."""
+    state = _state(request)
+    draining = state["draining"]
+    payload: Dict[str, Any] = {
+        "status": "draining" if draining else "ok",
+        "kafka_initialized": state["kafka"]._initialized,
+    }
+    engine = getattr(state["llm"], "engine", None)
     if engine is not None:
         payload["engine"] = {
             "device": str(engine.device),
@@ -420,10 +867,45 @@ async def health(request: web.Request) -> web.Response:
             "free_pages": engine.pool.free_pages,
             "total_pages": engine.pool.num_pages,
         }
-    return web.json_response(payload)
+    return web.json_response(payload, status=503 if draining else 200)
+
+
+async def debug_traces(request: web.Request) -> web.Response:
+    """Recent-traces index (newest first): ids, durations, span names —
+    enough to find the id to pull from /debug/trace/{request_id}."""
+    return web.json_response({
+        "traces": tracing.recent_traces(),
+        "counters": tracing.counters(),
+        "sample": tracing.sample_rate(),
+    })
+
+
+async def debug_trace(request: web.Request) -> web.Response:
+    """One request's span tree as Chrome trace-event JSON (load it in
+    Perfetto or chrome://tracing), keyed by the trace id: the
+    X-Request-Id the request carried or was assigned."""
+    data = tracing.chrome_trace(request.match_info["request_id"])
+    if data is None:
+        raise web.HTTPNotFound(
+            text=json.dumps({"error": "unknown trace (evicted from the "
+                             "ring, or the request was sampled out)"}),
+            content_type="application/json")
+    return web.json_response(data)
+
+
+async def playground(request: web.Request) -> web.Response:
+    """The in-tree chat client: one static file consuming the SSE
+    protocol with the reconstruction rules of core/sse_client.py."""
+    return web.FileResponse(
+        os.path.join(os.path.dirname(__file__), "playground.html"))
 
 
 def run_server(cfg: Optional[ServingConfig] = None,
                device: DeviceLike = None) -> None:
     cfg = cfg or ServingConfig.from_env()
+    from ..logs import setup_logging
+
+    # KAFKA_TORCH_LOG_FORMAT=json (or cfg.log_format): every record
+    # carries trace_id / span_id / thread_id
+    setup_logging(cfg.log_format)
     web.run_app(create_app(cfg, device=device), host=cfg.host, port=cfg.port)

@@ -36,14 +36,37 @@ class ServingConfig:
     # is busy; 1 disables fusion
     multi_step: int = 16
     # request lifecycle: first-token and total deadlines (None = off), the
-    # bounded waiting queue (429 + Retry-After past it; 0 = unbounded)
+    # bounded waiting queue (429 + Retry-After past it; 0 = unbounded),
+    # and the graceful-shutdown budget: /health flips to "draining" (503),
+    # admission stops, and in-flight streams get drain_timeout_s to finish
+    # before they are cancelled
     max_ttft_s: Optional[float] = None
     request_timeout_s: Optional[float] = None
     max_queue_depth: int = 256
+    drain_timeout_s: float = 30.0
+    # observability (tracing.py, logs.py):
+    #   trace_sample — fraction of requests traced end to end (span tree at
+    #       GET /debug/trace/{id}); 1.0 traces everything, 0 disables
+    #   trace_ring — how many finished traces the in-memory ring retains
+    #   slow_ttft_ms / slow_total_ms — a request past either threshold
+    #       logs ONE structured line with its span breakdown (None = off)
+    #   log_format — "json" stamps every log record with trace_id /
+    #       span_id / thread_id; "text" keeps stdlib formatting
+    trace_sample: float = 1.0
+    trace_ring: int = 256
+    slow_ttft_ms: Optional[float] = None
+    slow_total_ms: Optional[float] = None
+    log_format: str = "text"
     # server
     host: str = "0.0.0.0"
     port: int = 8000
+    # optional bearer-token auth for /v1/* (None = open, the dev default);
+    # per-user session tokens from /v1/auth/login satisfy it too
+    api_token: Optional[str] = None
     db_path: str = "data/threads.db"
+    # a sandbox server (python -m kafka_tpu_torch.sandbox.server) whose
+    # shell and notebook tools join the built-in tools (None = none)
+    local_sandbox_url: Optional[str] = None
     cors_origins: str = "*"
     # test/dev: tiny random model instead of a real checkpoint
     tiny_model: bool = False
@@ -86,9 +109,18 @@ class ServingConfig:
             max_ttft_s=get("MAX_TTFT_S", None, float),
             request_timeout_s=get("REQUEST_TIMEOUT_S", None, float),
             max_queue_depth=get("MAX_QUEUE_DEPTH", cls.max_queue_depth, int),
+            drain_timeout_s=get("DRAIN_TIMEOUT_S", cls.drain_timeout_s,
+                                float),
+            trace_sample=get("TRACE_SAMPLE", cls.trace_sample, float),
+            trace_ring=get("TRACE_RING", cls.trace_ring, int),
+            slow_ttft_ms=get("SLOW_TTFT_MS", None, float),
+            slow_total_ms=get("SLOW_TOTAL_MS", None, float),
+            log_format=get("LOG_FORMAT", cls.log_format),
             host=get("HOST", cls.host),
             port=get("PORT", cls.port, int),
+            api_token=get("API_TOKEN", None),
             db_path=get("DB_PATH", cls.db_path),
+            local_sandbox_url=get("SANDBOX_URL", None),
             tiny_model=get("TINY_MODEL", "0") in ("1", "true", "True"),
             system_prompt=get("SYSTEM_PROMPT", None),
             warmup=get("WARMUP", "1") not in ("0", "false", "False"),

@@ -1,6 +1,5 @@
-"""Built-in tools (reference server_tools/): planner, counter, weather.
-Copied from kafka_tpu/server_tools; the shell/notebook tools of a
-configured sandbox wait for the port's sandbox tier."""
+"""Built-in tools (reference server_tools/): planner, counter, weather;
+shell/notebook join once a sandbox is configured (sandbox tier)."""
 
 from typing import List, Optional
 
@@ -17,9 +16,18 @@ def builtin_tools(sandbox_url: Optional[str] = None) -> List[Tool]:
         *PlannerTools().tools(),
     ]
     if sandbox_url:
-        raise NotImplementedError(
-            "sandbox tools are not ported to kafka_tpu_torch yet"
-        )
+        # sandbox tools are additive: their failure must not take down the
+        # base tool set (mirrors MCP connect-failure handling)
+        try:
+            from ..sandbox.tools import sandbox_builtin_tools
+
+            tools.extend(sandbox_builtin_tools(sandbox_url))
+        except Exception as e:
+            import logging
+
+            logging.getLogger("kafka_tpu_torch.server_tools").warning(
+                "sandbox tools unavailable (%s); continuing without them", e
+            )
     return tools
 
 

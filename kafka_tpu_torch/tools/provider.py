@@ -5,10 +5,6 @@ Parity: reference src/tools/agent.py:416-833. Sources:
   * "sandbox" — `SandboxTool`s forwarding to a sandbox VM (sandbox tier);
   * "mcp"     — tools discovered from MCP servers (tools/mcp.py).
 
-In kafka_tpu_torch the "local" source is served; MCP servers raise
-NotImplementedError at connect until tools/mcp.py is ported, and sandbox
-tools wait for the sandbox tier.
-
 All are registered into one namespace; `get_tools` returns the merged
 OpenAI-format list and `run_tool_stream` dispatches to the owner.  Unknown
 tools yield a terminal error event (the model sees the failure and can
@@ -40,6 +36,7 @@ class AgentToolProvider(ToolProvider):
         for t in tools or []:
             self.register_tool(t)
         self._mcp_configs = list(mcp_servers or [])
+        self._mcp_connections: List[Any] = []  # MCPConnection, tools/mcp.py
         self._connected = False
         # fired with (tool_name, tool_call_id) on each tool's
         # terminal event — the sandbox SSE stream's completion — so a
@@ -64,21 +61,36 @@ class AgentToolProvider(ToolProvider):
     # -- lifecycle -----------------------------------------------------
 
     async def connect(self) -> None:
-        """Connect MCP servers (not ported yet: any configured one
-        raises)."""
+        """Connect MCP servers; failures are logged and skipped (an
+        unreachable tool server must not take down serving — reference
+        src/tools/agent.py:494-496)."""
         if self._connected:
             return
         if self._mcp_configs:
-            # tools/mcp.py is not ported yet: refuse at boot rather than
-            # serve a tool set the configuration did not ask for
-            raise NotImplementedError(
-                "MCP servers are not supported by kafka_tpu_torch yet "
-                f"(configured: {[c.name for c in self._mcp_configs]}); "
-                "pass mcp_servers=[]"
-            )
+            from .mcp import MCPConnection
+
+            for cfg in self._mcp_configs:
+                conn = MCPConnection(cfg)
+                try:
+                    await conn.connect()
+                except Exception as e:
+                    logger.warning(
+                        "MCP server %s failed to connect: %s — skipping",
+                        cfg.name, e,
+                    )
+                    continue
+                self._mcp_connections.append(conn)
+                for tool in conn.discovered_tools():
+                    self.register_tool(tool)
         self._connected = True
 
     async def disconnect(self) -> None:
+        for conn in self._mcp_connections:
+            try:
+                await conn.disconnect()
+            except Exception as e:
+                logger.warning("MCP disconnect failed: %s", e)
+        self._mcp_connections.clear()
         self._connected = False
 
     # -- execution -----------------------------------------------------

@@ -301,22 +301,33 @@ def test_tool_call_turn_does_not_end_as_text_response(tmp_path):
     assert history[1]["tool_calls"][0]["id"] == history[2]["tool_call_id"]
 
 
-def test_mcp_servers_refused_at_boot(tmp_path):
-    """MCP tools are not ported yet: a configured server is refused at
-    boot, not silently dropped."""
+def test_mcp_servers_refused_at_boot(tmp_path, caplog):
+    """A configured MCP server that cannot be reached no longer refuses
+    the boot (tools/mcp.py is ported): as in the reference, it is skipped
+    with a warning and the server serves without its tools."""
+    from aiohttp.test_utils import TestClient, TestServer
+
     from kafka_tpu_torch.tools import MCPServerConfig
 
     Stub = SIDES["port"][0]
 
     async def go():
-        with pytest.raises(NotImplementedError, match="MCP"):
-            await port_create_app(
-                cfg=PortServingConfig(db_path=str(tmp_path / "m.db")),
-                llm_provider=Stub([]), db=PortDB(str(tmp_path / "m.db")),
-                mcp_servers=[MCPServerConfig(name="fetch",
-                                             url="http://127.0.0.1:9/mcp")])
+        app = await port_create_app(
+            cfg=PortServingConfig(db_path=str(tmp_path / "m.db")),
+            llm_provider=Stub([]), db=PortDB(str(tmp_path / "m.db")),
+            tools=[], mcp_servers=[MCPServerConfig(
+                name="fetch", url="http://127.0.0.1:9/mcp")])
+        from kafka_tpu_torch.server.app import STATE_KEY
 
-    asyncio.run(go())
+        async with TestClient(TestServer(app)) as c:
+            health = await c.get("/health")
+            assert health.status == 200
+        return [t["function"]["name"]
+                for t in app[STATE_KEY]["kafka"].get_tools()]
+
+    names = asyncio.run(asyncio.wait_for(go(), 60))
+    assert names == []
+    assert "MCP server fetch failed to connect" in caplog.text
 
 
 def test_prompt_sections_ship_with_the_package(tmp_path, monkeypatch):

@@ -690,7 +690,8 @@ def test_tool_choice_turn_ends_in_the_reference_tool_call(
                 app = await port_create_app(
                     cfg=PortServingConfig(db_path=db_path,
                                           system_prompt="terse"),
-                    llm_provider=prov, db=PortDB(db_path), tools=tools)
+                    llm_provider=prov, db=PortDB(db_path), tools=tools,
+                    mcp_servers=[])
             out[side] = await thread_turn(app, tool_choice=tool_choice)
         return out
 

@@ -267,7 +267,7 @@ def test_thread_turn_two_reports_cached_tokens(tmp_path):
                         db_path=str(tmp_path / "threads.db"))
 
     async def run():
-        app = await create_app(cfg, tools=[], device="cpu")
+        app = await create_app(cfg, tools=[], mcp_servers=[], device="cpu")
         usages = []
         async with TestClient(TestServer(app)) as c:
             for i, content in enumerate(("tell me a story about pages",

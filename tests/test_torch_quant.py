@@ -328,7 +328,7 @@ def test_int8_server_streams_a_thread_turn(monkeypatch, tmp_path):
         db_path=str(tmp_path / "threads.db"))
 
     async def serve():
-        app = await create_app(cfg, tools=[], device="cpu")
+        app = await create_app(cfg, tools=[], mcp_servers=[], device="cpu")
         engine = app[STATE_KEY]["llm"].engine
         async with TestClient(TestServer(app)) as c:
             r = await c.post(

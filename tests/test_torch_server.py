@@ -56,7 +56,7 @@ def test_streamed_thread_turns_persist_history(tmp_path):
 
     async def run():
         app = await create_app(serving_cfg(tmp_path, warmup=True),
-                               tools=[], device="cpu")
+                               tools=[], mcp_servers=[], device="cpu")
         usages = []
         async with TestClient(TestServer(app)) as c:
             for content in ("hello there", "and again"):
@@ -97,7 +97,7 @@ def test_stateless_completion_streamed_and_not(tmp_path):
 
     async def run():
         app = await create_app(serving_cfg(tmp_path), tools=[],
-                               device="cpu")
+                               mcp_servers=[], device="cpu")
         async with TestClient(TestServer(app)) as c:
             body = {"model": "tiny", "temperature": 0, "max_tokens": 4,
                     "messages": [{"role": "user", "content": "hi"}]}
@@ -178,7 +178,10 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.server_tools, kafka_tpu_torch.prompts, "
         "kafka_tpu_torch.llm.compaction, kafka_tpu_torch.llm.constrained, "
         "kafka_tpu_torch.tracing, "
-        "kafka_tpu_torch.failpoints\n"
+        "kafka_tpu_torch.failpoints, kafka_tpu_torch.logs, "
+        "kafka_tpu_torch.server.auth, kafka_tpu_torch.core.sse_client, "
+        "kafka_tpu_torch.tools.mcp, kafka_tpu_torch.server_tools.mcp_servers, "
+        "kafka_tpu_torch.sandbox, kafka_tpu_torch.sandbox.server\n"
         "bad = [m for m in sys.modules if m in ('jax', 'kafka_tpu') or "
         "m.startswith(('jax.', 'kafka_tpu.'))]\n"
         "assert not pre and not bad, (pre, bad)\n"

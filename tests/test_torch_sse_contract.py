@@ -99,7 +99,8 @@ async def scripted_stream(side, tmp_path, script):
         app = await port_create_app(
             cfg=PortServingConfig(db_path=db_path, system_prompt="terse"),
             llm_provider=Stub(script), db=PortDB(db_path),
-            tools=[PortTool(name="add", description="", handler=add)])
+            tools=[PortTool(name="add", description="", handler=add)],
+            mcp_servers=[])
     return await thread_turn(app, "add 2 and 3")
 
 
@@ -210,7 +211,7 @@ def test_thread_turn_through_real_providers(tmp_path):
                 app = await port_create_app(
                     cfg=PortServingConfig(db_path=db_path,
                                           system_prompt="terse"),
-                    llm_provider=prov, db=PortDB(db_path))
+                    llm_provider=prov, db=PortDB(db_path), mcp_servers=[])
             out[side] = await thread_turn(app, "What can you do?",
                                           temperature=0, max_tokens=8)
         return out
