@@ -175,6 +175,42 @@ Phases, each of which raises (non-zero exit) on any failure:
                its bf16 profile and the 8-lane host cost with every
                request traced; traced decode must stay device-bound
                (busy share >= TRACED_BUSY_MIN).
+  4. telemetry — run first, after the builds, in the same process as
+               the phases after it: its memory gate reads a fresh
+               caching allocator, and the later phases' gates (the
+               graphs phase's busy shares) read the main path after
+               the kernel sampler's and /debug/profile's profiler
+               windows.  When it ends no Python thread it started
+               and no profiler session may be left.  The profiler's
+               catch on a bare loop of 200 K1 launches (CUDA events;
+               torch.profiler with acc_events on and off; kernel sampler
+               windows).  Then the llama-3.2-1b
+               bf16 server (tools=[], 2048 window, multi_step 16) with
+               the flight ring, the compile ring and the kernel sampler
+               (every 8th step) on: eight concurrent streamed thread
+               turns, then sequential ones until the sampler has named
+               K1 and K2; /metrics (MFU and bandwidth utilization in
+               (0, UTIL_MAX] over every window of every kind that
+               dispatched, the roofline the H100's datasheet figures),
+               the Prometheus text under the reference checker's rules,
+               /admin/signals, /debug/kernels (K1 and K2 named, decode
+               kernel_skew finite), /debug/compiles (this run's nvcc
+               builds and graph captures by phase), /debug/flight/0
+               (records with causes), /debug/profile, an engine.step
+               failure that must write a postmortem, and the memory plan:
+               its weights and KV pool against the engine's own tensors
+               (PLAN_EXACT), its total against the server's growth of
+               memory_reserved less the graph pools and the allocator's
+               cache of freed blocks (PLAN_MARGIN).  Then one
+               turn each on an int8 (weights + KV) and a speculative
+               (speculative_k 4, fetch_lag 0) server, under the same
+               utilization gates, and the decode step at 8 lanes with
+               the flight ring on and off at multi_step 16 and 1: busy
+               >= FLIGHT_BUSY_MIN with the ring on, and the registry's
+               decode bandwidth utilization over the window within
+               HBM_AGREE of the window's modeled bytes over its CUDA-event
+               time.  The kernels' launches on these servers are recorded
+               as `telemetry_launches`.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
@@ -201,6 +237,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor rate and
@@ -292,7 +329,8 @@ def device_ms(fn, name_part, iters: int = 20, flush=None, span_from=None):
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
             for _ in range(iters):
                 if flush is not None:
                     flush()
@@ -312,6 +350,7 @@ def device_ms(fn, name_part, iters: int = 20, flush=None, span_from=None):
                     {"kernels": name_part, "caught": 0.0})
             continue
         caught = min(e.count for e in rows) / iters
+        RESULTS.setdefault("profile_caught", []).append(caught)
         if caught < 1:
             RESULTS.setdefault("profile_drops", []).append(
                 {"kernels": name_part, "caught": caught})
@@ -1817,6 +1856,7 @@ class ReplayClock:
         self.timed_steps = 0
         self.pairs = []
         self.host_s = []
+        self.starts = []
         self.timing = False
         eng._run_step = self
 
@@ -1830,6 +1870,7 @@ class ReplayClock:
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         t0 = time.perf_counter()
+        self.starts.append(t0)
         self.real(k, *args)
         self.host_s.append(time.perf_counter() - t0)
         end.record()
@@ -1837,10 +1878,13 @@ class ReplayClock:
         self.timed_steps += k
 
     def device_ms(self) -> float:
+        return sum(self.pair_ms())
+
+    def pair_ms(self) -> list:
         import torch
 
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.pairs)
+        return [a.elapsed_time(b) for a, b in self.pairs]
 
 
 def eager_body(eng):
@@ -1918,7 +1962,8 @@ def replay_kernels(eng, clock, steps: int = 4) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    clock.pairs, clock.timed_steps, clock.timing = [], 0, True
+    clock.pairs, clock.starts, clock.timed_steps = [], [], 0
+    clock.timing = True
     try:
         prof_ctx = profile(activities=[ProfilerActivity.CUDA],
                            acc_events=True)
@@ -1989,7 +2034,8 @@ def _finish_traces(roots) -> int:
 
 def graph_profile(eng, clock, cfg, rng, width: int = 8, ctx: int = 256,
                   max_new: int = 200, sampled: bool = False,
-                  by_kernel: bool = False, traced: bool = False) -> dict:
+                  by_kernel: bool = False, traced: bool = False,
+                  registry: bool = False) -> dict:
     """The decode pipeline at `width` lanes of ~`ctx` tokens: host-clock
     wall time over a steady window of scheduler steps (every lane active,
     ending in a synchronize), CUDA events around each graph replay in it,
@@ -1997,7 +2043,10 @@ def graph_profile(eng, clock, cfg, rng, width: int = 8, ctx: int = 256,
     temperature 0.8, top_p 0.95 (the threefry draw and the filter's sort
     inside each step).  `by_kernel`: first a profiled pass over a few
     steps (replay_kernels).  `traced`: every request carries a trace, so
-    the engine records its spans (decode spans as each fetch lands)."""
+    the engine records its spans (decode spans as each fetch lands).
+    `registry`: the metrics registry's decode counters over the same
+    window, its bandwidth utilization beside the window's modeled bytes
+    over the CUDA-event device time."""
     import torch
 
     from kafka_tpu_torch.runtime import GenRequest
@@ -2021,17 +2070,23 @@ def graph_profile(eng, clock, cfg, rng, width: int = 8, ctx: int = 256,
     torch.cuda.synchronize()
     split = replay_kernels(eng, clock) if by_kernel else None
     k = eng.ecfg.multi_step
-    clock.pairs, clock.timed_steps, clock.timing = [], 0, True
+    clock.pairs, clock.starts, clock.timed_steps = [], [], 0
+    clock.timing = True
     d0 = sum(r.dispatched for r in reqs)
+    u = eng.metrics.util["decode"]
+    u0 = (u.hbm_bytes, u.busy_s, u.dispatches)
     t0 = time.perf_counter()
     while all(r.state == "active" and r.max_new_tokens - r.dispatched > k + 1
               for r in reqs):
         eng.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    du = (u.hbm_bytes - u0[0], u.busy_s - u0[1], u.dispatches - u0[2])
     clock.timing = False
     tokens = sum(r.dispatched for r in reqs) - d0
-    dev_ms = clock.device_ms()
+    pair_ms = clock.pair_ms()
+    dev_ms = sum(pair_ms)
+    gaps = [b - a for a, b in zip(clock.starts, clock.starts[1:])]
     steps = clock.timed_steps
     for r in reqs:
         eng.cancel(r.request_id)
@@ -2049,8 +2104,27 @@ def graph_profile(eng, clock, cfg, rng, width: int = 8, ctx: int = 256,
         "device_ms_per_step": dev_ms / steps,
         "device_busy_share": dev_ms / wall_ms,
         "tokens_per_s": tokens / wall_ms * 1e3,
+        # each replay's CUDA-event span and the host's gaps between
+        # replay calls: a short span or a long gap places a low busy share
+        "replays": len(pair_ms),
+        "replay_ms_min": min(pair_ms, default=0.0),
+        "replay_ms_max": max(pair_ms, default=0.0),
+        "call_gap_ms_max": max(gaps, default=0.0) * 1e3,
         "by_kernel": split,
     }
+    if registry:
+        # the registry charges a dispatch when its tokens land, so its
+        # window holds the dispatches that landed in it; per dispatch its
+        # modeled bytes over its busy time, against the same bytes per
+        # step over the window's CUDA-event time per step
+        peak = eng.metrics.peak_hbm_bps or PEAK_HBM_BYTES
+        util = du[0] / du[1] / peak if du[1] > 0 else 0.0
+        step_bytes = du[0] / max(du[2], 1) / k
+        ev = step_bytes / (dev_ms / steps / 1e3) / peak
+        out["registry"] = {"hbm_bytes": du[0], "busy_s": du[1],
+                           "dispatches": du[2], "hbm_bw_util": util,
+                           "modeled_bytes_per_step": step_bytes,
+                           "event_hbm_bw_util": ev, "ratio": util / ev}
     log(f"  decode, {width} {'sampled' if sampled else 'greedy'}"
         f"{' traced' if traced else ''} lanes at ~{ctx} tokens, multi_step "
         f"{k}: "
@@ -2059,7 +2133,10 @@ def graph_profile(eng, clock, cfg, rng, width: int = 8, ctx: int = 256,
         f"token, device {out['device_ms_per_step']:.3f} ms/step (CUDA "
         f"events around replays), busy share "
         f"{out['device_busy_share']:.3f}, {out['tokens_per_s']:.0f} "
-        f"tokens/s over {steps} steps")
+        f"tokens/s over {steps} steps ({len(pair_ms)} replays of "
+        f"{out['replay_ms_min']:.3f}-{out['replay_ms_max']:.3f} ms, the "
+        f"longest host gap between replay calls "
+        f"{out['call_gap_ms_max']:.3f} ms)")
     return out
 
 
@@ -3421,14 +3498,687 @@ def phase_server() -> None:
         RESULTS[k]["launches"] = RESULTS[k]["server_launches"] = out[k]
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the telemetry plane on the card
+# ---------------------------------------------------------------------------
+
+# MFU and bandwidth utilization against the H100's datasheet roofline: a
+# ratio over 1 means the busy time the registry charged is shorter than
+# the device took; 1.05 leaves room for the rounding of a window's edges
+UTIL_MAX = 1.05
+# decode with the flight ring on stays device-bound, as untraced (0.992-
+# 0.997, PERF.md section 5)
+FLIGHT_BUSY_MIN = 0.99
+# the registry's decode bandwidth utilization over a steady window,
+# against the same window's modeled bytes over its CUDA-event device time
+HBM_AGREE = 0.25
+# the plan's weights and KV pool against the bytes of the engine's own
+# tensors: both are arithmetic over the same shapes, so they agree
+PLAN_EXACT = 0.01
+# the server's growth of torch.cuda.memory_reserved over boot and
+# serving, less the two terms the plan does not model and the allocator
+# measures (the CUDA-graph pools, and the cache of freed blocks the
+# eager prefill's transient tensors leave), against the plan's total,
+# as a fraction of it.  What remains is the live bytes of the default
+# pool: beyond the weights and the pool the plan charges an activation
+# estimate and a grammar-table reservation, and what is live at rest
+# besides them is the cuBLAS workspaces and the decode loop's buffers
+# (~0.1-0.2 GB), a few percent of the plan
+PLAN_MARGIN = 0.10
+K1_KERNEL = "paged_decode_chunk_kernel"
+K2_KERNEL = "flash_prefill_mma_kernel"
+K4_KERNEL = "paged_decode_int8_chunk_kernel"
+
+
+def check_prometheus(text: str) -> dict:
+    """The rules of the reference's exposition checker
+    (tests/test_prometheus.py parse_exposition): every sample belongs to a
+    TYPEd family (histogram samples by their _bucket/_sum/_count suffix),
+    no series twice, no TYPE twice, each family one contiguous group,
+    values parse as floats, labels well formed.  Returns family counts."""
+    import re
+
+    sample_re = re.compile(r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+                           r"(?:\{(?P<labels>[^}]*)\})? (?P<value>[^ ]+)$")
+    label_re = re.compile(r'^([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\["\\n])*)"$')
+    families, seen, closed, current = {}, set(), set(), None
+    n = 0
+    for line in text.splitlines():
+        if not line.strip() or line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            if name in families or kind not in (
+                    "counter", "gauge", "summary", "histogram"):
+                raise AssertionError(f"prometheus: bad TYPE {line!r}")
+            families[name] = kind
+            continue
+        m = sample_re.match(line)
+        if line.startswith("#") or not m:
+            raise AssertionError(f"prometheus: bad line {line!r}")
+        name, raw, value = m.group("name", "labels", "value")
+        labels = []
+        for part in (raw.split(",") if raw else []):
+            lm = label_re.match(part)
+            if not lm:
+                raise AssertionError(f"prometheus: bad label {line!r}")
+            labels.append((lm.group(1), lm.group(2)))
+        float(value)
+        key = (name, tuple(sorted(labels)))
+        if key in seen:
+            raise AssertionError(f"prometheus: duplicate series {key}")
+        seen.add(key)
+        base = name
+        if name not in families:
+            for suffix in ("_bucket", "_sum", "_count"):
+                stem = name[:-len(suffix)] if name.endswith(suffix) else None
+                if stem and families.get(stem) == "histogram":
+                    base = stem
+                    break
+        if base not in families:
+            raise AssertionError(f"prometheus: {name} has no TYPE line")
+        if name != current:
+            if name in closed:
+                raise AssertionError(f"prometheus: {name} not contiguous")
+            if current is not None:
+                closed.add(current)
+            current = name
+        n += 1
+    return {"families": len(families), "samples": n}
+
+
+def check_utilization(util: dict, label: str) -> dict:
+    """Every kind that dispatched: MFU and bandwidth utilization in
+    (0, UTIL_MAX] since boot and over the last minute; the roofline is the
+    datasheet's.  Returns the readings (raises after logging them)."""
+    read = {"peak_tflops": util.get("peak_tflops"),
+            "peak_hbm_gbps": util.get("peak_hbm_gbps"),
+            "peak_source": util.get("peak_source")}
+    bad = []
+    if util.get("peak_source") != "datasheet" or \
+            abs((util.get("peak_tflops") or 0) - 989.0) > 0.5 or \
+            abs((util.get("peak_hbm_gbps") or 0) - 3350.0) > 0.5:
+        bad.append("roofline")
+    for kind in ("prefill", "decode", "verify"):
+        sec = util.get(kind) or {}
+        if not sec.get("dispatches"):
+            continue
+        read[kind] = {k: sec.get(k) for k in (
+            "dispatches", "busy_s", "mfu", "hbm_bw_util", "mfu_1m",
+            "hbm_bw_util_1m", "model_skew", "kernel_samples",
+            "kernel_skew", "achieved_tflops", "achieved_gb_s")}
+        for k in ("mfu", "hbm_bw_util", "mfu_1m", "hbm_bw_util_1m"):
+            if k.endswith("_1m") and not sec["window_1m"]["busy_s"]:
+                continue
+            if not 0 < sec[k] <= UTIL_MAX:
+                bad.append(f"{kind}.{k}={sec[k]}")
+    log(f"  {label} utilization: {json.dumps(read)}")
+    read["out_of_range"] = bad
+    return read
+
+
+class _EnvKnobs:
+    """Set KAFKA_TORCH_* knobs for a block and restore the environment."""
+
+    def __init__(self, **knobs):
+        self.knobs = {f"KAFKA_TORCH_{k}": str(v) for k, v in knobs.items()}
+        self.saved = {}
+
+    def __enter__(self):
+        for k, v in self.knobs.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+async def _get_json(s, url):
+    async with s.get(url) as r:
+        if r.status != 200:
+            raise AssertionError(f"{url}: HTTP {r.status} {await r.text()}")
+        return await r.json()
+
+
+async def _serve_telemetry(td: str) -> dict:
+    """The bf16 server with the flight ring, the compile ring and the
+    kernel sampler on: eight concurrent streamed thread turns, then
+    sequential turns until the sampler has named K1 and K2, every
+    telemetry route read and checked, a failed step's postmortem, and
+    the memory plan against the caching allocator."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    flight_dir = os.path.join(td, "flight")
+    # the knobs stay set while the server runs: the postmortem directory
+    # and the profiling gate are read when they are used
+    with _EnvKnobs(PROFILE_SAMPLE=8, FLIGHT_DIR=flight_dir,
+                   PROFILE_SPILL_DIR=os.path.join(td, "kernels"),
+                   PROFILING=1):
+        return await _telemetry_turns(td, flight_dir)
+
+
+async def _telemetry_turns(td: str, flight_dir: str) -> dict:
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from kafka_tpu_torch import failpoints
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.runtime.planner import _device_stats
+    from kafka_tpu_torch.server import ServingConfig, create_app
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    # what earlier phases left in the caching allocator (the process's
+    # reserved bytes and graph pools) is not this server's
+    dev = torch.device("cuda", torch.cuda.current_device())
+    before = _device_stats(dev)
+    split0 = allocator_split(dev)
+    reserved0 = torch.cuda.memory_reserved(dev)
+
+    # prefill buckets to 256: a thread turn's ~700-token prompt (the
+    # agent's idle tool) prefills in three K2 chunks
+    cfg = ServingConfig(
+        model_name="llama-3.2-1b", max_batch=8, page_size=16,
+        num_pages=8 * 128 + 64, max_pages_per_seq=128,
+        prefill_buckets=(64, 128, 256), max_new_tokens_default=64,
+        db_path=os.path.join(td, "telemetry.db"), multi_step=16,
+        system_prompt="You are a terse assistant.")
+    t0 = time.monotonic()
+    app = await create_app(cfg, tools=[], mcp_servers=[])
+    boot_s = time.monotonic() - t0
+    llm = app[STATE_KEY]["llm"]
+    engine = llm.engine
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    base = f"http://127.0.0.1:{port}"
+    # the memory monitor's own cost: one allocator sample (the 1 Hz poll)
+    t_poll = time.perf_counter()
+    for _ in range(20):
+        engine.memory_monitor.poll(force=True)
+    poll_ms = (time.perf_counter() - t_poll) / 20 * 1e3
+    out = {"boot_s": boot_s, "memory_poll_ms": poll_ms,
+           "flight_ring": engine.flight.size if engine.flight else 0,
+           "sampler_period": engine.kernel_sampler.period}
+    kernels.reset_launch_counts()
+
+    def turn(i, n=64):
+        return {"model": "llama-3.2-1b", "stream": True, "temperature": 0,
+                "max_tokens": n, "messages": [{
+                    "role": "user",
+                    "content": f"Thread {i}: describe paged attention."}]}
+
+    try:
+        async with aiohttp.ClientSession() as s:
+            t1 = time.monotonic()
+            await asyncio.gather(*(
+                _stream(s, f"{base}/v1/threads/tel{i}/chat/completions",
+                        turn(i)) for i in range(8)))
+            out["concurrent_s"] = time.monotonic() - t1
+            named, extra = set(), 0
+            while extra < 16:
+                ks = await _get_json(s, f"{base}/debug/kernels?top_k=200")
+                named = {r["kernel"] for r in ks["kernels"]}
+                if any(K1_KERNEL in n for n in named) and \
+                        any(K2_KERNEL in n for n in named):
+                    break
+                await _stream(s, f"{base}/v1/threads/seq{extra}/chat/"
+                                 "completions", turn(100 + extra, 24))
+                extra += 1
+            out["sequential_turns"] = extra
+            out["launches"] = {f.__name__: f.launches
+                               for f in kernels.KERNELS}
+            m = await _get_json(s, f"{base}/metrics")
+            served_s = time.monotonic() - t1
+            # the allocator at rest after the turns, beside the engine's
+            # own weight and KV-pool tensors
+            split1 = allocator_split(dev)
+            reserved1 = torch.cuda.memory_reserved(dev)
+            real = {"weights": tensor_bytes(engine.params),
+                    "kv_pool": tensor_bytes((engine.k_pool, engine.v_pool))}
+            plan = engine.memory_monitor.plan
+            async with s.get(f"{base}/metrics?format=prometheus") as r:
+                prom = await r.text()
+            sig = await _get_json(s, f"{base}/admin/signals")
+            comp = await _get_json(s, f"{base}/debug/compiles")
+            fl = await _get_json(s, f"{base}/debug/flight/0")
+            ks = await _get_json(s, f"{base}/debug/kernels?top_k=30")
+            async with s.post(f"{base}/debug/profile",
+                              json={"seconds": 0.2}) as r:
+                prof = (r.status, await r.json())
+            # a failed step: the engine.step failpoint mid-turn
+            failpoints.configure("engine.step", "error", "telemetry", nth=3)
+            try:
+                ev = await _stream(
+                    s, f"{base}/v1/threads/fail/chat/completions",
+                    turn(999, 32), allow_error=True)
+            finally:
+                failpoints.clear()
+            out["failed_turn_errors"] = [
+                e.get("error") for e in ev if e.get("type") == "error"]
+            after = await _get_json(s, f"{base}/metrics")
+    finally:
+        await runner.cleanup()
+    util = check_utilization(m["utilization"], "bf16 server")
+    # mfu and hbm_bw_util are shares of the device's busy time (each
+    # dispatch's CUDA-event span); the busy seconds over the turns' wall
+    # seconds is the device's busy share, and their product the share of
+    # the whole window
+    busy_s = sum(m["utilization"].get(k, {}).get("busy_s", 0.0)
+                 for k in ("prefill", "decode", "verify"))
+    whole = {k: {f"{u}_whole": m["utilization"].get(k, {}).get(u, 0.0)
+                 * busy_s / served_s for u in ("mfu", "hbm_bw_util")}
+             for k in ("prefill", "decode")}
+    prom_stats = check_prometheus(prom)
+    kern = ks["kernels"]
+    names = sorted({r["kernel"] for r in kern})
+    dec = m["utilization"]["decode"]
+    records = comp["records"]
+    by_label = {}
+    for r in records:
+        kind = r["label"].split("[")[0]
+        by_label.setdefault(kind, {}).setdefault(r["phase"], 0)
+        by_label[kind][r["phase"]] += 1
+    causes = {}
+    for r in fl["records"]:
+        for c, k in r["causes"].items():
+            causes[c] = causes.get(c, 0) + k
+    pms = sorted(os.listdir(flight_dir)) if os.path.isdir(flight_dir) \
+        else []
+    pm = None
+    if pms:
+        with open(os.path.join(flight_dir, pms[-1])) as f:
+            pm = json.load(f)
+    mem = m.get("memory") or {}
+    comp_bytes = mem.get("hbm_component_bytes") or {}
+    plan_total = sum(comp_bytes.get(k, 0) for k in (
+        "weights", "kv_pool", "activations", "grammar_tables"))
+    graph_pool = comp_bytes.get("graph_pool", 0)
+    grown = mem.get("hbm_bytes_in_use", 0) - before["bytes_in_use"]
+    grown_pool = graph_pool - before["graph_pool_bytes"]
+    plan_err = ((grown - plan_total - grown_pool) / plan_total
+                if plan_total else None)
+    # memory_reserved's growth less the graph pools and the allocator's
+    # cache of freed blocks (what is left is the default pool's live
+    # bytes) against the plan
+    reserved = reserved1 - reserved0
+    live = split1["default_allocated"] - split0["default_allocated"]
+    cache = (split1["default_reserved"] - split1["default_allocated"]) - \
+        (split0["default_reserved"] - split0["default_allocated"])
+    pools = split1["graph_reserved"] - split0["graph_reserved"]
+    planned = {"weights": plan.weight_bytes, "kv_pool": plan.kv_pool_bytes}
+    exact = {k: (planned[k] - real[k]) / real[k] for k in real}
+    live_err = (reserved - pools - cache - plan.total_bytes) / \
+        plan.total_bytes
+    out.update({
+        "utilization": util, "prometheus": prom_stats,
+        "signals_version": sig.get("version"),
+        "signals_memory": sig.get("memory"),
+        "kernels": {"samples_total": ks["samples_total"],
+                    "sample_failures": ks["sample_failures"],
+                    "names": names, "top": kern[:8]},
+        "kernel_skew": dec.get("kernel_skew"),
+        "compiles": {"totals": comp["totals"], "by_label_phase": by_label},
+        "flight": {"records": len(fl["records"]), "causes": causes,
+                   "ring_size": fl["ring_size"],
+                   "measured_ms": sum(r["measured_ms"]
+                                      for r in fl["records"])},
+        "profile_capture": prof,
+        "postmortems": pms,
+        "postmortem_reason": pm and pm["reason"],
+        "postmortem_records": pm and len(pm["records"]),
+        "flight_postmortems": after["flight"]["flight_postmortems"],
+        "memory": {k: mem.get(k) for k in (
+            "source", "hbm_bytes_in_use", "hbm_bytes_peak",
+            "hbm_bytes_limit", "hbm_plan_skew", "hbm_pressure")},
+        "memory_components": comp_bytes,
+        "plan_total_bytes": plan_total,
+        "reserved_before_boot": before["bytes_in_use"],
+        "graph_pools_before_boot": before["graph_pool_bytes"],
+        "plan_vs_reserved": plan_err,
+        "plan_vs_live": live_err,
+        "reserved_growth_bytes": reserved,
+        "live_bytes": live, "live_unplanned_bytes": live - real["weights"]
+        - real["kv_pool"], "allocator_cache_bytes": cache,
+        "graph_pool_growth_bytes": pools,
+        "real_bytes": real, "plan_vs_real": exact,
+        "served_s": served_s, "device_busy_s": busy_s,
+        "device_busy_share": busy_s / served_s, "whole_window": whole,
+        "requests": m["requests"], "slo": {
+            k: m["slo"][k] for k in ("slo_attainment", "goodput_tokens")},
+        "ttft_ms": m["ttft_ms"], "tpot_ms": m["tpot_ms"],
+    })
+    log(f"telemetry server (llama-3.2-1b bf16, flight ring "
+        f"{out['flight_ring']}, sampler every {out['sampler_period']} "
+        f"steps; booted in {boot_s:.1f}s): 8 concurrent turns in "
+        f"{out['concurrent_s']:.2f}s, then {extra} sequential turns until "
+        f"the sampler named K1 and K2; launches {out['launches']}")
+    log(f"  /metrics: requests {m['requests']}, TTFT {m['ttft_ms']} ms, "
+        f"TPOT {m['tpot_ms']} ms; prometheus {prom_stats}")
+    log(f"  device busy {busy_s:.3f} s of the turns' {served_s:.3f} s "
+        f"(share {busy_s / served_s:.4f}); over the whole window {whole}")
+    log(f"  /debug/kernels: {ks['samples_total']} samples "
+        f"({ks['sample_failures']} failed), kernel_skew decode "
+        f"{dec.get('kernel_skew')}; top: "
+        + "; ".join(f"{r['kind']} {r['kernel'][:48]} {r['total_us']:.0f} us"
+                    f" x{r['count']}" for r in kern[:6]))
+    log(f"  /debug/compiles: {comp['totals']}; by label and phase "
+        f"{by_label}")
+    log(f"  /debug/flight/0: {len(fl['records'])} records, causes "
+        f"{causes}; postmortems {pms} ({out['postmortem_reason']}, "
+        f"{out['postmortem_records']} records); failed turn errors "
+        f"{out['failed_turn_errors']}")
+    log(f"  memory: {out['memory']}, components {comp_bytes}; reserved "
+        f"before boot {before['bytes_in_use']} (graph pools "
+        f"{before['graph_pool_bytes']}); the server's growth vs plan + its "
+        f"graph pools: {plan_err}; one allocator poll {poll_ms:.3f} ms")
+    log(f"  memory at rest after the turns: memory_reserved +{reserved} B"
+        f", less graph pools +{pools} B and the allocator's cache of freed "
+        f"blocks +{cache} B, against the plan's {plan.total_bytes} B "
+        f"({live_err:+.4f}); live +{live} B, of it the engine's weights {real['weights']} B and KV pool "
+        f"{real['kv_pool']} B (plan - real: {exact}), "
+        f"{live - real['weights'] - real['kv_pool']} B else (the plan "
+        f"charges {plan.activation_bytes} B of activations and "
+        f"{plan.grammar_table_bytes} B of grammar tables)")
+    log(f"  /debug/profile: {prof[0]}")
+    fails = list(util["out_of_range"])
+    if not any(K1_KERNEL in n for n in names) or \
+            not any(K2_KERNEL in n for n in names):
+        fails.append(f"sampler names {names}")
+    ks_val = dec.get("kernel_skew")
+    if not (isinstance(ks_val, (int, float)) and 0 < ks_val < float("inf")):
+        fails.append(f"kernel_skew {ks_val}")
+    if "nvcc" not in by_label or "decode_graph" not in by_label or \
+            not by_label["decode_graph"].get("warmup"):
+        fails.append(f"compiles {by_label}")
+    if not causes or not fl["records"]:
+        fails.append("flight records without causes")
+    if not pms or out["postmortem_reason"] != "engine_failure" or \
+            not out["failed_turn_errors"]:
+        fails.append(f"postmortem {pms}")
+    if mem.get("source") != "device" or plan_err is None:
+        fails.append(f"memory section {mem.get('source')}")
+    if any(abs(v) > PLAN_EXACT for v in exact.values()):
+        fails.append(f"memory plan vs the engine's tensors {exact}")
+    if abs(live_err) > PLAN_MARGIN:
+        fails.append(f"memory plan vs memory_reserved less graph pools "
+                     f"and cache {live_err}")
+    if prof[0] != 200 or out["signals_version"] != 9:
+        fails.append(f"profile {prof[0]} / signals {out['signals_version']}")
+    out["fails"] = fails
+    return out
+
+
+async def _serve_telemetry_variant(td: str, name: str, knobs: dict,
+                                   prompt: str, max_tokens: int,
+                                   fetch_lag=None) -> dict:
+    """One streamed thread turn on a server configured from the
+    environment (int8 weights + KV, or speculative_k), flight ring on;
+    the utilization windows of its /metrics."""
+    import gc
+
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.server import ServingConfig, create_app
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _EnvKnobs(**knobs):
+        cfg = ServingConfig.from_env(
+            model_name="llama-3.2-1b", max_batch=8, page_size=16,
+            num_pages=1100, max_pages_per_seq=128,
+            prefill_buckets=(64, 128, 256, 512),
+            db_path=os.path.join(td, f"{name}.db"),
+            system_prompt="You are a terse assistant.")
+        app = await create_app(cfg, tools=[], mcp_servers=[])
+    engine = app[STATE_KEY]["llm"].engine
+    if fetch_lag is not None:
+        engine.ecfg.fetch_lag = fetch_lag
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    kernels.reset_launch_counts()
+    try:
+        async with aiohttp.ClientSession() as s:
+            ev = await _stream(
+                s, f"http://127.0.0.1:{port}/v1/threads/{name}/chat/"
+                   "completions",
+                {"model": "llama-3.2-1b", "stream": True, "temperature": 0,
+                 "max_tokens": max_tokens,
+                 "messages": [{"role": "user", "content": prompt}]})
+            m = await _get_json(s, f"http://127.0.0.1:{port}/metrics")
+    finally:
+        launches = {f.__name__: f.launches for f in kernels.KERNELS}
+        await runner.cleanup()
+    out = {"usage": _usage(ev), "launches": launches,
+           "utilization": check_utilization(m["utilization"],
+                                            f"{name} server"),
+           "speculation": m["speculation"]}
+    log(f"  {name} server: {out['usage']['completion_tokens']} tokens, "
+        f"launches {launches}, speculation "
+        f"{m['speculation']['speculation_verify_steps']} verify steps")
+    return out
+
+
+def profile_catch(seed: int) -> dict:
+    """The profiler's dropped kernel events, settled on a bare loop: N
+    launches of K1 at the ragged decode shape, timed with CUDA events,
+    then profiled with acc_events on and off, then inside a kernel
+    sampler window; each reports the launches it caught out of N."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kafka_tpu_torch.ops.kernels import paged_decode_attention
+    from kafka_tpu_torch.runtime.kernel_profiler import KernelSampler
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, P, ps, Hq, Hkv, D = 8, 128, 16, 32, 8, 64
+    pages = B * P + 1
+    k_pool = torch.randn(pages * ps, Hkv * D, generator=gen, device=dev
+                         ).to(torch.bfloat16)
+    v_pool = torch.randn_like(k_pool)
+    q = torch.randn(B, Hq, D, generator=gen, device=dev).to(torch.bfloat16)
+    table = (torch.randperm(pages - 1, generator=gen, device=dev) + 1
+             ).view(B, P).to(torch.int32)
+    lens = torch.tensor([15, 16, 31, 255, 511, 700, 2046, 5],
+                        dtype=torch.int32, device=dev)
+    call = lambda: paged_decode_attention(  # noqa: E731
+        q, k_pool, v_pool, table, lens, page_size=ps)
+    N = 200
+    out = {"launches": N, "event_ms_per_call": time_ms(call, iters=N)}
+
+    def caught(prof):
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and K1_KERNEL in e.key)
+
+    for acc in (True, False):
+        counts = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA],
+                         acc_events=acc) as prof:
+                for _ in range(N):
+                    call()
+                torch.cuda.synchronize()
+            counts.append(caught(prof))
+        out[f"acc_events_{acc}"] = counts
+    td = tempfile.mkdtemp()
+    try:
+        sampler = KernelSampler(1, spill_dir=td, device_type="cuda")
+        counts = []
+        for _ in range(3):
+            sampler.on_step_begin(None)
+            for _ in range(N):
+                call()
+            torch.cuda.synchronize()
+            sampler.close(None)
+            counts.append(sum(r["count"] for r in sampler.table(100)
+                              if K1_KERNEL in r["kernel"]) - sum(counts))
+        out["sampler"] = counts
+    finally:
+        import shutil
+
+        shutil.rmtree(td, ignore_errors=True)
+    log(f"profiler catch, {N} K1 launches ({out['event_ms_per_call']:.4f} ms"
+        f" each by CUDA events): acc_events on {out['acc_events_True']}, off"
+        f" {out['acc_events_False']}, kernel sampler windows "
+        f"{out['sampler']}")
+    return out
+
+
+def tensor_bytes(tree) -> int:
+    """The bytes of every tensor in a nest of dicts, lists, tuples and
+    named tuples."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return 0
+
+
+def allocator_split(dev) -> dict:
+    """The caching allocator's segments on `dev`, split into the default
+    pool and the private (CUDA-graph) pools: bytes reserved and bytes
+    allocated in each."""
+    import torch
+
+    out = dict.fromkeys(("default_reserved", "default_allocated",
+                         "graph_reserved", "graph_allocated"), 0)
+    for seg in torch.cuda.memory_snapshot():
+        if seg.get("device", dev.index) != dev.index:
+            continue
+        kind = "default" if tuple(seg.get("segment_pool_id", (0, 0))) == \
+            (0, 0) else "graph"
+        out[f"{kind}_reserved"] += int(seg.get("total_size", 0))
+        out[f"{kind}_allocated"] += int(seg.get("allocated_size", 0))
+    return out
+
+
+def leftovers(threads_before: set, wait_s: float = 5.0) -> list:
+    """What the telemetry phase left running in the process: a Python
+    thread started since `threads_before` that does not end within
+    `wait_s`, an open torch.profiler session, or the process trace lock
+    (kernel sampler / POST /debug/profile) still held."""
+    import torch
+
+    from kafka_tpu_torch.runtime import kernel_profiler
+
+    left = []
+    deadline = time.monotonic() + wait_s
+    for t in threading.enumerate():
+        if t.ident not in threads_before and t is not \
+                threading.current_thread():
+            t.join(max(0.0, deadline - time.monotonic()))
+            if t.is_alive():
+                left.append(f"thread {t.name} (daemon {t.daemon})")
+    if torch.autograd.profiler._is_profiler_enabled or \
+            torch._C._autograd._profiler_enabled():
+        left.append("a torch.profiler session is open")
+    if kernel_profiler._TRACE_LOCK.locked():
+        left.append("the profiler trace lock is held")
+    return left
+
+
+def phase_telemetry(seed: int) -> None:
+    """The telemetry plane on the card: the bf16 server's routes and
+    gates, an int8 and a speculative server's utilization, the decode
+    step's busy share with the flight ring on (and off, its cost), the
+    registry's bandwidth utilization against CUDA events, and the
+    profiler's catch on a bare loop."""
+    import numpy as np
+    import torch
+
+    from kafka_tpu_torch.models import get_config, init_params
+
+    threads_before = {t.ident for t in threading.enumerate()}
+    res = {"profile_catch": profile_catch(seed)}
+    with tempfile.TemporaryDirectory() as td:
+        res["server"] = asyncio.run(_serve_telemetry(td))
+        res["int8"] = asyncio.run(_serve_telemetry_variant(
+            td, "int8", dict(QUANTIZE="int8", KV_QUANTIZE="int8"),
+            "Explain int8 KV caches in two sentences. " * 4, 48))
+        res["speculative"] = asyncio.run(_serve_telemetry_variant(
+            td, "spec", dict(SPECULATIVE_K=4),
+            "one two three four " * 12, 48, fetch_lag=0))
+    torch.cuda.empty_cache()
+    cfg = get_config("llama-3.2-1b")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    rng = np.random.RandomState(seed + 7)
+    busy = {}
+    for k in (16, 1):
+        for ring in (256, 0):
+            eng, clock = _profile_engine(cfg, params, multi_step=k,
+                                         flight_ring=ring)
+            busy[f"{k}_{ring}"] = graph_profile(eng, clock, cfg, rng,
+                                                registry=True)
+            del eng
+            torch.cuda.empty_cache()
+        on, off = busy[f"{k}_256"], busy[f"{k}_0"]
+        log(f"  multi_step {k}, flight ring 256 vs off: busy "
+            f"{on['device_busy_share']:.4f} vs {off['device_busy_share']:.4f}"
+            f", host {on['host_ms_per_step']:.3f} vs "
+            f"{off['host_ms_per_step']:.3f} ms/step; registry decode "
+            f"hbm_bw_util over the window {on['registry']['hbm_bw_util']:.4f}"
+            f" against {on['registry']['event_hbm_bw_util']:.4f} from CUDA "
+            f"events (ratio {on['registry']['ratio']:.3f})")
+    res["busy"] = busy
+    res["leftovers"] = leftovers(threads_before)
+    log(f"  left behind by the telemetry phase: {res['leftovers'] or 'none'}")
+    RESULTS["telemetry"] = res
+    fails = list(res["server"]["fails"]) + res["leftovers"]
+    for v in ("int8", "speculative"):
+        fails += [f"{v}: {b}" for b in res[v]["utilization"]["out_of_range"]]
+    if not res["speculative"]["speculation"]["speculation_verify_steps"]:
+        fails.append("speculative server ran no verify step")
+    for key in ("16_256", "1_256"):
+        if busy[key]["device_busy_share"] < FLIGHT_BUSY_MIN:
+            fails.append(f"busy with the flight ring {key}: {busy[key]}")
+        reg = busy[key]["registry"]
+        if not abs(reg["ratio"] - 1) <= HBM_AGREE:
+            fails.append(f"registry hbm_bw_util vs CUDA events {key}: {reg}")
+    if fails:
+        raise AssertionError(f"telemetry phase: {fails}")
+    # each kernel's launches on the telemetry servers (the kernel table
+    # carries them beside the engine and server phases')
+    res["launches"] = {
+        "K1": res["server"]["launches"]["paged_decode_attention"],
+        "K2": res["server"]["launches"]["paged_prefill_attention"],
+        "K3": res["speculative"]["launches"]["paged_verify_attention"],
+        "K4": res["int8"]["launches"]["paged_decode_attention_int8"]}
+
+
 def main() -> int:
     global BASELINE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="kernels,engine,graphs,server",
-                    help="comma list of kernels, engine, graphs, server "
-                         "(default: all), or attention (K3 and K4 alone, "
-                         "timed) or mlp (K5 alone, timed)")
+    ap.add_argument("--phases",
+                    default="kernels,engine,graphs,server,telemetry",
+                    help="comma list of kernels, engine, graphs, server, "
+                         "telemetry (default: all; telemetry runs first), "
+                         "or attention (K3 and K4 alone, timed) or mlp (K5 "
+                         "alone, timed)")
     ap.add_argument("--root", default=None,
                     help="time another checkout's kernels (the package "
                          "under this directory) on the same inputs; "
@@ -3457,6 +4207,12 @@ def main() -> int:
     gpu = gpu_line()
     log(f"card: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.monotonic()
+    # the compile observatory records this run's nvcc builds (boot) and
+    # every graph capture after them
+    from kafka_tpu_torch.runtime import compile_log
+
+    compile_log.init()
+    compile_log.set_phase("boot")
     build_s, build_logs = build.build_all()
     log(f"build: {build_s:.1f}s (nvcc, sm_90a, parallel)")
     ptxas = ptxas_report(build_logs)
@@ -3481,6 +4237,8 @@ def main() -> int:
     k5_hmma = sass_count("fused_mlp", "HMMA")
     log(f"K5 SASS: {k5_hmma} HMMA instructions (tensor cores)")
     RESULTS["k5_hmma"] = k5_hmma
+    if "telemetry" in phases:
+        phase_telemetry(args.seed)
     if "kernels" in phases:
         phase_kernels(args.seed)
     for only in ("attention", "mlp"):
@@ -3492,15 +4250,21 @@ def main() -> int:
         phase_graphs(args.seed)
     if "server" in phases:
         phase_server()
+    for k, n in RESULTS.get("telemetry", {}).get("launches", {}).items():
+        if k in RESULTS:
+            RESULTS[k]["telemetry_launches"] = n
     RESULTS["total_s"] = time.monotonic() - t0
     RESULTS["card"] = gpu
     drops = RESULTS.get("profile_drops", [])
-    log(f"profiles that dropped kernel events: {len(drops)} {drops[:8]}")
+    caught = RESULTS.get("profile_caught", [])
+    log(f"profiles (acc_events=True) that dropped kernel events: "
+        f"{len(drops)} of {len(caught)} {drops[:8]}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = {"kernels": [
         {**{k: RESULTS[n].get(k) for k in keys},
          **{k: RESULTS[n][k] for k in ("engine_launches", "server_launches",
+                                       "telemetry_launches",
                                        "launch_count_basis",
                                        "replay_profiler_launches",
                                        "device_ms", "device_ms_cold_l2",

@@ -22,10 +22,12 @@ go straight into the continuous-batching engine via the dispatch thread
 * each request carries the ambient trace context (tracing.py) across the
   thread boundary, so the engine records its queue, prefill, decode and
   emit spans against the request's trace;
-* `drain` lets in-flight requests finish on shutdown, then cancels.
+* `drain` lets in-flight requests finish on shutdown, then cancels;
+* `signals` is the autoscaler's input snapshot (GET /admin/signals) and
+  `record_rejection` counts a gate-level 429 in the metrics registry.
 
-Images, data-parallel replicas and resizing wait for later slices of the
-port.
+Images, data-parallel replicas, the autoscaler and resizing wait for
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -160,6 +162,138 @@ class TorchLLMProvider(LLMProvider):
         if limit <= 0 or len(self.engine.waiting) < limit:
             return None
         return self.engine.retry_after_estimate()
+
+    def record_rejection(self) -> None:
+        """Count a gate-level HTTP 429 in requests.rejected (the engine
+        backstop counts its own).  A rejection is also an SLO miss, and a
+        flight-recorder "reject" cause drained into the next ring record.
+        Cross-thread int increments: GIL-atomic enough for counters."""
+        self.engine.metrics.record_rejected()
+        if self.engine.flight is not None:
+            self.engine.flight.note_gate_reject()
+
+    def signals(self) -> Dict[str, Any]:
+        """One coherent autoscaler-input snapshot (GET /admin/signals),
+        the reference's contract (kafka_tpu/llm/tpu_provider.py signals,
+        version 9) with the same keys: queue depth, peak and 60s trend;
+        decode-slot occupancy; windowed SLO attainment and goodput;
+        per-kind MFU / bandwidth utilization and model skew; per-replica
+        load, pages and anomalies (one replica: the engine); the flight
+        recorder's active anomalies; the compile observatory's summary
+        and storm flag; the memory monitor's measured headroom and plan
+        skew; the agent section.  Sections of subsystems this package
+        does not have yet (object tier, disaggregation, autoscaler,
+        replica supervisor) read null, as in a reference deployment
+        without them.  Read torn-tolerantly from the engine thread's
+        single-writer metrics."""
+        from ..runtime import compile_log
+
+        engine = self.engine
+        # reset_peak=False: the signal poll must not consume the
+        # /metrics scraper's peak-since-last-snapshot window
+        snap = engine.metrics.snapshot(engine, reset_peak=False)
+        util = snap.get("utilization") or {}
+        occupancy = snap.get("decode", {}).get("batch_occupancy", 0.0)
+        max_batch = engine.ecfg.max_batch
+        kinds = ("prefill", "decode", "verify")
+        replica = {
+            "replica": 0,
+            "state": "healthy",
+            "active": engine.num_active,
+            "waiting": len(engine.waiting),
+            "parked": len(engine.parked),
+            "pages_free": engine.pool.free_pages,
+            "pages_total": engine.pool.num_pages,
+            "batch_occupancy": occupancy,
+            "anomalies_active": (snap.get("anomalies") or {}).get(
+                "anomalies_active", 0),
+            "utilization": {
+                kind: {k: util.get(kind, {}).get(k, 0.0)
+                       for k in ("mfu", "mfu_1m", "hbm_bw_util",
+                                 "hbm_bw_util_1m", "model_skew")}
+                for kind in kinds
+            },
+        }
+        anomalies = dict(snap.get("anomalies") or {})
+        if anomalies.get("active"):
+            anomalies["active"] = [{**a, "replica": a.get("replica", 0)}
+                                   for a in anomalies["active"]]
+        pools = [{
+            "role": "colocated",
+            "replicas": [0],
+            "queue_depth": len(engine.waiting),
+            "active": engine.num_active,
+            "parked": len(engine.parked),
+            "batch_occupancy": occupancy,
+            "utilization": {
+                kind: {k: util.get(kind, {}).get(k, 0.0)
+                       for k in ("mfu", "mfu_1m", "hbm_bw_util",
+                                 "hbm_bw_util_1m")}
+                for kind in kinds
+            },
+        }]
+        slo_src = snap.get("slo") or {}
+        slo_out = {k: v for k, v in slo_src.items()
+                   if not k.startswith("window_")}
+        w1 = slo_src.get("window_1m") or {}
+        slo_out["window_1m_requests"] = int(
+            (w1.get("met") or 0) + (w1.get("missed") or 0))
+        obs = compile_log.get()
+        memory_section = None
+        mm = engine.memory_monitor
+        sec = mm.section() if mm is not None else None
+        if sec and sec.get("source") != "none":
+            memory_section = {
+                "headroom_bytes": sec["hbm_headroom_bytes"],
+                "plan_skew": sec["hbm_plan_skew"],
+                "pressure": sec["hbm_pressure"],
+                "replicas": [{"replica": 0, **{k: sec[k] for k in (
+                    "source", "hbm_bytes_in_use", "hbm_bytes_limit",
+                    "hbm_headroom_bytes", "hbm_plan_skew",
+                    "hbm_pressure")}}],
+            }
+        ag = snap.get("agent") or {}
+        agent_section = {
+            out_key: ag.get(key, 0) for out_key, key in (
+                ("awaiting_threads", "agent_awaiting_threads"),
+                ("awaiting_bytes", "agent_awaiting_bytes"),
+                ("gaps", "agent_gaps"),
+                ("gap_demotions", "agent_gap_demotions"),
+                ("gap_pages_demoted", "agent_gap_pages_demoted"),
+                ("gap_bytes_demoted", "agent_gap_bytes_demoted"),
+                ("gap_cancelled", "agent_gap_cancelled"),
+                ("hint_hits", "agent_hint_hits"),
+                ("hint_misses", "agent_hint_misses"),
+                ("bg_queue_depth", "bg_queue_depth"),
+                ("bg_admitted", "bg_admitted"),
+                ("bg_chunks", "bg_chunks"),
+                ("bg_yields", "bg_yields"))
+        }
+        return {
+            "version": 9,
+            "dp": 1,
+            "queue": dict(snap.get("queue") or {}),
+            "anomalies": anomalies,
+            "agent": agent_section,
+            "compiles": obs.signals_section() if obs is not None else None,
+            "memory": memory_section,
+            "pools": pools,
+            "object_tier": None,
+            "disagg": None,
+            "autoscaler": None,
+            "batch": {
+                "occupancy": occupancy,
+                "occupancy_frac": round(occupancy / max_batch, 4)
+                if max_batch else 0.0,
+                "active": engine.num_active,
+                "max_batch": max_batch,
+                "slots_total": max_batch,
+            },
+            "slo": slo_out,
+            "utilization": snap.get("utilization") or {},
+            "replicas": [replica],
+            "supervisor": None,
+        }
 
     def get_model_info(self, model: Optional[str] = None) -> Dict[str, Any]:
         return {

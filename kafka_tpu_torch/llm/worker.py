@@ -129,6 +129,11 @@ class EngineWorker:
                     events = self._fail_all()
             for ev in events:
                 self._dispatch_guarded(ev)
+        # the profiler opens and closes on this thread: an open kernel
+        # sampler window must not outlive the worker
+        sampler = getattr(self.engine, "kernel_sampler", None)
+        if sampler is not None:
+            sampler.close(self.engine.metrics)
         logger.info("engine worker stopped")
 
     def _dispatch_guarded(self, ev: TokenEvent, attempts: int = 0) -> None:
@@ -196,7 +201,12 @@ class EngineWorker:
 
     def _fail_all(self) -> List[TokenEvent]:
         """Recovery itself died: every registered request gets a terminal
-        engine-error event."""
+        engine-error event.  The flight recorder's ring is then the only
+        artifact that explains the engine: it is dumped first."""
+        try:
+            self.engine.dump_postmortem("recovery_failed")
+        except Exception:  # pragma: no cover - defensive
+            logger.exception("recovery-failure postmortem dump failed")
         events = []
         for rid in list(self.engine._requests):
             req = self.engine._requests.get(rid)

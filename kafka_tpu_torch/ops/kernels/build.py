@@ -83,9 +83,15 @@ def _start(name: str) -> Optional[subprocess.Popen]:
                             stderr=subprocess.STDOUT, text=True)
 
 
-def _finish(name: str, proc: Optional[subprocess.Popen]) -> str:
-    """Wait for one build; returns nvcc's output (ptxas register report)."""
+def _finish(name: str, proc: Optional[subprocess.Popen], t0: float) -> str:
+    """Wait for one build; returns nvcc's output (ptxas register report).
+    Each build is a compile-observatory record: a miss with its wall
+    seconds since `t0`, or a zero-second hit for a library already in
+    the build directory."""
+    from ...runtime import compile_log
+
     if proc is None:
+        compile_log.record(f"nvcc[{name}]", 0.0, cache="hit")
         return ""
     log, _ = proc.communicate()
     out = _lib_path(name)
@@ -93,6 +99,7 @@ def _finish(name: str, proc: Optional[subprocess.Popen]) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)
+    compile_log.record(f"nvcc[{name}]", time.monotonic() - t0, cache="miss")
     return log
 
 
@@ -105,7 +112,7 @@ def build_all(names: Sequence[str] = tuple(SIGNATURES)
     logs: Dict[str, str] = {}
     try:
         for n, p in procs:
-            logs[n] = _finish(n, p)
+            logs[n] = _finish(n, p, t0)
     finally:
         for _, p in procs:
             if p is not None and p.poll() is None:

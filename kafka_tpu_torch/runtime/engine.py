@@ -73,8 +73,25 @@ Sampled tokens reach the host through a FIFO of asynchronous copies
 most `fetch_lag` steps deep and popped by age (`fetch_wait_s`, ~RTT for a
 lone stream) once landed; a stop token found in flight retires the lane
 and the tokens dispatched after it are dropped.  Prefill and verify run
-eagerly (captured graphs for them, singleton-mask chaining, the flight
-recorder, metrics and KV tiers wait for later slices).
+eagerly (captured graphs for them, singleton-mask chaining and KV tiers
+wait for later slices).
+
+Telemetry is the reference's (runtime/metrics.py, flight_recorder.py,
+planner.py, compile_log.py, kernel_profiler.py): `self.metrics` records
+every request and dispatch at the reference's sites with the planner's
+modeled flop/byte cost per dispatch; `self.flight` keeps the
+per-iteration ring (KAFKA_TORCH_FLIGHT_RING, 0 = off) and dumps a
+postmortem when a step fails; `self.memory_monitor` samples the caching
+allocator at ~1 Hz; `self.kernel_sampler` (KAFKA_TORCH_PROFILE_SAMPLE)
+profiles every Nth step; each graph capture is a compile-observatory
+record.  A dispatch's measured device time, and its busy time in the
+MFU and bandwidth figures, come on CUDA from timing events around it on
+the stream, read when its fetch lands (the host runs up to fetch_lag
+steps ahead, so the reference's enqueue-to-enqueue gaps undercount the
+device: fault C8); on the CPU from the reference's rules (fetch
+maturation; the gap to the next dispatch).  No telemetry call runs
+inside the step body or a captured region: a host call there would run
+only at capture.
 """
 
 from __future__ import annotations
@@ -102,7 +119,15 @@ from ..ops.sampling import (
     grammar_allowed_mask,
     sample_tokens_per_slot,
 )
-from ..tracing import add_event, record_span
+from ..tracing import add_event, annotate, record_span
+from . import compile_log, kernel_profiler
+from .flight_recorder import (
+    KIND_DECODE,
+    KIND_MULTI,
+    KIND_VERIFY,
+    FlightRecorder,
+    ring_default,
+)
 from .kv_cache import (
     OutOfPagesError,
     PagePool,
@@ -111,6 +136,8 @@ from .kv_cache import (
     make_kv_pool_arrays,
     page_table_array,
 )
+from .metrics import AGENT_METRIC_KEYS, EngineMetrics
+from .planner import MemoryMonitor
 from .prefix_cache import PrefixCache
 from .speculative import LaneSpeculator
 
@@ -208,6 +235,10 @@ class EngineConfig:
     # verify steps read through the dequantizing page gather, as in the
     # JAX package (which has no int8 prefill or verify kernel).
     kv_quantize: str = ""
+    # Scheduler flight recorder (runtime/flight_recorder.py): ring of
+    # this many per-iteration records; 0 disables it (every hook site is
+    # one branch).  Default KAFKA_TORCH_FLIGHT_RING, else 256.
+    flight_ring: int = dataclasses.field(default_factory=ring_default)
 
     @property
     def max_window(self) -> int:
@@ -292,6 +323,9 @@ class GenRequest:
     trace_last_t: Optional[float] = None
     t_prefill_start: Optional[float] = None
     t_first_dispatch: Optional[float] = None
+    # SLO verdict set at finalize (_finalize_slo): True met, False
+    # missed, None excluded (a client cancel) or not finalized yet
+    slo_met: Optional[bool] = None
 
 
 class _GrammarTables:
@@ -458,6 +492,19 @@ class _Fetch:
     logits: Optional[torch.Tensor] = None
     # False for a prefill's first-token fetch (no engine.decode span)
     decode: bool = True
+    # the utilization kind this dispatch bills to and its modeled
+    # roofline seconds (None: no cost model or roofline), read when the
+    # fetch lands to pair it with the measured device time
+    kind: str = "decode"
+    modeled_s: Optional[float] = None
+    # CUDA: (start, end) timing events bracketing the dispatch's device
+    # work on the stream (a prefill's: each of its chunks).  None on the
+    # CPU.
+    spans: Optional[List[Tuple[Any, Any]]] = None
+    # CUDA: modeled dispatch costs charged to the registry when this
+    # fetch lands, each (kind, tokens, flops, bytes, spans) with the
+    # device seconds of its spans as busy time (_note_ready)
+    costs: List[Tuple] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -560,6 +607,12 @@ def resolve_attention_backend(cfg: ModelConfig, ecfg: EngineConfig,
     return "plain", problems
 
 
+def _spans_s(spans: Sequence[Tuple[Any, Any]]) -> float:
+    """Device seconds of (start, end) CUDA timing-event pairs (their
+    end events have completed)."""
+    return sum(a.elapsed_time(b) for a, b in spans) / 1e3
+
+
 def sampling_mode(reqs: Sequence[Optional[GenRequest]]) -> int:
     """GREEDY, SAMPLED or FILTERED for the lanes of one dispatch, from
     their host parameters (the reference's lax.cond predicates)."""
@@ -606,6 +659,9 @@ class InferenceEngine:
         if ecfg.multi_step < 1 or ecfg.fetch_lag < 0 or ecfg.max_parked < 0:
             raise ValueError("multi_step must be >= 1, fetch_lag and "
                              "max_parked >= 0")
+        if ecfg.flight_ring < 0:
+            raise ValueError(
+                "flight_ring must be >= 0 (0 disables the flight recorder)")
         backend, self.attention_backend_reasons = resolve_attention_backend(
             cfg, ecfg, self.device.type)
         if self.attention_backend_reasons:
@@ -680,21 +736,10 @@ class InferenceEngine:
         # the host-masked micro-batch's in-flight fetch (at most one):
         # those lanes redispatch only after it is processed
         self._constrained_fetch: Optional[_Fetch] = None
-        # tokens dispatched after their request had finished (a stop token
-        # found in flight, a cancel): dropped at drain
-        self.fetch_pipeline_wasted = 0
-        # EWMA of decode dispatch wall time (Retry-After estimate)
-        self._tpot_s: Optional[float] = None
-        self.preemptions = 0
         self.prefix_cache: Optional[PrefixCache] = (
             PrefixCache(self.pool, max_pages=ecfg.prefix_cache_pages)
             if ecfg.prefix_cache_entries > 0 and ecfg.prefix_cache_pages != 0
             else None)
-        # speculation counters: candidates proposed (at dispatch) and
-        # accepted (at drain), and the verify forwards that checked them
-        self.speculation_proposed_tokens = 0
-        self.speculation_accepted_tokens = 0
-        self.verify_steps = 0
         # on-device grammar FSM lanes: per-slot automaton state (-1 =
         # unconstrained), grammar index into the shared table set, and
         # remaining token budget, all on the device and advanced there
@@ -702,15 +747,91 @@ class InferenceEngine:
         self._fsm = torch.full((B,), -1, dtype=torch.int32, device=dev)
         self._fsm_g = torch.zeros(B, dtype=torch.int32, device=dev)
         self._budget = torch.zeros(B, dtype=torch.int32, device=dev)
-        # constrained-decoding counters: tokens emitted by device-FSM
-        # lanes, host mask rows built from logits_mask_fn, over-tight
-        # rows (no allowed token: the sampler degrades the row to
-        # unconstrained), and lanes degraded from the FSM to the host mask
-        self.constrained_ondevice_tokens = 0
+        # constrained-decoding counters of this package (the reference's
+        # constrained_* keys live in self.metrics): host mask rows built
+        # from logits_mask_fn, and lanes degraded from the FSM to the
+        # host mask
         self.constrained_host_mask_steps = 0
-        self.constrained_mask_overtight = 0
         self.constrained_degrades = 0
+        self._init_telemetry()
         self._rtt_est = self._measure_rtt()
+
+    def _init_telemetry(self) -> None:
+        """The reference's telemetry (kafka_tpu/runtime/engine.py
+        __init__): flight recorder, metrics registry with the planner's
+        dispatch cost model and this device's roofline, the live memory
+        monitor and the kernel sampler."""
+        self.flight: Optional[FlightRecorder] = (
+            FlightRecorder(self.ecfg.flight_ring)
+            if self.ecfg.flight_ring > 0 else None)
+        # completion time of the previously observed fetch (the CPU's
+        # measured-dispatch rule: a dispatch starts at max(its enqueue,
+        # the previous completion))
+        self._last_ready_t: Optional[float] = None
+        # modeled seconds of prefill chunks whose completion is not
+        # observed (only a final chunk ships a fetch entry) and, on CUDA,
+        # their timing spans and costs: the final chunk's entry carries
+        # them
+        self._prefill_modeled_acc: Optional[float] = None
+        self._prefill_spans: List[Tuple[Any, Any]] = []
+        self._prefill_costs: List[Tuple] = []
+        self.metrics = EngineMetrics()
+        self._cost_model = None
+        self._roofline: Optional[Tuple] = None
+        self._have_roofline = False
+        try:
+            from ..models.quant import param_bytes
+            from .planner import device_peaks, dispatch_cost_model
+
+            self._cost_model = dispatch_cost_model(
+                self.cfg, n_devices=1,
+                weight_bytes_total=param_bytes(self.params),
+                kv_dtype_bytes=(1 if self.ecfg.kv_quantize == "int8"
+                                else self.kv_dtype.itemsize))
+            self._roofline = device_peaks(self.device)
+            self.metrics.set_roofline(*self._roofline)
+            # a known roofline survives metrics resets (the server swaps
+            # in a fresh EngineMetrics after warmup): the cost helpers
+            # re-apply it on the first dispatch they record
+            self._have_roofline = self._roofline[2] != "unknown"
+        except Exception:
+            logger.warning("dispatch cost model unavailable: MFU and "
+                           "bandwidth utilization will read 0",
+                           exc_info=True)
+        # attached by the server after planning (memory_monitor.plan)
+        self.memory_monitor: Optional[MemoryMonitor] = MemoryMonitor(
+            [self.device])
+        self.kernel_sampler = kernel_profiler.build_from_env(
+            self.device.type)
+
+    # the reference's counters, read from the registry (self.metrics)
+    @property
+    def preemptions(self) -> int:
+        return self.metrics.requests_preempted
+
+    @property
+    def fetch_pipeline_wasted(self) -> int:
+        return self.metrics.fetch_pipeline_wasted_tokens
+
+    @property
+    def speculation_proposed_tokens(self) -> int:
+        return self.metrics.speculation_proposed_tokens
+
+    @property
+    def speculation_accepted_tokens(self) -> int:
+        return self.metrics.speculation_accepted_tokens
+
+    @property
+    def verify_steps(self) -> int:
+        return self.metrics.speculation_verify_steps
+
+    @property
+    def constrained_ondevice_tokens(self) -> int:
+        return self.metrics.constrained_ondevice_tokens
+
+    @property
+    def constrained_mask_overtight(self) -> int:
+        return self.metrics.constrained_mask_overtight
 
     def _measure_rtt(self) -> float:
         """Time a device-to-host copy of a fresh small tensor: the seed of
@@ -756,6 +877,9 @@ class InferenceEngine:
             raise ValueError("empty prompt")
         if self.ecfg.max_waiting > 0 and \
                 len(self.waiting) >= self.ecfg.max_waiting:
+            self.metrics.record_rejected()
+            if self.flight is not None:
+                self.flight.note_cause("reject")
             raise AdmissionError(len(self.waiting), self.ecfg.max_waiting,
                                  self.retry_after_estimate())
         limit = self.ecfg.max_window
@@ -787,6 +911,7 @@ class InferenceEngine:
             # need a host turnaround per token
             req.spec = LaneSpeculator(req.prompt_ids)
         req.submit_time = time.monotonic()
+        self.metrics.record_submit(len(req.prompt_ids))
         req.state = WAITING
         self.waiting.append(req)
         self._requests[req.request_id] = req
@@ -803,6 +928,7 @@ class InferenceEngine:
             self.waiting.remove(req)
         req.state = FINISHED
         req.finish_reason = reason
+        self._finalize_slo(req, reason)
         self._release_slot(req)
         self._requests.pop(request_id, None)
         return True
@@ -822,9 +948,17 @@ class InferenceEngine:
         decode batch.  With nothing left to dispatch the pipeline is
         flushed."""
         failpoint("engine.step")
+        if self.kernel_sampler is not None:
+            # close the previous sample's window (the device work queued
+            # behind it has had the inter-step gap to land) and open a
+            # new one when this step is due
+            self.kernel_sampler.on_step_begin(self.metrics)
+        if self.memory_monitor is not None:
+            self.memory_monitor.poll()  # throttled to ~1 Hz internally
         if self._park_cooldown > 0:
             self._park_cooldown -= 1
         self._check_deadlines()
+        self.metrics.record_queue_depth(len(self.waiting))
         self._drain(block=False)
         self._admit()
         self._advance_prefills()
@@ -833,6 +967,12 @@ class InferenceEngine:
             self._drain(block=False)
         if not self.num_active and not self.waiting and self._pending:
             self._drain(block=True)
+        if not self.num_active:
+            self.metrics.mark_idle()  # idle gaps are not TPOT
+            self._last_ready_t = None  # the measured-time chain restarts
+        if self.flight is not None:
+            # commit this iteration's record, run the anomaly detectors
+            self.flight.finish_step(self)
         out, self._out_events = self._out_events, []
         return out
 
@@ -855,11 +995,20 @@ class InferenceEngine:
             self.step()
         return req
 
+    def agent_section(self) -> Dict[str, int]:
+        """The metrics snapshot's "agent" section (AGENT_METRIC_KEYS).
+        This engine has no agent-gap scheduling (tool-gap demotion,
+        expected-return hints) and no background request class yet: no
+        gap is observed and no background request exists, so every key
+        reads 0 — what the reference reports with those features off."""
+        return {k: 0 for k in AGENT_METRIC_KEYS}
+
     def retry_after_estimate(self) -> float:
         """Seconds until queue relief is plausible, for 429 Retry-After:
         the batch retires ~max_batch requests per (default token budget x
-        per-token latency).  Clamped to [1, 120] — a hint, not a promise."""
-        tpot_s = self._tpot_s or 0.05
+        per-token latency, the registry's recent TPOT).  Clamped to
+        [1, 120] — a hint, not a promise."""
+        tpot_s = self.metrics.recent_tpot_s() or 0.05
         per_request_s = self.ecfg.max_new_tokens_default * tpot_s
         drain_rate = self.ecfg.max_batch / max(per_request_s, 1e-3)
         excess = max(1, len(self.waiting) - self.ecfg.max_batch)
@@ -912,6 +1061,54 @@ class InferenceEngine:
                                         repair=repair)
         return problems
 
+    def lane_table(self) -> List[Dict[str, Any]]:
+        """The active-lane table for postmortems: every registered
+        request's scheduler-visible state, readable without the engine."""
+        now = time.monotonic()
+        return [{
+            "request_id": req.request_id,
+            "state": req.state,
+            "slot": req.slot,
+            "age_s": round(now - req.submit_time, 3)
+            if req.submit_time else None,
+            "prompt_tokens": len(req.prompt_ids),
+            "output_tokens": len(req.output_ids),
+            "dispatched": req.dispatched,
+            "drained": req.drained,
+            "spec_ahead": req.spec_ahead,
+            "cached_tokens": req.cached_tokens,
+            "cache_source": req.cache_source,
+            "grammar": req.grammar is not None,
+            "host_constrained": self._host_constrained(req),
+            "pages": len(req.seq.pages) if req.seq is not None else 0,
+            "seq_len": req.seq.length if req.seq is not None else 0,
+            "finish_reason": req.finish_reason,
+        } for req in self._requests.values()]
+
+    def dump_postmortem(self, reason: str) -> Optional[str]:
+        """Write a flight-recorder postmortem (ring + metrics snapshot +
+        active-lane table).  Best-effort and exception-free: this runs on
+        failure paths.  None when the recorder is off or no dump
+        directory is configured."""
+        if self.flight is None:
+            return None
+        try:
+            # flush the failing iteration's partial staging into the ring
+            # so the dump's LAST record describes the step that died
+            self.flight.finish_step(self)
+        except Exception:  # pragma: no cover - defensive
+            pass
+        try:
+            lanes = self.lane_table()
+        except Exception:  # pragma: no cover - defensive
+            lanes = []
+        try:
+            snap = self.metrics.snapshot(self, reset_peak=False)
+        except Exception:  # pragma: no cover - defensive
+            snap = {}
+        return self.flight.dump_postmortem(
+            reason, lanes=lanes, metrics_snapshot=snap)
+
     def recover_from_failure(self) -> List[TokenEvent]:
         """Rebuild a servable engine after a step() exception: every
         request that had started compute gets exactly one terminal error
@@ -927,7 +1124,10 @@ class InferenceEngine:
         processed, so none reaches a stream after its terminal event —
         and before the graphs, their memory pool and the control tensors
         are released or re-seeded.  A device that cannot synchronize
-        raises here, and the worker fails every request."""
+        raises here, and the worker fails every request.  First the
+        flight recorder's postmortem, before recovery mutates the state
+        it explains."""
+        self.dump_postmortem("engine_failure")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         events: List[TokenEvent] = list(self._out_events)
@@ -935,6 +1135,11 @@ class InferenceEngine:
         self._pending.clear()
         self._pending_steps = 0
         self._constrained_fetch = None
+        self._last_ready_t = None
+        # the unobserved prefill chunks died with the step
+        self._prefill_modeled_acc = None
+        self._prefill_spans = []
+        self._prefill_costs = []
         for req in list(self._requests.values()):
             if req.state == WAITING:
                 if req.seq is not None:
@@ -946,6 +1151,7 @@ class InferenceEngine:
                 continue
             req.state = FINISHED
             req.finish_reason = "error:engine"
+            self._finalize_slo(req, "error:engine")
             add_event(req.trace, "engine.recover", {"reason": "error:engine"})
             self._release_slot(req)
             self._requests.pop(req.request_id, None)
@@ -1002,6 +1208,9 @@ class InferenceEngine:
             self.waiting.remove(req)
         req.state = FINISHED
         req.finish_reason = "timeout"
+        self._finalize_slo(req, "timeout")
+        if self.flight is not None:
+            self.flight.note_cause("timeout")
         self._release_slot(req)
         self._requests.pop(req.request_id, None)
         self._out_events.append(TokenEvent(req.request_id, None, finished=True,
@@ -1011,16 +1220,30 @@ class InferenceEngine:
     # the fetch pipeline
     # ------------------------------------------------------------------
 
+    def _timer(self) -> Optional[Any]:
+        """A timing event recorded now on the stream (CUDA), the start of
+        a dispatch's measured span; None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
     def _fetch(self, toks: torch.Tensor, items: List[Optional[GenRequest]],
                final: List[List[Optional[str]]], steps: int = 1,
                logits: Optional[torch.Tensor] = None,
                spec: Optional[_SpecMeta] = None,
-               decode: bool = True) -> _Fetch:
+               decode: bool = True, kind: str = "decode",
+               modeled_s: Optional[float] = None,
+               t_start: Optional[Any] = None,
+               spans: Optional[List[Tuple[Any, Any]]] = None) -> _Fetch:
         """Start the host copy of a dispatch's device tokens (and kept
         logits) and enqueue it.  On CUDA the copy goes into pinned host
-        memory with non_blocking=True and an event marks its landing;
-        the device buffers may be overwritten by the next dispatch, which
-        the stream orders after the copy."""
+        memory with non_blocking=True and a timing event marks its
+        landing, which closes the span that `t_start` (the dispatch's
+        start event) opens; `spans` are the dispatch's earlier spans.  The
+        device buffers may be overwritten by the next dispatch, which the
+        stream orders after the copy."""
         keep = logits if self.ecfg.keep_logits else None
         if self.device.type == "cuda":
             host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
@@ -1030,15 +1253,19 @@ class InferenceEngine:
                                  pin_memory=True)
                 lh.copy_(keep, non_blocking=True)
                 keep = lh
-            event = torch.cuda.Event()
+            event = torch.cuda.Event(enable_timing=True)
             event.record()
+            spans = list(spans or [])
+            if t_start is not None:
+                spans.append((t_start, event))
         else:
             host = toks.clone()
             keep = keep.float().clone() if keep is not None else None
             event = None
         entry = _Fetch(toks=host, items=items, final=final,
                        t0=time.monotonic(), steps=steps, spec=spec,
-                       event=event, logits=keep, decode=decode)
+                       event=event, logits=keep, decode=decode, kind=kind,
+                       modeled_s=modeled_s, spans=spans)
         self._pending.append(entry)
         self._pending_steps += entry.steps
         return entry
@@ -1052,7 +1279,37 @@ class InferenceEngine:
         now = time.monotonic()
         for e in self._pending[:8]:
             if e.t_ready is None and self._entry_ready(e):
-                e.t_ready = now
+                self._note_ready(e, now)
+
+    def _note_ready(self, entry: _Fetch, now: float) -> None:
+        """Stamp one fetch's landing and its MEASURED device time
+        (kafka_tpu/runtime/engine.py _note_ready).  On CUDA: the sum of
+        its dispatch's timing-event spans, exact once the copy event has
+        completed.  On the CPU the reference's rule: with in-order
+        execution a dispatch starts at max(its enqueue, the previous
+        completion), so completion minus that start is its time —
+        observed at scheduler cadence, so the per-kind sums, not single
+        samples, are the calibrated quantity."""
+        entry.t_ready = now
+        if entry.spans is not None:
+            measured = _spans_s(entry.spans)
+            for kind, toks, flops, bytes_, spans in entry.costs:
+                self.metrics.record_dispatch_cost(
+                    kind, toks, flops, bytes_, busy_s=_spans_s(spans))
+        else:
+            start = entry.t0
+            if self._last_ready_t is not None and \
+                    self._last_ready_t > start:
+                start = self._last_ready_t
+            self._last_ready_t = now
+            measured = now - start
+            if measured < 0.0 or measured > 10.0:
+                return  # clock weirdness / wedged device
+        if entry.modeled_s is not None:
+            self.metrics.record_measured_dispatch(
+                entry.kind, entry.modeled_s, measured)
+        if self.flight is not None:
+            self.flight.note_measured(measured)
 
     def _rtt_age_bound(self) -> float:
         return max(1.25 * self._rtt_est, 0.002)
@@ -1076,6 +1333,7 @@ class InferenceEngine:
         once (a lane proposes only from a drained history)."""
         wait = self._emit_wait()
         self._stamp_ready()
+        emitted = 0
         while self._pending:
             if not block:
                 entry = self._pending[0]
@@ -1089,7 +1347,15 @@ class InferenceEngine:
                     break
             popped = self._pending.pop(0)
             self._pending_steps -= popped.steps
-            self._process_entry(popped)
+            emitted += self._process_entry(popped)
+        if not self._pending:
+            # empty pipeline: the next completion's measured time starts
+            # at its own enqueue, not a stale completion
+            self._last_ready_t = None
+        if emitted:
+            self.metrics.record_emit_burst(emitted)
+            if self.flight is not None:
+                self.flight.note_pop(emitted)
 
     def _pop_entry_now(self, entry: _Fetch) -> None:
         """Take one entry out of the FIFO and process it now: safe out of
@@ -1097,17 +1363,22 @@ class InferenceEngine:
         prefill)."""
         self._pending.remove(entry)
         self._pending_steps -= entry.steps
-        self._process_entry(entry)
+        n = self._process_entry(entry)
+        if n:
+            self.metrics.record_emit_burst(n)
 
     def _pop_through(self, entry: _Fetch) -> None:
         """Process pending entries in FIFO order up to and including
         `entry` (per-request token order must hold)."""
+        n = 0
         while self._pending:
             e = self._pending.pop(0)
             self._pending_steps -= e.steps
-            self._process_entry(e)
+            n += self._process_entry(e)
             if e is entry:
                 break
+        if n:
+            self.metrics.record_emit_burst(n)
 
     def _process_entry(self, entry: _Fetch) -> int:
         """Materialize one fetch (waiting on its event if the copy has not
@@ -1125,6 +1396,10 @@ class InferenceEngine:
                 else:
                     self._rtt_est = min(0.9 * self._rtt_est + 0.1 * sample,
                                         max(2.0 * self._rtt_probe, 0.001))
+        if entry.t_ready is None and entry.spans is not None:
+            # landed (CUDA): every entry's event spans are read, stamped
+            # or not before its pop
+            self._note_ready(entry, time.monotonic())
         if entry.decode:
             # decode spans end when the tokens land on the host: a
             # dispatch is only an enqueue, up to fetch_lag steps ahead
@@ -1141,7 +1416,7 @@ class InferenceEngine:
                 if req.state == FINISHED:
                     # dispatched after the request finished (a stop token
                     # found in flight, a cancel)
-                    self.fetch_pipeline_wasted += 1
+                    self.metrics.record_wasted_token()
                     continue
                 if entry.logits is not None:
                     req.logits.append(entry.logits[j, i])
@@ -1187,7 +1462,7 @@ class InferenceEngine:
             row, cl = vals[i], meta.cand_lens[i]
             if cl == 0:
                 if req.state == FINISHED:
-                    self.fetch_pipeline_wasted += 1
+                    self.metrics.record_wasted_token()
                     continue
                 if entry.logits is not None:
                     req.logits.append(entry.logits[i, 0])
@@ -1197,9 +1472,13 @@ class InferenceEngine:
             m = row[meta.width]  # accepted candidates (0..cl)
             req.spec_ahead = 0
             if req.state == FINISHED:
-                self.fetch_pipeline_wasted += m + 1
+                # the whole run is discarded: every candidate counts
+                # rejected (proposed == accepted + rejected + in flight)
+                # and the would-be emissions are fetch-pipeline waste
+                self.metrics.record_verify_drain(0, cl)
+                self.metrics.record_wasted_token(m + 1)
                 continue
-            self.speculation_accepted_tokens += m
+            self.metrics.record_verify_drain(m, cl - m)
             if req.spec is not None:
                 req.spec.observe(m, cl)
             emit = m + 1  # the accepted run and the bonus token
@@ -1216,7 +1495,7 @@ class InferenceEngine:
                 n += 1
                 self._process_token(req, row[j], final)
                 if req.state == FINISHED:
-                    self.fetch_pipeline_wasted += emit - (j + 1)
+                    self.metrics.record_wasted_token(emit - (j + 1))
                     break
         return n
 
@@ -1225,11 +1504,16 @@ class InferenceEngine:
         req.drained += 1
         req.output_ids.append(token)
         if req.grammar is not None:
-            self.constrained_ondevice_tokens += 1
+            self.metrics.constrained_ondevice_tokens += 1
         if req.spec is not None:
             req.spec.push(token)  # keep the n-gram index tail-accurate
         if req.first_token_time is None:
             req.first_token_time = time.monotonic()
+            self.metrics.record_first_token(
+                req.first_token_time - req.submit_time)
+            self.metrics.record_ttft_breakdown(
+                req.submit_time, req.t_prefill_start, req.t_first_dispatch,
+                req.first_token_time)
             if req.trace is not None and req.t_first_dispatch is not None:
                 # first dispatch -> first token on the host
                 record_span(
@@ -1237,6 +1521,7 @@ class InferenceEngine:
                     req.first_token_time - req.t_first_dispatch,
                     attrs={"ttft_ms": round(
                         (req.first_token_time - req.submit_time) * 1e3, 2)})
+        self.metrics.record_token()
         if token in req.stop_token_ids:
             reason = "stop"
         elif final_reason is not None:
@@ -1246,6 +1531,7 @@ class InferenceEngine:
             return
         req.finish_reason = reason
         req.state = FINISHED
+        self._finalize_slo(req, reason)
         if req.seq is not None and req.prefix_key is not None \
                 and self.prefix_cache is not None:
             # Cache the thread's KV before the pages go back to the pool
@@ -1305,6 +1591,8 @@ class InferenceEngine:
                 break  # head page-blocked, nothing parked to seat
             self.parked.remove(oldest)
             self._seat(oldest, slot)
+            if self.flight is not None:
+                self.flight.note_cause("admit_parked")
         self._admit_offslot()
 
     def _admit_waiting_head(self, slot: int) -> bool:
@@ -1317,6 +1605,8 @@ class InferenceEngine:
         needed = self._pages_needed(req)
         if needed > self.pool.free_pages and not self._reclaim_cache(needed):
             self._detach_prefix(req)
+            if self.flight is not None:
+                self.flight.note_cause("page_blocked")
             return False
         self.waiting.pop(0)
         try:
@@ -1325,7 +1615,11 @@ class InferenceEngine:
             self._detach_prefix(req)
             req.state = WAITING
             self.waiting.insert(0, req)
+            if self.flight is not None:
+                self.flight.note_cause("page_blocked")
             return False
+        if self.flight is not None:
+            self.flight.note_cause("admit")
         return True
 
     def _seat(self, req: GenRequest, slot: int) -> None:
@@ -1374,6 +1668,8 @@ class InferenceEngine:
                 self.waiting.insert(0, req)
                 break
             self.parked.append(req)
+            if self.flight is not None:
+                self.flight.note_cause("park")
 
     def _attach_prefix(self, req: GenRequest) -> None:
         """Share the longest cached prefix before the admission page gate:
@@ -1519,11 +1815,13 @@ class InferenceEngine:
             chunk_len=chunk_len,
         )
         positions = (start + torch.arange(bucket, device=dev))[None]
+        t_start = self._timer()
         logits, _ = forward(
             self.params, self.cfg, self._to_device(chunk[None]),
             positions, kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged,
             logits_at=self._to_device(np.asarray([chunk_len - 1])),
         )
+        self._prefill_dispatched(t_start, [(chunk_len, start)])
         req.seq.length = start + chunk_len
         if req.seq.length < len(prompt):
             return  # more chunks to go; decode proceeds meanwhile
@@ -1567,11 +1865,14 @@ class InferenceEngine:
         positions = self._to_device(starts)[:, None] + \
             torch.arange(bucket, device=dev)[None]
         last = np.clip(lens - 1, 0, bucket - 1)
+        t_start = self._timer()
         logits, _ = forward(
             self.params, self.cfg, self._to_device(chunks),
             positions, kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged,
             logits_at=self._to_device(last),
         )
+        self._prefill_dispatched(
+            t_start, [(int(lens[i]), int(starts[i])) for i in range(len(reqs))])
         done = []
         for i, req in enumerate(reqs):
             req.seq.length += int(lens[i])
@@ -1634,7 +1935,12 @@ class InferenceEngine:
         if all(m is None for m in items):
             return
         entry = self._fetch(toks[None], items, [finals],
-                            logits=logits[None], decode=False)
+                            logits=logits[None], decode=False,
+                            kind="prefill",
+                            modeled_s=self._take_prefill_modeled(),
+                            spans=self._prefill_spans)
+        self._prefill_spans = []
+        entry.costs, self._prefill_costs = self._prefill_costs, []
         for req, fin in zip(items, finals):
             if req is not None and fin is not None:
                 self._to_draining(req)
@@ -1700,29 +2006,23 @@ class InferenceEngine:
                         for s in self.slots)
         if not active:
             return
-        t0 = time.monotonic()
-        try:
-            if self.ecfg.speculative_k > 0 and \
-                    self._try_dispatch_verify(active):
-                return
-            k = 1 if spec_wait else self._pick_multi_step(active)
-            if k > 1:
-                self._dispatch_multi(k)
-                return
-            if self._ctl_dirty:
-                self._refresh_ctl()
-            ids = {id(s) for s in active}
-            members = [s if id(s) in ids else None for s in self.slots]
-            if not any(self._host_constrained(s) for s in active):
-                self._dispatch_group(
-                    members, None,
-                    fsm=any(s.grammar is not None for s in active))
-                return
-            self._dispatch_mixed(members)
-        finally:
-            dt = time.monotonic() - t0
-            self._tpot_s = dt if self._tpot_s is None else \
-                0.9 * self._tpot_s + 0.1 * dt
+        if self.ecfg.speculative_k > 0 and self._try_dispatch_verify(active):
+            return
+        k = 1 if spec_wait else self._pick_multi_step(active)
+        if k > 1:
+            self._dispatch_multi(k)
+            return
+        if self._ctl_dirty:
+            self._refresh_ctl()
+        ids = {id(s) for s in active}
+        members = [s if id(s) in ids else None for s in self.slots]
+        if not any(self._host_constrained(s) for s in active):
+            entry = self._dispatch_group(
+                members, None, fsm=any(s.grammar is not None for s in active))
+            self.metrics.record_decode_step(len(active))
+            self._record_decode_cost(active, entry=entry)
+            return
+        self._dispatch_mixed(members)
 
     def _dispatch_mixed(self, members: List[Optional[GenRequest]]) -> None:
         """A batch with host-masked lanes.  Their next mask depends on
@@ -1734,11 +2034,33 @@ class InferenceEngine:
         uncon = [m if m is not None and not self._host_constrained(m)
                  else None for m in members]
         n_uncon = sum(m is not None for m in uncon)
+        entries = []
         if n_uncon:
-            self._dispatch_group(
+            entries.append(self._dispatch_group(
                 uncon, None,
                 fsm=any(m is not None and m.grammar is not None
-                        for m in uncon))
+                        for m in uncon)))
+        n_amb = self._dispatch_host_masked(members, n_uncon)
+        if n_amb:
+            entries.append(self._constrained_fetch)
+        if self.flight is not None and n_amb:
+            # awaited host-constrained lanes this iteration (genuine
+            # choice points; this package chains none)
+            self.flight.note_constrained(0, n_amb)
+        if n_uncon or n_amb:
+            # one scheduler iteration = one TPOT sample / occupancy
+            # record, however many groups it took; its cost covers
+            # exactly the lanes it advanced, and no single fetch carries
+            # its modeled time (entry None)
+            self.metrics.record_decode_step(n_uncon + n_amb)
+            advanced = [m for e in entries for m in e.items if m is not None]
+            self._record_decode_cost(advanced, entries=entries)
+
+    def _dispatch_host_masked(self, members: List[Optional[GenRequest]],
+                              n_uncon: int) -> int:
+        """The host-masked micro-batch of _dispatch_mixed: pop its
+        landed fetch, then redispatch the lanes whose output is complete
+        with mask rows built from it.  Returns the lanes dispatched."""
         if self._constrained_inflight():
             # pop once landed; with no pipelined lane nobody is stalled by
             # waiting, so pop at once
@@ -1747,7 +2069,7 @@ class InferenceEngine:
                 self._pop_through(entry)
                 self._constrained_fetch = None
         if self._constrained_inflight():
-            return
+            return 0
         B, V = self.ecfg.max_batch, self.cfg.vocab_size
         amb: List[Optional[GenRequest]] = [None] * B
         rows: Dict[int, Optional[np.ndarray]] = {}
@@ -1761,7 +2083,7 @@ class InferenceEngine:
             amb[i] = s
             rows[i] = self._host_mask_row(s)
         if not rows:
-            return
+            return 0
         allowed = None
         if any(r is not None for r in rows.values()):
             allowed = np.ones((B, V), bool)
@@ -1770,6 +2092,11 @@ class InferenceEngine:
                     allowed[i] = r
         self._constrained_fetch = self._dispatch_group(amb, allowed,
                                                        fsm=False)
+        # each masked lane now awaits a device->host round trip for its
+        # next mask: a genuine constrained choice point
+        self.metrics.constrained_roundtrips += sum(
+            r is not None for r in rows.values())
+        return len(rows)
 
     def _constrained_inflight(self) -> bool:
         """Is the host-masked micro-batch still waiting on its fetch?"""
@@ -1816,11 +2143,14 @@ class InferenceEngine:
             self._refresh_ctl()
         members = [s if s is not None and s.state == ACTIVE else None
                    for s in self.slots]
-        self._dispatch_group(
+        entry = self._dispatch_group(
             members, None, steps=k,
             fsm=any(m is not None and m.grammar is not None
                     for m in members))
         self.multi_step_dispatches += 1
+        self.metrics.record_decode_step(
+            sum(1 for m in entry.items if m is not None), steps=k)
+        self._record_decode_cost(entry.items, steps=k, entry=entry)
 
     def _dispatch_group(self, members: List[Optional[GenRequest]],
                         allowed: Optional[np.ndarray], fsm: bool,
@@ -1829,6 +2159,7 @@ class InferenceEngine:
         `members` (slot-aligned; None = not in this dispatch: their KV
         writes go to the trash page, their lengths, last tokens and FSM
         states stay), with `allowed` [B, V] host mask rows, then book it."""
+        t_start = self._timer()
         self._to_device(np.array([m is not None for m in members]),
                         out=self._d_run)
         if allowed is not None:
@@ -1839,10 +2170,10 @@ class InferenceEngine:
             self._to_device(allowed, out=self._d_allowed)
         self._run_step(steps, fsm, sampling_mode(members),
                        allowed is not None)
-        return self._book_dispatch(members, steps)
+        return self._book_dispatch(members, steps, t_start)
 
     def _book_dispatch(self, members: List[Optional[GenRequest]],
-                       steps: int) -> _Fetch:
+                       steps: int, t_start: Optional[Any] = None) -> _Fetch:
         """Post-dispatch accounting: advance each member's length and
         dispatched count by `steps`, enqueue the fetch, and start draining
         lanes that hit a host-known limit.  `steps` is chosen so limits
@@ -1862,7 +2193,12 @@ class InferenceEngine:
         finals = [[None] * len(items) for _ in range(steps - 1)] + [last]
         entry = self._fetch(self._toks_buf[steps], items, finals,
                             steps=steps,
-                            logits=self._logits_buf.get(steps))
+                            logits=self._logits_buf.get(steps),
+                            t_start=t_start)
+        if self.flight is not None:
+            lanes = sum(1 for m in items if m is not None)
+            self.flight.note_dispatch(KIND_MULTI if steps > 1 else KIND_DECODE,
+                                      lanes, lanes * steps, steps=steps)
         for req, fin in zip(items, last):
             if req is not None and fin is not None:
                 self._to_draining(req)
@@ -2040,8 +2376,13 @@ class InferenceEngine:
                 fn.launches = b
         g = _StepGraph(graph, [(fn, n) for fn, n in ticks if n])
         self._graphs[key] = g
+        dt = time.monotonic() - t0
         self.graph_captures += 1
-        self.graph_capture_s += time.monotonic() - t0
+        self.graph_capture_s += dt
+        compile_log.record(
+            f"decode_graph[k={k},fsm={int(fsm)},mode={mode},"
+            f"masked={int(masked)},keep={int(keep)}"
+            + (f",tables=v{version}]" if fsm else "]"), dt)
         return g
 
     # ------------------------------------------------------------------
@@ -2117,9 +2458,8 @@ class InferenceEngine:
             cand_lens[slot] = len(cands)
             self._assert_private_tail(s, len(cands))
             s.spec_ahead = len(cands) + 1
+        t_start = self._timer()
         out, logits = self._verify_step(members, cand_arr, cand_lens)
-        self.verify_steps += 1
-        self.speculation_proposed_tokens += sum(cand_lens)
         finals: List[Optional[str]] = [None] * B
         for i, req in enumerate(members):
             if req is None or cand_lens[i] > 0:
@@ -2127,12 +2467,23 @@ class InferenceEngine:
             req.seq.length += 1
             req.dispatched += 1
             finals[i] = self._limit_reason_after_dispatch(req)
-        self._fetch(out, list(members), [finals],
-                    steps=max(cand_lens) + 1, logits=logits,
-                    spec=_SpecMeta(cand_lens=cand_lens, width=K + 1))
+        entry = self._fetch(out, list(members), [finals],
+                            steps=max(cand_lens) + 1, logits=logits,
+                            spec=_SpecMeta(cand_lens=cand_lens, width=K + 1),
+                            t_start=t_start)
+        busy = sum(1 for m in members if m is not None)
+        n_proposed = sum(cand_lens)
+        if self.flight is not None:
+            self.flight.note_dispatch(KIND_VERIFY, busy, busy + n_proposed)
+            self.flight.note_spec(n_proposed)
         for req, fin in zip(members, finals):
             if req is not None and fin is not None:
                 self._to_draining(req)
+        self.metrics.record_decode_step(busy)
+        self.metrics.record_verify_dispatch(n_proposed)
+        # verify cost: every lane advances >= 1 query plus its candidates
+        self._record_decode_cost(members, kind="verify",
+                                 queries=busy + n_proposed, entry=entry)
         return True
 
     def _verify_step(self, members: List[Optional[GenRequest]],
@@ -2225,6 +2576,154 @@ class InferenceEngine:
             self._budget.sub_(adv.int())
         return torch.cat([samples, m[:, None]], dim=1), logits
 
+    # ------------------------------------------------------------------
+    # telemetry: SLO verdicts and modeled dispatch cost
+    # ------------------------------------------------------------------
+
+    def _finalize_slo(self, req: GenRequest, reason: Optional[str]) -> None:
+        """Terminal metrics + SLO verdict for one request
+        (kafka_tpu/runtime/engine.py _finalize_slo): TTFT and mean TPOT
+        from the request's own stamps (first token -> finalize), the
+        verdict from metrics.record_finish, and on a traced request the
+        verdict stamped onto its root span."""
+        now = time.monotonic()
+        ttft_s = (req.first_token_time - req.submit_time
+                  if req.first_token_time is not None else None)
+        n_out = len(req.output_ids)
+        tpot_s = None
+        if req.first_token_time is not None and n_out > 1:
+            tpot_s = (now - req.first_token_time) / (n_out - 1)
+        met = self.metrics.record_finish(reason, ttft_s=ttft_s,
+                                         tpot_s=tpot_s, tokens=n_out)
+        req.slo_met = met
+        if met is not None and req.trace is not None:
+            annotate(req.trace, {
+                "slo_met": met,
+                "slo_ttft_ms": round(ttft_s * 1e3, 1)
+                if ttft_s is not None else None,
+                "slo_tpot_ms": round(tpot_s * 1e3, 2)
+                if tpot_s is not None else None,
+                "goodput_tokens": n_out if met else 0,
+            })
+
+    def _modeled_dispatch_s(self, flops: float,
+                            bytes_: float) -> Optional[float]:
+        """Roofline time of one dispatch (None = no roofline): the slower
+        of the compute and bandwidth bounds."""
+        m = self.metrics
+        if not m.peak_flops or not m.peak_hbm_bps:
+            return None
+        return max(flops / m.peak_flops, bytes_ / m.peak_hbm_bps)
+
+    def _prefill_dispatched(self, t_start: Optional[Any],
+                            lanes: List[Tuple[int, int]]) -> None:
+        """Telemetry of one prefill chunk dispatch over `lanes`
+        [(chunk_tokens, start_pos), ...]: its timing span (CUDA), its
+        modeled cost, banked until a fetch entry carries them, and the
+        flight record."""
+        span = None
+        if t_start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            span = (t_start, end)
+            self._prefill_spans.append(span)
+        modeled = self._record_prefill_cost(lanes, span)
+        if modeled is not None:
+            self._prefill_modeled_acc = \
+                (self._prefill_modeled_acc or 0.0) + modeled
+        if self.flight is not None:
+            self.flight.note_prefill(len(lanes), sum(c for c, _ in lanes))
+
+    def _take_prefill_modeled(self) -> Optional[float]:
+        """The banked prefill modeled seconds, for the entry being
+        created: its measured span covers every unobserved chunk since
+        the previous observed one, so it gets their modeled SUM."""
+        modeled = self._prefill_modeled_acc
+        self._prefill_modeled_acc = None
+        return modeled
+
+    def _cost_ready(self) -> bool:
+        """Is the modeled-cost path on?  A fresh metrics object (the
+        server's post-warmup reset) gets the roofline back first."""
+        if self._cost_model is None or not self.metrics.enabled:
+            return False
+        if self._have_roofline and self.metrics.peak_source == "unknown":
+            self.metrics.set_roofline(*self._roofline)
+        return True
+
+    def _record_prefill_cost(self, lanes: List[Tuple[int, int]],
+                             span: Optional[Tuple[Any, Any]] = None
+                             ) -> Optional[float]:
+        """Report one prefill dispatch's modeled cost over `lanes`
+        [(chunk_tokens, start_pos), ...]; weights stream once per
+        dispatch, so the per-lane weight-byte term is de-duplicated.  On
+        CUDA (`span`: the chunk's timing events) it is charged when the
+        final chunk's fetch lands, with the span's device seconds.
+        Returns its modeled roofline seconds (None = no model/roofline)."""
+        if not self._cost_ready():
+            return None
+        cm = self._cost_model
+        flops = bytes_ = 0.0
+        toks = 0
+        for chunk, start in lanes:
+            lf, lb = cm.prefill_cost(chunk, start)
+            flops += lf
+            bytes_ += lb - cm.weight_bytes
+            toks += chunk
+        bytes_ += cm.weight_bytes
+        if span is not None:
+            self._prefill_costs.append(("prefill", toks, flops, bytes_,
+                                        [span]))
+        else:
+            self.metrics.record_dispatch_cost("prefill", toks, flops, bytes_)
+        modeled = self._modeled_dispatch_s(flops, bytes_)
+        if self.flight is not None:
+            self.flight.note_cost(flops, bytes_, modeled)
+        return modeled
+
+    def _record_decode_cost(self, members: Sequence[Optional[GenRequest]],
+                            steps: int = 1, kind: str = "decode",
+                            queries: Optional[int] = None,
+                            entry: Optional[_Fetch] = None,
+                            entries: Sequence[_Fetch] = ()) -> None:
+        """Report one decode/verify dispatch's modeled cost: context is
+        the host-known per-lane KV length sum; `queries` is a verify's
+        query-token count (lanes + candidates).  `entry` tags the
+        dispatch's fetch with the modeled time for the skew gauge (a
+        mixed host-constrained iteration passes its group fetches as
+        `entries` instead: they share one cost record).  On CUDA the cost
+        is charged when the last of the fetches lands, with their spans'
+        device seconds as busy time; on the CPU at once, by the
+        reference's gap rule."""
+        if not self._cost_ready():
+            return
+        lanes = [m for m in members if m is not None]
+        if not lanes:
+            return
+        cm = self._cost_model
+        ctx = sum(m.seq.length if m.seq is not None else 0 for m in lanes)
+        if kind == "verify":
+            toks = queries if queries is not None else len(lanes)
+            # each lane's K+1-wide query block attends its whole context
+            flops, bytes_ = cm.verify_cost(
+                toks, ctx, attn_pairs=ctx * toks / len(lanes))
+        else:
+            toks = len(lanes) * steps
+            flops, bytes_ = cm.decode_cost(toks, ctx, steps)
+        carriers = list(entries) or ([entry] if entry is not None else [])
+        if carriers and carriers[-1].spans is not None:
+            carriers[-1].costs.append(
+                (kind, toks, flops, bytes_,
+                 [sp for e in carriers for sp in e.spans]))
+        else:
+            self.metrics.record_dispatch_cost(kind, toks, flops, bytes_)
+        modeled = self._modeled_dispatch_s(flops, bytes_)
+        if entry is not None:
+            entry.kind = kind
+            entry.modeled_s = modeled
+        if self.flight is not None:
+            self.flight.note_cost(flops, bytes_, modeled)
+
     def _sample(self, logits: torch.Tensor, reqs: Sequence[GenRequest],
                 positions: Sequence[int],
                 allowed: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -2294,6 +2793,8 @@ class InferenceEngine:
                        req.request_id, why)
         req.grammar = None
         self.constrained_degrades += 1
+        if self.flight is not None:
+            self.flight.note_cause("degrade")
 
     def _prefill_masks(self, reqs: Sequence[GenRequest]
                        ) -> Optional[torch.Tensor]:
@@ -2348,7 +2849,9 @@ class InferenceEngine:
         """An over-tight mask row (no token allowed): the sampler degrades
         it to unconstrained.  Counted every time, logged once per
         request."""
-        self.constrained_mask_overtight += 1
+        self.metrics.constrained_mask_overtight += 1
+        if self.flight is not None:
+            self.flight.note_cause("overtight")
         if req.overtight_logged:
             return
         req.overtight_logged = True
@@ -2438,7 +2941,10 @@ class InferenceEngine:
         assert not self._pending, "preempt with in-flight fetches"
         assert victim.dispatched == victim.drained, (
             "preempt victim has unprocessed dispatched tokens")
-        self.preemptions += 1
+        self.metrics.record_preempt()
+        if self.flight is not None:
+            self.flight.note_cause(
+                "park_rollback" if victim in self.parked else "preempt")
         add_event(victim.trace, "preempt",
                   {"generated": len(victim.output_ids)})
         victim.spec_ahead = 0

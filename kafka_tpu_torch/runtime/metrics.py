@@ -1,0 +1,1517 @@
+"""Serving metrics: the SLO telemetry plane an autoscaler reads.
+
+Counterpart of kafka_tpu/runtime/metrics.py, with the same classes, keys
+and arithmetic, so one scripted event sequence gives the same snapshot in
+both packages.  The engine records counters as it schedules, the server
+exports them at GET /metrics (JSON + Prometheus text), and a benchmark
+reads the same numbers — one source of truth.
+
+Three layers:
+
+* **Streaming histograms** — every latency/size distribution (TTFT, TPOT,
+  the TTFT phase breakdown, emission bursts) is a fixed log-spaced-bucket
+  histogram: constant memory, cumulative bucket counts that are monotone
+  by construction, and MERGEABLE across DP replicas (identical bounds,
+  counts add).  JSON quantiles are derived from the buckets
+  (upper-bound-biased within one bucket — bounds are spaced sqrt(2)
+  apart, so the bias is <= ~41% of the value and one-sided); Prometheus
+  gets the true ``_bucket``/``_sum``/``_count`` families.
+
+* **SLO classification + goodput** — each request is classified MET/MISSED
+  at finalize against KAFKA_TORCH_SLO_TTFT_MS (default 200) and
+  KAFKA_TORCH_SLO_TPOT_MS (default 0 = TTFT-only).  Timeouts, engine
+  failures, and 429 rejections are MISSED; client cancels are excluded
+  (the server didn't fail them).  Goodput = tokens generated by SLO-met
+  requests (DistServe's operating-point metric) vs raw throughput, plus
+  1m/5m sliding-window attainment gauges — the autoscaler's primary
+  inputs.
+
+* **Device-utilization estimator** — per-dispatch FLOP and HBM-byte
+  costs (computed by the engine from runtime/planner.py's cost model)
+  accumulate per dispatch kind (prefill/decode/verify) against measured
+  busy time, yielding MFU and HBM-bandwidth utilization against the
+  card's datasheet roofline (planner.device_peaks).  The reference's
+  rule charges each inter-dispatch wall gap to the dispatch before it
+  (enqueue to enqueue — valid while the device, not the host, is the
+  bottleneck); ``record_dispatch_cost(..., busy_s=...)`` charges a
+  dispatch with its own measured device seconds instead.
+
+Everything is designed for the single-writer engine thread: recording is
+plain attribute math (no locks on the hot path); `snapshot()` is called
+from other threads and reads are torn-tolerant (worst case a metric is one
+step stale).  KAFKA_TORCH_TELEMETRY=0 disables the per-dispatch recording
+(histograms, utilization attribution, queue trail); plain counters AND
+the per-request SLO accounting — including the window gauges the
+autoscaler reads — keep working.
+"""
+
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import math
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+TELEMETRY_ENV = "KAFKA_TORCH_TELEMETRY"
+SLO_TTFT_ENV = "KAFKA_TORCH_SLO_TTFT_MS"
+SLO_TPOT_ENV = "KAFKA_TORCH_SLO_TPOT_MS"
+
+# Speculative-decoding metric keys.  Registry shared with the
+# Prometheus exposition layer the same way failpoints.SITES / tracing.SPANS
+# are: a static test asserts every name here appears in BOTH
+# runtime/metrics.py (this snapshot) and server/prometheus.py (the text
+# format), and that neither file invents speculation metrics outside it.
+SPECULATION_METRIC_KEYS = (
+    "speculation_proposed_tokens",
+    "speculation_accepted_tokens",
+    "speculation_rejected_tokens",
+    "speculation_verify_steps",
+    "speculation_acceptance_rate",
+    "speculation_accepted_per_step",
+)
+
+# Constrained-decoding metric keys.  Same registry discipline:
+# every key must appear in BOTH this snapshot and server/prometheus.py,
+# and neither file may invent constrained_* metrics outside the tuple
+# (static check in tests/test_grammar_fsm.py).
+CONSTRAINED_METRIC_KEYS = (
+    # genuine constrained choice points that awaited a device->host round
+    # trip (the host mask-fn micro-batch; ~0 in on-device grammar mode)
+    "constrained_roundtrips",
+    # over-tight mask rows (no token can satisfy the grammar here): the
+    # sampler degrades the row to unconstrained — silently, before this
+    # counter existed
+    "constrained_mask_overtight",
+    # tokens emitted by lanes advancing through the device-resident
+    # grammar FSM (zero-roundtrip constrained decoding)
+    "constrained_ondevice_tokens",
+    # grammar compiles queued/running on the background deferred-compile
+    # worker (llm/constrained.py): requests on those schemas take the
+    # host-mask path until the table lands.  A PROCESS-WIDE gauge, not a
+    # per-engine counter — the DP aggregate reports it once, unsummed.
+    "constrained_compile_pending",
+)
+
+# Tiered-KV-cache metric keys (the KV tiers' snapshot).
+# Same registry discipline as the families above: every key appears in
+# BOTH this module's snapshot section and server/prometheus.py, and
+# neither file invents kv-tier metrics outside the tuple (static check in
+# tests/test_kv_tier.py).  Gauges (host/disk occupancy) sum meaningfully
+# across DP replicas — each replica owns an independent tier.
+KV_TIER_METRIC_KEYS = (
+    "host_budget_bytes",
+    "host_bytes",
+    "host_runs",
+    "disk_bytes",
+    "disk_runs",
+    "demotions",
+    "pages_demoted",
+    "bytes_demoted",
+    "demote_failures",
+    "promotions",
+    "pages_promoted",
+    "bytes_promoted",
+    "promote_failures",
+    "host_evictions",
+    "disk_spills",
+    "disk_loads",
+)
+
+# Object-store-tier metric keys (the object tier's snapshot).  Same
+# registry discipline: every key appears in BOTH this module's snapshot
+# section and server/prometheus.py, and neither file
+# invents object-tier metrics outside the tuple (static check in
+# tests/test_object_tier.py).  store_bytes / store_objects are gauges of
+# the ONE SHARED store every replica mounts — the DP aggregate reports
+# them once, unsummed; everything else is per-owner and sums.
+OBJECT_TIER_METRIC_KEYS = (
+    "store_bytes",          # gauge: run-payload bytes in the shared store
+    "store_objects",        # gauge: run objects in the shared store
+    "owned_bytes",          # gauge: bytes this replica holds references on
+    "object_puts",          # counter: run payloads written
+    "object_put_failures",  # counter: torn/failed puts (archive degraded)
+    "object_bytes_put",     # counter: payload bytes written
+    "object_gets",          # counter: run payloads fetched (wake path)
+    "object_get_failures",  # counter: misses/torn fetches (wake aborted)
+    "object_bytes_got",     # counter: payload bytes fetched
+    "dedupe_hits",          # counter: puts of content already present
+                            # (cross-host prefix dedupe — reference only)
+    "wake_threads",         # counter: sleep-manifest wakes served
+    "wake_tokens",          # counter: tokens re-materialized by wakes
+    "manifests_written",    # counter: per-thread sleep manifests written
+    "objects_released",     # counter: owner references dropped (budget /
+                            # invalidation; last ref deletes the object)
+    # -- store-guard families: zeros
+    #    when the store is mounted bare (unit tests) --
+    "store_retries",        # counter: store ops retried by the guard
+    "store_timeouts",       # counter: per-op deadlines exceeded
+    "store_breaker_opens",  # counter: circuit-breaker open transitions
+    "store_breaker_state",  # gauge: 0=closed 1=half-open 2=open (the DP
+                            # aggregate maxes — any open breaker shows)
+    "store_probe_neg_cached",  # counter: manifest probes served from the
+                            # negative cache while the store is unhealthy
+                            # (zero store RTT on the submit path)
+    "store_scrub_repairs",  # counter: crash-window orphans repaired by
+                            # the scrubber (ObjectTier.scrub / fsck)
+    # -- wake-prefetch families:
+    #    zeros when KAFKA_TORCH_WAKE_PREFETCH_MB is unset --
+    "prefetch_hits",        # counter: staged payloads consumed by a wake
+                            # (the fetch RTT was hidden behind queueing)
+    "prefetch_wasted",      # counter: staged/fetched payloads dropped
+                            # (cancel, budget eviction, superseded)
+    "prefetch_bytes",       # counter: run payload bytes staged
+    "prefetch_inflight",    # gauge: prefetch GETs not yet resolved
+)
+
+# Disaggregated prefill/decode metric keys (the DP router's
+# DisaggMetrics).  Same registry discipline as the families above: every
+# key appears in BOTH this module's snapshot (the aggregate "disagg"
+# section) and server/prometheus.py, and neither file invents disagg_*
+# metrics outside the tuple (static check in tests/test_disagg.py).  All
+# counters are router-owned (one router per process), so the aggregate
+# reports them once, unsummed; the ship-latency histogram rides alongside
+# as "ship_ms" (rendered as kafka_tpu_disagg_ship_milliseconds).
+DISAGG_METRIC_KEYS = (
+    "disagg_shipped_runs",      # counter: page runs shipped prefill->decode
+    "disagg_shipped_pages",     # counter: pages shipped
+    "disagg_shipped_bytes",     # counter: real (unpadded) bytes shipped
+    "disagg_ship_failures",     # counter: torn/failed ships (degraded to
+                                # re-prefill on the decode replica)
+    "disagg_ship_skips",        # counter: hand-offs that skipped the ship
+                                # (no destination pages / sub-page run /
+                                # destination already warm / self-target)
+    "disagg_handoffs",          # counter: prefill-and-hand-off completions
+    "disagg_prefill_in_place",  # counter: short prompts served colocated on
+                                # the decode pool (below the min-token knob)
+    # -- ship-transport dimension: which transport moved each
+    #    shipped run.  host + device sum to disagg_shipped_runs. --
+    "disagg_ship_host_runs",    # counter: runs moved by the host-staged path
+    "disagg_ship_device_runs",  # counter: runs moved device-to-device
+                                # (zero numpy materialization)
+    "disagg_ship_staging_bytes",  # gauge: peak host bytes pinned by
+                                # host-staged ship chunks since the last
+                                # snapshot (peak-since-last, re-armed on
+                                # read; 0 under the device transport)
+)
+
+# SLO / goodput metric keys.  Same registry discipline: every
+# key appears in BOTH this snapshot's "slo" section and
+# server/prometheus.py, and neither file invents slo_*/goodput_* metrics
+# outside the tuple (static check in tests/test_prometheus.py).  Counters
+# sum across DP replicas; targets are deployment-wide gauges every replica
+# reports identically; window attainments are recomputed by the aggregate
+# from the summed window sections.
+SLO_METRIC_KEYS = (
+    "slo_ttft_target_ms",      # gauge: the configured TTFT target (0 = off)
+    "slo_tpot_target_ms",      # gauge: the configured TPOT target (0 = off)
+    "slo_met_requests",        # counter: requests that met every target
+    "slo_missed_requests",     # counter: missed (incl. timeout/error/429)
+    "slo_ttft_violations",     # counter: missed specifically on TTFT
+    "slo_tpot_violations",     # counter: missed specifically on TPOT
+    "slo_attainment",          # gauge: met / (met + missed) since boot
+    "slo_attainment_1m",       # gauge: sliding 60s window
+    "slo_attainment_5m",       # gauge: sliding 300s window
+    "goodput_tokens",          # counter: tokens from SLO-met requests
+    "goodput_tok_s",           # gauge: goodput_tokens / uptime
+    "goodput_tok_s_1m",        # gauge: sliding 60s window
+    "goodput_frac",            # gauge: goodput / raw generated tokens
+)
+
+# Device-utilization metric keys, per dispatch kind
+# (prefill / decode / verify).  Counters (flops/bytes/busy/dispatches/
+# tokens) sum across replicas; mfu / hbm_bw_util are RATIOS the aggregate
+# recomputes from the summed counters, never averaged.  The measured_*
+# keys carry the flight recorder's fetch-maturation timing:
+# wall time each dispatch MEASURABLY took on device next to the planner's
+# modeled roofline time for the same dispatches, and model_skew =
+# measured / modeled (kafka_tpu_dispatch_model_skew) — the gauge that
+# calibrates the modeled MFU/HBM-BW figures the autoscaler reads.
+UTILIZATION_METRIC_KEYS = (
+    "dispatches",
+    "tokens",
+    "flops",
+    "hbm_bytes",
+    "busy_s",
+    "mfu",
+    "hbm_bw_util",
+    "mfu_1m",
+    "hbm_bw_util_1m",
+    "measured_dispatches",
+    "measured_busy_s",
+    "modeled_busy_s",
+    "model_skew",
+    # sampled kernel profiling: TRUE device kernel seconds
+    # from torch.profiler trace samples, paired with the modeled roofline
+    # seconds of the SAME sampled steps — kernel_skew is the chip-truth
+    # calibration beside the fetch-maturation model_skew
+    "kernel_samples",
+    "kernel_busy_s",
+    "kernel_skew",
+)
+UTILIZATION_KINDS = ("prefill", "decode", "verify")
+
+# Flight-recorder metric keys.
+# Same registry discipline as the families above: every key appears in
+# BOTH this module's "flight" snapshot section and server/prometheus.py,
+# and neither file invents flight_* metrics outside the tuple (static
+# check in tests/test_flight_recorder.py).
+FLIGHT_METRIC_KEYS = (
+    "flight_ring_size",    # gauge: configured ring length (0 = off)
+    "flight_records",      # counter: scheduler iterations recorded
+    "flight_postmortems",  # counter: postmortem dumps written
+)
+
+# Anomaly metric keys: the flight recorder's step-cadence
+# detectors.  Counters count edge-triggered FIRINGS and sum across DP
+# replicas; anomalies_active is a gauge (currently-firing detector
+# count) the aggregate sums too.  Both-directions registry check in
+# tests/test_flight_recorder.py.
+ANOMALY_METRIC_KEYS = (
+    "anomaly_queue_stall",       # queue > 0, no dispatch for N s
+    "anomaly_fetch_starvation",  # oldest in-flight fetch stuck
+    "anomaly_mfu_collapse",      # 1m decode MFU under frac of boot MFU
+    "anomaly_prefill_convoy",    # prefill monopolizing the engine
+    "anomaly_compile_storm",     # recompiling under live traffic
+    "anomaly_hbm_pressure",      # measured headroom under the watermark
+    "anomalies_active",          # gauge: detectors currently firing
+)
+
+# Autoscaler control-loop metric keys.
+# The controller is a per-process singleton above the engines, so the
+# section is reported once (server/app.py merges it into the snapshot the
+# way it merges sandbox/tracing counters) — no DP aggregation.  Counters
+# count control-loop events; ladder_level and dp are gauges.  Both-
+# directions registry check in tests/test_autoscaler.py.
+AUTOSCALER_METRIC_KEYS = (
+    "autoscaler_polls",            # counter: signal polls evaluated
+    "autoscaler_scale_outs",       # counter: scale-out resizes performed
+    "autoscaler_scale_ins",        # counter: scale-in resizes performed
+    "autoscaler_resize_failures",  # counter: resize attempts that raised
+    "autoscaler_degrades",         # counter: ladder rungs descended
+    "autoscaler_recovers",         # counter: ladder rungs climbed back
+    "autoscaler_vetoes",           # counter: actionable decisions held
+    "autoscaler_drains",           # counter: replicas drained to the
+                                   # object store before scale-in
+                                   # (drain-then-shrink)
+    "autoscaler_ladder_level",     # gauge: current degradation rung
+    "autoscaler_dp",               # gauge: dp at the last poll
+)
+
+# Compile-observatory metric keys.
+# Compilation (CUDA-graph captures, nvcc builds) is process-global, so
+# the section is reported once
+# — server/app.py merges it into the snapshot the way it merges the
+# autoscaler section.  by_cache / by_phase ride along as the label
+# matrices under kafka_tpu_compiles_total{cache=,phase=}.  Both-
+# directions registry check in tests/test_device_truth.py.
+COMPILE_METRIC_KEYS = (
+    "compiles_total",          # counter: compilations observed
+    "compile_seconds_total",   # counter: wall seconds spent compiling
+    "compile_storm_active",    # gauge: storm condition currently held
+    "compile_storms_total",    # counter: storm episodes entered
+)
+
+# Live-HBM metric keys.
+# Per-replica device truth: worst-device bytes at step cadence,
+# reconciled against the boot-time MemoryPlan (plan_skew = measured /
+# planned; component attribution under
+# kafka_tpu_hbm_component_bytes{component=}).  On devices without
+# memory_stats (CPU smoke) the sample is synthesized from the plan
+# itself (source="plan", skew pinned 1.0) so the full export path runs
+# everywhere.  Both-directions registry check in
+# tests/test_device_truth.py.
+MEMORY_METRIC_KEYS = (
+    "hbm_bytes_in_use",      # gauge: worst-device live bytes
+    "hbm_bytes_peak",        # gauge: worst-device peak bytes
+    "hbm_bytes_limit",       # gauge: smallest device byte limit
+    "hbm_headroom_bytes",    # gauge: limit - in_use (measured, not plan)
+    "hbm_plan_skew",         # gauge: in_use / MemoryPlan.total_bytes
+    "hbm_pressure",          # gauge: headroom under the watermark
+    "hbm_component_bytes",   # labeled: plan line items + unattributed
+)
+
+# Agent-native scheduling metric keys).
+# Same registry discipline: every key appears in BOTH this module's
+# snapshot "agent" section and server/prometheus.py, and neither file
+# invents agent metrics outside the tuple (static check in
+# tests/test_agent_sched.py).  All keys are per-replica — counters and
+# the awaiting/queue gauges alike — so the DP aggregate is a straight
+# sum.  Every key is zero when KAFKA_TORCH_AGENT_DEMOTE is unset and no
+# background-class request was submitted.
+AGENT_METRIC_KEYS = (
+    "agent_gaps",              # counter: tool_calls finishes observed
+    "agent_gap_demotions",     # counter: threads whose KV was demoted
+                               # after the linger expired mid-gap
+    "agent_gap_pages_demoted",  # counter: HBM pages freed by gap demotes
+    "agent_gap_bytes_demoted",  # counter: bytes those pages carried
+    "agent_gap_cancelled",     # counter: tool returned inside the linger
+                               # window — demote skipped entirely
+    "agent_hint_hits",         # counter: expected-return hints that fired
+                               # (cancel-in-linger or wake prefetch kick)
+    "agent_hint_misses",       # counter: returns with no demoted state
+                               # (evicted meanwhile / restarted replica)
+    "agent_awaiting_threads",  # gauge: threads currently mid-tool-gap
+                               # (lingering or demoted-awaiting-return)
+    "agent_awaiting_bytes",    # gauge: demoted KV bytes parked in lower
+                               # tiers awaiting a tool return
+    "bg_queue_depth",          # gauge: background-class requests queued
+    "bg_admitted",             # counter: background requests admitted
+                               # into idle capacity
+    "bg_chunks",               # counter: background prefill chunks run
+    "bg_yields",               # counter: scheduler iterations where
+                               # background prefill yielded to
+                               # interactive work
+)
+
+# EngineMetrics export lint: every dataclass field is
+# either exported through snapshot() (listed here with the snapshot path
+# that carries it) or on the explicit exclusion list with a reason — a new
+# counter can no longer silently drop from the exposition
+# (tests/test_prometheus.py asserts both directions against
+# dataclasses.fields(EngineMetrics)).
+ENGINE_METRIC_EXPORTS = {
+    "requests_submitted": ("requests", "submitted"),
+    "requests_finished": ("requests", "finished"),
+    "requests_cancelled": ("requests", "cancelled"),
+    "requests_preempted": ("requests", "preempted"),
+    "requests_timeout": ("requests", "timeout"),
+    "requests_rejected": ("requests", "rejected"),
+    "requests_failed": ("requests", "failed"),
+    "queue_depth": ("queue", "depth"),
+    "queue_depth_peak": ("queue", "peak"),
+    "prompt_tokens": ("tokens", "prompt"),
+    "generated_tokens": ("tokens", "generated"),
+    "fetch_pipeline_wasted_tokens": ("tokens", "fetch_pipeline_wasted"),
+    "decode_steps": ("decode", "steps"),
+    "speculation_proposed_tokens": ("speculation",
+                                    "speculation_proposed_tokens"),
+    "speculation_accepted_tokens": ("speculation",
+                                    "speculation_accepted_tokens"),
+    "speculation_rejected_tokens": ("speculation",
+                                    "speculation_rejected_tokens"),
+    "speculation_verify_steps": ("speculation", "speculation_verify_steps"),
+    "constrained_roundtrips": ("constrained", "constrained_roundtrips"),
+    "constrained_mask_overtight": ("constrained",
+                                   "constrained_mask_overtight"),
+    "constrained_ondevice_tokens": ("constrained",
+                                    "constrained_ondevice_tokens"),
+    "slo_met_requests": ("slo", "slo_met_requests"),
+    "slo_missed_requests": ("slo", "slo_missed_requests"),
+    "slo_ttft_violations": ("slo", "slo_ttft_violations"),
+    "slo_tpot_violations": ("slo", "slo_tpot_violations"),
+    "goodput_tokens": ("slo", "goodput_tokens"),
+    "anomaly_queue_stall": ("anomalies", "anomaly_queue_stall"),
+    "anomaly_fetch_starvation": ("anomalies", "anomaly_fetch_starvation"),
+    "anomaly_mfu_collapse": ("anomalies", "anomaly_mfu_collapse"),
+    "anomaly_prefill_convoy": ("anomalies", "anomaly_prefill_convoy"),
+    "anomaly_compile_storm": ("anomalies", "anomaly_compile_storm"),
+    "anomaly_hbm_pressure": ("anomalies", "anomaly_hbm_pressure"),
+}
+ENGINE_METRIC_EXCLUDED = {
+    # decode_busy_slots is exported as the derived batch_occupancy ratio
+    # (busy / steps); the raw accumulator alone would mislead dashboards
+    "decode_busy_slots": "exported derived: decode.batch_occupancy",
+}
+
+
+def _env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        return default
+
+
+# module-level SLO target overrides (server/config.py ServingConfig wires
+# them through configure_slo at app build; None = read the env / default).
+_slo_override: Dict[str, Optional[float]] = {"ttft_ms": None, "tpot_ms": None}
+
+
+def configure_slo(ttft_ms: Optional[float] = None,
+                  tpot_ms: Optional[float] = None) -> None:
+    """Set deployment-wide SLO targets (ServingConfig -> every
+    EngineMetrics built afterwards, including warmup resets).  None
+    CLEARS that override back to the env/default source — each app build
+    re-establishes its own targets, so a second deployment in the same
+    process can never inherit the first one's (create_app always calls
+    this).  0 disables a target."""
+    _slo_override["ttft_ms"] = (
+        float(ttft_ms) if ttft_ms is not None else None
+    )
+    _slo_override["tpot_ms"] = (
+        float(tpot_ms) if tpot_ms is not None else None
+    )
+
+
+def slo_targets() -> Tuple[float, float]:
+    """(ttft_ms, tpot_ms) targets; 0 = that target disabled."""
+    ttft = _slo_override["ttft_ms"]
+    if ttft is None:
+        ttft = _env_float(SLO_TTFT_ENV, 200.0)
+    tpot = _slo_override["tpot_ms"]
+    if tpot is None:
+        tpot = _env_float(SLO_TPOT_ENV, 0.0)
+    return max(0.0, ttft), max(0.0, tpot)
+
+
+def telemetry_enabled() -> bool:
+    return os.environ.get(TELEMETRY_ENV, "1") not in ("0", "false", "False")
+
+
+# ---------------------------------------------------------------------------
+# streaming histograms
+# ---------------------------------------------------------------------------
+
+
+def _log_bounds(lo: float, hi: float, ratio: float = math.sqrt(2.0)
+                ) -> Tuple[float, ...]:
+    """Fixed log-spaced bucket upper bounds from `lo` until >= `hi`."""
+    out = [lo]
+    while out[-1] < hi:
+        out.append(out[-1] * ratio)
+    return tuple(round(b, 6) for b in out)
+
+
+# One latency layout for every *_ms histogram: sqrt(2)-spaced from 0.25ms
+# to ~74s.  Shared bounds are what make replicas mergeable and let one
+# PromQL recording rule serve every latency family.
+LATENCY_MS_BOUNDS = _log_bounds(0.25, 65_536.0)
+# Emission burst sizes (token counts): powers of two to one pipeline-full.
+BURST_TOKEN_BOUNDS = _log_bounds(1.0, 1024.0, ratio=2.0)
+
+
+class StreamingHistogram:
+    """Fixed-bucket streaming histogram: single-writer record(), mergeable
+    across replicas, monotone cumulative counts by construction.
+
+    `bounds` are inclusive upper bounds (Prometheus ``le`` semantics); one
+    implicit +Inf bucket catches overflow.  Reads from other threads are
+    torn-tolerant: a snapshot may be one sample stale, so `count`/`sum`
+    are recomputed from the copied bucket counts at export time to keep
+    the exposition's sum/count/bucket invariants internally consistent.
+    """
+
+    __slots__ = ("bounds", "counts", "sum", "max")
+
+    def __init__(self, bounds: Sequence[float] = LATENCY_MS_BOUNDS):
+        self.bounds: Tuple[float, ...] = tuple(bounds)
+        self.counts: List[int] = [0] * (len(self.bounds) + 1)
+        self.sum: float = 0.0
+        self.max: float = 0.0
+
+    def record(self, value: float) -> None:
+        self.counts[bisect.bisect_left(self.bounds, value)] += 1
+        self.sum += value
+        if value > self.max:
+            self.max = value
+
+    @property
+    def count(self) -> int:
+        return sum(self.counts)
+
+    def merge_from(self, other: "StreamingHistogram") -> None:
+        if other.bounds != self.bounds:
+            raise ValueError("histogram bounds differ; cannot merge")
+        snap = list(other.counts)
+        for i, c in enumerate(snap):
+            self.counts[i] += c
+        self.sum += other.sum
+        self.max = max(self.max, other.max)
+
+    @classmethod
+    def merged(cls, hists: Sequence["StreamingHistogram"]
+               ) -> "StreamingHistogram":
+        out = cls(hists[0].bounds if hists else LATENCY_MS_BOUNDS)
+        for h in hists:
+            out.merge_from(h)
+        return out
+
+    @classmethod
+    def from_snapshot(cls, snap: Dict[str, Any]) -> "StreamingHistogram":
+        h = cls(tuple(snap["le"]))
+        counts = list(snap["counts"])
+        h.counts = counts + [0] * (len(h.bounds) + 1 - len(counts))
+        h.sum = float(snap.get("sum", 0.0))
+        h.max = float(snap.get("max", 0.0))
+        return h
+
+    def quantile(self, q: float,
+                 counts: Optional[List[int]] = None) -> float:
+        """Approximate q-quantile by linear interpolation inside the
+        enclosing bucket (histogram_quantile semantics: upper-bound-biased
+        within one bucket, exact at bucket boundaries).  The +Inf bucket
+        reports the largest recorded value (tracked exactly)."""
+        counts = list(self.counts) if counts is None else counts
+        total = sum(counts)
+        if total == 0:
+            return 0.0
+        rank = max(1, math.ceil(q * total))
+        cum = 0
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            if cum + c >= rank:
+                if i >= len(self.bounds):
+                    return self.max or self.bounds[-1]
+                lo = self.bounds[i - 1] if i > 0 else 0.0
+                hi = self.bounds[i]
+                return lo + (hi - lo) * (rank - cum) / c
+            cum += c
+        return self.max or self.bounds[-1]
+
+    def quantiles(self, pts=(50, 90, 99)) -> Dict[str, float]:
+        counts = list(self.counts)  # one torn-tolerant copy for all points
+        return {f"p{p}": round(self.quantile(p / 100.0, counts), 2)
+                for p in pts}
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Wire form: per-bucket (NON-cumulative) counts + bounds; the
+        exposition layer computes the cumulative series (monotone by
+        construction from non-negative addends)."""
+        counts = list(self.counts)
+        return {
+            "le": list(self.bounds),
+            "counts": counts,
+            "count": sum(counts),
+            "sum": round(self.sum, 3),
+            "max": round(self.max, 3),
+        }
+
+
+# ---------------------------------------------------------------------------
+# sliding windows (SLO attainment, recent utilization, queue trend)
+# ---------------------------------------------------------------------------
+
+
+class _WindowRing:
+    """Fixed-size ring of coarse time buckets accumulating N float fields —
+    the storage behind 1m/5m sliding-window gauges.  add() assumes one
+    writer at a time: either a genuinely single-writer owner (the
+    utilization rings, engine thread only) or writers serialized by the
+    owner's lock (the SLO ring under EngineMetrics._slo_lock — finalize
+    runs on the engine thread but gate 429s arrive on the event loop).
+    Cross-thread sums() copies bucket rows torn-tolerantly (worst case
+    one bucket is one sample stale)."""
+
+    __slots__ = ("width_s", "slots", "_ids", "_vals", "_n")
+
+    def __init__(self, nfields: int, span_s: float = 300.0,
+                 width_s: float = 2.0):
+        self.width_s = width_s
+        self.slots = int(span_s / width_s)
+        self._n = nfields
+        self._ids = [-1] * self.slots
+        self._vals = [[0.0] * nfields for _ in range(self.slots)]
+
+    def add(self, values: Sequence[float],
+            now: Optional[float] = None) -> None:
+        b = int((time.monotonic() if now is None else now) / self.width_s)
+        i = b % self.slots
+        if self._ids[i] != b:
+            # retire the stale row atomically-enough: fresh list first
+            self._vals[i] = [0.0] * self._n
+            self._ids[i] = b
+        row = self._vals[i]
+        for j, v in enumerate(values):
+            row[j] += v
+
+    def sums(self, window_s: float,
+             now: Optional[float] = None) -> List[float]:
+        now_b = int((time.monotonic() if now is None else now)
+                    / self.width_s)
+        lo = now_b - int(window_s / self.width_s)
+        out = [0.0] * self._n
+        for i in range(self.slots):
+            if lo < self._ids[i] <= now_b:
+                row = self._vals[i]
+                for j in range(self._n):
+                    out[j] += row[j]
+        return out
+
+
+def build_slo_section(
+    *,
+    ttft_target_ms: float,
+    tpot_target_ms: float,
+    met: int,
+    missed: int,
+    ttft_violations: int,
+    tpot_violations: int,
+    goodput_tokens: int,
+    generated_tokens: int,
+    uptime_s: float,
+    window_1m: Dict[str, float],
+    window_5m: Dict[str, float],
+) -> Dict[str, object]:
+    """The SLO/goodput section (SLO_METRIC_KEYS) from raw counters — the
+    ONE place the attainment/goodput ratio math lives.  Both a single
+    engine's slo_snapshot and the DP aggregate (which sums per-replica
+    counters and window sums first) render through this, so the two
+    expositions cannot drift.  Window attainments recompute from the
+    summed raw windows, never from averaged per-replica ratios (an idle
+    replica must not weigh like a loaded one)."""
+
+    def attain(m, x):
+        return round(m / (m + x), 4) if (m + x) else 1.0
+
+    return {
+        "slo_ttft_target_ms": ttft_target_ms,
+        "slo_tpot_target_ms": tpot_target_ms,
+        "slo_met_requests": met,
+        "slo_missed_requests": missed,
+        "slo_ttft_violations": ttft_violations,
+        "slo_tpot_violations": tpot_violations,
+        "slo_attainment": attain(met, missed),
+        "slo_attainment_1m": attain(window_1m["met"],
+                                    window_1m["missed"]),
+        "slo_attainment_5m": attain(window_5m["met"],
+                                    window_5m["missed"]),
+        "goodput_tokens": goodput_tokens,
+        "goodput_tok_s": round(goodput_tokens / uptime_s, 2)
+        if uptime_s > 0 else 0.0,
+        "goodput_tok_s_1m": round(window_1m["goodput_tokens"] / 60.0, 2),
+        "goodput_frac": round(goodput_tokens / generated_tokens, 4)
+        if generated_tokens else 0.0,
+        "window_1m": window_1m,
+        "window_5m": window_5m,
+    }
+
+
+@dataclasses.dataclass
+class _UtilCounters:
+    """Per-dispatch-kind utilization accumulators (single-writer).
+
+    busy_s is the MODELED-attribution wall time (inter-dispatch gaps);
+    measured_s / modeled_s pair the flight recorder's fetch-maturation
+    measurement with the planner roofline time for the SAME dispatches,
+    so measured_s / modeled_s is the model-skew calibration gauge."""
+
+    dispatches: int = 0
+    tokens: int = 0
+    flops: float = 0.0
+    hbm_bytes: float = 0.0
+    busy_s: float = 0.0
+    measured_dispatches: int = 0
+    measured_s: float = 0.0
+    modeled_s: float = 0.0
+    # sampled kernel profiling: true device kernel seconds
+    # from profiler trace samples vs the modeled seconds of those same
+    # sampled steps — kernel_s / kernel_modeled_s is kernel_skew
+    kernel_samples: int = 0
+    kernel_s: float = 0.0
+    kernel_modeled_s: float = 0.0
+
+
+@dataclasses.dataclass
+class ReplicaSupervisorMetrics:
+    """Counters owned by the DP replica supervisor (the DP router).
+
+    Single-writer like EngineMetrics: the engine/worker thread that drives
+    DataParallelEngines.step() is the only mutator; snapshot() is read
+    from serving threads and is torn-tolerant."""
+
+    quarantines: int = 0  # circuit-breaker trips (healthy/probation -> out)
+    readmits: int = 0  # probation -> healthy promotions (warm re-admit)
+    waiting_migrated: int = 0  # queued requests moved off a sick replica
+    affinity_resteered: int = 0  # prefix_key pins moved to a new replica
+    rebuilds: int = 0  # topology rebuilds (dp resize / replica loss)
+    # quarantine escalation: single
+    # replicas whose engine was rebuilt after repeated quarantine trips
+    # (KAFKA_TORCH_REPLICA_REBUILD_THRESHOLD) instead of re-admitted forever
+    replica_rebuilds: int = 0
+
+    def snapshot(self) -> Dict[str, int]:
+        return {
+            "quarantines": self.quarantines,
+            "readmits": self.readmits,
+            "waiting_migrated": self.waiting_migrated,
+            "affinity_resteered": self.affinity_resteered,
+            "rebuilds": self.rebuilds,
+            "replica_rebuilds": self.replica_rebuilds,
+        }
+
+
+def ship_staging_peak(reset: bool = False) -> int:
+    """Peak host bytes pinned by host-staged cross-replica ship chunks
+    since the last read (re-armed on read when `reset`).  Ships come with
+    the DP router, which this package does not have yet: nothing is ever
+    staged, so the peak is 0."""
+    return 0
+
+
+@dataclasses.dataclass
+class DisaggMetrics:
+    """Counters owned by the DP router's disaggregated prefill/decode
+    path (the DP router).  Single-writer like the
+    supervisor metrics: the worker thread driving step() is the only
+    mutator; snapshot() reads are torn-tolerant.  One instance per
+    router, so the DP aggregate reports these once, unsummed."""
+
+    shipped_runs: int = 0
+    shipped_pages: int = 0
+    shipped_bytes: int = 0
+    ship_failures: int = 0
+    ship_skips: int = 0
+    handoffs: int = 0
+    prefill_in_place: int = 0
+    # per-transport run counts: host + device == shipped_runs
+    ship_host_runs: int = 0
+    ship_device_runs: int = 0
+    ship_ms: "StreamingHistogram" = dataclasses.field(
+        default_factory=lambda: StreamingHistogram(LATENCY_MS_BOUNDS)
+    )
+
+    def record_ship(self, pages: int, nbytes: int, dur_s: float,
+                    transport: str = "host") -> None:
+        self.shipped_runs += 1
+        self.shipped_pages += pages
+        self.shipped_bytes += nbytes
+        if transport == "device":
+            self.ship_device_runs += 1
+        else:
+            self.ship_host_runs += 1
+        self.ship_ms.record(dur_s * 1e3)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The aggregate snapshot's "disagg" section (DISAGG_METRIC_KEYS
+        plus the ship-latency histogram)."""
+        return {
+            "disagg_shipped_runs": self.shipped_runs,
+            "disagg_shipped_pages": self.shipped_pages,
+            "disagg_shipped_bytes": self.shipped_bytes,
+            "disagg_ship_failures": self.ship_failures,
+            "disagg_ship_skips": self.ship_skips,
+            "disagg_handoffs": self.handoffs,
+            "disagg_prefill_in_place": self.prefill_in_place,
+            "disagg_ship_host_runs": self.ship_host_runs,
+            "disagg_ship_device_runs": self.ship_device_runs,
+            # process-wide staging high-water mark, re-armed at the
+            # current level on every read
+            "disagg_ship_staging_bytes": ship_staging_peak(reset=True),
+            "ship_ms": self.ship_ms.snapshot(),
+        }
+
+
+# histogram attribute name -> JSON/exposition name (the "histograms"
+# snapshot section and server/prometheus.py's family map key off these)
+HISTOGRAM_NAMES = (
+    "ttft_ms",
+    "tpot_ms",
+    "ttft_queue_ms",
+    "ttft_prefill_ms",
+    "ttft_fetch_ms",
+    "burst_tokens",
+    "burst_gap_ms",
+)
+
+
+@dataclasses.dataclass
+class EngineMetrics:
+    """Counters owned by the engine; distributions are streaming
+    histograms (constant memory, replica-mergeable)."""
+
+    requests_submitted: int = 0
+    requests_finished: int = 0
+    requests_cancelled: int = 0
+    requests_preempted: int = 0
+    # lifecycle hardening counters: deadline expiries, admission-gate
+    # rejections (HTTP 429), and engine-failure terminations
+    requests_timeout: int = 0
+    requests_rejected: int = 0
+    requests_failed: int = 0
+    # waiting-queue gauge, recorded once per scheduler iteration.
+    # queue_depth_peak is PEAK-SINCE-LAST-SNAPSHOT: every snapshot() reads
+    # it and re-arms it at the current depth, so each scrape interval
+    # reports its own high-water mark instead of a process-lifetime
+    # maximum that stops carrying information after the first burst.
+    queue_depth: int = 0
+    queue_depth_peak: int = 0
+    prompt_tokens: int = 0
+    generated_tokens: int = 0
+    decode_steps: int = 0
+    decode_busy_slots: int = 0  # sum over steps -> occupancy = /steps/B
+    # Tokens dispatched for a lane whose request was already finished when
+    # the fetch matured (stop token discovered in flight, or a cancel) —
+    # the cost of the pipelined/fused dispatch running ahead of drain.
+    # These occupied batch slots; wasted/(generated+wasted) is the
+    # throughput tax.  RENAMED from speculative_wasted_tokens: this
+    # is FETCH-PIPELINE waste, not speculative-decoding waste — the old
+    # /metrics JSON keys survive one release as deprecated aliases.
+    fetch_pipeline_wasted_tokens: int = 0
+    # Real speculative decoding (draft-free n-gram proposals + batched
+    # verify, runtime/speculative.py + engine verify step).  proposed
+    # counts candidate tokens at dispatch; accepted/rejected reconcile at
+    # drain (a discarded entry counts all its candidates rejected), so
+    # proposed == accepted + rejected + in-flight and every counter stays
+    # monotone across preemption/rollback.
+    speculation_proposed_tokens: int = 0
+    speculation_accepted_tokens: int = 0
+    speculation_rejected_tokens: int = 0
+    speculation_verify_steps: int = 0  # verify dispatches (1 per step)
+    # constrained decoding (CONSTRAINED_METRIC_KEYS): awaited host
+    # round trips, over-tight mask degrades, and device-FSM tokens
+    constrained_roundtrips: int = 0
+    constrained_mask_overtight: int = 0
+    constrained_ondevice_tokens: int = 0
+    # SLO accounting (SLO_METRIC_KEYS): per-request MET/MISSED verdicts
+    # at finalize, violation attribution, and goodput — tokens generated
+    # by requests that met their SLO (cancelled requests are excluded
+    # from attainment entirely: the client walked away, the server did
+    # not miss).
+    slo_met_requests: int = 0
+    slo_missed_requests: int = 0
+    slo_ttft_violations: int = 0
+    slo_tpot_violations: int = 0
+    goodput_tokens: int = 0
+    # Flight-recorder anomaly detectors:
+    # edge-triggered firing counts, incremented by the recorder's
+    # step-cadence checks (runtime/flight_recorder.py).  Zero forever
+    # when the recorder is off (KAFKA_TORCH_FLIGHT_RING=0).
+    anomaly_queue_stall: int = 0
+    anomaly_fetch_starvation: int = 0
+    anomaly_mfu_collapse: int = 0
+    anomaly_prefill_convoy: int = 0
+    # device-truth detectors: compile_storm edge-counts the
+    # observatory's level-held storm condition; hbm_pressure fires when
+    # MEASURED headroom drops under the watermark
+    anomaly_compile_storm: int = 0
+    anomaly_hbm_pressure: int = 0
+
+    def __post_init__(self) -> None:
+        self.enabled = telemetry_enabled()
+        self.slo_ttft_ms, self.slo_tpot_ms = slo_targets()
+        # latency/size distributions: streaming histograms on the shared
+        # log-spaced layouts (mergeable across replicas)
+        self.ttft_ms = StreamingHistogram(LATENCY_MS_BOUNDS)
+        self.tpot_ms = StreamingHistogram(LATENCY_MS_BOUNDS)
+        # TTFT decomposition (queue wait / prefill / fetch+emit) — the
+        # three phases an oversubscribed TTFT confounds
+        self.ttft_queue_ms = StreamingHistogram(LATENCY_MS_BOUNDS)
+        self.ttft_prefill_ms = StreamingHistogram(LATENCY_MS_BOUNDS)
+        self.ttft_fetch_ms = StreamingHistogram(LATENCY_MS_BOUNDS)
+        # token-emission cadence as the client sees it: how many tokens
+        # arrive together when the fetch pipeline pops (burst size) and how
+        # far apart those arrivals are (gap) — the honest view of stream
+        # smoothness that step-interval TPOT cannot give under pipelining
+        self.burst_tokens = StreamingHistogram(BURST_TOKEN_BOUNDS)
+        self.burst_gap_ms = StreamingHistogram(LATENCY_MS_BOUNDS)
+        self._last_burst_t: Optional[float] = None
+        self._last_step_t: Optional[float] = None
+        self._last_step_steps: int = 1
+        self._tpot_ewma_ms: Optional[float] = None
+        # SLO sliding windows: (met, missed, goodput_tokens) per 2s bucket.
+        # Unlike every other recorder, SLO accounting has TWO writers —
+        # the engine thread (request finalize) and the serving event loop
+        # (gate-level 429s via record_rejected) — so the counter+window
+        # updates take a lock.  Finalize cadence (per request, not per
+        # dispatch): an uncontended lock here is noise, and a lost
+        # "missed" increment during an overload burst is exactly the
+        # blind spot the attainment gauges exist to close.
+        self._slo_lock = threading.Lock()
+        self._slo_window = _WindowRing(3)
+        # queue-depth time series for the trend gauge: (t, depth) sampled
+        # at most once per second, bounded — NOT a percentile source (the
+        # histograms are the percentile source)
+        self._queue_trail: List[Tuple[float, int]] = []
+        self._queue_trail_cap = 300
+        # utilization estimator: per-kind accumulators + 60s windows,
+        # attributing each inter-dispatch gap to the PREVIOUS dispatch
+        # (back-to-back enqueues overlap that dispatch's device execution
+        # — the TPOT assumption applied to flops/bytes)
+        self.util: Dict[str, _UtilCounters] = {
+            k: _UtilCounters() for k in UTILIZATION_KINDS
+        }
+        self._util_window: Dict[str, _WindowRing] = {
+            k: _WindowRing(3, span_s=60.0) for k in UTILIZATION_KINDS
+        }
+        self._last_cost: Optional[Tuple[str, float, float, int]] = None
+        self._last_cost_t: Optional[float] = None
+        # roofline (set by the engine from runtime/planner.device_peaks)
+        self.peak_flops: Optional[float] = None
+        self.peak_hbm_bps: Optional[float] = None
+        self.peak_source: str = "unknown"
+        self._started = time.monotonic()
+
+    # -- engine-thread recording ----------------------------------------
+
+    def set_roofline(self, peak_flops: Optional[float],
+                     peak_hbm_bps: Optional[float], source: str) -> None:
+        self.peak_flops = peak_flops
+        self.peak_hbm_bps = peak_hbm_bps
+        self.peak_source = source
+
+    def record_submit(self, prompt_tokens: int) -> None:
+        self.requests_submitted += 1
+        self.prompt_tokens += prompt_tokens
+
+    def record_first_token(self, latency_s: float) -> None:
+        if self.enabled:
+            self.ttft_ms.record(latency_s * 1e3)
+
+    def record_ttft_breakdown(self, submit, prefill_start, first_dispatch,
+                              first_token) -> None:
+        """Split one request's TTFT into queue / prefill / fetch phases.
+        Missing stamps (cancelled mid-phase, legacy paths) record nothing."""
+        if not self.enabled:
+            return
+        if None in (submit, prefill_start, first_dispatch, first_token):
+            return
+        self.ttft_queue_ms.record((prefill_start - submit) * 1e3)
+        self.ttft_prefill_ms.record((first_dispatch - prefill_start) * 1e3)
+        self.ttft_fetch_ms.record((first_token - first_dispatch) * 1e3)
+
+    def record_token(self) -> None:
+        self.generated_tokens += 1
+
+    def record_wasted_token(self, n: int = 1) -> None:
+        self.fetch_pipeline_wasted_tokens += n
+
+    def record_verify_dispatch(self, proposed: int) -> None:
+        """One verify step dispatched with `proposed` candidate tokens."""
+        self.speculation_verify_steps += 1
+        self.speculation_proposed_tokens += proposed
+
+    def record_verify_drain(self, accepted: int, rejected: int) -> None:
+        """One proposing lane's verify result reconciled at drain."""
+        self.speculation_accepted_tokens += accepted
+        self.speculation_rejected_tokens += rejected
+
+    def record_decode_step(self, busy_slots: int, steps: int = 1) -> None:
+        """steps>1 = a fused multi-step dispatch.  The gap between this
+        call and the previous one spans the PREVIOUS dispatch's tokens
+        (back-to-back dispatches overlap that dispatch's device execution),
+        so the TPOT sample divides by the steps recorded last time."""
+        now = time.monotonic()
+        if self._last_step_t is not None:
+            # inter-step time while decoding == per-token latency for every
+            # active stream (the definition of TPOT under continuous
+            # batching); long gaps (idle engine) are not TPOT — drop them
+            dt = (now - self._last_step_t) * 1e3 / self._last_step_steps
+            if dt < 2_000:
+                if self.enabled:
+                    self.tpot_ms.record(dt)
+                # recency EWMA for retry_after_estimate: the cumulative
+                # histogram's median stops tracking current load after
+                # hours of history, but the 429 Retry-After hint must
+                # reflect the overload moment it is issued in
+                self._tpot_ewma_ms = (
+                    dt if self._tpot_ewma_ms is None
+                    else 0.95 * self._tpot_ewma_ms + 0.05 * dt
+                )
+        self._last_step_t = now
+        self._last_step_steps = steps
+        self.decode_steps += steps
+        self.decode_busy_slots += busy_slots * steps
+
+    def record_dispatch_cost(self, kind: str, tokens: int,
+                             flops: float, hbm_bytes: float,
+                             busy_s: Optional[float] = None) -> None:
+        """One device dispatch of `kind` with modeled flop/byte cost
+        (runtime/planner.DispatchCostModel, computed by the engine).
+
+        Without `busy_s` (the reference's rule, kept on the CPU) the
+        inter-dispatch wall gap is attributed to the PREVIOUS dispatch,
+        mirroring the TPOT convention; gaps > 2s are idle, not execution,
+        and the chain restarts (mark_idle also restarts it).  With
+        `busy_s` — the dispatch's own device seconds, which the engine
+        reads on CUDA from timing events around it once its tokens land —
+        the dispatch is charged exactly that: on the card the host runs
+        up to fetch_lag steps ahead of the device, so enqueue-to-enqueue
+        gaps undercount the device's time (fault C8)."""
+        if not self.enabled:
+            return
+        now = time.monotonic()
+        if busy_s is not None:
+            u = self.util[kind]
+            u.dispatches += 1
+            u.tokens += tokens
+            u.flops += flops
+            u.hbm_bytes += hbm_bytes
+            u.busy_s += busy_s
+            self._util_window[kind].add((flops, hbm_bytes, busy_s), now=now)
+            return
+        prev, prev_t = self._last_cost, self._last_cost_t
+        if prev is not None and prev_t is not None:
+            dt = now - prev_t
+            if dt < 2.0:
+                k, f, b, tk = prev
+                u = self.util[k]
+                u.dispatches += 1
+                u.tokens += tk
+                u.flops += f
+                u.hbm_bytes += b
+                u.busy_s += dt
+                self._util_window[k].add((f, b, dt), now=now)
+        self._last_cost = (kind, flops, hbm_bytes, tokens)
+        self._last_cost_t = now
+
+    def record_measured_dispatch(self, kind: str, modeled_s: float,
+                                 measured_s: float) -> None:
+        """One dispatch's MEASURED device time (fetch-maturation timing,
+        runtime/flight_recorder.py) paired with its modeled roofline
+        time.  Per-kind sums feed the modeled-vs-measured skew gauge
+        (kafka_tpu_dispatch_model_skew) that calibrates MFU/HBM-BW."""
+        if not self.enabled:
+            return
+        u = self.util.get(kind)
+        if u is None:
+            return
+        u.measured_dispatches += 1
+        u.measured_s += measured_s
+        u.modeled_s += modeled_s
+
+    def record_kernel_sample(self, kind: str, kernel_s: float,
+                             modeled_s: float) -> None:
+        """One profiler sample's TRUE device kernel time for `kind`
+        (runtime/kernel_profiler.py) paired with the modeled roofline
+        seconds of the same sampled step.  Per-kind sums feed the
+        kernel_skew gauge — the chip-truth calibration that the
+        fetch-maturation model_skew is checked against."""
+        if not self.enabled:
+            return
+        u = self.util.get(kind)
+        if u is None:
+            return
+        u.kernel_samples += 1
+        u.kernel_s += kernel_s
+        u.kernel_modeled_s += modeled_s
+
+    def mark_idle(self) -> None:
+        """The engine drained: the gap until the next dispatch is idle
+        time, not TPOT / execution time — drop every timing baseline."""
+        self._last_step_t = None
+        self._last_burst_t = None
+        self._last_cost = None
+        self._last_cost_t = None
+
+    def record_emit_burst(self, n_tokens: int) -> None:
+        if not self.enabled:
+            return
+        now = time.monotonic()
+        self.burst_tokens.record(float(n_tokens))
+        if self._last_burst_t is not None:
+            gap = (now - self._last_burst_t) * 1e3
+            if gap < 2_000:
+                self.burst_gap_ms.record(gap)
+        self._last_burst_t = now
+
+    def record_finish(
+        self,
+        reason: Optional[str],
+        ttft_s: Optional[float] = None,
+        tpot_s: Optional[float] = None,
+        tokens: int = 0,
+    ) -> Optional[bool]:
+        """Terminal accounting + SLO verdict for one request.
+
+        Returns True (met) / False (missed) / None (excluded — client
+        cancel).  Callers that know the request's timing pass it; legacy
+        callers without stamps still classify (a clean finish with no
+        TTFT stamp under an active TTFT target counts as a violation,
+        which only happens for zero-token finishes)."""
+        if reason == "cancelled":
+            self.requests_cancelled += 1
+            return None  # client walked away: not a serving SLO event
+        if reason == "timeout":
+            self.requests_timeout += 1
+        elif reason is not None and reason.startswith("error"):
+            self.requests_failed += 1
+        else:
+            self.requests_finished += 1
+        return self._classify_slo(reason, ttft_s, tpot_s, tokens)
+
+    def _classify_slo(self, reason, ttft_s, tpot_s, tokens) -> bool:
+        ttft_bad = tpot_bad = False
+        if self.slo_ttft_ms > 0:
+            ttft_bad = ttft_s is None or ttft_s * 1e3 > self.slo_ttft_ms
+        if self.slo_tpot_ms > 0 and tpot_s is not None:
+            tpot_bad = tpot_s * 1e3 > self.slo_tpot_ms
+        hard_fail = reason == "timeout" or (
+            reason is not None and reason.startswith("error")
+        )
+        met = not (ttft_bad or tpot_bad or hard_fail)
+        if ttft_bad:
+            self.slo_ttft_violations += 1
+        if tpot_bad:
+            self.slo_tpot_violations += 1
+        # the window rings feed the attainment_1m/5m gauges the
+        # autoscaler keys on — fed whenever the counters are (NOT gated
+        # on the telemetry switch: an empty window reads as a perfect
+        # 1.0, which must never happen while total attainment collapses)
+        with self._slo_lock:
+            if met:
+                self.slo_met_requests += 1
+                self.goodput_tokens += tokens
+            else:
+                self.slo_missed_requests += 1
+            self._slo_window.add(
+                (1.0 if met else 0.0, 0.0 if met else 1.0,
+                 float(tokens) if met else 0.0)
+            )
+        return met
+
+    def record_preempt(self) -> None:
+        self.requests_preempted += 1
+
+    def record_rejected(self) -> None:
+        """An admission rejection (HTTP 429, gate or engine backstop).
+        A rejected request IS a missed SLO: the autoscaler must see
+        overload shed as attainment loss, not as a clean sheet."""
+        # gate rejections arrive on the EVENT LOOP thread while the
+        # engine-backstop path rejects on the worker thread — the shared
+        # lock keeps ALL the rejection counters and the window bucket
+        # loss-free under exactly the overload burst they exist to expose
+        with self._slo_lock:
+            self.requests_rejected += 1
+            self.slo_missed_requests += 1
+            self._slo_window.add((0.0, 1.0, 0.0))
+
+    def record_queue_depth(self, depth: int) -> None:
+        self.queue_depth = depth
+        if depth > self.queue_depth_peak:
+            self.queue_depth_peak = depth
+        if not self.enabled:
+            return
+        now = time.monotonic()
+        trail = self._queue_trail
+        if not trail or now - trail[-1][0] >= 1.0:
+            trail.append((now, depth))
+            if len(trail) > self._queue_trail_cap:
+                del trail[: len(trail) - self._queue_trail_cap]
+
+    def queue_trend_per_s(self, window_s: float = 60.0) -> float:
+        """Queue-depth slope over the recent window (depth units per
+        second; >0 = the queue is growing — the autoscaler's scale-up
+        trigger alongside low attainment)."""
+        now = time.monotonic()
+        trail = list(self._queue_trail)
+        old = next(((t, d) for t, d in trail if t >= now - window_s), None)
+        if old is None:
+            return 0.0
+        dt = now - old[0]
+        if dt < 1.0:
+            return 0.0
+        return round((self.queue_depth - old[1]) / dt, 4)
+
+    def recent_tpot_s(self) -> Optional[float]:
+        """RECENT TPOT in seconds (None = no data): an EWMA over the last
+        ~dozens of steps, not the cumulative histogram's lifetime median
+        — retry_after_estimate's 429 hint must track the overload moment
+        it is issued in, and cumulative buckets never age out.  Safe to
+        call from other threads (one float read)."""
+        ewma = self._tpot_ewma_ms
+        return ewma / 1e3 if ewma is not None else None
+
+    # -- cross-thread export --------------------------------------------
+
+    def constrained_snapshot(self) -> Dict[str, int]:
+        """The constrained-decoding section (CONSTRAINED_METRIC_KEYS)."""
+        try:
+            from ..llm.constrained import compile_pending
+            pending = compile_pending()
+        except Exception:
+            pending = 0  # import-light contexts (no llm tier loaded)
+        return {
+            "constrained_roundtrips": self.constrained_roundtrips,
+            "constrained_mask_overtight": self.constrained_mask_overtight,
+            "constrained_ondevice_tokens": self.constrained_ondevice_tokens,
+            "constrained_compile_pending": pending,
+        }
+
+    def speculation_snapshot(self) -> Dict[str, object]:
+        """The speculative-decoding section (SPECULATION_METRIC_KEYS):
+        raw monotone counters plus the two derived rates dashboards want
+        (acceptance = accepted/proposed over drained rounds; accepted per
+        verify step = the amortization factor the weight-stream gains)."""
+        drained = (self.speculation_accepted_tokens
+                   + self.speculation_rejected_tokens)
+        return {
+            "speculation_proposed_tokens": self.speculation_proposed_tokens,
+            "speculation_accepted_tokens": self.speculation_accepted_tokens,
+            "speculation_rejected_tokens": self.speculation_rejected_tokens,
+            "speculation_verify_steps": self.speculation_verify_steps,
+            "speculation_acceptance_rate": round(
+                self.speculation_accepted_tokens / drained, 4
+            ) if drained else 0.0,
+            "speculation_accepted_per_step": round(
+                self.speculation_accepted_tokens
+                / self.speculation_verify_steps, 3
+            ) if self.speculation_verify_steps else 0.0,
+        }
+
+    def slo_snapshot(self, uptime_s: Optional[float] = None
+                     ) -> Dict[str, object]:
+        """The SLO/goodput section (SLO_METRIC_KEYS + the raw window sums
+        the DP aggregate needs to recompute windowed attainment)."""
+        up = (time.monotonic() - self._started
+              if uptime_s is None else uptime_s)
+        w1 = self._slo_window.sums(60.0)
+        w5 = self._slo_window.sums(300.0)
+        return build_slo_section(
+            ttft_target_ms=self.slo_ttft_ms,
+            tpot_target_ms=self.slo_tpot_ms,
+            met=self.slo_met_requests,
+            missed=self.slo_missed_requests,
+            ttft_violations=self.slo_ttft_violations,
+            tpot_violations=self.slo_tpot_violations,
+            goodput_tokens=self.goodput_tokens,
+            generated_tokens=self.generated_tokens,
+            uptime_s=up,
+            window_1m={"met": w1[0], "missed": w1[1],
+                       "goodput_tokens": w1[2]},
+            window_5m={"met": w5[0], "missed": w5[1],
+                       "goodput_tokens": w5[2]},
+        )
+
+    def utilization_snapshot(self) -> Dict[str, object]:
+        """The device-utilization section: per dispatch kind, modeled
+        flop/byte totals over attributed busy time, plus MFU / HBM-BW
+        ratios against the roofline when one is known."""
+        out: Dict[str, object] = {
+            "peak_tflops": round(self.peak_flops / 1e12, 1)
+            if self.peak_flops else None,
+            "peak_hbm_gbps": round(self.peak_hbm_bps / 1e9, 1)
+            if self.peak_hbm_bps else None,
+            "peak_source": self.peak_source,
+        }
+        for kind in UTILIZATION_KINDS:
+            u = self.util[kind]
+            w = self._util_window[kind].sums(60.0)
+            sec: Dict[str, object] = {
+                "dispatches": u.dispatches,
+                "tokens": u.tokens,
+                "flops": round(u.flops, 0),
+                "hbm_bytes": round(u.hbm_bytes, 0),
+                "busy_s": round(u.busy_s, 3),
+                "mfu": 0.0,
+                "hbm_bw_util": 0.0,
+                "mfu_1m": 0.0,
+                "hbm_bw_util_1m": 0.0,
+                # flight-recorder measured timing: wall time
+                # these dispatches measurably took vs the modeled
+                # roofline time for the same set; skew calibrates the
+                # modeled MFU/HBM-BW figures (>1 = device slower than
+                # the model thinks, the MFU estimate reads HIGH by skew)
+                "measured_dispatches": u.measured_dispatches,
+                "measured_busy_s": round(u.measured_s, 4),
+                "modeled_busy_s": round(u.modeled_s, 4),
+                "model_skew": round(u.measured_s / u.modeled_s, 3)
+                if u.modeled_s > 0 else 0.0,
+                # profiler-sampled kernel truth: device
+                # kernel seconds vs modeled seconds for the SAMPLED
+                # steps only — the calibration model_skew is read
+                # against on the card
+                "kernel_samples": u.kernel_samples,
+                "kernel_busy_s": round(u.kernel_s, 4),
+                "kernel_skew": round(u.kernel_s / u.kernel_modeled_s, 3)
+                if u.kernel_modeled_s > 0 else 0.0,
+            }
+            if u.busy_s > 0:
+                sec["achieved_tflops"] = round(u.flops / u.busy_s / 1e12, 3)
+                sec["achieved_gb_s"] = round(
+                    u.hbm_bytes / u.busy_s / 1e9, 2
+                )
+                if self.peak_flops:
+                    sec["mfu"] = round(
+                        u.flops / (u.busy_s * self.peak_flops), 4
+                    )
+                if self.peak_hbm_bps:
+                    sec["hbm_bw_util"] = round(
+                        u.hbm_bytes / (u.busy_s * self.peak_hbm_bps), 4
+                    )
+            if w[2] > 0:
+                if self.peak_flops:
+                    sec["mfu_1m"] = round(
+                        w[0] / (w[2] * self.peak_flops), 4
+                    )
+                if self.peak_hbm_bps:
+                    sec["hbm_bw_util_1m"] = round(
+                        w[1] / (w[2] * self.peak_hbm_bps), 4
+                    )
+            # raw 60s sums: what the DP aggregate combines before
+            # recomputing the windowed ratios (never averages ratios)
+            sec["window_1m"] = {
+                "flops": round(w[0], 0),
+                "hbm_bytes": round(w[1], 0),
+                "busy_s": round(w[2], 4),
+            }
+            out[kind] = sec
+        return out
+
+    def anomalies_snapshot(self, flight=None) -> Dict[str, object]:
+        """The anomaly section (ANOMALY_METRIC_KEYS): edge-triggered
+        firing counters plus, when the engine's flight recorder is
+        attached, the currently-active anomaly list the autoscaler's
+        "don't scale on stale math" guard reads from /admin/signals."""
+        active = flight.active_anomalies() if flight is not None else []
+        return {
+            "anomaly_queue_stall": self.anomaly_queue_stall,
+            "anomaly_fetch_starvation": self.anomaly_fetch_starvation,
+            "anomaly_mfu_collapse": self.anomaly_mfu_collapse,
+            "anomaly_prefill_convoy": self.anomaly_prefill_convoy,
+            "anomaly_compile_storm": self.anomaly_compile_storm,
+            "anomaly_hbm_pressure": self.anomaly_hbm_pressure,
+            "anomalies_active": len(active),
+            "active": active,
+        }
+
+    def histograms_snapshot(self) -> Dict[str, Dict[str, Any]]:
+        return {
+            name: getattr(self, name).snapshot()
+            for name in HISTOGRAM_NAMES
+        }
+
+    def snapshot(self, engine=None,
+                 reset_peak: bool = True) -> Dict[str, object]:
+        """Full metrics snapshot.  `reset_peak=True` (the /metrics scrape
+        path) consumes queue.peak — peak-since-last-consuming-snapshot
+        semantics; readers that must not steal the scraper's window
+        (/admin/signals) pass False.  With several consuming scrapers the
+        window is split between them — point ONE collector at /metrics.
+        The re-arm is a cross-thread store the engine's record path may
+        race; worst case one burst lands in the next interval (gauge
+        precision, same torn-tolerance contract as every other read)."""
+        up = time.monotonic() - self._started
+        snap: Dict[str, object] = {
+            "uptime_s": round(up, 1),
+            "requests": {
+                "submitted": self.requests_submitted,
+                "finished": self.requests_finished,
+                "cancelled": self.requests_cancelled,
+                "preempted": self.requests_preempted,
+                "timeout": self.requests_timeout,
+                "rejected": self.requests_rejected,
+                "failed": self.requests_failed,
+            },
+            "queue": {
+                "depth": self.queue_depth,
+                "peak": self.queue_depth_peak,
+                "trend_per_s": self.queue_trend_per_s(),
+            },
+            "tokens": {
+                "prompt": self.prompt_tokens,
+                "generated": self.generated_tokens,
+                "generated_per_s": round(self.generated_tokens / up, 2)
+                if up > 0 else 0.0,
+                "fetch_pipeline_wasted": self.fetch_pipeline_wasted_tokens,
+                "fetch_pipeline_waste_frac": round(
+                    self.fetch_pipeline_wasted_tokens
+                    / (self.generated_tokens
+                       + self.fetch_pipeline_wasted_tokens),
+                    4,
+                ) if (self.generated_tokens
+                      + self.fetch_pipeline_wasted_tokens) else 0.0,
+            },
+            # quantiles DERIVED from the streaming histograms:
+            # same JSON shape as before, but cumulative over the process
+            # lifetime instead of a biased last-512 window, and identical
+            # math to what PromQL's histogram_quantile computes from the
+            # exposition's _bucket series
+            "ttft_ms": self.ttft_ms.quantiles(),
+            "ttft_breakdown_ms": {
+                "queue_wait": self.ttft_queue_ms.quantiles(),
+                "prefill": self.ttft_prefill_ms.quantiles(),
+                "first_fetch": self.ttft_fetch_ms.quantiles(),
+            },
+            # legacy top-level key kept for dashboards; the full family
+            # lives in the "constrained" section
+            "constrained_roundtrips": self.constrained_roundtrips,
+            "constrained": self.constrained_snapshot(),
+            "speculation": self.speculation_snapshot(),
+            "slo": self.slo_snapshot(up),
+            "utilization": self.utilization_snapshot(),
+            "anomalies": self.anomalies_snapshot(
+                getattr(engine, "flight", None) if engine is not None
+                else None
+            ),
+            "tpot_ms": self.tpot_ms.quantiles(),
+            "decode": {
+                "steps": self.decode_steps,
+                "batch_occupancy": round(
+                    self.decode_busy_slots / self.decode_steps, 3
+                ) if self.decode_steps else 0.0,
+            },
+            "emission": {
+                "burst_tokens": self.burst_tokens.quantiles(),
+                "burst_gap_ms": self.burst_gap_ms.quantiles(),
+            },
+            # raw bucket data: the Prometheus renderer's source for the
+            # _bucket/_sum/_count families, and what the DP aggregate
+            # merges (counts add; identical fixed bounds)
+            "histograms": self.histograms_snapshot(),
+        }
+        # peak-since-last-snapshot semantics: this scrape consumed the
+        # high-water mark; re-arm at the current depth
+        if reset_peak:
+            self.queue_depth_peak = self.queue_depth
+        if engine is not None:
+            snap["engine"] = {
+                "active": engine.num_active,
+                "waiting": len(engine.waiting),
+                "in_flight_fetches": len(engine._pending),
+                "pages_total": engine.pool.num_pages,
+                "pages_free": engine.pool.free_pages,
+                "pages_in_use": engine.pool.num_pages - 1
+                - engine.pool.free_pages,
+                "max_batch": engine.ecfg.max_batch,
+                "attention_backend": engine.cfg.attention_backend,
+                "rtt_est_ms": round(engine._rtt_est * 1e3, 3),
+            }
+            if engine.prefix_cache is not None:
+                pc = engine.prefix_cache
+                snap["prefix_cache"] = {
+                    # radix tree shape: nodes (page-aligned token runs) and
+                    # the pages they retain ("entries" keeps the legacy
+                    # name for the node count)
+                    "entries": len(pc),
+                    "nodes": len(pc),
+                    "cached_pages": pc.total_pages,
+                    "hits": pc.hits,
+                    "misses": pc.misses,
+                    "tokens_reused": pc.tokens_reused,
+                    "cross_thread_hits": pc.cross_thread_hits,
+                    # the KV tiers' hits and host-resident runs: 0 until
+                    # this package's cache has tiers to demote into
+                    "host_tier_hits": getattr(pc, "host_tier_hits", 0),
+                    "shipped_hits": getattr(pc, "shipped_hits", 0),
+                    "object_tier_hits": getattr(pc, "object_tier_hits", 0),
+                    "host_nodes": getattr(pc, "host_nodes", 0),
+                    "host_pages": getattr(pc, "host_pages", 0),
+                    "evictions": pc.evictions,
+                    "pages_evicted": pc.pages_evicted,
+                }
+            tier = getattr(engine, "kv_tier", None)
+            if tier is not None:
+                # tiered KV cache (KV_TIER_METRIC_KEYS)
+                snap["kv_tier"] = tier.snapshot()
+                if getattr(tier, "object", None) is not None:
+                    # object-store tier (OBJECT_TIER_METRIC_KEYS)
+                    snap["object_tier"] = tier.object.snapshot()
+            flight = getattr(engine, "flight", None)
+            if flight is not None:
+                # flight recorder (FLIGHT_METRIC_KEYS): ring state only —
+                # the record contents live at GET /debug/flight/{replica}
+                snap["flight"] = {
+                    "flight_ring_size": flight.size,
+                    "flight_records": flight.next_seq,
+                    "flight_postmortems": flight.postmortems,
+                }
+            mm = getattr(engine, "memory_monitor", None)
+            if mm is not None:
+                # live HBM accounting (MEMORY_METRIC_KEYS): latest
+                # step-cadence device sample reconciled against the
+                # boot-time MemoryPlan (runtime/planner.MemoryMonitor)
+                mem = mm.section()
+                if mem is not None:
+                    snap["memory"] = mem
+            agent_fn = getattr(engine, "agent_section", None)
+            if agent_fn is not None:
+                # agent-native scheduling (AGENT_METRIC_KEYS): tool-gap
+                # demotions, expected-return hints, background class
+                snap["agent"] = agent_fn()
+        return snap

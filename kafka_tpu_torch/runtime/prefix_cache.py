@@ -129,6 +129,11 @@ class PrefixCache:
             stack.extend(node.children.values())
             yield node
 
+    def __len__(self) -> int:
+        """Node count (the /metrics "nodes" gauge; scrape cadence, so a
+        walk of the tree)."""
+        return sum(1 for _ in self._iter_nodes())
+
     @property
     def total_pages(self) -> int:
         """Pool pages the cache currently retains."""

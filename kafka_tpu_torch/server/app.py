@@ -18,7 +18,16 @@ Counterpart of kafka_tpu/server/app.py:
   GET  /v1/models                            served models
   GET  /health                               liveness + engine stats (503
                                              while draining)
+  GET  /metrics                              the metrics registry (JSON, or
+                                             ?format=prometheus)
+  GET  /admin/signals                        the autoscaler input snapshot
+  POST /debug/profile                        a torch.profiler window
+                                             (KAFKA_TORCH_PROFILING=1)
   GET  /debug/traces, /debug/trace/{id}      recent traces / one span tree
+  GET  /debug/flight/{replica}               the flight recorder's ring
+  GET  /debug/compiles                       the compile observatory
+  GET  /debug/kernels                        sampled per-kernel device time
+                                             (KAFKA_TORCH_PROFILE_SAMPLE)
   GET  /playground                           the in-tree chat client
 
 Every serving route runs the reference's agent turn (`_agent_events`):
@@ -38,8 +47,8 @@ inside its `http.request` span); auth (the static bearer token
 `api_token` and per-user `sess_` tokens; thread ownership per user).  On
 shutdown the server drains: /health answers 503, serving routes answer
 503 + Retry-After, and in-flight streams get `drain_timeout_s` to finish.
-/metrics, the admin routes and the profiling/flight/compile/kernel debug
-routes wait for later slices of the port.
+The telemetry routes are the reference's; /admin/autoscaler,
+/admin/resize and /admin/drain/{replica} come with the DP router.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import hmac
 import json
 import logging
 import os
+import tempfile
 from typing import Any, AsyncIterator, Dict, List, Optional
 
 import torch
@@ -98,7 +108,15 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
     from ..models.quant import quantize_params
     from ..models.tokenizer import ByteTokenizer, load_tokenizer
     from ..runtime import EngineConfig, GenRequest, InferenceEngine
+    from ..runtime import compile_log
+    from ..runtime.metrics import EngineMetrics
+    from ..runtime.planner import hbm_for_device, plan_for_serving
 
+    # the compile observatory exists before the first kernel build or
+    # graph capture, so the boot-phase compiles are in its ring
+    # (KAFKA_TORCH_COMPILE_RING=0 leaves it off)
+    compile_log.init()
+    compile_log.set_phase("boot")
     for knob, mode in (("quantize", cfg.quantize),
                        ("kv_quantize", cfg.kv_quantize)):
         if mode not in ("", "int8"):
@@ -134,8 +152,30 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
         speculative_k=cfg.speculative_k,
         kv_quantize=cfg.kv_quantize,
     )
+    if cfg.flight_ring is not None:
+        # None defers to the EngineConfig default (KAFKA_TORCH_FLIGHT_RING)
+        engine_cfg.flight_ring = cfg.flight_ring
+    # memory-fit validation (runtime/planner.py) against the device's
+    # memory: weights alone over the budget fail here; the plan is
+    # attached to the engine's memory monitor, which reconciles it with
+    # the caching allocator's bytes at step cadence
+    memory_plan = None
+    hbm = hbm_for_device(dev)
+    if hbm:
+        memory_plan = plan_for_serving(cfg, hbm, model_cfg=model_cfg)
+        if memory_plan.weight_bytes > memory_plan.usable_bytes:
+            raise MemoryError(
+                f"{model_cfg.name} weights alone need "
+                f"{memory_plan.weight_bytes / 2**30:.1f} GiB, budget "
+                f"{memory_plan.usable_bytes / 2**30:.1f} GiB: "
+                f"{memory_plan.summary()} — quantize or pick a bigger card")
+        log = logger.warning if not memory_plan.fits else logger.info
+        log("memory plan: %s", memory_plan.summary())
     engine = InferenceEngine(model_cfg, params, engine_cfg, device=dev)
+    if memory_plan is not None and engine.memory_monitor is not None:
+        engine.memory_monitor.plan = memory_plan
     if cfg.warmup:
+        compile_log.set_phase("warmup")
         # on CUDA every kernel is built now (one nvcc per source, in
         # parallel), before the worker thread drives the engine; one lone
         # prompt over 128 tokens then takes the single-sequence prefill
@@ -161,6 +201,15 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
                                          prompt_ids=[3] * 8,
                                          max_new_tokens=k + 2))
             engine.run_to_completion()
+        # /metrics reflects serving only (the flight ring keeps warmup)
+        engine.metrics = EngineMetrics()
+    if engine.kernel_sampler is not None:
+        # its profiler window belongs to this thread; the worker thread
+        # opens its own
+        engine.kernel_sampler.close(engine.metrics)
+    # everything compiled past this point is work under live traffic:
+    # the observatory's storm detector counts only this phase
+    compile_log.set_phase("first_traffic")
     return TorchLLMProvider(engine, tokenizer, model_name=cfg.model_name)
 
 
@@ -190,6 +239,13 @@ async def create_app(
         slow_ttft_ms=cfg.slow_ttft_ms or 0,
         slow_total_ms=cfg.slow_total_ms or 0,
     )
+    # SLO targets likewise, before the engine builds, so every
+    # EngineMetrics (the post-warmup reset too) classifies against this
+    # deployment's targets.  Always called: None clears an earlier app
+    # build's override back to the env / default.
+    from ..runtime.metrics import configure_slo
+
+    configure_slo(ttft_ms=cfg.slo_ttft_ms, tpot_ms=cfg.slo_tpot_ms)
     if llm_provider is None:
         llm_provider = build_provider(cfg, device=device)
     if db is None:
@@ -239,8 +295,14 @@ async def create_app(
     r.add_post("/v1/auth/signup", auth_signup)
     r.add_post("/v1/auth/login", auth_login)
     r.add_get("/health", health)
+    r.add_get("/metrics", metrics)
+    r.add_get("/admin/signals", admin_signals)
+    r.add_post("/debug/profile", capture_profile)
     r.add_get("/debug/traces", debug_traces)
     r.add_get("/debug/trace/{request_id}", debug_trace)
+    r.add_get("/debug/flight/{replica}", debug_flight)
+    r.add_get("/debug/compiles", debug_compiles)
+    r.add_get("/debug/kernels", debug_kernels)
     r.add_get("/playground", playground)
     app.on_shutdown.append(_drain_on_shutdown)
     app.on_cleanup.append(_cleanup)
@@ -302,8 +364,10 @@ def cors_middleware(origins: str):
 
 
 # paths that never start a trace: health probes, the playground and the
-# observability surface itself would churn the ring with noise
-_TRACE_SKIP = ("/health", "/playground", "/debug")
+# observability surface itself (an autoscaler's ~1 Hz signal scrape
+# included) would churn the ring with noise
+_TRACE_SKIP = ("/health", "/metrics", "/playground", "/debug",
+               "/admin/signals", "/admin/autoscaler")
 
 
 def _incoming_trace(request: web.Request):
@@ -440,6 +504,10 @@ def _admission_gate(request: web.Request) -> None:
     retry_after = check() if check is not None else None
     if retry_after is None:
         return
+    # a gate-level 429 is a rejection and an SLO miss in the registry
+    record = getattr(state["llm"], "record_rejection", None)
+    if record is not None:
+        record()
     raise web.HTTPTooManyRequests(
         text=json.dumps({"error": {
             "message": "request queue is full; retry later "
@@ -891,6 +959,234 @@ async def debug_trace(request: web.Request) -> web.Response:
                              "ring, or the request was sampled out)"}),
             content_type="application/json")
     return web.json_response(data)
+
+
+async def metrics(request: web.Request) -> web.Response:
+    """Serving counters: the engine's metrics registry snapshot (TTFT /
+    TPOT histograms, throughput, SLO attainment and goodput, MFU and
+    bandwidth utilization per dispatch kind, the flight recorder's ring
+    state, memory), with the process-wide sections merged in: sandbox
+    supervision, tracing (and the slow-request count) and the compile
+    observatory.  `?format=prometheus` renders the same snapshot as
+    Prometheus text."""
+    llm = _state(request)["llm"]
+    engine = getattr(llm, "engine", None)
+    if engine is None:
+        return web.json_response({"error": "no local engine"}, status=404)
+    snap = engine.metrics.snapshot(engine)
+    from ..runtime import compile_log
+    from ..sandbox.process import supervisor_snapshot
+
+    snap["sandbox"] = supervisor_snapshot()
+    snap["tracing"] = tracing.counters()
+    if isinstance(snap.get("requests"), dict):
+        snap["requests"]["slow"] = tracing.slow_count()
+    obs = compile_log.get()
+    if obs is not None:
+        snap["compiles"] = obs.metrics_section()
+    if request.query.get("format") == "prometheus":
+        from .prometheus import render_prometheus
+
+        return web.Response(
+            text=render_prometheus(snap),
+            headers={"Content-Type":
+                     "text/plain; version=0.0.4; charset=utf-8"})
+    return web.json_response(snap)
+
+
+async def admin_signals(request: web.Request) -> web.Response:
+    """The autoscaler signal feed: one coherent JSON snapshot of queue
+    depth and trend, batch occupancy, SLO window attainment, goodput,
+    per-kind utilization, anomalies, compiles and memory (the provider's
+    `signals`).  Read-only; honors the bearer gate when one is set."""
+    state = _state(request)
+    llm = state["llm"]
+    signals = getattr(llm, "signals", None)
+    if signals is None or getattr(llm, "engine", None) is None:
+        return web.json_response(
+            {"error": "no local engine (this deployment emits no "
+                      "autoscaler signals)"}, status=404)
+    payload = signals()
+    payload["draining"] = bool(state.get("draining"))
+    payload["admission"] = {"max_queue_depth": state["cfg"].max_queue_depth}
+    return web.json_response(payload)
+
+
+async def debug_flight(request: web.Request) -> web.Response:
+    """One replica's live flight-recorder ring: the per-scheduler-
+    iteration decision log, measured dispatch timing and the anomaly
+    detector state.  Postmortem dumps of the same shape land next to the
+    persisted traces when a step fails."""
+    llm = _state(request)["llm"]
+    engine = getattr(llm, "engine", None)
+    if engine is None:
+        return web.json_response({"error": "no local engine"}, status=404)
+    try:
+        idx = int(request.match_info["replica"])
+    except ValueError:
+        return web.json_response(
+            {"error": "replica must be an integer index"}, status=400)
+    # one engine: replica 0 (data-parallel replicas come with a router)
+    if idx != 0:
+        return web.json_response(
+            {"error": f"replica {idx} out of range (dp=1)"}, status=404)
+    flight = engine.flight
+    if flight is None:
+        return web.json_response(
+            {"error": "flight recorder disabled "
+                      "(KAFKA_TORCH_FLIGHT_RING=0)"}, status=404)
+    payload = flight.snapshot()
+    payload["replica"] = idx
+    payload["dp"] = 1
+    return web.json_response(payload)
+
+
+async def debug_compiles(request: web.Request) -> web.Response:
+    """The compile observatory's bounded ring: every CUDA-graph capture
+    and nvcc build this process made — label, wall seconds, cache
+    disposition and the serving phase it happened in (boot / warmup /
+    first_traffic / rebuild) — plus the storm detector and totals."""
+    from ..runtime import compile_log
+
+    obs = compile_log.get()
+    if obs is None:
+        return web.json_response(
+            {"error": "compile observatory disabled "
+                      "(KAFKA_TORCH_COMPILE_RING=0)"}, status=404)
+    return web.json_response(obs.snapshot())
+
+
+async def debug_kernels(request: web.Request) -> web.Response:
+    """Sampled per-kernel device timing: the top-K kernels by device
+    time, grouped by the dispatch kinds active in each sampled window,
+    from KAFKA_TORCH_PROFILE_SAMPLE=N every-Nth-step profiles.  404 when
+    sampling is off."""
+    llm = _state(request)["llm"]
+    engine = getattr(llm, "engine", None)
+    if engine is None:
+        return web.json_response({"error": "no local engine"}, status=404)
+    try:
+        top_k = int(request.query.get("top_k", "20"))
+    except ValueError:
+        return web.json_response(
+            {"error": "top_k must be an integer"}, status=400)
+    if engine.kernel_sampler is None:
+        return web.json_response(
+            {"error": "kernel sampling disabled "
+                      "(set KAFKA_TORCH_PROFILE_SAMPLE=N)"}, status=404)
+    return web.json_response(engine.kernel_sampler.snapshot(top_k=top_k))
+
+
+_PROFILE_BUSY = False
+# server-chosen, never client-chosen
+_PROFILE_DIR = os.path.join(tempfile.gettempdir(), "kafka_torch_trace")
+
+
+def _flight_seqs(llm) -> Optional[List[Dict[str, Any]]]:
+    """Per-replica flight-recorder sequence cursors (None = no engine or
+    recorder off everywhere)."""
+    engine = getattr(llm, "engine", None)
+    if engine is None or engine.flight is None:
+        return None
+    return [{"replica": 0, "seq": engine.flight.next_seq}]
+
+
+async def capture_profile(request: web.Request) -> web.Response:
+    """Capture a torch.profiler window for offline analysis (Chrome
+    trace JSON, for Perfetto).  Body: {"seconds": 2}.  The trace covers
+    whatever the engine executes during the window (the card's kernels
+    on CUDA) and lands under a server-chosen directory.  Gated behind
+    KAFKA_TORCH_PROFILING=1 (traces can carry workload detail); with an
+    API token configured it wants that machine token, not a user
+    session; one capture at a time, and never while the kernel sampler
+    holds the profiler (409).  The response carries the flight-recorder
+    window the capture covers (per replica [start_seq, end_seq) and wall
+    timestamps), so the trace correlates with /debug/flight."""
+    import time as _time
+
+    from ..runtime import kernel_profiler
+
+    if os.environ.get("KAFKA_TORCH_PROFILING", "0") not in ("1", "true"):
+        return web.json_response(
+            {"error": "profiling disabled (set KAFKA_TORCH_PROFILING=1)"},
+            status=403)
+    cfg = _state(request)["cfg"]
+    if cfg.api_token:
+        supplied = request.headers.get("Authorization", "")
+        if not hmac.compare_digest(
+                supplied.encode("utf-8", "surrogateescape"),
+                f"Bearer {cfg.api_token}".encode()):
+            return web.json_response(
+                {"error": {"message": "profile capture requires the "
+                           "configured API token",
+                           "type": "authentication_error"}},
+                status=401)
+    global _PROFILE_BUSY
+    # check-and-set with no await in between (the event loop is one
+    # thread): concurrent requests cannot race past the guard
+    if _PROFILE_BUSY:
+        return web.json_response(
+            {"error": "a profile capture is already running"}, status=409)
+    _PROFILE_BUSY = True
+    try:
+        try:
+            body = await request.json()
+        except Exception:
+            body = {}
+        try:
+            seconds = float(body.get("seconds", 2.0))
+        except (TypeError, ValueError):
+            return web.json_response(
+                {"error": "'seconds' must be a number"}, status=400)
+        if not (0.1 <= seconds <= 30.0):
+            return web.json_response(
+                {"error": "'seconds' must be in [0.1, 30]"}, status=400)
+        llm = _state(request)["llm"]
+        engine = getattr(llm, "engine", None)
+        device_type = engine.device.type if engine is not None else "cpu"
+        start_seqs = _flight_seqs(llm)
+        if not kernel_profiler.try_acquire_trace():
+            return web.json_response(
+                {"error": "device tracing busy (kernel sampler window "
+                          "open, or another capture running)"},
+                status=409)
+        t_start = _time.time()
+        path = os.path.join(_PROFILE_DIR,
+                            f"profile_{int(t_start * 1e3)}.trace.json")
+        try:
+            os.makedirs(_PROFILE_DIR, exist_ok=True)
+            prof = kernel_profiler.open_profiler(device_type)
+            try:
+                await asyncio.sleep(seconds)
+            finally:
+                prof.stop()
+            prof.export_chrome_trace(path)
+        finally:
+            kernel_profiler.release_trace()
+        t_end = _time.time()
+        end_seqs = _flight_seqs(llm)
+    finally:
+        _PROFILE_BUSY = False
+    flight_window = None
+    if start_seqs is not None and end_seqs is not None:
+        ends = {e["replica"]: e["seq"] for e in end_seqs}
+        flight_window = {
+            "t_start": round(t_start, 4),
+            "t_end": round(t_end, 4),
+            "replicas": [
+                {"replica": s["replica"], "start_seq": s["seq"],
+                 "end_seq": ends.get(s["replica"], s["seq"])}
+                for s in start_seqs
+            ],
+        }
+    return web.json_response({
+        "trace_dir": _PROFILE_DIR,
+        "seconds": seconds,
+        # correlate the trace with scheduler decisions: /debug/flight
+        # records with start_seq <= seq < end_seq (or t in [t_start,
+        # t_end])
+        "flight_window": flight_window,
+    })
 
 
 async def playground(request: web.Request) -> web.Response:

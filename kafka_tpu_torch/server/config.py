@@ -1,6 +1,7 @@
 """Typed serving configuration (main-path fields of
 kafka_tpu/server/config.py): one dataclass with KAFKA_TORCH_* environment
-overrides, covering the engine shape, model selection and server knobs."""
+overrides, covering the engine shape, model selection, telemetry and
+server knobs."""
 
 from __future__ import annotations
 
@@ -57,6 +58,21 @@ class ServingConfig:
     slow_ttft_ms: Optional[float] = None
     slow_total_ms: Optional[float] = None
     log_format: str = "text"
+    # Scheduler flight recorder (runtime/flight_recorder.py): per-engine
+    # ring of this many per-scheduler-iteration records (decision log,
+    # measured dispatch timing, anomaly detectors, postmortem capture,
+    # GET /debug/flight/{replica}).  0 disables it; None defers to
+    # KAFKA_TORCH_FLIGHT_RING (default 256).
+    flight_ring: Optional[int] = None
+    # SLO targets (runtime/metrics.py): every request is classified
+    # MET/MISSED at finalize against these; /metrics exports attainment
+    # (total/1m/5m windows) and goodput, /admin/signals feeds them to an
+    # autoscaler.
+    #   slo_ttft_ms — time-to-first-token target (default 200; 0 disables)
+    #   slo_tpot_ms — per-output-token target (default 0 = disabled)
+    # None defers to KAFKA_TORCH_SLO_TTFT_MS / KAFKA_TORCH_SLO_TPOT_MS.
+    slo_ttft_ms: Optional[float] = None
+    slo_tpot_ms: Optional[float] = None
     # server
     host: str = "0.0.0.0"
     port: int = 8000
@@ -116,6 +132,10 @@ class ServingConfig:
             slow_ttft_ms=get("SLOW_TTFT_MS", None, float),
             slow_total_ms=get("SLOW_TOTAL_MS", None, float),
             log_format=get("LOG_FORMAT", cls.log_format),
+            # clamp negatives to 0 = disabled
+            flight_ring=get("FLIGHT_RING", None, lambda v: max(0, int(v))),
+            slo_ttft_ms=get("SLO_TTFT_MS", None, float),
+            slo_tpot_ms=get("SLO_TPOT_MS", None, float),
             host=get("HOST", cls.host),
             port=get("PORT", cls.port, int),
             api_token=get("API_TOKEN", None),

@@ -181,7 +181,12 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.failpoints, kafka_tpu_torch.logs, "
         "kafka_tpu_torch.server.auth, kafka_tpu_torch.core.sse_client, "
         "kafka_tpu_torch.tools.mcp, kafka_tpu_torch.server_tools.mcp_servers, "
-        "kafka_tpu_torch.sandbox, kafka_tpu_torch.sandbox.server\n"
+        "kafka_tpu_torch.sandbox, kafka_tpu_torch.sandbox.server, "
+        "kafka_tpu_torch.runtime.metrics, kafka_tpu_torch.runtime.planner, "
+        "kafka_tpu_torch.runtime.flight_recorder, "
+        "kafka_tpu_torch.runtime.compile_log, "
+        "kafka_tpu_torch.runtime.kernel_profiler, "
+        "kafka_tpu_torch.server.prometheus\n"
         "bad = [m for m in sys.modules if m in ('jax', 'kafka_tpu') or "
         "m.startswith(('jax.', 'kafka_tpu.'))]\n"
         "assert not pre and not bad, (pre, bad)\n"
