@@ -211,6 +211,42 @@ Phases, each of which raises (non-zero exit) on any failure:
                HBM_AGREE of the window's modeled bytes over its CUDA-event
                time.  The kernels' launches on these servers are recorded
                as `telemetry_launches`.
+  5. tiers   — a thread's KV leaves the card and comes back, at full
+               llama-3.2-1b width (random weights from --seed, page 16,
+               4096 window).  Ship buckets: demote (gather + D2H into
+               pinned memory, resolved) and promote (H2D + in-place
+               scatter) ms and GB/s per SHIP_BUCKETS size.  (a) bf16:
+               eight threads of 3,000 tokens on a tier engine and on one
+               whose pages never leave the card; every thread is demoted
+               to the host, and turn 2 promotes it (cache_source
+               "host_tier"): the streams must equal, and the promoted
+               rows equal the rows before demotion byte for byte.
+               (d) the tier engine sleeps to an object directory
+               (`sleep_to_object`) and a fresh engine over it wakes every
+               thread for turn 3 (cache_source "object_tier"), the
+               streams equal to the reference engine's.  Thread 0's turn
+               3 wake to first token from the host tier, from the object
+               tier and by a full re-prefill of the same prompt.
+               (b) int8 weights + int8 KV, four threads, as (a): K4 must
+               launch.  (c) a thread of two radix nodes under a host
+               budget smaller than the thread: demoting it spills to
+               disk, the next turn wakes it from the host and from disk.
+               (f) a torn promote (`kv.promote` error at the second
+               chunk) and a torn object get degrade to a re-prefill whose
+               stream equals a cold engine's.  (e) the built-in-tools
+               server with KAFKA_TORCH_AGENT_DEMOTE=host and a 0 ms
+               linger: a forced `sequentialthinking` turn's gap demotes
+               the thread (agent_gap_demotions >= 1, the bytes it freed
+               printed), the follow-up model turn promotes it (its
+               engine.prefill span reads "host_tier"), the Prometheus
+               kv_tier families are non-zero, and /admin/drain/0 returns
+               the reference's statistics (401 without the token).  The
+               phase's launches are counted from its start
+               (`tiers_launches`).  The server phase also makes the
+               built-in-tools server's first traffic a forced tool call
+               ("required"): after the warmup its grammar compile is a
+               cache hit, no table registers and /debug/compiles shows no
+               graph capture under first_traffic.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
@@ -2538,6 +2574,9 @@ async def _serve_and_query(db_path: str) -> dict:
     out = {}
     try:
         async with aiohttp.ClientSession() as s:
+            # the first traffic: a forced tool call on the built-in tools
+            out["forced_first"] = await _forced_first_call(
+                s, base, state["llm"], tool_defs)
             t1 = time.monotonic()
             timing: dict = {}
             ev1 = await _stream(s, f"{base}/v1/threads/smoke/chat/completions",
@@ -2601,10 +2640,77 @@ async def _serve_and_query(db_path: str) -> dict:
                        agent_done_reasons=reasons,
                        turn1_ttft_s=timing.get("ttft_s"),
                        chat_ttft_s=timing3.get("ttft_s"))
+            async with s.get(f"{base}/debug/compiles") as r:
+                comp = await r.json()
+            out["captures_by_phase"] = {}
+            for rec in comp["records"]:
+                if rec["label"].startswith("decode_graph"):
+                    ph = out["captures_by_phase"]
+                    ph[rec["phase"]] = ph.get(rec["phase"], 0) + 1
     finally:
         out["K1"] = kernels.paged_decode_attention.launches
         out["K2"] = kernels.paged_prefill_attention.launches
         await runner.cleanup()
+    return out
+
+
+async def _forced_first_call(s, base: str, llm, tool_defs) -> dict:
+    """The server's first traffic after its warmup: one model turn with
+    tool_choice "required" over the built-in tools plus the idle tool,
+    through the provider as the agent loop makes it (no tool runs: the
+    forced call may be get_weather, which dials the network).  Warmup
+    registered this grammar and captured its FSM step graphs, so the
+    grammar compile is a cache hit, no table registers, and
+    /debug/compiles shows no graph capture in first_traffic."""
+    from kafka_tpu_torch import tracing
+    from kafka_tpu_torch.llm.constrained import compile_grammar_for_mask_fn
+
+    async def first_traffic_captures():
+        async with s.get(f"{base}/debug/compiles") as r:
+            comp = await r.json()
+        return [rec for rec in comp["records"]
+                if rec["phase"] == "first_traffic"
+                and rec["label"].startswith("decode_graph")]
+
+    before = await first_traffic_captures()
+    tables = llm.engine._grammars
+    n_tables, version = len(tables.grammars), tables.version
+    mask = llm.build_tool_call_mask_fn(tool_defs, "required")
+    t0 = time.perf_counter()
+    grammar = await asyncio.to_thread(compile_grammar_for_mask_fn, mask,
+                                      llm.model_cfg.vocab_size)
+    grammar_ms = (time.perf_counter() - t0) * 1e3
+    root = tracing.start_trace(request_id="forced-first")
+    t0 = time.monotonic()
+    try:
+        chunks = [c async for c in llm.stream_completion(
+            [{"role": "user", "content": "Use one of your tools."}],
+            tools=tool_defs, temperature=0.7, max_tokens=64,
+            logits_mask_fn=mask)]
+    finally:
+        tracing.finish_trace(root)
+    seconds = time.monotonic() - t0
+    after = await first_traffic_captures()
+    async with s.get(f"{base}/debug/trace/forced-first") as r:
+        trace = await r.json()
+    by = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") == "X":
+            by.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    out = {"grammar_compile_ms": grammar_ms, "seconds": seconds,
+           "grammar_cached": grammar is not None,
+           "new_tables": len(tables.grammars) - n_tables,
+           "tables_version_moved": tables.version != version,
+           "first_traffic_captures": len(after) - len(before),
+           "finish": [c.finish_reason for c in chunks if c.finish_reason],
+           "emit_ms": by.get("emit", [None])[0],
+           "engine.prefill_ms": by.get("engine.prefill", [None])[0],
+           "constrained_ondevice_tokens":
+               llm.engine.constrained_ondevice_tokens}
+    if grammar is None or out["new_tables"] or out["tables_version_moved"] \
+            or out["first_traffic_captures"] or \
+            out["finish"] != ["tool_calls"]:
+        raise AssertionError(f"forced first call after warmup: {out}")
     return out
 
 
@@ -2661,16 +2767,20 @@ CONSTRAINED_PROMPT = "List what you can do for me, then finish."
 CONSTRAINED_MAX_TOKENS = 96
 
 
-def _wrap_free(g, stream: list, budget: int) -> int:
+def _wrap_free(g, stream: list, budget: int, slack=None) -> int:
     """Tokens of `stream` emitted before either constrained path's wrap-up
     window (budget_left <= dist + wrap_slack; the compiled slack is at
     least the host mask's 4 characters): there the device FSM's and the
     host mask's rows are provably equal, so their greedy tokens must be.
     Inside it each path closes the JSON by its own rule (the host mask's
-    fixed 4-character slack engages later), as in the JAX package."""
+    fixed 4-character slack engages later), as in the JAX package.
+    `slack`: the engine's table-set slack, the largest of its registered
+    grammars' (the warmup registers the built-in tools' grammar), which
+    the device FSM applies to every lane; default the grammar's own."""
+    slack = g.wrap_slack if slack is None else slack
     state = 0
     for i, t in enumerate(stream):
-        if budget - i <= int(g.dist[state]) + g.wrap_slack:
+        if budget - i <= int(g.dist[state]) + slack:
             return i
         state = g.walk([t], start=state)
         if state < 0:
@@ -2800,8 +2910,10 @@ async def _serve_constrained(db_path: str) -> dict:
         raise AssertionError(f"ONDEVICE=0 turn did not take the host mask: "
                              f"{host}")
     fsm_ids = turns["required"]["output_ids"]
+    slack = max(g.wrap_slack for g in engine._grammars.grammars)
     n = _wrap_free(turns["required"]["grammar"], fsm_ids,
-                   CONSTRAINED_MAX_TOKENS)
+                   CONSTRAINED_MAX_TOKENS, slack=slack)
+    host["table_set_slack"] = slack
     host["same_tokens_before_wrap_up"] = n
     host["whole_stream_equal"] = host["output_ids"] == fsm_ids
     if n < min(40, len(fsm_ids)) or host["output_ids"][:n] != fsm_ids[:n]:
@@ -3432,6 +3544,14 @@ def phase_server() -> None:
         f"launches K1={out['K1']} K2={out['K2']}")
     log(f"server turn 1 span tree (cold, built-in tools): "
         f"{_fmt_spans(out['turn1_spans'])}")
+    ff = out["forced_first"]
+    log(f"server first traffic after warmup: forced tool call (required, "
+        f"built-in tools) in {ff['seconds']:.3f}s; grammar compile "
+        f"{ff['grammar_compile_ms']:.3f} ms (cache hit), new tables "
+        f"{ff['new_tables']}, graph captures in first_traffic "
+        f"{ff['first_traffic_captures']}; prefill "
+        f"{ff['engine.prefill_ms']} ms, emit {ff['emit_ms']} ms; decode-graph "
+        f"captures by phase over the whole server {out['captures_by_phase']}")
     runs = api["runs"]
     log(f"server thread API (llama-3.2-1b, API token, sandbox subprocess, "
         f"stub MCP over stdio; booted in {api['boot_s']:.1f}s): no token "
@@ -3496,6 +3616,547 @@ def phase_server() -> None:
     RESULTS["server"] = out
     for k in ("K1", "K2"):
         RESULTS[k]["launches"] = RESULTS[k]["server_launches"] = out[k]
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the KV tiers — a thread's KV leaves the card and comes back
+# ---------------------------------------------------------------------------
+
+# thread prompt length ("about 3k tokens": a cold agent turn with the
+# built-in tools' schemas is 3,218 byte tokens) and the turns' lengths
+TIER_PROMPT = 3000
+TIER_TURN_NEW = 8
+TIER_SUFFIX = 16
+
+
+def _tier_cfg(**kw):
+    """The tier phase's engines: full-width llama-3.2-1b, page 16, a
+    4096-token window (a 3k-token thread and its next turns fit), kernel
+    attention, 8 slots, room for eight threads' runs."""
+    from kafka_tpu_torch.runtime import EngineConfig
+
+    kw.setdefault("attention_backend", "kernel")
+    return EngineConfig(max_batch=8, page_size=16, num_pages=2400,
+                        max_pages_per_seq=256,
+                        prefill_buckets=(64, 128, 256, 512, 1024, 2048),
+                        **kw)
+
+
+def _tier_turn(eng, prompts, max_new: int, keys, alone: int = 0):
+    """One turn of each thread (prefix_key per thread): the first `alone`
+    threads one at a time, the rest together.  Returns the requests."""
+    from kafka_tpu_torch.runtime import GenRequest
+
+    reqs = [GenRequest(request_id=f"{k}-{len(p)}", prompt_ids=list(p),
+                       max_new_tokens=max_new, prefix_key=k)
+            for k, p in zip(keys, prompts)]
+    for r in reqs[:alone]:
+        eng.submit(r)
+        eng.run_to_completion()
+    for r in reqs[alone:]:
+        eng.submit(r)
+    eng.run_to_completion()
+    for r in reqs:
+        if len(r.output_ids) != max_new:
+            raise AssertionError(f"{r.request_id}: {len(r.output_ids)} "
+                                 f"tokens, finish {r.finish_reason}")
+    return reqs
+
+
+def _ttft_ms(req) -> float:
+    return (req.first_token_time - req.submit_time) * 1e3
+
+
+def _chain_rows(eng, key: str):
+    """The device rows (every pool leaf) of thread `key`'s radix chain,
+    copied, with the chain's token runs."""
+    import torch
+
+    from kafka_tpu_torch.runtime.kv_tier import pool_leaves
+
+    ps = eng.ecfg.page_size
+    out = []
+    for node in eng.prefix_cache._claimed_chain(key):
+        if not node.pages:
+            raise AssertionError(f"{key}: chain node not on the card")
+        idx = torch.tensor([p * ps + i for p in node.pages
+                            for i in range(ps)], device=eng.device)
+        out.append((list(node.tokens), [
+            a.index_select(1, idx).clone()
+            for a in pool_leaves(eng.k_pool) + pool_leaves(eng.v_pool)]))
+    return out
+
+
+def _rows_equal(before, after) -> bool:
+    import torch
+
+    return len(before) == len(after) and all(
+        tb == ta and all(torch.equal(x, y) for x, y in zip(rb, ra))
+        for (tb, rb), (ta, ra) in zip(before, after))
+
+
+def _warm_engine(eng, vocab: int, rng) -> None:
+    """A cold prompt of the thread length, no prefix key: builds the
+    prefill chunk shapes and the decode graph before anything is timed."""
+    from kafka_tpu_torch.runtime import GenRequest
+
+    p = rng.randint(0, vocab, size=TIER_PROMPT).tolist()
+    eng.submit(GenRequest(request_id="warm", prompt_ids=p, max_new_tokens=2))
+    eng.run_to_completion()
+    eng.warmup_kv_tier()
+
+
+def tiers_ships(eng) -> list:
+    """Demote (gather + D2H into pinned memory, resolved) and promote (H2D
+    + in-place scatter) of one run per ship bucket on the card, CUDA-
+    synchronized, median of 5; GB/s over the run's pool bytes."""
+    import torch
+
+    from kafka_tpu_torch.runtime.kv_tier import SHIP_BUCKETS
+
+    ship = eng.kv_tier.shipper
+    rows = []
+    for b in SHIP_BUCKETS:
+        pages = eng.pool.alloc(b)
+        d, p = [], []
+        try:
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                k_l, v_l = ship.resolve(ship.export_run(pages))
+                t1 = time.perf_counter()
+                ship.import_run(k_l, v_l, b, pages)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                d.append(t1 - t0)
+                p.append(t2 - t1)
+        finally:
+            eng.pool.release(pages)
+        nbytes = b * ship.bytes_per_page()
+        dm, pm = sorted(d)[2], sorted(p)[2]
+        rows.append({"pages": b, "bytes": nbytes,
+                     "demote_ms": dm * 1e3, "promote_ms": pm * 1e3,
+                     "demote_gbps": nbytes / dm / 1e9,
+                     "promote_gbps": nbytes / pm / 1e9})
+    return rows
+
+
+def tiers_engine(cfg, params, rng, label: str, n: int, objdir=None,
+                 **ekw) -> dict:
+    """(a) / (b) and (d): n threads of TIER_PROMPT tokens on a tier engine
+    and on an engine whose pages never leave the card.  Turn 1 on both;
+    the tier engine demotes every thread to the host; turn 2 promotes
+    them: the streams must equal the reference engine's and the promoted
+    rows the rows before demotion, byte for byte.  With `objdir`, the tier
+    engine then sleeps to the object store and a fresh engine over it
+    wakes every thread for turn 3 (cache_source "object_tier"), its
+    streams equal to the reference engine's turn 3.  Wake-to-first-token
+    of thread 0's turn 3 from the host tier, from the object tier, and by
+    a full re-prefill of the same prompt."""
+    import torch
+
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.runtime import GenRequest, InferenceEngine
+
+    keys = [f"{label}-t{i}" for i in range(n)]
+    p1 = [rng.randint(0, cfg.vocab_size, size=TIER_PROMPT).tolist()
+          for _ in range(n)]
+    ref = InferenceEngine(cfg, params, _tier_cfg(**ekw))
+    tier = InferenceEngine(cfg, params, _tier_cfg(
+        kv_host_tier_mb=n * 160, kv_object_dir=objdir, **ekw))
+    for e in (ref, tier):
+        _warm_engine(e, cfg.vocab_size, rng)
+    r1 = _tier_turn(ref, p1, TIER_TURN_NEW, keys)
+    t1 = _tier_turn(tier, p1, TIER_TURN_NEW, keys)
+    if [r.output_ids for r in r1] != [r.output_ids for r in t1]:
+        raise AssertionError(f"{label}: turn 1 streams differ")
+    before = {k: _chain_rows(tier, k) for k in keys}
+    pc, mgr = tier.prefix_cache, tier.kv_tier
+    free0 = tier.pool.free_pages
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pages = sum(pc.demote_thread(k)["pages"] for k in keys)
+    t_enq = time.perf_counter() - t0
+    mgr.flush()
+    t_res = time.perf_counter() - t0
+    freed = tier.pool.free_pages - free0
+    if pc.host_nodes < n or freed < pages:
+        raise AssertionError(f"{label}: demoted {pc.host_nodes} nodes, "
+                             f"freed {freed} of {pages} pages")
+    demoted_bytes = mgr.bytes_demoted
+    p2 = [p + r.output_ids + rng.randint(0, cfg.vocab_size,
+                                         size=TIER_SUFFIX).tolist()
+          for p, r in zip(p1, r1)]
+    r2 = _tier_turn(ref, p2, TIER_SUFFIX, keys)
+    fns = {"K1": kernels.paged_decode_attention,
+           "K2": kernels.paged_prefill_attention,
+           "K4": kernels.paged_decode_attention_int8}
+    start = {k: f.launches for k, f in fns.items()}
+    t2 = _tier_turn(tier, p2, TIER_SUFFIX, keys)
+    torch.cuda.synchronize()
+    launches = {k: f.launches - start[k] for k, f in fns.items()}
+    sources = sorted({r.cache_source for r in t2})
+    if sources != ["host_tier"] or any(
+            r.cached_tokens != q.cached_tokens for r, q in zip(t2, r2)):
+        raise AssertionError(f"{label}: turn 2 sources {sources}, cached "
+                             f"{[r.cached_tokens for r in t2]} vs "
+                             f"{[r.cached_tokens for r in r2]}")
+    same = [a.output_ids == b.output_ids for a, b in zip(t2, r2)]
+    if not all(same):
+        raise AssertionError(f"{label}: turn 2 streams differ from the "
+                             f"engine whose pages stayed: {same}")
+    rows_ok = all(_rows_equal(before[k], _chain_rows(tier, k)[:len(before[k])])
+                  for k in keys)
+    if not rows_ok:
+        raise AssertionError(f"{label}: promoted rows differ")
+    # the threads' short suffixes prefill together in one batched
+    # dispatch (plain attention, as in the JAX package); a lone wake's
+    # suffix goes through K2 (below)
+    quant = ekw.get("kv_quantize") == "int8"
+    if (launches["K4"] if quant else launches["K1"]) == 0:
+        raise AssertionError(f"{label}: turn 2 launches {launches}")
+    out = {
+        "threads": n, "prompt_tokens": TIER_PROMPT,
+        "pages_demoted": pages, "bytes_demoted": demoted_bytes,
+        "demote_enqueue_ms": t_enq * 1e3, "demote_resolved_ms": t_res * 1e3,
+        "demote_gbps": demoted_bytes / t_res / 1e9,
+        "turn2_cached_tokens": [r.cached_tokens for r in t2],
+        "turn2_launches": launches, "streams_equal": True,
+        "rows_equal": True, "tier": mgr.snapshot(),
+        "bytes_per_token": mgr.bytes_for_pages(1) / 16,
+    }
+    # thread 0's turn 3, three ways, the same prompt
+    p3 = [p + r.output_ids + rng.randint(0, cfg.vocab_size,
+                                         size=TIER_SUFFIX).tolist()
+          for p, r in zip(p2, r2)]
+    r3 = _tier_turn(ref, p3, TIER_SUFFIX, keys, alone=1)
+    if objdir is not None:
+        stats = tier.sleep_to_object()
+        if not stats.get("enabled") or stats["runs_failed"] or \
+                stats["manifests"] < n:
+            raise AssertionError(f"{label}: sleep_to_object {stats}")
+        out["sleep"] = stats
+    pc.demote_thread(keys[0])
+    mgr.flush()
+    k2 = kernels.paged_prefill_attention.launches
+    h = _tier_turn(tier, p3[:1], TIER_SUFFIX, keys[:1])[0]
+    out["wake_k2_launches"] = kernels.paged_prefill_attention.launches - k2
+    # (an int8 pool's prefill reads through the dequantizing page gather,
+    # as in the JAX package: no K2)
+    if h.cache_source != "host_tier" or h.output_ids != r3[0].output_ids \
+            or not (quant or out["wake_k2_launches"]):
+        raise AssertionError(f"{label}: host wake {h.cache_source}, K2 "
+                             f"{out['wake_k2_launches']}")
+    # a full re-prefill of the same prompts (threads 0 and 1, alone): the
+    # stream a failed promote or wake must give.  Its prefix KV comes
+    # from prefill GEMMs, the cached KV partly from decode steps, so in
+    # bf16 the two streams may part at a near-tie: recorded, not held
+    cold = InferenceEngine(cfg, params, _tier_cfg(**ekw))
+    _warm_engine(cold, cfg.vocab_size, rng)
+    c = [cold.generate(p, max_new_tokens=TIER_SUFFIX) for p in p3[:2]]
+    out["wake_ttft_ms"] = {"host_tier": _ttft_ms(h),
+                           "reprefill": _ttft_ms(c[0])}
+    out["wake_cached_tokens"] = {"host_tier": h.cached_tokens}
+    out["reprefill_equals_cached_stream"] = [
+        a.output_ids == b.output_ids for a, b in zip(c, r3)]
+    del cold
+    if objdir is not None:
+        del tier
+        torch.cuda.empty_cache()
+        fresh = InferenceEngine(cfg, params, _tier_cfg(
+            kv_host_tier_mb=n * 160, kv_object_dir=objdir, **ekw))
+        _warm_engine(fresh, cfg.vocab_size, rng)
+        w3 = _tier_turn(fresh, p3, TIER_SUFFIX, keys, alone=1)
+        srcs = sorted({r.cache_source for r in w3})
+        if srcs != ["object_tier"]:
+            raise AssertionError(f"{label}: object wake sources {srcs}")
+        if [r.output_ids for r in w3] != [r.output_ids for r in r3]:
+            raise AssertionError(f"{label}: object wake streams differ")
+        out["wake_ttft_ms"]["object_tier"] = _ttft_ms(w3[0])
+        out["wake_cached_tokens"]["object_tier"] = w3[0].cached_tokens
+        out["object"] = fresh.kv_tier.object.snapshot()
+        out["object_wake_streams_equal"] = True
+        # (f) a torn object get: the wake aborts, the request re-prefills
+        from kafka_tpu_torch import failpoints
+
+        fresh2 = InferenceEngine(cfg, params, _tier_cfg(
+            kv_host_tier_mb=n * 160, kv_object_dir=objdir, **ekw))
+        failpoints.configure("kv.object_get", "error", "chip")
+        try:
+            g = fresh2.generate(p3[1], max_new_tokens=TIER_SUFFIX,
+                                prefix_key=keys[1])
+        finally:
+            failpoints.clear()
+        if g.cache_source == "object_tier" or \
+                g.output_ids != c[1].output_ids or fresh2.self_check():
+            raise AssertionError(f"{label}: torn object get {g.cache_source}")
+        out["torn_object_get"] = {"cache_source": g.cache_source,
+                                  "stream_equal": True}
+        fresh.close()
+        fresh2.close()
+        del fresh, fresh2
+    else:
+        # (f) a torn promote (the second chunk's copy fails): pages freed,
+        # the request re-prefills with the same stream
+        from kafka_tpu_torch import failpoints
+
+        pc.demote_thread(keys[1])
+        mgr.flush()
+        failpoints.configure("kv.promote", "error", "chip", nth=2)
+        try:
+            g = _tier_turn(tier, p3[1:2], TIER_SUFFIX, keys[1:2])[0]
+        finally:
+            failpoints.clear()
+        if g.cache_source == "host_tier" or \
+                g.output_ids != c[1].output_ids or tier.self_check():
+            raise AssertionError(f"{label}: torn promote {g.cache_source}")
+        out["torn_promote"] = {"cache_source": g.cache_source,
+                               "promote_failures": mgr.promote_failures,
+                               "stream_equal": True}
+        tier.close()
+        del tier
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def tiers_disk(cfg, params, rng, td: str) -> dict:
+    """(c) a thread of two radix nodes (a 1600-token turn, then 1500 more
+    tokens) under a host budget of 1.25x its larger node: smaller than
+    the thread's run (~97 MB), larger than each node, so demoting the
+    thread spills a node to disk; the next turn wakes the thread from the
+    host and from disk, its stream equal to the reference engine's."""
+    from kafka_tpu_torch.runtime import InferenceEngine
+
+    ref = InferenceEngine(cfg, params, _tier_cfg())
+    eng = InferenceEngine(cfg, params, _tier_cfg(
+        kv_host_tier_mb=64, kv_disk_tier_dir=os.path.join(td, "disk")))
+    p1 = rng.randint(0, cfg.vocab_size, size=1600).tolist()
+    extra = rng.randint(0, cfg.vocab_size, size=1500).tolist()
+    tail = rng.randint(0, cfg.vocab_size, size=TIER_SUFFIX).tolist()
+    outs = []
+    for e in (ref, eng):
+        a = _tier_turn(e, [p1], TIER_TURN_NEW, ["disk-t"])[0]
+        p2 = p1 + a.output_ids + extra
+        b = _tier_turn(e, [p2], TIER_TURN_NEW, ["disk-t"])[0]
+        p3 = p2 + b.output_ids + tail
+        if e is eng:
+            chain = e.prefix_cache._claimed_chain("disk-t")
+            thread_bytes = e.kv_tier.bytes_for_pages(
+                sum(len(n.pages) for n in chain))
+            e.kv_tier.host_budget_bytes = int(1.25 * e.kv_tier.bytes_for_pages(
+                max(len(n.pages) for n in chain)))
+            e.prefix_cache.demote_thread("disk-t")
+            e.kv_tier.flush()
+            snap = e.kv_tier.snapshot()
+            if snap["disk_spills"] < 1 or len(chain) < 2:
+                raise AssertionError(f"disk: no spill ({len(chain)} nodes, "
+                                     f"{snap})")
+        c = _tier_turn(e, [p3], TIER_SUFFIX, ["disk-t"])[0]
+        outs.append(c)
+    got, want = outs[1], outs[0]
+    snap = eng.kv_tier.snapshot()
+    if got.cache_source != "host_tier" or snap["disk_loads"] < 1 or \
+            got.output_ids != want.output_ids:
+        raise AssertionError(f"disk wake: {got.cache_source}, {snap}")
+    eng.close()
+    return {"thread_bytes": thread_bytes,
+            "host_budget_bytes": snap["host_budget_bytes"],
+            "nodes": len(chain), "tier": snap,
+            "cached_tokens": got.cached_tokens, "stream_equal": True}
+
+
+async def _serve_tiers(db_path: str, store: str) -> dict:
+    """(e) the server with the built-in tools, KAFKA_TORCH_AGENT_DEMOTE=host
+    and a 0 ms linger: a thread turn forcing the built-in
+    `sequentialthinking` tool ends in a tool call, its gap demotes the
+    thread's KV, and the follow-up model turn of the same agent run
+    promotes it (cache_source "host_tier" on its engine.prefill span);
+    the /metrics tier families are non-zero; /admin/drain/0 with the
+    token returns the reference's statistics."""
+    import aiohttp
+    from aiohttp import web
+
+    from kafka_tpu_torch.server import ServingConfig, create_app
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    os.environ["KAFKA_TORCH_AGENT_DEMOTE"] = "host"
+    os.environ["KAFKA_TORCH_AGENT_LINGER_MS"] = "0"
+    try:
+        cfg = ServingConfig(
+            model_name="llama-3.2-1b", max_batch=8, page_size=16,
+            num_pages=8 * 256 + 64, max_pages_per_seq=256,
+            prefill_buckets=(64, 128, 256, 512, 1024, 2048),
+            max_new_tokens_default=32, db_path=db_path, multi_step=16,
+            system_prompt="You are a terse assistant.", api_token="tok",
+            kv_host_tier_mb=1024, kv_object_dir=store)
+        app = await create_app(cfg, mcp_servers=[])
+    finally:
+        del os.environ["KAFKA_TORCH_AGENT_DEMOTE"]
+        del os.environ["KAFKA_TORCH_AGENT_LINGER_MS"]
+    engine = app[STATE_KEY]["llm"].engine
+    if engine.ecfg.agent_demote != "host" or engine.ecfg.agent_linger_s:
+        raise AssertionError(f"agent knobs not read: {engine.ecfg}")
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    base = f"http://127.0.0.1:{port}"
+    auth = {"Authorization": "Bearer tok"}
+    out = {}
+    try:
+        async with aiohttp.ClientSession() as s:
+            t0 = time.monotonic()
+            ev = await _stream(
+                s, f"{base}/v1/threads/gap/chat/completions",
+                {"model": "llama-3.2-1b", "stream": True, "temperature": 0,
+                 "max_tokens": 48,
+                 "tool_choice": {"type": "function", "function": {
+                     "name": "sequentialthinking"}},
+                 "messages": [{"role": "user",
+                               "content": "Think it through."}]},
+                headers={**auth, "X-Request-Id": "gap-turn"})
+            out["seconds"] = time.monotonic() - t0
+            calls = [e for e in ev if e.get("object") ==
+                     "chat.completion.chunk" and any(
+                         (c.get("delta") or {}).get("tool_calls")
+                         for c in e.get("choices", []))]
+            if not calls:
+                raise AssertionError("the forced turn made no tool call")
+            async with s.get(f"{base}/debug/trace/gap-turn",
+                             headers=auth) as r:
+                trace = await r.json()
+            spans = [e for e in trace.get("traceEvents", [])
+                     if e.get("name") == "engine.prefill"]
+            out["prefill_sources"] = [
+                (e.get("args") or {}).get("cache_source") for e in spans]
+            async with s.get(f"{base}/metrics", headers=auth) as r:
+                snap = await r.json()
+            async with s.get(f"{base}/metrics?format=prometheus",
+                             headers=auth) as r:
+                prom = await r.text()
+            async with s.post(f"{base}/admin/drain/0", headers=auth) as r:
+                out["drain_status"] = r.status
+                out["drain"] = await r.json()
+            async with s.post(f"{base}/admin/drain/0") as r:
+                out["drain_no_token"] = r.status
+    finally:
+        await runner.cleanup()
+    ag = snap["agent"]
+    out["agent"] = ag
+    out["kv_tier"] = snap.get("kv_tier")
+    out["prefix_cache"] = snap.get("prefix_cache")
+    fams = {}
+    for line in prom.splitlines():
+        if line.startswith("kafka_tpu_kv_tier_"):
+            name, _, val = line.rpartition(" ")
+            fams[name] = float(val)
+    out["prometheus_kv_tier"] = fams
+    if ag["agent_gap_demotions"] < 1 or ag["agent_gap_bytes_demoted"] <= 0:
+        raise AssertionError(f"server: no gap demotion: {ag}")
+    if "host_tier" not in out["prefill_sources"]:
+        raise AssertionError(f"server: the follow-up turn did not promote: "
+                             f"{out['prefill_sources']}")
+    if not any(v > 0 for k, v in fams.items()
+               if k.startswith("kafka_tpu_kv_tier_total")):
+        raise AssertionError(f"server: kv_tier families all zero: {fams}")
+    ref_keys = {"enabled", "runs_archived", "runs_failed",
+                "runs_skipped_store_down", "manifests", "manifests_failed",
+                "threads", "bytes_put", "dedupe_hits", "breaker_state",
+                "replica"}
+    d = out["drain"]
+    if out["drain_status"] != 200 or set(d) != ref_keys or \
+            d["runs_archived"] < 1 or d["manifests"] < 1 or \
+            out["drain_no_token"] != 401:
+        raise AssertionError(f"server: /admin/drain/0 {out['drain_status']} "
+                             f"{d}")
+    return out
+
+
+def phase_tiers(seed: int) -> None:
+    import numpy as np
+    import torch
+
+    from kafka_tpu_torch.models import get_config, init_params
+    from kafka_tpu_torch.models.quant import quantize_params
+    from kafka_tpu_torch.runtime import InferenceEngine
+
+    from kafka_tpu_torch.ops import kernels
+
+    cfg = get_config("llama-3.2-1b")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    params = init_params(cfg, gen, device="cuda")
+    rng = np.random.RandomState(seed + 5)
+    out = {}
+    # the phase's own path: counts from 0 here, read at its end
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as td:
+        eng = InferenceEngine(cfg, params, _tier_cfg(kv_host_tier_mb=256))
+        eng.warmup_kv_tier()
+        out["ships_bf16"] = tiers_ships(eng)
+        eng.close()
+        del eng
+        for r in out["ships_bf16"]:
+            log(f"tiers ship bf16 {r['pages']:>2} pages ({r['bytes']} B): "
+                f"demote {r['demote_ms']:.3f} ms "
+                f"({r['demote_gbps']:.2f} GB/s), promote "
+                f"{r['promote_ms']:.3f} ms ({r['promote_gbps']:.2f} GB/s)")
+        out["bf16"] = tiers_engine(cfg, params, rng, "bf16", 8,
+                                   objdir=os.path.join(td, "objects"))
+        out["bf16_torn"] = tiers_engine(cfg, params, rng, "bf16t", 2)
+        out["disk"] = tiers_disk(cfg, params, rng, td)
+        q = quantize_params(params, cfg)
+        out["int8"] = tiers_engine(cfg, q, rng, "int8", 4,
+                                   kv_quantize="int8")
+        del q
+        torch.cuda.empty_cache()
+        out["server"] = asyncio.run(_serve_tiers(
+            os.path.join(td, "tiers.db"), os.path.join(td, "srv-objects")))
+    del params
+    torch.cuda.empty_cache()
+    launches = {"K1": kernels.paged_decode_attention.launches,
+                "K2": kernels.paged_prefill_attention.launches,
+                "K3": kernels.paged_verify_attention.launches,
+                "K4": kernels.paged_decode_attention_int8.launches}
+    out["launches"] = launches
+    for k, n in launches.items():
+        if k in RESULTS:
+            RESULTS[k]["tiers_launches"] = n
+    if not (launches["K1"] and launches["K2"] and launches["K4"]):
+        raise AssertionError(f"tiers phase launches {launches}")
+    log(f"tiers launches (counted from the phase's start): {launches}")
+    for label in ("bf16", "int8"):
+        o = out[label]
+        w = o["wake_ttft_ms"]
+        log(f"tiers ({label}): {o['threads']} threads x {TIER_PROMPT} "
+            f"tokens; demoted {o['pages_demoted']} pages "
+            f"({o['bytes_demoted']} B) in {o['demote_resolved_ms']:.2f} ms "
+            f"resolved ({o['demote_gbps']:.2f} GB/s; enqueue "
+            f"{o['demote_enqueue_ms']:.2f} ms); turn 2 promoted "
+            f"{o['turn2_cached_tokens'][0]} tokens a thread, streams equal "
+            f"the engine whose pages stayed, promoted rows byte-equal; "
+            f"launches {o['turn2_launches']}; thread 0 wake to first token: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in w.items()))
+    b = out["bf16"]
+    log(f"tiers (d) object: sleep {b['sleep']}; fresh engine woke "
+        f"{b['object']['wake_threads']} threads "
+        f"({b['object']['wake_tokens']} tokens, "
+        f"{b['object']['object_bytes_got']} B), streams equal; torn get -> "
+        f"{b['torn_object_get']}")
+    log(f"tiers (f) torn promote -> {out['bf16_torn']['torn_promote']}")
+    d = out["disk"]
+    log(f"tiers (c) disk: thread {d['thread_bytes']} B over {d['nodes']} "
+        f"nodes, host budget {d['host_budget_bytes']} B: spills "
+        f"{d['tier']['disk_spills']}, loads {d['tier']['disk_loads']}; "
+        f"wake cached {d['cached_tokens']} tokens, stream equal")
+    s = out["server"]
+    log(f"tiers (e) server: forced sequentialthinking turn in "
+        f"{s['seconds']:.2f}s; gap freed {s['agent']['agent_gap_bytes_demoted']}"
+        f" B ({s['agent']['agent_gap_pages_demoted']} pages, "
+        f"{s['agent']['agent_gap_demotions']} demotions); prefill sources "
+        f"{s['prefill_sources']}; /admin/drain/0 -> {s['drain_status']} "
+        f"{s['drain']}")
+    RESULTS["tiers"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -4174,9 +4835,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernels,engine,graphs,server,telemetry",
+                    default="kernels,engine,graphs,server,tiers,telemetry",
                     help="comma list of kernels, engine, graphs, server, "
-                         "telemetry (default: all; telemetry runs first), "
+                         "tiers, telemetry (default: all; telemetry runs "
+                         "first), "
                          "or attention (K3 and K4 alone, timed) or mlp (K5 "
                          "alone, timed)")
     ap.add_argument("--root", default=None,
@@ -4250,6 +4912,8 @@ def main() -> int:
         phase_graphs(args.seed)
     if "server" in phases:
         phase_server()
+    if "tiers" in phases:
+        phase_tiers(args.seed)
     for k, n in RESULTS.get("telemetry", {}).get("launches", {}).items():
         if k in RESULTS:
             RESULTS[k]["telemetry_launches"] = n
@@ -4264,7 +4928,7 @@ def main() -> int:
     kernels_line = {"kernels": [
         {**{k: RESULTS[n].get(k) for k in keys},
          **{k: RESULTS[n][k] for k in ("engine_launches", "server_launches",
-                                       "telemetry_launches",
+                                       "telemetry_launches", "tiers_launches",
                                        "launch_count_basis",
                                        "replay_profiler_launches",
                                        "device_ms", "device_ms_cold_l2",

@@ -2,7 +2,7 @@
 chasing a production bug) can make the serving stack fail on purpose.
 
 (A copy of kafka_tpu/failpoints.py, read from KAFKA_TORCH_FAILPOINTS;
-SITES lists the nine sites the port fires.)
+SITES lists the sites the port fires.)
 
 Production LLM servers treat injectable faults as first-class (TiKV's
 `fail_point!`, FreeBSD's KFAIL_POINT, gofail): the only way to *prove* the
@@ -67,6 +67,31 @@ SITES = (
     "engine.prefill",
     # every page allocation (runtime/kv_cache.py PagePool.alloc)
     "kv.alloc",
+    # Tiered-KV copies (runtime/kv_tier.py): fired once per shipped chunk
+    # of a demote (D2H) / promote (H2D), so `error` with nth=2 on a
+    # multi-chunk run produces a genuinely TORN copy — a torn demote is
+    # discarded before anything is stored, a torn promote frees its
+    # destination pages and degrades to re-prefill; `delay` simulates a
+    # slow link.
+    "kv.demote",
+    "kv.promote",
+    # Object-store KV tier (runtime/object_tier.py): fired once per object
+    # (run payload or sleep manifest).  `error` on a put = torn write
+    # discarded before the ref/manifest commit; `error` on a get = miss —
+    # the whole wake aborts with every partially-promoted page freed and
+    # the request degrades to the local hit or a plain re-prefill.
+    "kv.object_put",
+    "kv.object_get",
+    # Store metadata probes: `kv.object_head` fires on existence checks
+    # (wake truncation, manifest head validation) and fails closed;
+    # `kv.object_list` fires on listing walks (release's last-ref scan,
+    # fsck).
+    "kv.object_head",
+    "kv.object_list",
+    # Wake prefetch (runtime/object_tier.WakePrefetcher): fired once per
+    # prefetched run on the prefetch worker; `error` drops that prefetch
+    # and the wake falls back to the synchronous fetch.
+    "kv.prefetch",
     # Tool execution (tools/provider.py run_tool_stream): fired once per
     # tool call, before the tool runs.  `delay` injects tool latency;
     # `error` surfaces as a tool-error event, the shape a crashed tool

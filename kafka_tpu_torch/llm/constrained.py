@@ -1363,7 +1363,7 @@ def _compile_into_cache(tok, mask_fn, vocab_size: int, key) -> Optional[Compiled
 def background_deferred() -> bool:
     """Whether background work must wait (the overload ladder's rung 3 in
     the reference's runtime/autoscaler.py).  Always False until the port's
-    autoscaler lands (ROADMAP A7); the deferred worker asks it before each
+    autoscaler lands (ROADMAP A8); the deferred worker asks it before each
     compile."""
     return False
 

@@ -153,6 +153,53 @@ class TorchLLMProvider(LLMProvider):
         return min(self.engine.ecfg.max_window,
                    self.model_cfg.max_context) - 1
 
+    def note_tool_return(self, prefix_key: Optional[str]) -> None:
+        """The thread's tool finished: fire its expected-return hint, so a
+        demote still in its linger cancels and a demoted thread's runs
+        are protected (and prefetched) before the follow-up turn.  An
+        engine-thread op via the worker inbox; no-op with
+        KAFKA_TORCH_AGENT_DEMOTE unset."""
+        self.worker.note_tool_return(prefix_key)
+
+    def _replicas(self) -> List[InferenceEngine]:
+        """The engine as a replica list: one engine is its own one-element
+        set (data-parallel replicas are not ported)."""
+        return [self.engine]
+
+    async def drain_replica(self, replica: int) -> Dict[str, Any]:
+        """Flush the engine's warm KV state into the shared object store
+        (POST /admin/drain/{replica}): every cached radix run archived
+        content-addressed and every thread's sleep manifest written, so
+        dormant threads wake on a fresh engine (cache_source=
+        "object_tier") instead of re-prefilling.  Non-destructive and
+        idempotent.  An index other than 0 raises ValueError."""
+        return (await self.drain_replicas([replica]))[0]
+
+    async def drain_replicas(self, indices) -> List[Dict[str, Any]]:
+        """drain_replica over several replicas under ONE worker pause.
+        The flush gathers pool pages and walks the radix tree — both
+        single-writer engine state — so it runs with the worker parked,
+        off the event loop."""
+        indices = list(indices)
+        replicas = self._replicas()
+        sleeps = []
+        for i in indices:
+            if not 0 <= i < len(replicas):
+                raise ValueError(
+                    f"replica {i} out of range (dp={len(replicas)})")
+            sleeps.append(replicas[i].sleep_to_object)
+        if not await asyncio.to_thread(self.worker.pause):
+            self.worker.resume()
+            raise RuntimeError("engine worker did not pause")
+        try:
+            all_stats = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: [s() for s in sleeps])
+        finally:
+            self.worker.resume()
+        for i, stats in zip(indices, all_stats):
+            stats["replica"] = i
+        return all_stats
+
     def admission_check(self) -> Optional[float]:
         """None = admit; else a Retry-After estimate in seconds.  Reads the
         engine thread's queue length unsynchronized — a torn read makes
@@ -438,10 +485,16 @@ class TorchLLMProvider(LLMProvider):
                         yield StreamChunk(content=text, id=completion_id,
                                           model=model_id)
                 if ev.finished:
-                    for chunk in self._finalize(
-                            mode, buffered, ev, completion_id, model_id,
-                            len(prompt_ids), n_tokens,
-                            req.usage_cached_tokens or 0):
+                    final = self._finalize(
+                        mode, buffered, ev, completion_id, model_id,
+                        len(prompt_ids), n_tokens,
+                        req.usage_cached_tokens or 0)
+                    if any(c.finish_reason == "tool_calls" for c in final):
+                        # the thread leaves for a tool call: start the
+                        # demote linger (engine thread, via the inbox;
+                        # no-op with KAFKA_TORCH_AGENT_DEMOTE unset)
+                        self.worker.note_tool_gap(req.prefix_key)
+                    for chunk in final:
                         yield chunk
                     return
         finally:

@@ -53,6 +53,11 @@ class EngineWorker:
         # terminal events whose dispatch failed, awaiting a paced retry
         # (worker thread only; _dispatch_guarded / _retry_redispatches)
         self._redispatches: list = []
+        # pause seam (the object tier's drain): while paused the worker
+        # thread parks between steps and the caller owns the engine
+        self._pause_req = threading.Event()
+        self._pause_ack = threading.Event()
+        self._resume_evt = threading.Event()
 
     # -- lifecycle -----------------------------------------------------
 
@@ -75,6 +80,24 @@ class EngineWorker:
     def alive(self) -> bool:
         return self._thread is not None and self._thread.is_alive()
 
+    def pause(self, timeout: float = 30.0) -> bool:
+        """Park the engine thread between steps; returns once it is parked
+        (True) or the wait timed out (False).  While paused, no step()
+        runs and no inbox command is processed — the caller owns the
+        engine (single writer).  Always pair with resume(), promptly:
+        submits and cancels queue up behind the pause."""
+        if not self.alive:
+            return True  # no thread -> nothing can race the caller
+        self._resume_evt.clear()
+        self._pause_ack.clear()
+        self._pause_req.set()
+        self._inbox.put(("__wake__", None))
+        return self._pause_ack.wait(timeout)
+
+    def resume(self) -> None:
+        self._pause_req.clear()
+        self._resume_evt.set()
+
     # -- request API (called from asyncio) -----------------------------
 
     def submit(self, req: GenRequest, loop: asyncio.AbstractEventLoop
@@ -92,11 +115,26 @@ class EngineWorker:
         """Abort a request from the serving side (client disconnect)."""
         self._inbox.put(("cancel", request_id))
 
+    def note_tool_gap(self, prefix_key: Optional[str]) -> None:
+        """The provider saw a lane finish with finish_reason=tool_calls:
+        route the gap signal onto the engine thread (all gap state lives
+        there)."""
+        self._inbox.put(("agent", ("gap", prefix_key)))
+
+    def note_tool_return(self, prefix_key: Optional[str]) -> None:
+        """The thread's tool completed: cancel a lingering demote or kick
+        the return prefetch, on the engine thread."""
+        self._inbox.put(("agent", ("return", prefix_key)))
+
     # -- engine thread -------------------------------------------------
 
     def _run(self) -> None:
         logger.info("engine worker started")
         while not self._stopped.is_set():
+            # pause seam: park between steps until resumed (or stopped)
+            while self._pause_req.is_set() and not self._stopped.is_set():
+                self._pause_ack.set()
+                self._resume_evt.wait(timeout=0.1)
             block = not self.engine.has_work  # block when idle
             try:
                 kind, payload = self._inbox.get(
@@ -134,6 +172,13 @@ class EngineWorker:
         sampler = getattr(self.engine, "kernel_sampler", None)
         if sampler is not None:
             sampler.close(self.engine.metrics)
+        # in-flight demotions resolve and the tier's threads stop here
+        close = getattr(self.engine, "close", None)
+        if close is not None:
+            try:
+                close()
+            except Exception:
+                logger.exception("engine close failed")
         logger.info("engine worker stopped")
 
     def _dispatch_guarded(self, ev: TokenEvent, attempts: int = 0) -> None:
@@ -190,6 +235,17 @@ class EngineWorker:
                 self._dispatch_guarded(TokenEvent(
                     req.request_id, None, finished=True,
                     finish_reason=f"error:{e}"))
+        elif kind == "agent":
+            # ("gap" | "return", prefix_key); getattr keeps the worker
+            # duck-typed against engine stubs in tests
+            verb, key = payload  # type: ignore[misc]
+            fn = getattr(self.engine, f"note_tool_{verb}", None)
+            if fn is not None:
+                try:
+                    fn(key)
+                except Exception:  # an optimization must never kill steps
+                    logger.exception("agent %s signal failed for %r",
+                                     verb, key)
         elif kind == "cancel":
             rid: str = payload  # type: ignore[assignment]
             if self.engine.cancel(rid):

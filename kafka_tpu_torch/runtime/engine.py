@@ -49,6 +49,17 @@ scheduler keeps the JAX engine's semantics:
   parked lanes roll back, then the youngest request is rolled back to the
   waiting queue (re-prefilled later over prompt + generated-so-far; its
   resumed prefill's token is the deterministic duplicate and is dropped);
+* with a KV tier (`kv_host_tier_mb`, `kv_disk_tier_dir`,
+  `kv_object_dir`; runtime/kv_tier.py, object_tier.py) prefix-cache
+  eviction demotes a run to pinned host memory (its gather enqueued
+  before the pages return to the pool) instead of dropping it, and a
+  lookup crossing it promotes it back into fresh pages, in place, ahead
+  of the suffix prefill (`cache_source="host_tier"`); the host tier spills
+  to disk and archives to a shared object store, from which
+  `sleep_to_object` drains every thread and a fresh engine wakes it
+  (`cache_source="object_tier"`); with `agent_demote` a thread that left
+  for a tool call (`note_tool_gap`) is demoted once `agent_linger_s`
+  passes without its return (`note_tool_return`);
 * `recover_from_failure` rebuilds a servable engine after a step fault
   (the `engine.step` and `engine.prefill` failpoints inject one);
 * a request carrying a trace (`GenRequest.trace`, tracing.py) gets
@@ -73,8 +84,8 @@ Sampled tokens reach the host through a FIFO of asynchronous copies
 most `fetch_lag` steps deep and popped by age (`fetch_wait_s`, ~RTT for a
 lone stream) once landed; a stop token found in flight retires the lane
 and the tokens dispatched after it are dropped.  Prefill and verify run
-eagerly (captured graphs for them, singleton-mask chaining and KV tiers
-wait for later slices).
+eagerly (captured graphs for them and singleton-mask chaining wait for
+later slices).
 
 Telemetry is the reference's (runtime/metrics.py, flight_recorder.py,
 planner.py, compile_log.py, kernel_profiler.py): `self.metrics` records
@@ -99,6 +110,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import logging
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -145,6 +157,35 @@ logger = logging.getLogger("kafka_tpu_torch.engine")
 
 WAITING, PREFILLING, ACTIVE, PARKED, DRAINING, FINISHED = (
     "waiting", "prefilling", "active", "parked", "draining", "finished")
+
+# Agent-gap scheduling knobs.
+AGENT_DEMOTE_ENV = "KAFKA_TORCH_AGENT_DEMOTE"
+AGENT_LINGER_ENV = "KAFKA_TORCH_AGENT_LINGER_MS"
+
+
+def agent_demote_default() -> str:
+    """KAFKA_TORCH_AGENT_DEMOTE -> "" (off) | "host" | "object".  "1"/"on"
+    mean host — the tier ladder's first rung; "object" additionally
+    archives the gap-demoted chain + sleep manifest.  Nonsense = off."""
+    raw = (os.environ.get(AGENT_DEMOTE_ENV) or "").strip().lower()
+    if raw in ("1", "on", "true", "host"):
+        return "host"
+    if raw == "object":
+        return "object"
+    return ""
+
+
+def agent_linger_default() -> float:
+    """KAFKA_TORCH_AGENT_LINGER_MS -> seconds (default 250 ms): how long a
+    tool-call gap lingers before the thread's KV demotes.  Sub-linger
+    tools never pay the round trip."""
+    raw = os.environ.get(AGENT_LINGER_ENV)
+    try:
+        ms = float(raw) if raw not in (None, "") else 250.0
+    except ValueError:
+        ms = 250.0
+    return max(0.0, ms) / 1e3
+
 
 # a dispatch's sampling work, from its lanes' host parameters: argmax only,
 # the Gumbel draw, or the draw over top-k / top-p filtered logits
@@ -239,6 +280,40 @@ class EngineConfig:
     # this many per-iteration records; 0 disables it (every hook site is
     # one branch).  Default KAFKA_TORCH_FLIGHT_RING, else 256.
     flight_ring: int = dataclasses.field(default_factory=ring_default)
+    # Tiered KV cache (runtime/kv_tier.py): a host-RAM page tier of this
+    # many MiB under the pool.  When > 0, prefix-cache eviction DEMOTES
+    # page runs into pinned host memory (async D2H) instead of dropping
+    # them, and a lookup hit against a demoted run PROMOTES it back (H2D
+    # + in-place scatter ahead of the suffix prefill).  0 disables the
+    # tier: no manager is built.  KAFKA_TORCH_KV_HOST_TIER_MB via the
+    # serving config.
+    kv_host_tier_mb: int = 0
+    # Spill directory below the host tier (KAFKA_TORCH_KV_DISK_TIER_DIR):
+    # host-budget overflow spills page runs to disk (second-chance LRU)
+    # instead of dropping them.  None/"" = drop on host-tier overflow.
+    kv_disk_tier_dir: Optional[str] = None
+    # Object-store KV tier (KAFKA_TORCH_KV_OBJECT_DIR; runtime/
+    # object_tier.py): a SHARED store below host+disk that makes thread
+    # state portable — runs the local ladder would drop archive there
+    # content-addressed, per-thread sleep manifests let a dormant thread
+    # wake on any engine sharing the store (cache_source="object_tier"),
+    # and POST /admin/drain/0 flushes the engine's warm state.  A local
+    # directory or an http(s):// S3-shaped endpoint.  None/"" disables.
+    kv_object_dir: Optional[str] = None
+    # Byte budget (MiB) on the object-store references this engine holds
+    # (second-chance LRU).  0 = unbounded.  KAFKA_TORCH_KV_OBJECT_MB.
+    kv_object_mb: int = 0
+    # Agent tool-call gaps: a lane that finishes into a tool call (the
+    # provider signals note_tool_gap on finish_reason=tool_calls) has its
+    # thread's KV demoted down the tier ladder after agent_linger_s
+    # without a return.  "" disables (note_tool_gap / note_tool_return
+    # are no-ops); "host" demotes into the host/disk tier; "object" also
+    # archives the chain + sleep manifest.  Needs the prefix cache and
+    # the KV tier.
+    agent_demote: str = dataclasses.field(
+        default_factory=agent_demote_default)
+    agent_linger_s: float = dataclasses.field(
+        default_factory=agent_linger_default)
 
     @property
     def max_window(self) -> int:
@@ -285,10 +360,16 @@ class GenRequest:
     # pages and prefill only the rest.  The serving layer keys by thread.
     prefix_key: Optional[str] = None
     # radix-cache hit of the latest attach: tokens served from cached
-    # pages, and "own" (this thread's earlier turn) or "cross" (another
-    # thread's shared prefix)
+    # pages, and "own" (this thread's earlier turn), "cross" (another
+    # thread's shared prefix), "host_tier" (any part promoted from the
+    # host/disk tier) or "object_tier" (any part woken from the object
+    # store)
     cached_tokens: int = 0
     cache_source: Optional[str] = None
+    # tokens of the hit promoted from the host/disk tier, and woken from
+    # the object store (engine.prefill span attributes)
+    promoted_tokens: int = 0
+    object_tokens: int = 0
     # the FIRST admission's share, frozen when its prefill starts (usage
     # reports this: a preemption's re-attach is not client-saved compute)
     usage_cached_tokens: Optional[int] = None
@@ -662,6 +743,15 @@ class InferenceEngine:
         if ecfg.flight_ring < 0:
             raise ValueError(
                 "flight_ring must be >= 0 (0 disables the flight recorder)")
+        if ecfg.kv_host_tier_mb < 0:
+            raise ValueError(
+                "kv_host_tier_mb must be >= 0 (0 disables the host tier)")
+        if ecfg.kv_object_mb < 0:
+            raise ValueError(
+                "kv_object_mb must be >= 0 (0 = unbounded references)")
+        if ecfg.agent_demote not in ("", "host", "object"):
+            raise ValueError(
+                "agent_demote must be '' (off), 'host', or 'object'")
         backend, self.attention_backend_reasons = resolve_attention_backend(
             cfg, ecfg, self.device.type)
         if self.attention_backend_reasons:
@@ -722,6 +812,9 @@ class InferenceEngine:
         # captured step programs (CUDA), one shared memory pool
         self._graphs: Dict[Tuple, _StepGraph] = {}
         self._graph_pool = None
+        # the side stream of every capture's warm-up run: one for the
+        # engine, since the BLAS libraries keep a workspace per stream
+        self._capture_stream = None
         self.graph_replays = 0
         # graphs captured and the host seconds their warm-ups and captures
         # took (each capture synchronizes the device)
@@ -740,6 +833,22 @@ class InferenceEngine:
             PrefixCache(self.pool, max_pages=ecfg.prefix_cache_pages)
             if ecfg.prefix_cache_entries > 0 and ecfg.prefix_cache_pages != 0
             else None)
+        self.kv_tier = None
+        self._build_kv_tier()
+        # agent tool-call gaps: prefix_key -> monotonic due time (insertion
+        # order == due order: the linger is constant), and prefix_key ->
+        # pages demoted mid-gap awaiting the tool's return
+        self._agent_gaps: Dict[str, float] = {}
+        self._awaiting_demoted: Dict[str, int] = {}
+        self.agent_gaps = 0
+        self.agent_gap_demotions = 0
+        self.agent_gap_pages_demoted = 0
+        self.agent_gap_bytes_demoted = 0
+        self.agent_gap_cancelled = 0
+        self.agent_hint_hits = 0
+        self.agent_hint_misses = 0
+        # the clock of the gap linger (tests inject one)
+        self.clock: Callable[[], float] = time.monotonic
         # on-device grammar FSM lanes: per-slot automaton state (-1 =
         # unconstrained), grammar index into the shared table set, and
         # remaining token budget, all on the device and advanced there
@@ -755,6 +864,79 @@ class InferenceEngine:
         self.constrained_degrades = 0
         self._init_telemetry()
         self._rtt_est = self._measure_rtt()
+
+    def _build_kv_tier(self) -> None:
+        """The host-RAM (+ disk) page tier under the pool, and the object
+        tier below it (kafka_tpu/runtime/engine.py:955-1020).  Built only
+        when enabled AND the prefix cache exists (the radix tree names
+        the demotable runs)."""
+        ecfg = self.ecfg
+        if self.prefix_cache is None or not (
+                ecfg.kv_host_tier_mb > 0 or ecfg.kv_object_dir):
+            return
+        from .kv_tier import KVTierManager, LocalPageShipper
+
+        ps = ecfg.page_size
+        self.kv_tier = KVTierManager(
+            LocalPageShipper(self, ps),
+            host_budget_bytes=ecfg.kv_host_tier_mb * 1024 * 1024,
+            disk_dir=ecfg.kv_disk_tier_dir or None,
+            page_size=ps)
+        self.prefix_cache.tier = self.kv_tier
+        if not ecfg.kv_object_dir:
+            return
+        # the store behind a StoreGuard (deadline, retry, breaker) from
+        # the KAFKA_TORCH_KV_OBJECT_* knobs; the fingerprint partitions
+        # the store by model and pool geometry
+        from .object_tier import ObjectTier, WakePrefetcher, build_object_store
+
+        obj = ObjectTier(build_object_store(ecfg.kv_object_dir),
+                         budget_bytes=ecfg.kv_object_mb * 1024 * 1024,
+                         fingerprint=self._object_fingerprint(),
+                         page_size=ps)
+
+        def env_f(name: str, default: float) -> float:
+            try:
+                return float(os.environ.get(name, default) or default)
+            except (TypeError, ValueError):
+                return default
+
+        # opt-in in-process janitor (default off)
+        obj.start_janitor(
+            env_f("KAFKA_TORCH_KV_OBJECT_SCRUB_S", 0.0),
+            grace_s=env_f("KAFKA_TORCH_KV_OBJECT_SCRUB_GRACE_S", 3600.0))
+        # wake prefetch (KAFKA_TORCH_WAKE_PREFETCH_MB; None when unset)
+        obj.prefetcher = WakePrefetcher.from_env(obj)
+        self.kv_tier.attach_object(obj)
+
+    def _object_fingerprint(self) -> str:
+        """The object tier's content-address fingerprint, the JAX
+        package's string character for character: model name + page
+        size + per-leaf pool layout with numpy dtype names (+ an operator
+        namespace, KAFKA_TORCH_KV_OBJECT_NAMESPACE — bump it when weights
+        change under an unchanged config).  Two engines agreeing on it
+        exchange KV runs byte for byte through a shared store."""
+        from .kv_tier import dtype_name, pool_leaves
+
+        leaves = pool_leaves(self.k_pool) + pool_leaves(self.v_pool)
+        geo = ",".join(
+            f"{dtype_name(a.dtype)}:{a.shape[0]}x{tuple(a.shape[2:])}"
+            for a in leaves)
+        ns = os.environ.get("KAFKA_TORCH_KV_OBJECT_NAMESPACE", "")
+        return f"{self.cfg.name}|ps{self.ecfg.page_size}|{geo}|{ns}"
+
+    def close(self) -> None:
+        """Stop the tier's background threads (spill writer, janitor, wake
+        prefetcher) after resolving in-flight demotions.  Idempotent."""
+        tier = self.kv_tier
+        if tier is None:
+            return
+        tier.close()
+        obj = tier.object
+        if obj is not None:
+            obj.stop_janitor()
+            if obj.prefetcher is not None:
+                obj.prefetcher.close()
 
     def _init_telemetry(self) -> None:
         """The reference's telemetry (kafka_tpu/runtime/engine.py
@@ -913,6 +1095,12 @@ class InferenceEngine:
         req.submit_time = time.monotonic()
         self.metrics.record_submit(len(req.prompt_ids))
         req.state = WAITING
+        if req.prefix_key is not None and (
+                self._agent_gaps or self._awaiting_demoted):
+            # the thread is back (whether or not the return hint fired): a
+            # pending gap demote must not race the new turn's admission
+            self._agent_gaps.pop(req.prefix_key, None)
+            self._awaiting_demoted.pop(req.prefix_key, None)
         self.waiting.append(req)
         self._requests[req.request_id] = req
 
@@ -939,8 +1127,11 @@ class InferenceEngine:
 
     @property
     def has_work(self) -> bool:
+        # a pending tool-gap linger keeps step() running on an otherwise
+        # idle engine, or the demote never fires
         return (self.num_active > 0 or bool(self.waiting)
-                or bool(self.parked) or bool(self._pending))
+                or bool(self.parked) or bool(self._pending)
+                or bool(self._agent_gaps))
 
     def step(self) -> List[TokenEvent]:
         """One scheduler iteration: deadlines, drain matured fetches,
@@ -955,6 +1146,11 @@ class InferenceEngine:
             self.kernel_sampler.on_step_begin(self.metrics)
         if self.memory_monitor is not None:
             self.memory_monitor.poll()  # throttled to ~1 Hz internally
+        if self.kv_tier is not None:
+            # resolve completed D2H demotions (a list scan, usually empty)
+            self.kv_tier.drain()
+        if self._agent_gaps:
+            self._process_agent_gaps()
         if self._park_cooldown > 0:
             self._park_cooldown -= 1
         self._check_deadlines()
@@ -997,11 +1193,196 @@ class InferenceEngine:
 
     def agent_section(self) -> Dict[str, int]:
         """The metrics snapshot's "agent" section (AGENT_METRIC_KEYS).
-        This engine has no agent-gap scheduling (tool-gap demotion,
-        expected-return hints) and no background request class yet: no
-        gap is observed and no background request exists, so every key
-        reads 0 — what the reference reports with those features off."""
-        return {k: 0 for k in AGENT_METRIC_KEYS}
+        The engine has no background request class yet: its keys read 0,
+        what the reference reports with no background traffic."""
+        pages = sum(self._awaiting_demoted.values())
+        tier = self.kv_tier
+        out = {k: 0 for k in AGENT_METRIC_KEYS}
+        out.update({
+            "agent_gaps": self.agent_gaps,
+            "agent_gap_demotions": self.agent_gap_demotions,
+            "agent_gap_pages_demoted": self.agent_gap_pages_demoted,
+            "agent_gap_bytes_demoted": self.agent_gap_bytes_demoted,
+            "agent_gap_cancelled": self.agent_gap_cancelled,
+            "agent_hint_hits": self.agent_hint_hits,
+            "agent_hint_misses": self.agent_hint_misses,
+            "agent_awaiting_threads": len(self._agent_gaps) + len(
+                [k for k in self._awaiting_demoted
+                 if k not in self._agent_gaps]),
+            "agent_awaiting_bytes": (tier.bytes_for_pages(pages)
+                                     if tier is not None else 0),
+        })
+        return out
+
+    # -- agent tool-call gaps -------------------------------------------
+
+    def note_tool_gap(self, prefix_key: Optional[str]) -> None:
+        """The thread just finished a turn with finish_reason=tool_calls
+        and is idle for the tool's runtime (the provider signals this
+        through the worker inbox, so it runs on the engine thread).
+        Start the linger clock: after agent_linger_s with no return, the
+        thread's KV demotes down the tier ladder.  No-op with the knob
+        off or without the cache and tier to demote into."""
+        if (not prefix_key or not self.ecfg.agent_demote
+                or self.prefix_cache is None or self.kv_tier is None):
+            return
+        self.agent_gaps += 1
+        # re-noting a gap restarts its linger (re-insert keeps due order)
+        self._agent_gaps.pop(prefix_key, None)
+        self._agent_gaps[prefix_key] = self.clock() + self.ecfg.agent_linger_s
+
+    def note_tool_return(self, prefix_key: Optional[str]) -> None:
+        """The tool finished: the thread's follow-up turn is imminent.
+        Cancel a still-lingering demote, or — when the gap already
+        demoted — protect the thread's tier runs from second-chance
+        eviction and kick the wake prefetcher."""
+        if not prefix_key or not self.ecfg.agent_demote:
+            return
+        pending = self._agent_gaps.pop(prefix_key, None)
+        demoted = self._awaiting_demoted.pop(prefix_key, None)
+        if pending is not None:
+            self.agent_gap_cancelled += 1
+            self.agent_hint_hits += 1
+            return
+        if demoted is None:
+            self.agent_hint_misses += 1
+            return
+        self.agent_hint_hits += 1
+        pc = self.prefix_cache
+        if pc is None:
+            return
+        resident = pc.touch_thread(prefix_key)
+        obj = self.kv_tier.object if self.kv_tier is not None else None
+        pre = obj.prefetcher if obj is not None else None
+        if pre is not None:
+            # object GETs for runs NOT locally resident start now,
+            # overlapping the tool's tail
+            pre.prefetch_thread(prefix_key, min_depth=resident)
+
+    def _process_agent_gaps(self) -> None:
+        """Demote threads whose tool-call linger expired (step() entry).
+        Insertion order == due order, so the scan stops at the first
+        not-yet-due key."""
+        now = self.clock()
+        while self._agent_gaps:
+            key, due = next(iter(self._agent_gaps.items()))
+            if due > now:
+                break
+            del self._agent_gaps[key]
+            self._demote_gap_thread(key)
+
+    def _demote_gap_thread(self, key: str) -> None:
+        pc, tier = self.prefix_cache, self.kv_tier
+        if pc is None or tier is None:
+            return
+        stats = pc.demote_thread(
+            key, archive=(self.ecfg.agent_demote == "object"))
+        pages = stats.get("pages", 0)
+        if pages:
+            self.agent_gap_demotions += 1
+            self.agent_gap_pages_demoted += pages
+            self.agent_gap_bytes_demoted += tier.bytes_for_pages(pages)
+            if self.flight is not None:
+                self.flight.note_cause("agent_demote")
+        # 0-page sweeps still register the awaiting state: the thread IS
+        # mid-gap (its KV may already be tier-resident from pressure)
+        self._awaiting_demoted[key] = self._awaiting_demoted.get(key, 0) + pages
+
+    def awaiting_tool_keys(self) -> List[str]:
+        """Threads currently mid-tool-call-gap (linger pending or
+        demoted-awaiting)."""
+        return list(self._agent_gaps) + [
+            k for k in self._awaiting_demoted if k not in self._agent_gaps]
+
+    # -- warmup and the object tier's drain -----------------------------
+
+    def _warm_step(self, k: int, fsm: bool, mode: int) -> None:
+        """Run one step-program variant with every lane inactive: writes
+        land in the trash page and no lane's length, token, FSM state or
+        budget moves.  On CUDA this captures the variant's graph (the
+        first use) and replays it."""
+        if self.has_work:
+            raise RuntimeError("warmup dispatch on a busy engine")
+        if self._ctl_dirty:
+            self._refresh_ctl()
+        self._d_run.zero_()
+        self._run_step(k, fsm, mode, False)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def warmup_sampling(self) -> None:
+        """Capture the plain decode program for every sampling mode, at
+        one step and at the fused depth, outside serving: a first sampled
+        or top-k/top-p request would otherwise capture a graph on the
+        scheduler thread."""
+        depths = sorted({1, self.ecfg.multi_step})
+        for k in depths:
+            for mode in (GREEDY, SAMPLED, FILTERED):
+                self._warm_step(k, False, mode)
+
+    def warmup_verify(self) -> None:
+        """Run the speculative verify step once outside serving, with
+        every lane inactive: writes land in the trash page and no
+        scheduler state moves.  No-op when speculative_k is 0."""
+        if self.ecfg.speculative_k <= 0:
+            return
+        if self._ctl_dirty:
+            self._refresh_ctl()
+        B, K = self.ecfg.max_batch, self.ecfg.speculative_k
+        self._verify_step([None] * B, np.zeros((B, K), np.int32), [0] * B,
+                          fsm=False)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def warmup_grammar(self, grammar) -> None:
+        """Register `grammar` and run the FSM decode variant (every
+        sampling mode, one step) with every lane inactive, so the first
+        tool_choice-constrained request finds its tables registered and
+        its step graph captured.  With speculative_k > 0 the FSM verify
+        variant runs once too.  No-op when the grammar cannot register
+        (those requests use the host mask path anyway)."""
+        if self._grammars.register(grammar) is None:
+            return
+        for mode in (GREEDY, SAMPLED, FILTERED):
+            self._warm_step(1, True, mode)
+        if self.ecfg.speculative_k > 0:
+            if self._ctl_dirty:
+                self._refresh_ctl()
+            B, K = self.ecfg.max_batch, self.ecfg.speculative_k
+            self._verify_step([None] * B, np.zeros((B, K), np.int32),
+                              [0] * B, fsm=True)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+
+    def warmup_kv_tier(self) -> None:
+        """One ship per SHIP_BUCKETS entry against the trash page, outside
+        serving: each bucket's pinned staging block is allocated now (the
+        caching host allocator reuses it), so the first demotion or
+        promotion under traffic pays copy time only.  Gathers read
+        garbage and scatters write zeros INTO the trash page (its
+        contract); no pool state changes.  No-op without a tier."""
+        if self.kv_tier is None:
+            return
+        from .kv_tier import SHIP_BUCKETS
+
+        ship = self.kv_tier.shipper
+        for b in SHIP_BUCKETS:
+            pending = ship.export_run([TRASH_PAGE] * b)
+            k_leaves, v_leaves = ship.resolve(pending)
+            ship.import_run(k_leaves, v_leaves, b, [TRASH_PAGE] * b)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def sleep_to_object(self) -> Dict[str, Any]:
+        """Flush this engine's warm KV state (every cached radix run +
+        per-thread sleep manifests) into the shared object store — the
+        POST /admin/drain/{replica} seam.  Non-destructive; see
+        PrefixCache.sleep_to_object.  Must run with the scheduler
+        quiesced (the provider pauses the worker first)."""
+        if (self.prefix_cache is None or self.kv_tier is None
+                or self.kv_tier.object is None):
+            return {"enabled": False}
+        return self.prefix_cache.sleep_to_object()
 
     def retry_after_estimate(self) -> float:
         """Seconds until queue relief is plausible, for 429 Retry-After:
@@ -1603,7 +1984,8 @@ class InferenceEngine:
         req = self.waiting[0]
         self._attach_prefix(req)
         needed = self._pages_needed(req)
-        if needed > self.pool.free_pages and not self._reclaim_cache(needed):
+        if needed > self.pool.free_pages and \
+                not self._reclaim_cache(needed, req):
             self._detach_prefix(req)
             if self.flight is not None:
                 self.flight.note_cause("page_blocked")
@@ -1681,12 +2063,24 @@ class InferenceEngine:
             return
         req.cached_tokens = 0
         req.cache_source = None
-        hit = self.prefix_cache.lookup(req.prefix_key, req.prefill_ids)
+        req.promoted_tokens = 0
+        req.object_tokens = 0
+        if self.kv_tier is not None:
+            # kv.promote / kv.object_get / thread.wake spans inside the
+            # lookup attach to this request
+            self.kv_tier.trace_ctx = req.trace
+        try:
+            hit = self.prefix_cache.lookup(req.prefix_key, req.prefill_ids)
+        finally:
+            if self.kv_tier is not None:
+                self.kv_tier.trace_ctx = None
         if hit is not None:
             req.seq = SequencePages(seq_id=req.request_id)
             req.seq.pages, req.seq.length = hit.pages, hit.tokens
             req.cached_tokens = hit.tokens
             req.cache_source = hit.source
+            req.promoted_tokens = hit.promoted_tokens
+            req.object_tokens = hit.object_tokens
 
     def _detach_prefix(self, req: GenRequest) -> None:
         """Roll back a page-blocked _attach_prefix: free the retains and
@@ -1696,12 +2090,24 @@ class InferenceEngine:
             req.seq = None
         req.cached_tokens = 0
         req.cache_source = None
+        req.promoted_tokens = 0
+        req.object_tokens = 0
 
-    def _reclaim_cache(self, pages_needed: int) -> bool:
-        """Evict prefix-cache leaves until `pages_needed` pages are free;
-        False when the cache cannot free enough (or there is none)."""
-        return self.prefix_cache is not None and \
-            self.prefix_cache.reclaim(pages_needed)
+    def _reclaim_cache(self, pages_needed: int,
+                       req: Optional[GenRequest] = None) -> bool:
+        """Evict (or, with the tier, demote) prefix-cache leaves until
+        `pages_needed` pages are free; False when the cache cannot free
+        enough (or there is none).  kv.demote spans attach to `req`, the
+        request whose page pressure drives the eviction."""
+        if self.prefix_cache is None:
+            return False
+        if self.kv_tier is not None:
+            self.kv_tier.trace_ctx = req.trace if req is not None else None
+        try:
+            return self.prefix_cache.reclaim(pages_needed)
+        finally:
+            if self.kv_tier is not None:
+                self.kv_tier.trace_ctx = None
 
     def _start_prefill(self, req: GenRequest, slot: int) -> None:
         """Reserve the prompt's pages and the slot (-1: off-slot); chunks
@@ -1956,6 +2362,10 @@ class InferenceEngine:
         if req.cached_tokens:
             attrs["cached_tokens"] = req.cached_tokens
             attrs["cache_source"] = req.cache_source
+            if req.promoted_tokens:
+                attrs["promoted_tokens"] = req.promoted_tokens
+            if req.object_tokens:
+                attrs["object_tokens"] = req.object_tokens
         return attrs
 
     def _limit_reason_after_dispatch(self, req: GenRequest) -> Optional[str]:
@@ -2351,7 +2761,9 @@ class InferenceEngine:
         cur = torch.cuda.current_stream(dev)
         saved = self._d_run.clone()
         self._d_run.zero_()
-        side = torch.cuda.Stream(dev)
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        side = self._capture_stream
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             self._decode_body(k, fsm, mode, masked, keep)
@@ -2438,7 +2850,7 @@ class InferenceEngine:
             if self._grow(s.seq, need):
                 continue
             short = -(-need // ecfg.page_size) - len(s.seq.pages)
-            if not (self._reclaim_cache(max(1, short))
+            if not (self._reclaim_cache(max(1, short), s)
                     and self._grow(s.seq, need)):
                 del proposals[slot]
         if not proposals:
@@ -2487,7 +2899,8 @@ class InferenceEngine:
         return True
 
     def _verify_step(self, members: List[Optional[GenRequest]],
-                     cand_arr: np.ndarray, cand_lens: List[int]
+                     cand_arr: np.ndarray, cand_lens: List[int],
+                     fsm: Optional[bool] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The verify forward and its acceptance, on the device state
         (the reference's _get_verify_fn body, eager).
@@ -2503,7 +2916,8 @@ class InferenceEngine:
         those positions are written again); FSM lanes keep the state
         reached through the accepted prefix, advanced by the bonus.
         Returns ([B, K+2] samples and accepted counts, [B, K+1, V]
-        logits)."""
+        logits).  `fsm` forces the FSM variant (warmup, every lane
+        inactive); None takes it when a member carries a grammar."""
         ecfg, dev = self.ecfg, self.device
         ps, B, C = ecfg.page_size, ecfg.max_batch, ecfg.max_window
         K = ecfg.speculative_k
@@ -2537,7 +2951,9 @@ class InferenceEngine:
         sp = self._d_sampling
         rep = lambda x: x.repeat_interleave(S)  # noqa: E731
         mask = states = None
-        fsm = any(m is not None and m.grammar is not None for m in members)
+        if fsm is None:
+            fsm = any(m is not None and m.grammar is not None
+                      for m in members)
         if fsm:
             # the FSM state BEFORE each position: states[:, j] is the
             # automaton after the first j candidates (what sequential
@@ -2875,7 +3291,7 @@ class InferenceEngine:
         trash page."""
         need = req.seq.length + 1
         if self._grow(req.seq, need) or (
-                self._reclaim_cache(1) and self._grow(req.seq, need)):
+                self._reclaim_cache(1, req) and self._grow(req.seq, need)):
             return
         self._drain(block=True)
         if req.state != ACTIVE or req.seq is None:

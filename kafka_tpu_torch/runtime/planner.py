@@ -288,6 +288,7 @@ def plan_memory(
     reserve_frac: float = 0.08,
     kv_shard: Optional[int] = None,
     grammar_table_bytes: Optional[int] = None,
+    kv_host_tier_bytes: int = 0,
 ) -> MemoryPlan:
     """The plan for one device of `hbm_bytes` (hbm_for_device of the
     serving device)."""
@@ -329,6 +330,7 @@ def plan_memory(
         kv_shard=kv_shard,
         tq=tp // kv_shard,
         grammar_table_bytes=grammar_table_bytes,
+        kv_host_tier_bytes=kv_host_tier_bytes,
         notes=(
             (
                 f"grouped GQA layout: tensor degree {tp} factorizes "
@@ -484,6 +486,9 @@ def plan_for_serving(scfg, hbm_bytes: int,
         prefill_bucket=max(scfg.prefill_buckets),
         quantize=scfg.quantize,
         kv_dtype=getattr(scfg, "kv_quantize", "") or "bfloat16",
+        # the host tier's pinned RAM: host memory, charged beside the
+        # device plan, never against it
+        kv_host_tier_bytes=getattr(scfg, "kv_host_tier_mb", 0) * MiB,
     )
 
 

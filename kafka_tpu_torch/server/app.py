@@ -151,6 +151,10 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
         prefix_cache_pages=cfg.prefix_cache_pages,
         speculative_k=cfg.speculative_k,
         kv_quantize=cfg.kv_quantize,
+        kv_host_tier_mb=cfg.kv_host_tier_mb,
+        kv_disk_tier_dir=cfg.kv_disk_tier_dir,
+        kv_object_dir=cfg.kv_object_dir,
+        kv_object_mb=cfg.kv_object_mb,
     )
     if cfg.flight_ring is not None:
         # None defers to the EngineConfig default (KAFKA_TORCH_FLIGHT_RING)
@@ -177,30 +181,12 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
     if cfg.warmup:
         compile_log.set_phase("warmup")
         # on CUDA every kernel is built now (one nvcc per source, in
-        # parallel), before the worker thread drives the engine; one lone
-        # prompt over 128 tokens then takes the single-sequence prefill
-        # (flash prefill kernel, or the page gather over an int8 pool) and
-        # one decode step (the paged decode kernel, int8 or not, captured
-        # as the 1-step graph).  With fused decode on, three concurrent
-        # short requests then capture the multi_step graph, as the
-        # reference's warmup compiles its fused program.  No prefix_key:
-        # warmup must not seed the prefix cache.
+        # parallel), before the worker thread drives the engine
         if dev.type == "cuda":
             from ..ops.kernels import build
 
             build.build_all()
-        n = max(1, min(200, engine_cfg.max_window - 2))
-        engine.submit(GenRequest(request_id="__warmup", prompt_ids=[3] * n,
-                                 max_new_tokens=2))
-        engine.run_to_completion()
-        k = engine_cfg.multi_step
-        if k > 1 and engine_cfg.max_batch >= 3 and \
-                engine_cfg.max_window > k + 12:
-            for i in range(3):
-                engine.submit(GenRequest(request_id=f"__warmup_{i}",
-                                         prompt_ids=[3] * 8,
-                                         max_new_tokens=k + 2))
-            engine.run_to_completion()
+        _warmup(cfg, engine, engine_cfg, tokenizer)
         # /metrics reflects serving only (the flight ring keeps warmup)
         engine.metrics = EngineMetrics()
     if engine.kernel_sampler is not None:
@@ -211,6 +197,74 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
     # the observatory's storm detector counts only this phase
     compile_log.set_phase("first_traffic")
     return TorchLLMProvider(engine, tokenizer, model_name=cfg.model_name)
+
+
+def _warmup(cfg: ServingConfig, engine, engine_cfg, tokenizer) -> None:
+    """The reference's server warmup (kafka_tpu/server/app.py:300-376):
+    every serving program runs once before the worker thread drives the
+    engine, so the first request pays serving latency, not a kernel
+    build, a graph capture or a grammar table registration.  Warmup is
+    operator traffic: the admission bound is lifted for it, and no
+    request carries a prefix_key (warmup must not seed the prefix
+    cache)."""
+    from ..agents.base import IDLE_TOOL
+    from ..llm.constrained import (
+        build_tool_call_mask_fn,
+        compile_grammar_for_mask_fn,
+        grammar_ondevice_enabled,
+    )
+    from ..runtime import GenRequest
+    from ..server_tools import builtin_tools
+
+    bound, engine_cfg.max_waiting = engine_cfg.max_waiting, 0
+    try:
+        window = engine_cfg.max_window
+        # one prompt per prefill bucket, sized to land in it: a
+        # conversation grows through the bucket ladder
+        bucket_lens = sorted({
+            min(b, window - engine_cfg.multi_step - 4)
+            for b in engine_cfg.prefill_buckets})
+        for j, blen in enumerate(bucket_lens):
+            engine.submit(GenRequest(request_id=f"__warmup_b{j}",
+                                     prompt_ids=[3] * max(1, blen),
+                                     max_new_tokens=1))
+            engine.run_to_completion()  # one at a time: bounded pool use
+        # three concurrent lanes engage the fused multi-step decode
+        per_engine = 3 if engine_cfg.multi_step > 1 and \
+            cfg.max_batch >= 3 else 1
+        for i in range(per_engine):
+            engine.submit(GenRequest(
+                request_id=f"__warmup_{i}",
+                prompt_ids=[3] * min(8, window // 4),
+                max_new_tokens=engine_cfg.multi_step + 2))
+        # a host-masked request: the masked prefill, a forced step (one
+        # allowed id) and an ambiguous step (two)
+        engine.submit(GenRequest(
+            request_id="__warmup_con",
+            prompt_ids=[3] * 4, max_new_tokens=3,
+            logits_mask_fn=lambda out: (
+                [3] if len(out) == 0 else
+                [3, 4] if len(out) == 1 else None)))
+        engine.run_to_completion()
+        # every sampling mode of the plain decode program (the warm
+        # prompts above decode greedily)
+        engine.warmup_sampling()
+        # the speculative verify step (no-op at speculative_k 0)
+        engine.warmup_verify()
+        # the device-FSM tables and step variants for the grammar the
+        # agent path constrains to: the built-in tools plus the idle tool
+        if grammar_ondevice_enabled():
+            tools = [t.to_openai() for t in builtin_tools(
+                sandbox_url=cfg.local_sandbox_url)] + [IDLE_TOOL]
+            mask = build_tool_call_mask_fn(tokenizer, tools, "required")
+            grammar = (compile_grammar_for_mask_fn(
+                mask, engine.cfg.vocab_size) if mask is not None else None)
+            if grammar is not None:
+                engine.warmup_grammar(grammar)
+        # the KV tier's per-bucket ships (no-op without a tier)
+        engine.warmup_kv_tier()
+    finally:
+        engine_cfg.max_waiting = bound
 
 
 async def create_app(
@@ -297,6 +351,7 @@ async def create_app(
     r.add_get("/health", health)
     r.add_get("/metrics", metrics)
     r.add_get("/admin/signals", admin_signals)
+    r.add_post("/admin/drain/{replica}", admin_drain_replica)
     r.add_post("/debug/profile", capture_profile)
     r.add_get("/debug/traces", debug_traces)
     r.add_get("/debug/trace/{request_id}", debug_trace)
@@ -992,6 +1047,45 @@ async def metrics(request: web.Request) -> web.Response:
             headers={"Content-Type":
                      "text/plain; version=0.0.4; charset=utf-8"})
     return web.json_response(snap)
+
+
+async def admin_drain_replica(request: web.Request) -> web.Response:
+    """Flush the engine's warm KV state into the shared object store:
+    every cached radix run is archived content-addressed and every
+    thread's sleep manifest written, so the engine can be torn down
+    without discarding any warm conversation — dormant threads wake on a
+    fresh engine with cache_source="object_tier" instead of
+    re-prefilling.  Non-destructive.  Requires the object tier
+    (KAFKA_TORCH_KV_OBJECT_DIR) and a configured KAFKA_TORCH_API_TOKEN
+    (it parks the scheduler for the flush).  One engine: replica 0."""
+    if not _state(request)["cfg"].api_token:
+        return web.json_response(
+            {"error": "admin endpoints require KAFKA_TORCH_API_TOKEN to "
+                      "be configured"},
+            status=403)
+    llm = _state(request)["llm"]
+    drain = getattr(llm, "drain_replica", None)
+    if drain is None or getattr(llm, "engine", None) is None:
+        return web.json_response(
+            {"error": "this deployment has no drainable engine"},
+            status=501)
+    try:
+        idx = int(request.match_info["replica"])
+    except ValueError:
+        return web.json_response(
+            {"error": "replica must be an integer index"}, status=400)
+    try:
+        stats = await drain(idx)
+    except ValueError as e:
+        return web.json_response({"error": str(e)}, status=400)
+    except RuntimeError as e:
+        return web.json_response({"error": str(e)}, status=409)
+    if not stats.get("enabled", True):
+        return web.json_response(
+            {"error": "object tier not configured "
+                      "(set KAFKA_TORCH_KV_OBJECT_DIR)", **stats},
+            status=409)
+    return web.json_response(stats)
 
 
 async def admin_signals(request: web.Request) -> web.Response:

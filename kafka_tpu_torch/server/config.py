@@ -101,6 +101,40 @@ class ServingConfig:
     # forward (the paged verify kernel).  0 (default) disables it.  Best
     # on repetition-heavy agent traffic (tool echoes, JSON, code spans).
     speculative_k: int = 0
+    # Tiered KV cache (KAFKA_TORCH_KV_HOST_TIER_MB): host-RAM page tier
+    # under the pool, in MiB.  Prefix-cache eviction demotes page runs
+    # host-side; a returning thread's lookup promotes them back instead
+    # of re-prefilling.  0 (default) disables the tier.  The memory
+    # planner charges it as host RAM.
+    kv_host_tier_mb: int = 0
+    # Disk spill dir below the host tier (KAFKA_TORCH_KV_DISK_TIER_DIR):
+    # host-budget overflow spills runs here (second-chance LRU).  None =
+    # drop on overflow.
+    kv_disk_tier_dir: Optional[str] = None
+    # Object-store KV tier (KAFKA_TORCH_KV_OBJECT_DIR): a SHARED directory
+    # (or an http(s):// S3-shaped endpoint) below host+disk that makes
+    # thread state portable — runs are archived content-addressed and
+    # per-thread sleep manifests let a dormant thread wake on a fresh
+    # engine with cache_source="object_tier".  POST /admin/drain/0
+    # flushes the engine's warm state there.  None (default) disables.
+    # The store sits behind the StoreGuard, tuned by
+    #   KAFKA_TORCH_KV_OBJECT_TIMEOUT_S          per-op deadline (0 = off)
+    #   KAFKA_TORCH_KV_OBJECT_RETRIES            retry budget (default 2)
+    #   KAFKA_TORCH_KV_OBJECT_BACKOFF_S          base backoff (default .05)
+    #   KAFKA_TORCH_KV_OBJECT_BREAKER_FAILURES   breaker trip (default 5)
+    #   KAFKA_TORCH_KV_OBJECT_BREAKER_OPEN_S     open window (default 10)
+    #   KAFKA_TORCH_KV_OBJECT_SCRUB_S            in-process janitor (0 = off)
+    # and KAFKA_TORCH_WAKE_PREFETCH_MB (default 0 = off) stages a waking
+    # thread's object GETs in parallel.
+    kv_object_dir: Optional[str] = None
+    # Byte budget (MiB) on the object-store references the engine holds;
+    # 0 = unbounded.  KAFKA_TORCH_KV_OBJECT_MB.
+    kv_object_mb: int = 0
+    # Agent tool-call gaps are configured by the environment, read by
+    # EngineConfig: KAFKA_TORCH_AGENT_DEMOTE = "" (off, default) | "host" |
+    # "object" demotes a thread's KV down the tier ladder once it leaves
+    # for a tool call and KAFKA_TORCH_AGENT_LINGER_MS (default 250) pass
+    # without the tool returning.
 
     @classmethod
     def from_env(cls, **overrides) -> "ServingConfig":
@@ -146,5 +180,12 @@ class ServingConfig:
             warmup=get("WARMUP", "1") not in ("0", "false", "False"),
             prefix_cache_pages=get("PREFIX_CACHE_PAGES", None, int),
             speculative_k=get("SPECULATIVE_K", cls.speculative_k, int),
+            # clamp negatives to 0 = disabled / unbounded
+            kv_host_tier_mb=get("KV_HOST_TIER_MB", cls.kv_host_tier_mb,
+                                lambda v: max(0, int(v))),
+            kv_disk_tier_dir=get("KV_DISK_TIER_DIR", None),
+            kv_object_dir=get("KV_OBJECT_DIR", None),
+            kv_object_mb=get("KV_OBJECT_MB", cls.kv_object_mb,
+                             lambda v: max(0, int(v))),
         )
         return dataclasses.replace(cfg, **overrides)

@@ -446,7 +446,7 @@ def test_every_wired_site_is_documented():
 
 def test_every_documented_site_is_wired():
     assert set(pfp.SITES) - wired_sites() == set()
-    assert len(pfp.SITES) == 9
+    assert len(pfp.SITES) == 16  # nine, plus the seven tier sites
 
 
 @pytest.mark.cuda

@@ -186,9 +186,13 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.runtime.flight_recorder, "
         "kafka_tpu_torch.runtime.compile_log, "
         "kafka_tpu_torch.runtime.kernel_profiler, "
-        "kafka_tpu_torch.server.prometheus\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'kafka_tpu') or "
-        "m.startswith(('jax.', 'kafka_tpu.'))]\n"
+        "kafka_tpu_torch.server.prometheus, "
+        "kafka_tpu_torch.runtime.kv_tier, "
+        "kafka_tpu_torch.runtime.object_tier, "
+        "kafka_tpu_torch.runtime.store_guard\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'kafka_tpu', "
+        "'ml_dtypes') or m.startswith(('jax.', 'kafka_tpu.', "
+        "'ml_dtypes.'))]\n"
         "assert not pre and not bad, (pre, bad)\n"
         "print('clean')\n"
     )
