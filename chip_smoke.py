@@ -247,6 +247,41 @@ Phases, each of which raises (non-zero exit) on any failure:
                ("required"): after the warmup its grammar compile is a
                cache hit, no table registers and /debug/compiles shows no
                graph capture under first_traffic.
+  6. replicas — data-parallel replicas: two full-width llama-3.2-1b bf16
+               replicas over [cuda:0, cuda:0] (one copy of the weights,
+               random from --seed), each at the tier phase's shape, eight
+               threads of 3,000 tokens.  (a) colocated: two turns per
+               thread; each thread's turns land on one replica, the
+               routing splits 4/4, turn 2 hits the thread's own cache, and
+               every stream equals a single engine's fed the same batch.
+               (b) `prefill:1,decode:1`: every thread prefills on
+               replica 0, its run ships device to device to replica 1,
+               whose first lookup reads "shipped", the shipped rows equal
+               the source rows byte for byte, the
+               streams equal (a)'s (or part at a bf16 near-tie within the
+               flip bound: the decode replica re-prefills the last page's
+               tokens), and one 3k-token run's ship is timed (ms, GB/s).
+               (c) supervision: with a request in flight on replica 1,
+               replica 0's step raises three times while its queue waits:
+               quarantine, migration to replica 1, probation after the
+               0.2 s window, healthy after three clean steps on fresh
+               work; every request ends "length", streams equal (a)'s,
+               quarantine-to-healthy time logged.  (e) a background
+               3k-token tool-result turn beside four interactive streams:
+               bg_yields > 0 and every stream equals an engine's that runs
+               each turn alone (or a near-tie).  (d) the server from
+               KAFKA_TORCH_DP_SIZE=2, KAFKA_TORCH_REPLICA_DEVICES=
+               cuda:0,cuda:0 and KAFKA_TORCH_AUTOSCALE=recommend: twelve
+               streamed thread turns, POST /admin/resize {"dp": 1} then
+               {"dp": 2} while they stream; every stream ends with
+               agent_done and [DONE], the server's live bytes after each
+               rebuild (the process's less those held before it booted)
+               stay within the card's plan (PLAN_MARGIN), the old fleet
+               is freed (weak references), the worker's park for
+               each rebuild is logged, /admin/signals reports dp 2 with a
+               pool section and the supervisor, /admin/autoscaler has
+               logged decisions.  The phase's launches are counted from its
+               start and summed over replicas (`replicas_launches`).
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
@@ -267,6 +302,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import gc
 import json
 import os
 import socket
@@ -275,6 +311,7 @@ import sys
 import tempfile
 import threading
 import time
+import weakref
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor rate and
 # HBM3 bandwidth, at the full 700 W power limit.
@@ -4160,6 +4197,594 @@ def phase_tiers(seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: data-parallel replicas on one card
+# ---------------------------------------------------------------------------
+
+REP_THREADS = 8
+REP_PROMPT = 3000
+REP_NEW = 8
+REP_SUFFIX = 16
+
+
+def _rep_cfg(**kw):
+    """One replica's engine: the tier phase's shape (full-width
+    llama-3.2-1b, page 16, a 4096-token window, kernel attention, 8
+    slots), with each sampled row's logits kept for the near-tie check."""
+    return _tier_cfg(keep_logits=True, **kw)
+
+
+def _rep_router(cfg, params, dev, rng, **kw):
+    """Two replicas of llama-3.2-1b over [dev, dev] (one copy of the
+    weights), each warmed like the tier phase's engines."""
+    from kafka_tpu_torch.runtime.dp_router import DataParallelEngines
+
+    router = DataParallelEngines(cfg, params, _rep_cfg(), dp=2,
+                                 devices=[dev, dev], **kw)
+    for e in router.engines:
+        _warm_engine(e, cfg.vocab_size, rng)
+    return router
+
+
+def _rep_streams_match(got, want, label: str) -> list:
+    """Greedy streams equal, or parting only at a bf16 near-tie of the
+    reference's logits (the flip bound); the near-ties found."""
+    ties = []
+    for a, b in zip(got, want):
+        if len(a.output_ids) != len(a.logits) or \
+                len(a.output_ids) != len(b.output_ids) or \
+                a.finish_reason not in ("length", "stop"):
+            raise AssertionError(f"{label}: {a.request_id} finished "
+                                 f"{a.finish_reason} with "
+                                 f"{len(a.output_ids)} tokens / "
+                                 f"{len(a.logits)} logit rows, reference "
+                                 f"{len(b.output_ids)}")
+        ties += _near_ties([a], [b], len(a.output_ids))
+    return ties
+
+
+def _rep_turns(eng, keys, prompts, max_new: int, tag: str):
+    """One turn of each thread through `eng` (router or engine), all
+    submitted together; the requests and, for a router, each one's route
+    at submit."""
+    from kafka_tpu_torch.runtime import GenRequest
+
+    reqs = [GenRequest(request_id=f"{k}-{tag}", prompt_ids=list(p),
+                       max_new_tokens=max_new, prefix_key=k)
+            for k, p in zip(keys, prompts)]
+    routes = []
+    for r in reqs:
+        eng.submit(r)
+        routes.append(getattr(eng, "_route", {}).get(r.request_id))
+    eng.run_to_completion()
+    return reqs, routes
+
+
+def replicas_colocated(cfg, params, dev, keys, p1, suffixes, rng) -> dict:
+    """(a) eight threads, two turns each, over two colocated replicas:
+    each thread's turns land on one replica, the load splits 4/4, turn 2
+    hits the thread's own cache, and every stream equals a single
+    engine's on the same weights (each replica's threads run there
+    together, the batch the replica saw)."""
+    from kafka_tpu_torch.runtime import InferenceEngine
+
+    router = _rep_router(cfg, params, dev, rng)
+    t1, r1 = _rep_turns(router, keys, p1, REP_NEW, "1")
+    p2 = [p + r.output_ids + s for p, r, s in zip(p1, t1, suffixes)]
+    t2, r2 = _rep_turns(router, keys, p2, REP_SUFFIX, "2")
+    split = [r1.count(0), r1.count(1)]
+    if r1 != r2 or split != [4, 4]:
+        raise AssertionError(f"(a) routes turn 1 {r1}, turn 2 {r2}")
+    if any(r.cache_source != "own" or r.cached_tokens <= 0 for r in t2):
+        raise AssertionError(f"(a) turn 2 sources "
+                             f"{[(r.cache_source, r.cached_tokens) for r in t2]}")
+    if router.self_check():
+        raise AssertionError(f"(a) self_check {router.self_check()}")
+    router.close()
+    del router
+    single = InferenceEngine(cfg, params, _rep_cfg())
+    _warm_engine(single, cfg.vocab_size, rng)
+    s1, s2 = [None] * len(keys), [None] * len(keys)
+    for rep in (0, 1):
+        idx = [i for i, r in enumerate(r1) if r == rep]
+        a, _ = _rep_turns(single, [keys[i] for i in idx],
+                          [p1[i] for i in idx], REP_NEW, "s1")
+        b, _ = _rep_turns(single, [keys[i] for i in idx],
+                          [p2[i] for i in idx], REP_SUFFIX, "s2")
+        for i, x, y in zip(idx, a, b):
+            s1[i], s2[i] = x, y
+    ties = (_rep_streams_match(t1, s1, "(a) turn 1")
+            + _rep_streams_match(t2, s2, "(a) turn 2"))
+    single.close()
+    del single
+    return {"t1": t1, "t2": t2, "p2": p2, "routes": r1, "split": split,
+            "turn2_cached_tokens": [r.cached_tokens for r in t2],
+            "near_ties": ties,
+            "streams_equal": all(a.output_ids == b.output_ids
+                                 for a, b in zip(t1 + t2, s1 + s2))}
+
+
+def _chain_pages(eng, key: str, n: int) -> list:
+    pages = []
+    for node in eng.prefix_cache._claimed_chain(key):
+        pages.extend(node.pages)
+    return pages[:n]
+
+
+def _page_rows(eng, pages):
+    import torch
+
+    from kafka_tpu_torch.runtime.kv_tier import pool_leaves
+
+    ps = eng.ecfg.page_size
+    idx = torch.tensor([p * ps + i for p in pages for i in range(ps)],
+                       device=eng.device)
+    return [a.index_select(1, idx)
+            for a in pool_leaves(eng.k_pool) + pool_leaves(eng.v_pool)]
+
+
+def replicas_ship_timing(src, dst, pages) -> dict:
+    """The cross-replica ship of one thread's run (`pages` of the source
+    pool) into fresh destination pages, CUDA-synchronized, median of 5."""
+    import torch
+
+    from kafka_tpu_torch.runtime.kv_tier import CrossReplicaPageShipper
+
+    ship = CrossReplicaPageShipper(src, dst, src.ecfg.page_size)
+    dest = dst.pool.alloc(len(pages))
+    times = []
+    try:
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = ship.ship(pages, dest)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        equal = all(torch.equal(a, b) for a, b in zip(
+            _page_rows(src, pages), _page_rows(dst, dest)))
+    finally:
+        dst.pool.release(dest)
+    t = sorted(times)[2]
+    if not equal:
+        raise AssertionError("ship timing: rows differ")
+    return {"pages": len(pages), "bytes": nbytes,
+            "ms": t * 1e3, "gbps": nbytes / t / 1e9,
+            "tokens": len(pages) * src.ecfg.page_size}
+
+
+def replicas_disagg(cfg, params, dev, keys, p1, want, rng) -> dict:
+    """(b) prefill:1,decode:1: each thread's turn prefills on replica 0
+    as a hand-off, its run ships to replica 1, whose first lookup reads
+    "shipped"; the shipped rows equal the source rows
+    byte for byte and the streams equal (a)'s (or part at a bf16 near-
+    tie: the decode replica re-prefills the page boundary's tokens)."""
+    import torch
+
+    router = _rep_router(cfg, params, dev, rng,
+                         dp_roles="prefill:1,decode:1")
+    router.warmup_disagg()
+    t1, routes = _rep_turns(router, keys, p1, REP_NEW, "b")
+    src, dst = router.engines
+    n_full = (REP_PROMPT // 16)
+    if routes != [0] * len(keys) or any(
+            r.cache_source != "shipped" for r in t1):
+        raise AssertionError(f"(b) routes {routes}, sources "
+                             f"{[r.cache_source for r in t1]}")
+    rows_equal = all(
+        all(torch.equal(a, b) for a, b in zip(
+            _page_rows(src, _chain_pages(src, k, n_full)),
+            _page_rows(dst, _chain_pages(dst, k, n_full))))
+        for k in keys)
+    if not rows_equal:
+        raise AssertionError("(b) shipped rows differ")
+    snap = router.disagg.snapshot()
+    if snap["disagg_shipped_runs"] != len(keys) or \
+            snap["disagg_ship_device_runs"] != len(keys):
+        raise AssertionError(f"(b) ship counters {snap}")
+    ties = _rep_streams_match(t1, want, "(b)")
+    timing = replicas_ship_timing(src, dst, _chain_pages(src, keys[0],
+                                                         n_full))
+    problems = router.self_check()
+    if problems:
+        raise AssertionError(f"(b) self_check {problems}")
+    router.close()
+    del router
+    torch.cuda.empty_cache()
+    return {"near_ties": ties,
+            "streams_equal": all(a.output_ids == b.output_ids
+                                 for a, b in zip(t1, want)),
+            "cached_tokens": [r.cached_tokens for r in t1],
+            "rows_equal": rows_equal, "ship": timing,
+            "disagg": {k: v for k, v in snap.items() if k != "ship_ms"},
+            "ship_enqueue_ms_max": snap["ship_ms"]["max"]}
+
+
+def replicas_supervision(cfg, params, dev, keys, p1, want, rng) -> dict:
+    """(c) a request in flight on replica 1 (a copy of thread 0's turn),
+    then the eight threads: replica 0's step raises on its next three
+    calls while its queue waits.  The breaker trips on the third, the
+    queue migrates to replica 1, the in-flight request is untouched, the
+    window (0.2 s) ends in probation, and fresh work routed there makes
+    replica 0 healthy after three clean steps.  Every stream equals (a)'s;
+    the quarantine-to-healthy wall time is recorded."""
+    from kafka_tpu_torch.runtime import GenRequest
+
+    router = _rep_router(cfg, params, dev, rng, quarantine_threshold=3,
+                         quarantine_window_s=0.2)
+    first = GenRequest(request_id="inflight", prompt_ids=list(p1[0]),
+                       max_new_tokens=REP_NEW)
+    router.engines[1].submit(first)
+    router._route[first.request_id] = 1
+    router.step()  # replica 0 is idle: replica 1 starts the request
+    engine0 = router.engines[0]
+    orig, left = engine0.step, [3]
+
+    def failing_step():
+        if left[0] > 0:
+            left[0] -= 1
+            raise RuntimeError("replica 0 device lost (injected)")
+        return orig()
+
+    engine0.step = failing_step
+    reqs = [GenRequest(request_id=f"{k}-c", prompt_ids=list(p),
+                       max_new_tokens=REP_NEW, prefix_key=k)
+            for k, p in zip(keys, p1)]
+    for r in reqs:
+        router.submit(r)
+    routes = [router._route[r.request_id] for r in reqs]
+    trans = [("healthy", time.monotonic())]  # replica 0's transitions
+    terminal = {}
+
+    def drive():
+        while router.has_work:
+            try:
+                events = router.step()
+            except Exception:
+                events = router.recover_from_failure()
+            state = router.health[0].state
+            if state != trans[-1][0]:
+                trans.append((state, time.monotonic()))
+            for ev in events:
+                if ev.finished:
+                    if ev.request_id in terminal:
+                        raise AssertionError(f"(c) two terminal events "
+                                             f"for {ev.request_id}")
+                    terminal[ev.request_id] = ev.finish_reason
+
+    drive()
+    states_seen = [s for s, _ in trans]
+    if states_seen[:2] != ["healthy", "quarantined"]:
+        raise AssertionError(f"(c) replica 0 transitions {states_seen}")
+    t_q = trans[1][1]
+    while time.monotonic() - t_q < 0.25:
+        time.sleep(0.01)  # the quarantine window ends
+    fresh = [GenRequest(request_id=f"fresh{i}", prompt_ids=list(p1[i][:64]),
+                        max_new_tokens=REP_NEW) for i in range(2)]
+    for r in fresh:
+        router.submit(r)
+    fresh_routes = [router._route[r.request_id] for r in fresh]
+    drive()
+    sup = router.supervisor.snapshot()
+    states = [h.state for h in router.health]
+    states_seen = [s for s, _ in trans]
+    if states_seen != ["healthy", "quarantined", "probation", "healthy"] \
+            or states != ["healthy", "healthy"] or sup["quarantines"] != 1 or \
+            sup["readmits"] != 1 or \
+            sup["waiting_migrated"] != routes.count(0) or \
+            0 not in fresh_routes:
+        raise AssertionError(f"(c) states {states}, supervisor {sup}, "
+                             f"routes {routes} / {fresh_routes}")
+    done = [first] + reqs + fresh
+    if any(terminal.get(r.request_id) != "length" for r in done):
+        raise AssertionError(f"(c) terminal {terminal}")
+    ties = _rep_streams_match([first] + reqs, [want[0]] + want, "(c)")
+    problems = router.self_check()
+    router.close()
+    del router
+    if problems:
+        raise AssertionError(f"(c) self_check {problems}")
+    return {"routes": routes, "fresh_routes": fresh_routes,
+            "supervisor": sup, "near_ties": ties,
+            "transitions": states_seen,
+            "quarantine_to_probation_s": trans[2][1] - t_q,
+            "quarantine_to_healthy_s": trans[3][1] - t_q,
+            "streams_equal": all(a.output_ids == b.output_ids for a, b in
+                                 zip([first] + reqs, [want[0]] + want))}
+
+
+def replicas_background(cfg, params, rng) -> dict:
+    """(e) a background tool-result turn (a 3k-token prompt) beside four
+    interactive streams on one engine: it yields its chunks to their
+    prefills (bg_yields > 0), shrinks them while they decode, and every
+    stream equals the one an engine gives each turn alone (or parts at a
+    bf16 near-tie: the background prefill's chunking differs)."""
+    from kafka_tpu_torch.runtime import GenRequest, InferenceEngine
+
+    eng = InferenceEngine(cfg, params, _rep_cfg())
+    _warm_engine(eng, cfg.vocab_size, rng)
+    inter = [rng.randint(0, cfg.vocab_size, size=600).tolist()
+             for _ in range(4)]
+    tool = rng.randint(0, cfg.vocab_size, size=REP_PROMPT).tolist()
+    bg = GenRequest(request_id="bg", prompt_ids=tool, max_new_tokens=REP_NEW,
+                    background=True)
+    fg = [GenRequest(request_id=f"fg{i}", prompt_ids=p,
+                     max_new_tokens=4 * REP_NEW) for i, p in enumerate(inter)]
+    eng.submit(bg)
+    for r in fg:
+        eng.submit(r)
+    eng.run_to_completion()
+    counters = {k: getattr(eng, k) for k in ("bg_admitted", "bg_chunks",
+                                               "bg_yields")}
+    alone = InferenceEngine(cfg, params, _rep_cfg())
+    _warm_engine(alone, cfg.vocab_size, rng)
+    want = [alone.generate(r.prompt_ids, max_new_tokens=r.max_new_tokens)
+            for r in [bg] + fg]
+    ties = _rep_streams_match([bg] + fg, want, "(e)")
+    if counters["bg_yields"] <= 0 or counters["bg_admitted"] != 1 or \
+            eng.self_check():
+        raise AssertionError(f"(e) background counters {counters}")
+    eng.close()
+    alone.close()
+    del eng, alone
+    return {**counters, "near_ties": ties,
+            "streams_equal": all(a.output_ids == b.output_ids
+                                 for a, b in zip([bg] + fg, want)),
+            "bg_ttft_ms": _ttft_ms(bg),
+            "fg_ttft_ms": [_ttft_ms(r) for r in fg]}
+
+
+def _fleet_bytes(router) -> dict:
+    """The tensors a router's fleet holds: the weights once (the replicas
+    share them) and each replica's KV pool."""
+    from kafka_tpu_torch.runtime.kv_tier import pool_leaves
+
+    return {"weights": tensor_bytes(router.engines[0].params),
+            "pools": [tensor_bytes(pool_leaves(e.k_pool)
+                                   + pool_leaves(e.v_pool))
+                      for e in router.engines]}
+
+
+async def _serve_replicas(db_path: str) -> dict:
+    """(d) the server from the environment (KAFKA_TORCH_DP_SIZE=2,
+    KAFKA_TORCH_REPLICA_DEVICES=cuda:0,cuda:0, KAFKA_TORCH_AUTOSCALE=
+    recommend): twelve streamed thread turns on 2 x 4 slots (four wait
+    in a queue), POST /admin/resize {"dp": 1} while they stream, then
+    {"dp": 2}; every stream ends with [DONE], live bytes after each
+    rebuild stay within the card's plan, /admin/signals reports dp 2 and
+    a per-pool section, and /admin/autoscaler has logged decisions."""
+    import aiohttp
+    import torch
+    from aiohttp import web
+
+    from kafka_tpu_torch.server import ServingConfig, create_app
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    # the server's own live bytes: what the process holds beyond this
+    gc.collect()
+    torch.cuda.synchronize()
+    live0 = allocator_split(torch.device("cuda", torch.cuda.current_device())
+                            )["default_allocated"]
+    env = {"KAFKA_TORCH_DP_SIZE": "2",
+           "KAFKA_TORCH_REPLICA_DEVICES": "cuda:0,cuda:0",
+           "KAFKA_TORCH_AUTOSCALE": "recommend",
+           "KAFKA_TORCH_AUTOSCALE_INTERVAL_S": "0.2"}
+    os.environ.update(env)
+    try:
+        cfg = ServingConfig.from_env(
+            model_name="llama-3.2-1b", max_batch=4, page_size=16,
+            num_pages=4 * 128 + 64, max_pages_per_seq=128,
+            prefill_buckets=(64, 128, 256, 512, 1024, 2048),
+            max_new_tokens_default=48, db_path=db_path, multi_step=16,
+            system_prompt="You are a terse assistant.", api_token="tok")
+        app = await create_app(cfg, tools=[], mcp_servers=[])
+    finally:
+        for k in env:
+            del os.environ[k]
+    llm = app[STATE_KEY]["llm"]
+    router = llm.engine
+    plan = router.memory_plan
+    if len(router.engines) != 2 or plan is None:
+        raise AssertionError(f"(d) dp {len(router.engines)}, plan {plan}")
+    parks = []
+    pause, resume = llm.worker.pause, llm.worker.resume
+    t_park = [None]
+
+    def timed_pause(*a, **kw):
+        ok = pause(*a, **kw)
+        t_park[0] = time.monotonic()
+        return ok
+
+    def timed_resume():
+        if t_park[0] is not None:
+            parks.append(time.monotonic() - t_park[0])
+            t_park[0] = None
+        resume()
+
+    llm.worker.pause, llm.worker.resume = timed_pause, timed_resume
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    base = f"http://127.0.0.1:{port}"
+    auth = {"Authorization": "Bearer tok"}
+    out = {"resizes": [],
+           "plan": {k: getattr(plan, k) for k in (
+               "weight_bytes", "kv_pool_bytes", "activation_bytes",
+               "grammar_table_bytes", "total_bytes")}}
+    dev = router.device
+    gc.collect()
+    torch.cuda.synchronize()
+    out["live_bytes_boot"] = allocator_split(dev)["default_allocated"] - live0
+    out["tensor_bytes_boot"] = _fleet_bytes(router)
+    try:
+        async with aiohttp.ClientSession() as s:
+            body = {"model": "llama-3.2-1b", "stream": True,
+                    "temperature": 0, "max_tokens": 48,
+                    "messages": [{"role": "user",
+                                  "content": "Count to ten."}]}
+            turns = [asyncio.ensure_future(_stream(
+                s, f"{base}/v1/threads/rep-{i}/chat/completions", body,
+                headers=auth)) for i in range(12)]
+            # every turn reaches the engine before the resize gate closes
+            for _ in range(400):
+                if sum(e.metrics.requests_submitted
+                       for e in router.engines) >= 12:
+                    break
+                await asyncio.sleep(0.05)
+            for dp in (1, 2):
+                parks.clear()
+                old = [weakref.ref(e) for e in router.engines]
+                t0 = time.monotonic()
+                async with s.post(f"{base}/admin/resize", json={"dp": dp},
+                                  headers=auth) as r:
+                    status, res = r.status, await r.json()
+                took = time.monotonic() - t0
+                gc.collect()
+                torch.cuda.synchronize()
+                split = allocator_split(dev)
+                alive = sum(r() is not None for r in old)
+                out["resizes"].append({
+                    "dp": dp, "status": status, "body": res,
+                    # the last park holds the rebuild; the ones before
+                    # it are the drain loop's checks
+                    "post_s": took, "parked_s": parks[-1] if parks else 0.0,
+                    "drain_checks": max(0, len(parks) - 1),
+                    "drain_parked_s": sum(parks[:-1]),
+                    "live_bytes": split["default_allocated"] - live0,
+                    "graph_bytes": split["graph_allocated"],
+                    "tensor_bytes": _fleet_bytes(router),
+                    "old_engines_alive": alive,
+                    "plan_bytes": plan.total_bytes})
+                if status != 200 or len(router.engines) != dp or alive:
+                    raise AssertionError(f"(d) resize to {dp}: {status} "
+                                         f"{res}, {alive} old engines "
+                                         "still alive")
+                live = split["default_allocated"] - live0
+                if live > plan.total_bytes * (1 + PLAN_MARGIN):
+                    raise AssertionError(
+                        f"(d) live bytes after resize to {dp}: {live} "
+                        f"over the plan {plan.total_bytes} "
+                        f"(+{PLAN_MARGIN:.0%})")
+            events = await asyncio.gather(*turns)
+            out["streams"] = len(events)
+            out["queued_survived"] = sum(
+                1 for ev in events if any(e.get("type") == "agent_done"
+                                          for e in ev))
+            async with s.post(f"{base}/v1/threads/rep-after/chat/"
+                              "completions", json=body, headers=auth) as r:
+                out["after_status"] = r.status
+                await r.read()
+            async with s.get(f"{base}/admin/signals", headers=auth) as r:
+                sig = await r.json()
+            async with s.get(f"{base}/admin/autoscaler", headers=auth) as r:
+                scaler = await r.json()
+            async with s.get(f"{base}/metrics?format=prometheus",
+                             headers=auth) as r:
+                prom = await r.text()
+    finally:
+        await runner.cleanup()
+    out["signals"] = {k: sig.get(k) for k in ("version", "dp", "pools",
+                                              "supervisor")}
+    out["autoscaler"] = {"mode": scaler["mode"],
+                         "decisions": len(scaler["decisions"]),
+                         "polls": scaler["counters"]["autoscaler_polls"]}
+    if sig["dp"] != 2 or not sig.get("pools") or sig["pools"][0][
+            "replicas"] != [0, 1] or not sig.get("supervisor"):
+        raise AssertionError(f"(d) signals {out['signals']}")
+    if scaler["mode"] != "recommend" or not scaler["decisions"]:
+        raise AssertionError(f"(d) autoscaler {out['autoscaler']}")
+    if out["queued_survived"] != 12 or out["after_status"] != 200:
+        raise AssertionError(f"(d) streams {out['queued_survived']}/12, "
+                             f"after {out['after_status']}")
+    check_prometheus(prom)
+    return out
+
+
+def phase_replicas(seed: int) -> None:
+    import numpy as np
+    import torch
+
+    from kafka_tpu_torch.models import get_config, init_params
+    from kafka_tpu_torch.ops import kernels
+
+    cfg = get_config("llama-3.2-1b")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    params = init_params(cfg, gen, device="cuda")
+    rng = np.random.RandomState(seed + 6)
+    keys = [f"rep-t{i}" for i in range(REP_THREADS)]
+    p1 = [rng.randint(0, cfg.vocab_size, size=REP_PROMPT).tolist()
+          for _ in keys]
+    suffixes = [rng.randint(0, cfg.vocab_size, size=REP_SUFFIX).tolist()
+                for _ in keys]
+    out = {}
+    # the phase's own path: counts from 0 here, read at its end
+    kernels.reset_launch_counts()
+    a = replicas_colocated(cfg, params, dev, keys, p1, suffixes, rng)
+    out["colocated"] = {k: v for k, v in a.items()
+                        if k not in ("t1", "t2", "p2")}
+    log(f"replicas (a) colocated: routes {a['routes']} (split "
+        f"{a['split'][0]}/{a['split'][1]}), turn 2 cached "
+        f"{a['turn2_cached_tokens']}; streams equal a single engine's: "
+        f"{a['streams_equal']} (near-ties {a['near_ties']})")
+    b = replicas_disagg(cfg, params, dev, keys, p1, a["t1"], rng)
+    out["disagg"] = b
+    sh = b["ship"]
+    log(f"replicas (b) disagg: {len(keys)} hand-offs, first lookups "
+        f"shipped ({b['cached_tokens'][0]} tokens), rows byte-equal; "
+        f"streams equal (a): {b['streams_equal']} (near-ties "
+        f"{b['near_ties']}); device ship of a {sh['tokens']}-token run "
+        f"({sh['bytes']} B): {sh['ms']:.3f} ms, {sh['gbps']:.2f} GB/s")
+    c = replicas_supervision(cfg, params, dev, keys, p1, a["t1"], rng)
+    out["supervision"] = c
+    log(f"replicas (c) supervision: routes {c['routes']}, fresh "
+        f"{c['fresh_routes']}; {c['supervisor']}; {c['transitions']}: "
+        f"quarantine -> probation {c['quarantine_to_probation_s']:.3f} s, "
+        f"-> healthy {c['quarantine_to_healthy_s']:.3f} s; streams equal (a): "
+        f"{c['streams_equal']} (near-ties {c['near_ties']})")
+    e = replicas_background(cfg, params, rng)
+    out["background"] = e
+    log(f"replicas (e) background: admitted {e['bg_admitted']}, chunks "
+        f"{e['bg_chunks']}, yields {e['bg_yields']}; streams equal alone: "
+        f"{e['streams_equal']} (near-ties {e['near_ties']}); TTFT bg "
+        f"{e['bg_ttft_ms']:.1f} ms, interactive "
+        f"{[round(x, 1) for x in e['fg_ttft_ms']]} ms")
+    del params
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as td:
+        d = asyncio.run(_serve_replicas(os.path.join(td, "rep.db")))
+    out["server"] = d
+    for r in d["resizes"]:
+        log(f"replicas (d) boot: live {d['live_bytes_boot']} B, tensors "
+            f"{d['tensor_bytes_boot']}, plan {d['plan']}") if r["dp"] == 1 \
+            else None
+        log(f"replicas (d) resize to dp {r['dp']}: {r['status']} "
+            f"{r['body']}, POST {r['post_s']:.2f} s, worker parked "
+            f"{r['parked_s']:.3f} s for the rebuild ({r['drain_checks']} "
+            f"drain checks, {r['drain_parked_s']:.3f} s parked), live "
+            f"{r['live_bytes']} B (+ graphs "
+            f"{r['graph_bytes']} B; tensors {r['tensor_bytes']}) vs plan "
+            f"{r['plan_bytes']} B")
+    log(f"replicas (d) server: {d['queued_survived']}/{d['streams']} "
+        f"streams ended, signals {d['signals']['dp']} replicas "
+        f"{[p['role'] for p in d['signals']['pools']]}, autoscaler "
+        f"{d['autoscaler']}")
+    torch.cuda.empty_cache()
+    launches = {"K1": kernels.paged_decode_attention.launches,
+                "K2": kernels.paged_prefill_attention.launches,
+                "K3": kernels.paged_verify_attention.launches,
+                "K4": kernels.paged_decode_attention_int8.launches}
+    out["launches"] = launches
+    for k, n in launches.items():
+        if k in RESULTS:
+            RESULTS[k]["replicas_launches"] = n
+    if not (launches["K1"] and launches["K2"]):
+        raise AssertionError(f"replicas phase launches {launches}")
+    log(f"replicas launches (counted from the phase's start, summed over "
+        f"replicas): {launches}")
+    RESULTS["replicas"] = out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the telemetry plane on the card
 # ---------------------------------------------------------------------------
 
@@ -4835,10 +5460,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
-                    default="kernels,engine,graphs,server,tiers,telemetry",
+                    default="kernels,engine,graphs,server,tiers,"
+                            "replicas,telemetry",
                     help="comma list of kernels, engine, graphs, server, "
-                         "tiers, telemetry (default: all; telemetry runs "
-                         "first), "
+                         "tiers, replicas, telemetry (default: all; "
+                         "telemetry runs first), "
                          "or attention (K3 and K4 alone, timed) or mlp (K5 "
                          "alone, timed)")
     ap.add_argument("--root", default=None,
@@ -4914,6 +5540,8 @@ def main() -> int:
         phase_server()
     if "tiers" in phases:
         phase_tiers(args.seed)
+    if "replicas" in phases:
+        phase_replicas(args.seed)
     for k, n in RESULTS.get("telemetry", {}).get("launches", {}).items():
         if k in RESULTS:
             RESULTS[k]["telemetry_launches"] = n
@@ -4929,6 +5557,7 @@ def main() -> int:
         {**{k: RESULTS[n].get(k) for k in keys},
          **{k: RESULTS[n][k] for k in ("engine_launches", "server_launches",
                                        "telemetry_launches", "tiers_launches",
+                                       "replicas_launches",
                                        "launch_count_basis",
                                        "replay_profiler_launches",
                                        "device_ms", "device_ms_cold_l2",

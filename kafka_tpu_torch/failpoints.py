@@ -75,6 +75,12 @@ SITES = (
     # slow link.
     "kv.demote",
     "kv.promote",
+    # Cross-replica page shipping (runtime/kv_tier.py
+    # CrossReplicaPageShipper, disaggregated prefill/decode): fired once
+    # per shipped chunk, so `error` with nth=2 tears a multi-chunk ship —
+    # the router frees every destination page and the thread re-prefills
+    # on the decode replica.
+    "kv.ship",
     # Object-store KV tier (runtime/object_tier.py): fired once per object
     # (run payload or sleep manifest).  `error` on a put = torn write
     # discarded before the ref/manifest commit; `error` on a get = miss —

@@ -3,9 +3,8 @@
 Counterpart of kafka_tpu/llm/constrained.py, copied whole: it is numpy
 only.  Two changes: the environment knobs take the KAFKA_TORCH_ spelling
 (KAFKA_TORCH_GRAMMAR_ONDEVICE, _GRAMMAR_TABLE_MB, _GRAMMAR_SYNC_VOCAB), and
-the deferred compile worker asks a module-level `background_deferred` hook
-whether to hold its queue (the reference asks its autoscaler, which the
-port has not ported yet).
+the deferred compile worker asks the port's autoscaler
+(runtime/autoscaler.py) whether to hold its queue.
 
 
 The engine's sampler accepts a per-request ``logits_mask_fn`` (runtime/
@@ -1360,17 +1359,11 @@ def _compile_into_cache(tok, mask_fn, vocab_size: int, key) -> Optional[Compiled
     return g
 
 
-def background_deferred() -> bool:
-    """Whether background work must wait (the overload ladder's rung 3 in
-    the reference's runtime/autoscaler.py).  Always False until the port's
-    autoscaler lands (ROADMAP A8); the deferred worker asks it before each
-    compile."""
-    return False
-
-
 def _defer_worker() -> None:
     import logging
     import time as _time
+
+    from ..runtime.autoscaler import background_deferred
 
     log = logging.getLogger("kafka_tpu_torch.constrained")
     while True:

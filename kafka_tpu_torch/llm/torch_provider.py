@@ -1,7 +1,8 @@
 """`TorchLLMProvider` — the LLMProvider served by the in-process CUDA engine.
 
-Counterpart of kafka_tpu/llm/tpu_provider.py (single replica).  Requests
-go straight into the continuous-batching engine via the dispatch thread
+Counterpart of kafka_tpu/llm/tpu_provider.py.  The engine is one
+InferenceEngine or a DataParallelEngines router over replicas
+(runtime/dp_router.py); requests go into it via the dispatch thread
 (llm/worker.py) and stream back per token:
 
 * context overflow raises a typed ContextLengthError before any compute;
@@ -22,12 +23,17 @@ go straight into the continuous-batching engine via the dispatch thread
 * each request carries the ambient trace context (tracing.py) across the
   thread boundary, so the engine records its queue, prefill, decode and
   emit spans against the request's trace;
+* `background=True` (the agent loop's tool-result turns, when it asks
+  for them) puts the request in the engine's background class;
 * `drain` lets in-flight requests finish on shutdown, then cancels;
+  `drain_replicas` flushes replicas' warm KV into the object store;
+* `resize_dp` rebuilds the replica set at a new dp count (and role
+  pools) under live traffic, WAITING requests surviving (POST
+  /admin/resize, the autoscaler's act mode);
 * `signals` is the autoscaler's input snapshot (GET /admin/signals) and
   `record_rejection` counts a gate-level 429 in the metrics registry.
 
-Images, data-parallel replicas, the autoscaler and resizing wait for
-later slices of the port.
+Images wait for a later slice of the port (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -61,15 +67,20 @@ from .worker import EngineWorker
 
 logger = logging.getLogger("kafka_tpu_torch.llm.torch_provider")
 
+# resize_dp `roles` default: keep the current role-pool spec (re-derived
+# for the new dp by the router).  Distinct from None, which dissolves the
+# pools back to colocated serving.
+_ROLES_KEEP = object()
 
-def _torn_keys(d) -> list:
-    """Snapshot the keys of a dict the engine thread mutates
+
+def _torn_items(d) -> list:
+    """Snapshot the items of a dict the engine thread mutates
     concurrently: list() can raise "dictionary changed size" mid-copy, so
     retry; a torn read is fine (a request finishing during the copy needs
     no attention)."""
     for _ in range(8):
         try:
-            return list(d)
+            return list(d.items())
         except RuntimeError:
             continue
     return []
@@ -125,6 +136,9 @@ class TorchLLMProvider(LLMProvider):
     """Serves chat completions from the in-process CUDA engine."""
 
     provider_name = "torch"
+    # callers that own an agent loop feature-detect this before passing
+    # background=True
+    supports_background = True
 
     def __init__(self, engine: InferenceEngine, tokenizer: BaseTokenizer,
                  model_name: str = "llama",
@@ -135,6 +149,18 @@ class TorchLLMProvider(LLMProvider):
         self.worker = worker or EngineWorker(engine)
         self.worker.start()
         self._counter = itertools.count()
+        # one resize at a time; while held (or waited on) the admission
+        # gate turns new traffic away, so the resize drain works a finite
+        # set and converges
+        self._resize_lock = asyncio.Lock()
+        # True while a cancelled rebuild thread still runs: its completion
+        # callback owns the worker resume, and the orphaned future gates
+        # the next resize (_resize_locked)
+        self._rebuild_owns_resume = False
+        self._orphan_rebuild: Optional[Any] = None
+        # the autoscaler control loop (runtime/autoscaler.py) attaches
+        # itself here; /admin/signals echoes its state when present
+        self.autoscaler: Optional[Any] = None
 
     @property
     def model_cfg(self) -> ModelConfig:
@@ -162,184 +188,326 @@ class TorchLLMProvider(LLMProvider):
         self.worker.note_tool_return(prefix_key)
 
     def _replicas(self) -> List[InferenceEngine]:
-        """The engine as a replica list: one engine is its own one-element
-        set (data-parallel replicas are not ported)."""
-        return [self.engine]
+        """The engine as a replica list: a DataParallelEngines router
+        unwraps to its .engines; one engine is its own one-element set."""
+        return getattr(self.engine, "engines", [self.engine])
 
     async def drain_replica(self, replica: int) -> Dict[str, Any]:
-        """Flush the engine's warm KV state into the shared object store
+        """Flush one replica's warm KV state into the shared object store
         (POST /admin/drain/{replica}): every cached radix run archived
-        content-addressed and every thread's sleep manifest written, so
-        dormant threads wake on a fresh engine (cache_source=
+        content-addressed and every thread's sleep manifest written, so a
+        scale-in removing the replica discards no warm conversation —
+        dormant threads wake on the survivors (cache_source=
         "object_tier") instead of re-prefilling.  Non-destructive and
-        idempotent.  An index other than 0 raises ValueError."""
+        idempotent.  An index out of range raises ValueError."""
         return (await self.drain_replicas([replica]))[0]
 
     async def drain_replicas(self, indices) -> List[Dict[str, Any]]:
-        """drain_replica over several replicas under ONE worker pause.
-        The flush gathers pool pages and walks the radix tree — both
-        single-writer engine state — so it runs with the worker parked,
-        off the event loop."""
+        """drain_replica over several replicas under ONE worker pause (the
+        autoscaler's pre-scale-in drain covers the whole fleet).  The
+        flush gathers pool pages and walks the radix tree — single-writer
+        engine state — so it runs with the worker parked, off the event
+        loop, and serialized against resizes by the same lock."""
         indices = list(indices)
-        replicas = self._replicas()
-        sleeps = []
-        for i in indices:
-            if not 0 <= i < len(replicas):
-                raise ValueError(
-                    f"replica {i} out of range (dp={len(replicas)})")
-            sleeps.append(replicas[i].sleep_to_object)
-        if not await asyncio.to_thread(self.worker.pause):
-            self.worker.resume()
-            raise RuntimeError("engine worker did not pause")
-        try:
-            all_stats = await asyncio.get_running_loop().run_in_executor(
-                None, lambda: [s() for s in sleeps])
-        finally:
-            self.worker.resume()
+        async with self._resize_lock:
+            # resolve the replicas under the lock: a resize replaces the
+            # replica list wholesale
+            replicas = self._replicas()
+            sleeps = []
+            for i in indices:
+                if not 0 <= i < len(replicas):
+                    raise ValueError(
+                        f"replica {i} out of range (dp={len(replicas)})")
+                sleeps.append(replicas[i].sleep_to_object)
+            if not await asyncio.to_thread(self.worker.pause):
+                self.worker.resume()
+                raise RuntimeError("engine worker did not pause")
+            try:
+                all_stats = await asyncio.get_running_loop(
+                ).run_in_executor(None, lambda: [s() for s in sleeps])
+            finally:
+                self.worker.resume()
         for i, stats in zip(indices, all_stats):
             stats["replica"] = i
         return all_stats
 
     def admission_check(self) -> Optional[float]:
         """None = admit; else a Retry-After estimate in seconds.  Reads the
-        engine thread's queue length unsynchronized — a torn read makes
+        engine thread's queue lengths unsynchronized — a torn read makes
         the gate one step stale, and the engine's max_waiting bound is the
-        authoritative backstop."""
+        authoritative backstop.  With replicas, admit while any ROUTABLE
+        replica has room (a quarantined replica's empty queue is not
+        capacity); during a resize, turn traffic away so the resize drain
+        works a finite set."""
+        if self._resize_lock.locked():
+            return 5.0
         limit = self.engine.ecfg.max_waiting
-        if limit <= 0 or len(self.engine.waiting) < limit:
+        if limit <= 0:
             return None
-        return self.engine.retry_after_estimate()
+        replicas = self._replicas()
+        health = getattr(self.engine, "health", None)
+        if health is not None:
+            routable = [e for e, h in zip(replicas, health) if h.routable]
+            replicas = routable or replicas
+        if any(len(e.waiting) < limit for e in replicas):
+            return None
+        return min(e.retry_after_estimate() for e in replicas)
 
     def record_rejection(self) -> None:
         """Count a gate-level HTTP 429 in requests.rejected (the engine
         backstop counts its own).  A rejection is also an SLO miss, and a
         flight-recorder "reject" cause drained into the next ring record.
         Cross-thread int increments: GIL-atomic enough for counters."""
-        self.engine.metrics.record_rejected()
-        if self.engine.flight is not None:
-            self.engine.flight.note_gate_reject()
+        replica = self._replicas()[0]
+        replica.metrics.record_rejected()
+        if replica.flight is not None:
+            replica.flight.note_gate_reject()
 
     def signals(self) -> Dict[str, Any]:
         """One coherent autoscaler-input snapshot (GET /admin/signals),
         the reference's contract (kafka_tpu/llm/tpu_provider.py signals,
-        version 9) with the same keys: queue depth, peak and 60s trend;
-        decode-slot occupancy; windowed SLO attainment and goodput;
-        per-kind MFU / bandwidth utilization and model skew; per-replica
-        load, pages and anomalies (one replica: the engine); the flight
-        recorder's active anomalies; the compile observatory's summary
-        and storm flag; the memory monitor's measured headroom and plan
-        skew; the agent section.  Sections of subsystems this package
-        does not have yet (object tier, disaggregation, autoscaler,
-        replica supervisor) read null, as in a reference deployment
-        without them.  Read torn-tolerantly from the engine thread's
+        version 9) with the same keys: dp-wide queue depth, peak and 60s
+        trend; decode-slot occupancy over max_batch x dp; windowed SLO
+        attainment and goodput; per-kind MFU / bandwidth utilization and
+        model skew; per-replica health state (quarantined replicas are
+        capacity the router cannot use), load, pages and anomalies; one
+        entry per role pool ("colocated" without role pools) so prefill
+        and decode pools size independently; the router's ship counters;
+        the object store's occupancy and health (the breaker state is the
+        dp maximum); the autoscaler's state when one runs; the compile
+        observatory; the memory monitor's measured headroom; the agent
+        section.  Awaiting-tool threads are not load: they forecast wake
+        traffic.  Read torn-tolerantly from the engine thread's
         single-writer metrics."""
-        from ..runtime import compile_log
-
         engine = self.engine
-        # reset_peak=False: the signal poll must not consume the
+        # reset_peak=False: the ~1 Hz signal poll must not consume the
         # /metrics scraper's peak-since-last-snapshot window
         snap = engine.metrics.snapshot(engine, reset_peak=False)
-        util = snap.get("utilization") or {}
+        replicas = self._replicas()
+        health = getattr(engine, "health", None)
         occupancy = snap.get("decode", {}).get("batch_occupancy", 0.0)
         max_batch = engine.ecfg.max_batch
-        kinds = ("prefill", "decode", "verify")
-        replica = {
-            "replica": 0,
-            "state": "healthy",
-            "active": engine.num_active,
-            "waiting": len(engine.waiting),
-            "parked": len(engine.parked),
-            "pages_free": engine.pool.free_pages,
-            "pages_total": engine.pool.num_pages,
-            "batch_occupancy": occupancy,
-            "anomalies_active": (snap.get("anomalies") or {}).get(
-                "anomalies_active", 0),
-            "utilization": {
-                kind: {k: util.get(kind, {}).get(k, 0.0)
-                       for k in ("mfu", "mfu_1m", "hbm_bw_util",
-                                 "hbm_bw_util_1m", "model_skew")}
-                for kind in kinds
-            },
-        }
+        per_replica: List[Dict[str, Any]] = []
+        rep_snaps = snap.get("replicas")
+        for i, e in enumerate(replicas):
+            rs = (rep_snaps[i] if rep_snaps and i < len(rep_snaps)
+                  else snap)
+            util = rs.get("utilization") or {}
+            per_replica.append({
+                "replica": i,
+                "state": health[i].state if health else "healthy",
+                "active": e.num_active,
+                "waiting": len(e.waiting),
+                "parked": len(e.parked),
+                "pages_free": e.pool.free_pages,
+                "pages_total": e.pool.num_pages,
+                "batch_occupancy": rs.get("decode", {}).get(
+                    "batch_occupancy", 0.0
+                ),
+                "anomalies_active": (rs.get("anomalies") or {}).get(
+                    "anomalies_active", 0
+                ),
+                "utilization": {
+                    kind: {
+                        "mfu": util.get(kind, {}).get("mfu", 0.0),
+                        "mfu_1m": util.get(kind, {}).get("mfu_1m", 0.0),
+                        "hbm_bw_util": util.get(kind, {}).get(
+                            "hbm_bw_util", 0.0
+                        ),
+                        "hbm_bw_util_1m": util.get(kind, {}).get(
+                            "hbm_bw_util_1m", 0.0
+                        ),
+                        # measured/modeled calibration: >1 =
+                        # this replica runs slower than the cost model
+                        # assumes, so its MFU figures read high
+                        "model_skew": util.get(kind, {}).get(
+                            "model_skew", 0.0
+                        ),
+                    }
+                    for kind in ("prefill", "decode", "verify")
+                },
+            })
+        # anomalies: the aggregate section already attributes active
+        # entries to replicas (dp); a single engine's lacks the field —
+        # stamp replica 0 so the contract shape is dp-independent
         anomalies = dict(snap.get("anomalies") or {})
         if anomalies.get("active"):
-            anomalies["active"] = [{**a, "replica": a.get("replica", 0)}
-                                   for a in anomalies["active"]]
-        pools = [{
-            "role": "colocated",
-            "replicas": [0],
-            "queue_depth": len(engine.waiting),
-            "active": engine.num_active,
-            "parked": len(engine.parked),
-            "batch_occupancy": occupancy,
-            "utilization": {
-                kind: {k: util.get(kind, {}).get(k, 0.0)
-                       for k in ("mfu", "mfu_1m", "hbm_bw_util",
-                                 "hbm_bw_util_1m")}
-                for kind in kinds
-            },
-        }]
+            anomalies["active"] = [
+                {**a, "replica": a.get("replica", 0)}
+                for a in anomalies["active"]
+            ]
+        # Per-pool section: the aggregate snapshot
+        # carries it when role pools are configured; otherwise the whole
+        # fleet is one "colocated" pool so the contract shape is
+        # role-independent.
+        disagg = snap.get("disagg") or {}
+        if disagg.get("pools"):
+            pools = disagg["pools"]
+        else:
+            pools = [{
+                "role": "colocated",
+                "replicas": list(range(len(replicas))),
+                "queue_depth": sum(len(e.waiting) for e in replicas),
+                "active": engine.num_active,
+                "parked": sum(len(e.parked) for e in replicas),
+                "batch_occupancy": occupancy,
+                "utilization": {
+                    kind: {
+                        k: (snap.get("utilization") or {}).get(
+                            kind, {}
+                        ).get(k, 0.0)
+                        for k in ("mfu", "mfu_1m", "hbm_bw_util",
+                                  "hbm_bw_util_1m")
+                    }
+                    for kind in ("prefill", "decode", "verify")
+                },
+            }]
+        # SLO section: the raw window dicts stay internal to /metrics,
+        # but the controller needs to know whether the 1m attainment
+        # gauge rests on enough verdicts to act on — version 4 exports
+        # that one scalar (met + missed in the 60s window)
         slo_src = snap.get("slo") or {}
-        slo_out = {k: v for k, v in slo_src.items()
-                   if not k.startswith("window_")}
+        slo_out = {
+            k: v for k, v in slo_src.items()
+            if not k.startswith("window_")
+        }
         w1 = slo_src.get("window_1m") or {}
         slo_out["window_1m_requests"] = int(
-            (w1.get("met") or 0) + (w1.get("missed") or 0))
-        obs = compile_log.get()
-        memory_section = None
-        mm = engine.memory_monitor
-        sec = mm.section() if mm is not None else None
-        if sec and sec.get("source") != "none":
-            memory_section = {
-                "headroom_bytes": sec["hbm_headroom_bytes"],
-                "plan_skew": sec["hbm_plan_skew"],
-                "pressure": sec["hbm_pressure"],
-                "replicas": [{"replica": 0, **{k: sec[k] for k in (
-                    "source", "hbm_bytes_in_use", "hbm_bytes_limit",
-                    "hbm_headroom_bytes", "hbm_plan_skew",
-                    "hbm_pressure")}}],
+            (w1.get("met") or 0) + (w1.get("missed") or 0)
+        )
+        scaler = self.autoscaler
+        # Object-store tier: shared-store occupancy,
+        # the cross-host dedupe ratio, and wake counts — the autoscaler's
+        # "drain-then-shrink is cheap here" signal.  Version 6
+        # adds store health: breaker state (the dp-aggregate max, so any
+        # replica's open breaker surfaces), retry/timeout counters, and
+        # store_available — False tells a controller the pre-scale-in
+        # drain will be skipped (capacity beats warm state).  Null when
+        # KAFKA_TORCH_KV_OBJECT_DIR is unset.
+        obj = snap.get("object_tier") or None
+        object_section = None
+        if obj:
+            tried = (obj.get("object_puts", 0)
+                     + obj.get("dedupe_hits", 0))
+            breaker_gauge = int(obj.get("store_breaker_state", 0))
+            object_section = {
+                "store_bytes": obj.get("store_bytes", 0),
+                "store_objects": obj.get("store_objects", 0),
+                "dedupe_ratio": round(
+                    obj.get("dedupe_hits", 0) / tried, 4
+                ) if tried else 0.0,
+                "wake_threads": obj.get("wake_threads", 0),
+                "wake_tokens": obj.get("wake_tokens", 0),
+                "breaker_state": {0: "closed", 1: "half_open",
+                                  2: "open"}.get(breaker_gauge, "open"),
+                "breaker_opens": obj.get("store_breaker_opens", 0),
+                "store_available": breaker_gauge != 2,
+                "store_retries": obj.get("store_retries", 0),
+                "store_timeouts": obj.get("store_timeouts", 0),
+                "store_errors": (obj.get("object_put_failures", 0)
+                                 + obj.get("object_get_failures", 0)),
+                "probe_neg_cached": obj.get("store_probe_neg_cached", 0),
+                # version 8: wake-prefetch effectiveness —
+                # hits vs wasted tells a controller whether the staging
+                # budget is sized right (all zeros = prefetch off)
+                "prefetch": {
+                    "hits": obj.get("prefetch_hits", 0),
+                    "wasted": obj.get("prefetch_wasted", 0),
+                    "bytes": obj.get("prefetch_bytes", 0),
+                    "inflight": obj.get("prefetch_inflight", 0),
+                },
             }
+        # Device-truth sections.  compiles: the
+        # process-wide observatory ring summary — storm_active is the
+        # "compiling under live traffic" veto input (null when
+        # KAFKA_TORCH_COMPILE_RING=0).  memory: measured HBM per replica
+        # plus the worst-case aggregate — a controller sizes scale-up
+        # against MEASURED headroom (min across replicas) and treats
+        # plan_skew > 1 as "the plan under-charges, trust the device".
+        from ..runtime import compile_log
+
+        obs = compile_log.get()
+        compiles_section = (
+            obs.signals_section() if obs is not None else None
+        )
+        mem_reps: List[Dict[str, Any]] = []
+        for i, e in enumerate(replicas):
+            mm = getattr(e, "memory_monitor", None)
+            sec = mm.section() if mm is not None else None
+            if not sec or sec.get("source") == "none":
+                continue
+            mem_reps.append({
+                "replica": i,
+                "source": sec["source"],
+                "hbm_bytes_in_use": sec["hbm_bytes_in_use"],
+                "hbm_bytes_limit": sec["hbm_bytes_limit"],
+                "hbm_headroom_bytes": sec["hbm_headroom_bytes"],
+                "hbm_plan_skew": sec["hbm_plan_skew"],
+                "hbm_pressure": sec["hbm_pressure"],
+            })
+        memory_section = None
+        if mem_reps:
+            memory_section = {
+                "headroom_bytes": min(
+                    r["hbm_headroom_bytes"] for r in mem_reps
+                ),
+                "plan_skew": max(r["hbm_plan_skew"] for r in mem_reps),
+                "pressure": max(r["hbm_pressure"] for r in mem_reps),
+                "replicas": mem_reps,
+            }
+        # Agent-native scheduling.  awaiting_*
+        # describes threads parked mid-tool-gap: NOT load (no decode
+        # slot, KV in lower tiers) — a controller must exclude them
+        # from demand sizing and read them only as a wake-traffic
+        # forecast.  All zeros knobs-off.
         ag = snap.get("agent") or {}
         agent_section = {
-            out_key: ag.get(key, 0) for out_key, key in (
-                ("awaiting_threads", "agent_awaiting_threads"),
-                ("awaiting_bytes", "agent_awaiting_bytes"),
-                ("gaps", "agent_gaps"),
-                ("gap_demotions", "agent_gap_demotions"),
-                ("gap_pages_demoted", "agent_gap_pages_demoted"),
-                ("gap_bytes_demoted", "agent_gap_bytes_demoted"),
-                ("gap_cancelled", "agent_gap_cancelled"),
-                ("hint_hits", "agent_hint_hits"),
-                ("hint_misses", "agent_hint_misses"),
-                ("bg_queue_depth", "bg_queue_depth"),
-                ("bg_admitted", "bg_admitted"),
-                ("bg_chunks", "bg_chunks"),
-                ("bg_yields", "bg_yields"))
+            "awaiting_threads": ag.get("agent_awaiting_threads", 0),
+            "awaiting_bytes": ag.get("agent_awaiting_bytes", 0),
+            "gaps": ag.get("agent_gaps", 0),
+            "gap_demotions": ag.get("agent_gap_demotions", 0),
+            "gap_pages_demoted": ag.get("agent_gap_pages_demoted", 0),
+            "gap_bytes_demoted": ag.get("agent_gap_bytes_demoted", 0),
+            "gap_cancelled": ag.get("agent_gap_cancelled", 0),
+            "hint_hits": ag.get("agent_hint_hits", 0),
+            "hint_misses": ag.get("agent_hint_misses", 0),
+            "bg_queue_depth": ag.get("bg_queue_depth", 0),
+            "bg_admitted": ag.get("bg_admitted", 0),
+            "bg_chunks": ag.get("bg_chunks", 0),
+            "bg_yields": ag.get("bg_yields", 0),
         }
         return {
             "version": 9,
-            "dp": 1,
+            "dp": len(replicas),
             "queue": dict(snap.get("queue") or {}),
             "anomalies": anomalies,
             "agent": agent_section,
-            "compiles": obs.signals_section() if obs is not None else None,
+            "compiles": compiles_section,
             "memory": memory_section,
             "pools": pools,
-            "object_tier": None,
-            "disagg": None,
-            "autoscaler": None,
+            "object_tier": object_section,
+            "disagg": {
+                k: v for k, v in disagg.items()
+                if k not in ("pools", "ship_ms")
+            } or None,
+            "autoscaler": (
+                scaler.signals_section() if scaler is not None else None
+            ),
             "batch": {
                 "occupancy": occupancy,
                 "occupancy_frac": round(occupancy / max_batch, 4)
                 if max_batch else 0.0,
                 "active": engine.num_active,
                 "max_batch": max_batch,
-                "slots_total": max_batch,
+                "slots_total": max_batch * len(replicas),
             },
             "slo": slo_out,
             "utilization": snap.get("utilization") or {},
-            "replicas": [replica],
-            "supervisor": None,
+            "replicas": per_replica,
+            "supervisor": {
+                k: v for k, v in snap["replica_supervisor"].items()
+                if k != "health"
+            } if snap.get("replica_supervisor") else None,
         }
 
     def get_model_info(self, model: Optional[str] = None) -> Dict[str, Any]:
@@ -389,6 +557,7 @@ class TorchLLMProvider(LLMProvider):
         seed: Optional[int] = None,
         prefix_key: Optional[str] = None,
         logits_mask_fn=None,
+        background: bool = False,
         **kwargs: Any,
     ) -> AsyncIterator[StreamChunk]:
         self.validate_messages(messages)
@@ -426,6 +595,9 @@ class TorchLLMProvider(LLMProvider):
             prefix_key=prefix_key,
             logits_mask_fn=logits_mask_fn,
             grammar=grammar,
+            # the background class: tool-result prefill rides idle
+            # capacity, yielding to interactive work every iteration
+            background=background,
             # the engine thread records its spans against this context
             # (None = untraced, one branch per span site)
             trace=tracing.current(),
@@ -536,14 +708,16 @@ class TorchLLMProvider(LLMProvider):
     async def drain(self, timeout_s: float = 30.0) -> bool:
         """Graceful drain: let in-flight requests finish, then cancel the
         rest.  True when everything finished within the timeout.  The
-        server has stopped admitting; reads only the engine's own host
-        state (has_work, the request table), never the device."""
+        server has stopped admitting; reads only the engines' own host
+        state (has_work, the request tables), never the device."""
         deadline = time.monotonic() + timeout_s
+        replicas = self._replicas()
         while time.monotonic() < deadline:
-            if not self.engine.has_work:
+            if not any(e.has_work for e in replicas):
                 return True
             await asyncio.sleep(0.05)
-        leftover = _torn_keys(self.engine._requests)
+        leftover = [rid for e in replicas
+                    for rid, _ in _torn_items(e._requests)]
         if leftover:
             logger.warning("drain timeout after %.1fs: cancelling %d "
                            "in-flight request(s)", timeout_s, len(leftover))
@@ -552,9 +726,135 @@ class TorchLLMProvider(LLMProvider):
             # let the engine thread process the cancels so every stream
             # sees its terminal event before teardown
             settle = time.monotonic() + min(2.0, timeout_s)
-            while time.monotonic() < settle and self.engine.has_work:
+            while time.monotonic() < settle and any(
+                    e.has_work for e in replicas):
                 await asyncio.sleep(0.02)
         return not leftover
+
+    async def resize_dp(self, dp: int, drain_timeout_s: float = 30.0,
+                        roles: Any = _ROLES_KEEP) -> bool:
+        """Rebuild the DP replica set at a new dp count while WAITING
+        requests survive (POST /admin/resize and the autoscaler's act
+        mode share this path).  `roles` re-shapes the role pools in the
+        same rebuild: a "prefill:P,decode:D" spec (P + D == dp), None/""
+        dissolves them, the default keeps the current spec.
+
+        Started lanes own device state that cannot move across engines,
+        so they get `drain_timeout_s` to retire; leftovers are cancelled
+        (each still receives its terminal event).  Queued requests ride
+        through the rebuild.  Returns True when nothing had to be
+        cancelled.  The rebuild runs on the engine thread while it is
+        PARKED (single writer; a new replica's graph captures run while
+        nothing else runs on the card), off the event loop; one resize at
+        a time, and the admission gate turns new traffic away
+        meanwhile."""
+        rebuild = getattr(self.engine, "rebuild", None)
+        if rebuild is None:
+            raise ValueError(
+                "resize_dp requires a DataParallelEngines engine "
+                "(single-engine deployments have no replica topology)")
+        # validate the device budget and the role spec BEFORE draining:
+        # an impossible topology fails up front, not after in-flight
+        # requests were cancelled
+        self.engine.validate_dp(dp)
+        if roles is not _ROLES_KEEP:
+            from ..runtime.dp_router import validate_roles_spec
+
+            validate_roles_spec(roles, dp)
+        async with self._resize_lock:
+            if self._orphan_rebuild is not None:
+                # a previous resize was cancelled mid-rebuild and its
+                # thread may still be mutating engines: wait it out (its
+                # done-callback, added first, resumes the worker)
+                try:
+                    await asyncio.shield(self._orphan_rebuild)
+                except Exception:
+                    pass  # logged by the orphan's done-callback
+                self._orphan_rebuild = None
+            try:
+                return await self._resize_locked(
+                    rebuild, dp, drain_timeout_s, roles)
+            finally:
+                # a cancelled resize must never leave the worker parked —
+                # except while a cancelled rebuild thread still runs: its
+                # done-callback owns the resume then
+                if not self._rebuild_owns_resume:
+                    self.worker.resume()
+
+    async def _resize_locked(self, rebuild, dp: int, drain_timeout_s: float,
+                             roles: Any = _ROLES_KEEP) -> bool:
+        def _started(e) -> bool:
+            # pending hand-offs are started work too: their pages and
+            # emitted first token complete at step cadence
+            return bool(e.num_active or e.parked or e._pending
+                        or e.handoffs)
+
+        clean = True
+        deadline = time.monotonic() + drain_timeout_s
+        while True:
+            # park first, then look: an unparked worker could seat a
+            # waiting request between the check and the rebuild
+            if not await asyncio.to_thread(self.worker.pause):
+                self.worker.resume()
+                raise RuntimeError("engine worker did not pause")
+            busy = [e for e in self._replicas() if _started(e)]
+            if not busy:
+                break
+            self.worker.resume()
+            if time.monotonic() >= deadline:
+                if time.monotonic() >= deadline + drain_timeout_s + 5.0:
+                    raise RuntimeError(
+                        "resize_dp: started work did not drain")
+                # sweep every iteration past the deadline: requests seated
+                # after an earlier sweep get cancelled too
+                clean = False
+                ids = [rid for e in busy
+                       for rid, req in _torn_items(e._requests)
+                       if req.state != "waiting"]
+                if ids:
+                    logger.warning("resize_dp: drain timeout; cancelling "
+                                   "%d started request(s)", len(ids))
+                    for rid in ids:
+                        self.worker.cancel(rid)
+            await asyncio.sleep(0.02)
+        from ..runtime import compile_log
+
+        # rebuild captures and builds are expected, not a storm
+        compile_log.set_phase("rebuild")
+        # on the parked engine thread: the new replicas' warmup captures
+        # their graphs with the handles of the thread that replays them
+        fut = asyncio.wrap_future(self.worker.run_parked(
+            lambda: (rebuild(dp=dp) if roles is _ROLES_KEEP
+                     else rebuild(dp=dp, roles=roles))))
+        try:
+            await asyncio.shield(fut)
+        except asyncio.CancelledError:
+            if not fut.done():
+                # the rebuild thread still mutates engines: resuming the
+                # worker now would race it — hand the resume to its
+                # completion, and leave the future for the next resize
+                self._rebuild_owns_resume = True
+                self._orphan_rebuild = fut
+
+                def _resume(f) -> None:
+                    self._rebuild_owns_resume = False
+                    self.worker.resume()
+                    compile_log.set_phase("first_traffic")
+                    exc = None if f.cancelled() else f.exception()
+                    if exc is not None:
+                        logger.error(
+                            "orphaned topology rebuild (resize was "
+                            "cancelled mid-flight) FAILED: %s — the "
+                            "previous topology may still be serving; "
+                            "retry /admin/resize", exc)
+
+                fut.add_done_callback(_resume)
+            raise
+        finally:
+            if not self._rebuild_owns_resume:
+                self.worker.resume()
+                compile_log.set_phase("first_traffic")
+        return clean
 
     async def aclose(self) -> None:
         self.worker.stop()

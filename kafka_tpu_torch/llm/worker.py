@@ -1,7 +1,9 @@
 """Engine dispatch thread: bridges the synchronous step loop to asyncio.
 
 Counterpart of kafka_tpu/llm/worker.py.  One daemon thread owns the
-engine and runs its steps continuously; requests and cancels reach it
+engine — one InferenceEngine, or a DataParallelEngines router driving its
+replicas in turn through the same surface — and runs its steps
+continuously; requests and cancels reach it
 through a thread-safe inbox, and each request's TokenEvents are delivered
 to its own asyncio queue with `loop.call_soon_threadsafe`.  The thread is
 the engine's only mutator, so engine state needs no locks.  A step that
@@ -15,11 +17,12 @@ loop iteration and finally delivered with the failpoint bypassed.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import logging
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from ..failpoints import failpoint
 from ..runtime.engine import (
@@ -58,6 +61,9 @@ class EngineWorker:
         self._pause_req = threading.Event()
         self._pause_ack = threading.Event()
         self._resume_evt = threading.Event()
+        # a function the parked thread runs for its owner (run_parked)
+        self._parked_task: Optional[Tuple[Callable[[], Any],
+                                          concurrent.futures.Future]] = None
 
     # -- lifecycle -----------------------------------------------------
 
@@ -98,6 +104,34 @@ class EngineWorker:
         self._pause_req.clear()
         self._resume_evt.set()
 
+    def run_parked(self, fn: Callable[[], Any]) -> concurrent.futures.Future:
+        """Run `fn` on the engine thread while it is parked (after a
+        successful pause()); the thread stays parked afterwards.  A
+        topology rebuild runs here, so the new replicas' graph captures
+        and BLAS handles belong to the thread that replays them, and a
+        resize does not add another thread's library workspaces."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        if not self.alive:
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # handed to the caller
+                fut.set_exception(e)
+            return fut
+        self._parked_task = (fn, fut)
+        self._resume_evt.set()  # wakes the park loop; the pause holds
+        return fut
+
+    def _run_parked_task(self) -> bool:
+        task, self._parked_task = self._parked_task, None
+        if task is None:
+            return False
+        fn, fut = task
+        try:
+            fut.set_result(fn())
+        except BaseException as e:  # handed to the caller
+            fut.set_exception(e)
+        return True
+
     # -- request API (called from asyncio) -----------------------------
 
     def submit(self, req: GenRequest, loop: asyncio.AbstractEventLoop
@@ -131,10 +165,19 @@ class EngineWorker:
     def _run(self) -> None:
         logger.info("engine worker started")
         while not self._stopped.is_set():
-            # pause seam: park between steps until resumed (or stopped)
+            # pause seam: park between steps until resumed (or stopped).
+            # A profiler window belongs to this thread: close the kernel
+            # samplers' windows first, so whoever owns the parked engine
+            # (a resize's rebuild, a drain) may discard or replace it.
+            if self._pause_req.is_set():
+                self._close_samplers()
             while self._pause_req.is_set() and not self._stopped.is_set():
                 self._pause_ack.set()
+                if self._run_parked_task():
+                    continue
                 self._resume_evt.wait(timeout=0.1)
+                if self._pause_req.is_set():
+                    self._resume_evt.clear()  # a run_parked wake-up
             block = not self.engine.has_work  # block when idle
             try:
                 kind, payload = self._inbox.get(
@@ -169,17 +212,25 @@ class EngineWorker:
                 self._dispatch_guarded(ev)
         # the profiler opens and closes on this thread: an open kernel
         # sampler window must not outlive the worker
-        sampler = getattr(self.engine, "kernel_sampler", None)
-        if sampler is not None:
-            sampler.close(self.engine.metrics)
-        # in-flight demotions resolve and the tier's threads stop here
-        close = getattr(self.engine, "close", None)
-        if close is not None:
-            try:
-                close()
-            except Exception:
-                logger.exception("engine close failed")
+        self._close_samplers()
+        # in-flight demotions resolve and the tiers' threads stop here
+        for e in self._replicas():
+            close = getattr(e, "close", None)
+            if close is not None:
+                try:
+                    close()
+                except Exception:
+                    logger.exception("engine close failed")
         logger.info("engine worker stopped")
+
+    def _replicas(self) -> list:
+        return list(getattr(self.engine, "engines", [self.engine]))
+
+    def _close_samplers(self) -> None:
+        for e in self._replicas():
+            sampler = getattr(e, "kernel_sampler", None)
+            if sampler is not None:
+                sampler.close(e.metrics)
 
     def _dispatch_guarded(self, ev: TokenEvent, attempts: int = 0) -> None:
         """Dispatch one event without letting a bad route (or an armed

@@ -60,6 +60,15 @@ scheduler keeps the JAX engine's semantics:
   (`cache_source="object_tier"`); with `agent_demote` a thread that left
   for a tool call (`note_tool_gap`) is demoted once `agent_linger_s`
   passes without its return (`note_tool_return`);
+* a `background` request (tool-result prefill) queues on `waiting_bg`,
+  admits only into idle capacity outside the park reserve, yields its
+  prefill chunks to interactive ones (shrunk to the smallest bucket
+  while interactive lanes decode) and is the first preemption victim;
+* for the DP router (runtime/dp_router.py): `take_waiting` / `adopt`
+  move queued requests between replicas, a `handoff` request ends at its
+  first token with its run stored in the radix cache and parked on
+  `handoffs` for the router to ship, and `spec_k_cap` lets the
+  autoscaler's ladder pause speculation;
 * `recover_from_failure` rebuilds a servable engine after a step fault
   (the `engine.step` and `engine.prefill` failpoints inject one);
 * a request carrying a trace (`GenRequest.trace`, tracing.py) gets
@@ -407,6 +416,22 @@ class GenRequest:
     # SLO verdict set at finalize (_finalize_slo): True met, False
     # missed, None excluded (a client cancel) or not finalized yet
     slo_met: Optional[bool] = None
+    # disaggregated prefill/decode: a prefill-and-hand-off request ends
+    # at its first token with its pages kept — the engine parks
+    # (request, token) on `engine.handoffs` instead of emitting a terminal
+    # event, and the DP router ships the page run to a decode replica and
+    # requeues the request there (a preemption-style resume: the
+    # re-prefill's token is the duplicate of the emitted first token and
+    # is dropped).  Only the router sets it, and only for prefix-keyed
+    # requests: the radix cache names the shipped run at the destination.
+    handoff: bool = False
+    # the background class: tool-result prefill and compaction.  Queued
+    # on engine.waiting_bg, admitted only with no interactive request
+    # waiting (and never into the park reserve), yields its prefill
+    # chunks to any interactive prefill, is the first preemption victim,
+    # and is exempt from the max_waiting bound (engine-internal work must
+    # not 429 the client that caused it).
+    background: bool = False
 
 
 class _GrammarTables:
@@ -694,6 +719,19 @@ def _spans_s(spans: Sequence[Tuple[Any, Any]]) -> float:
     return sum(a.elapsed_time(b) for a, b in spans) / 1e3
 
 
+# one capture side stream per device, shared by every engine of the
+# process: replicas on one card and the engines a resize rebuilds would
+# otherwise each add a BLAS workspace that outlives them
+_CAPTURE_STREAMS: Dict[torch.device, Any] = {}
+
+
+def _capture_stream_for(dev: torch.device):
+    stream = _CAPTURE_STREAMS.get(dev)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return stream
+
+
 def sampling_mode(reqs: Sequence[Optional[GenRequest]]) -> int:
     """GREEDY, SAMPLED or FILTERED for the lanes of one dispatch, from
     their host parameters (the reference's lax.cond predicates)."""
@@ -771,8 +809,24 @@ class InferenceEngine:
         dev = self.device
         self.slots: List[Optional[GenRequest]] = [None] * B
         self.waiting: List[GenRequest] = []
+        # the background class's own FIFO: interactive admission never
+        # scans past deferred background work
+        self.waiting_bg: List[GenRequest] = []
+        self.bg_admitted = 0
+        self.bg_chunks = 0
+        self.bg_yields = 0
         # off-slot lanes (PREFILLING with slot -1, or PARKED), FIFO
         self.parked: List[GenRequest] = []
+        # prefill-and-hand-off completions, (request, first token) pairs
+        # whose pages were kept, awaiting the DP router's ship and requeue
+        # (the router drains this every step; a lone engine never fills
+        # it: GenRequest.handoff is router-set only)
+        self.handoffs: List[Tuple[GenRequest, int]] = []
+        # the autoscaler ladder's speculation rung: None = unthrottled; an
+        # integer caps each lane's proposals (0 pauses speculation, verify
+        # entries in flight drain normally).  Written from the controller
+        # thread as one attribute store.
+        self.spec_k_cap: Optional[int] = None
         # scheduler iterations left before off-slot admission may resume
         # after a page-pressure rollback (_ensure_pages)
         self._park_cooldown = 0
@@ -812,8 +866,9 @@ class InferenceEngine:
         # captured step programs (CUDA), one shared memory pool
         self._graphs: Dict[Tuple, _StepGraph] = {}
         self._graph_pool = None
-        # the side stream of every capture's warm-up run: one for the
-        # engine, since the BLAS libraries keep a workspace per stream
+        # the side stream of every capture's warm-up run: one per device
+        # for every engine of the process (_capture_stream_for), since the
+        # BLAS libraries keep a workspace per stream and never free it
         self._capture_stream = None
         self.graph_replays = 0
         # graphs captured and the host seconds their warm-ups and captures
@@ -1057,7 +1112,7 @@ class InferenceEngine:
     def submit(self, req: GenRequest) -> None:
         if len(req.prompt_ids) == 0:
             raise ValueError("empty prompt")
-        if self.ecfg.max_waiting > 0 and \
+        if not req.background and self.ecfg.max_waiting > 0 and \
                 len(self.waiting) >= self.ecfg.max_waiting:
             self.metrics.record_rejected()
             if self.flight is not None:
@@ -1085,6 +1140,11 @@ class InferenceEngine:
             # it can wrap the JSON up before tokens run out
             req.logits_mask_fn.set_budget(req.max_new_tokens)
         req.prefill_ids = list(req.prompt_ids)
+        if req.handoff and (req.prefix_key is None
+                            or self.prefix_cache is None):
+            # a hand-off run is named by the radix cache at both ends:
+            # without a key (or a cache) the request is served in place
+            req.handoff = False
         if self.ecfg.speculative_k > 0 and req.spec is None and (
                 req.logits_mask_fn is None or req.grammar is not None):
             # free lanes and device-FSM lanes speculate (the verify step
@@ -1101,8 +1161,40 @@ class InferenceEngine:
             # pending gap demote must not race the new turn's admission
             self._agent_gaps.pop(req.prefix_key, None)
             self._awaiting_demoted.pop(req.prefix_key, None)
-        self.waiting.append(req)
+        (self.waiting_bg if req.background else self.waiting).append(req)
         self._requests[req.request_id] = req
+
+    def take_waiting(self) -> List[GenRequest]:
+        """Remove and return every WAITING request (they own no device
+        state): the DP router migrates a quarantined replica's queue onto
+        healthy ones, and a topology rebuild carries the queue across
+        engine generations.  Runs on the thread that drives step()."""
+        taken = list(self.waiting) + list(self.waiting_bg)
+        self.waiting.clear()
+        self.waiting_bg.clear()
+        for req in taken:
+            if req.seq is not None:  # defensive: waiting owns no pages
+                self.pool.free_sequence(req.seq)
+                req.seq = None
+            self._requests.pop(req.request_id, None)
+        return taken
+
+    def adopt(self, req: GenRequest) -> None:
+        """Requeue a WAITING request taken from another replica.  Unlike
+        submit() no admission bound and no submission metrics: the
+        request was admitted and counted once, and a replica failure must
+        not turn into client-visible rejections."""
+        req.state = WAITING
+        q = self.waiting_bg if req.background else self.waiting
+        q.append(req)
+        q.sort(key=lambda r: r.submit_time)
+        self._requests[req.request_id] = req
+
+    def _unqueue(self, req: GenRequest) -> None:
+        """Take a WAITING request out of its queue (cancel, timeout)."""
+        q = self.waiting_bg if req.background else self.waiting
+        if req in q:
+            q.remove(req)
 
     def cancel(self, request_id: str, reason: str = "cancelled") -> bool:
         """Abort a request (client disconnect); frees its slot and pages
@@ -1112,8 +1204,8 @@ class InferenceEngine:
         req = self._requests.get(request_id)
         if req is None or req.state == FINISHED:
             return False
-        if req.state == WAITING and req in self.waiting:
-            self.waiting.remove(req)
+        if req.state == WAITING:
+            self._unqueue(req)
         req.state = FINISHED
         req.finish_reason = reason
         self._finalize_slo(req, reason)
@@ -1130,6 +1222,7 @@ class InferenceEngine:
         # a pending tool-gap linger keeps step() running on an otherwise
         # idle engine, or the demote never fires
         return (self.num_active > 0 or bool(self.waiting)
+                or bool(self.waiting_bg)
                 or bool(self.parked) or bool(self._pending)
                 or bool(self._agent_gaps))
 
@@ -1162,7 +1255,15 @@ class InferenceEngine:
             self._dispatch_decode()
             self._drain(block=False)
         if not self.num_active and not self.waiting and self._pending:
-            self._drain(block=True)
+            # nothing left to dispatch: flush the pipeline — except when
+            # a prefill-and-hand-off is pending.  The DP router drives
+            # every replica from one thread; a prefill replica waiting
+            # here would stall the others for the whole chunk.  Hand-off
+            # entries drain non-blocking on a later step (has_work spans
+            # them).
+            if not any(r.handoff and r.state == DRAINING
+                       for r in self._requests.values()):
+                self._drain(block=True)
         if not self.num_active:
             self.metrics.mark_idle()  # idle gaps are not TPOT
             self._last_ready_t = None  # the measured-time chain restarts
@@ -1192,9 +1293,9 @@ class InferenceEngine:
         return req
 
     def agent_section(self) -> Dict[str, int]:
-        """The metrics snapshot's "agent" section (AGENT_METRIC_KEYS).
-        The engine has no background request class yet: its keys read 0,
-        what the reference reports with no background traffic."""
+        """The metrics snapshot's "agent" section (AGENT_METRIC_KEYS):
+        the tool-gap counters and the background class's queue depth and
+        admit / chunk / yield counters."""
         pages = sum(self._awaiting_demoted.values())
         tier = self.kv_tier
         out = {k: 0 for k in AGENT_METRIC_KEYS}
@@ -1211,6 +1312,10 @@ class InferenceEngine:
                  if k not in self._agent_gaps]),
             "agent_awaiting_bytes": (tier.bytes_for_pages(pages)
                                      if tier is not None else 0),
+            "bg_queue_depth": len(self.waiting_bg),
+            "bg_admitted": self.bg_admitted,
+            "bg_chunks": self.bg_chunks,
+            "bg_yields": self.bg_yields,
         })
         return out
 
@@ -1464,6 +1569,7 @@ class InferenceEngine:
             "pages": len(req.seq.pages) if req.seq is not None else 0,
             "seq_len": req.seq.length if req.seq is not None else 0,
             "finish_reason": req.finish_reason,
+            "background": req.background,
         } for req in self._requests.values()]
 
     def dump_postmortem(self, reason: str) -> Optional[str]:
@@ -1527,8 +1633,9 @@ class InferenceEngine:
                     self.pool.free_sequence(req.seq)
                     req.seq = None
                 req.spec_ahead = 0  # any in-flight verify was discarded
-                if req not in self.waiting:
-                    self.waiting.append(req)
+                q = self.waiting_bg if req.background else self.waiting
+                if req not in q:
+                    q.append(req)
                 continue
             req.state = FINISHED
             req.finish_reason = "error:engine"
@@ -1539,6 +1646,7 @@ class InferenceEngine:
             events.append(TokenEvent(req.request_id, None, finished=True,
                                      finish_reason="error:engine"))
         self.waiting.sort(key=lambda r: r.submit_time)
+        self.waiting_bg.sort(key=lambda r: r.submit_time)
         # the graphs go, and with the last of them their memory pool: the
         # next capture opens a new one (capturing into the freed pool's
         # handle fails in the caching allocator)
@@ -1585,8 +1693,8 @@ class InferenceEngine:
         logger.warning("request %s timed out after %.2fs (state %s)",
                        req.request_id, time.monotonic() - req.submit_time,
                        req.state)
-        if req.state == WAITING and req in self.waiting:
-            self.waiting.remove(req)
+        if req.state == WAITING:
+            self._unqueue(req)
         req.state = FINISHED
         req.finish_reason = "timeout"
         self._finalize_slo(req, "timeout")
@@ -1910,6 +2018,23 @@ class InferenceEngine:
         else:
             self._out_events.append(TokenEvent(req.request_id, token))
             return
+        if reason == "handoff":
+            # prefill-and-hand-off: the request leaves with its pages —
+            # no terminal event and no SLO verdict here (the decode
+            # replica finalizes the true finish).  The run is stored
+            # into this replica's radix cache first: a shared prefix
+            # stays warm on the prefill pool, and the cache's retains
+            # keep the pages alive through the ship after the router
+            # frees the sequence.
+            req.state = FINISHED
+            if req.seq is not None and self.prefix_cache is not None:
+                self.prefix_cache.store(
+                    req.prefix_key,
+                    (req.prompt_ids + req.output_ids)[: req.seq.length],
+                    req.seq.pages)
+            self._requests.pop(req.request_id, None)
+            self.handoffs.append((req, token))
+            return
         req.finish_reason = reason
         req.state = FINISHED
         self._finalize_slo(req, reason)
@@ -1975,6 +2100,8 @@ class InferenceEngine:
             if self.flight is not None:
                 self.flight.note_cause("admit_parked")
         self._admit_offslot()
+        if self.waiting_bg:
+            self._admit_background()
 
     def _admit_waiting_head(self, slot: int) -> bool:
         """Start the waiting head's prefill in `slot`; False (queue
@@ -2052,6 +2179,41 @@ class InferenceEngine:
             self.parked.append(req)
             if self.flight is not None:
                 self.flight.note_cause("park")
+
+    def _admit_background(self) -> None:
+        """Admit at most one background request per iteration, and only
+        into capacity nobody interactive wants: a free slot with the
+        interactive queue empty, and pages outside the park reserve."""
+        if self.waiting:
+            return  # interactive demand owns admission
+        slot = self._free_slot()
+        if slot is None:
+            return
+        ecfg = self.ecfg
+        reserve = (ecfg.park_reserve_pages
+                   if ecfg.park_reserve_pages is not None
+                   else 2 * ecfg.max_batch)
+        req = self.waiting_bg[0]
+        self._attach_prefix(req)
+        needed = self._pages_needed(req)
+        if needed > self.pool.free_pages - reserve:
+            # a cold radix cache is idle capacity too: reclaim it, but
+            # keep the park reserve, or a cache-saturated idle engine
+            # would starve its background queue forever
+            if not self._reclaim_cache(needed + reserve, req):
+                self._detach_prefix(req)
+                return
+        self.waiting_bg.pop(0)
+        try:
+            self._start_prefill(req, slot)
+        except OutOfPagesError:
+            self._detach_prefix(req)
+            req.state = WAITING
+            self.waiting_bg.insert(0, req)
+            return
+        self.bg_admitted += 1
+        if self.flight is not None:
+            self.flight.note_cause("bg_admit")
 
     def _attach_prefix(self, req: GenRequest) -> None:
         """Share the longest cached prefix before the admission page gate:
@@ -2141,6 +2303,13 @@ class InferenceEngine:
 
     def _prefill_bucket_for(self, req: GenRequest) -> int:
         remaining = len(req.prefill_ids) - req.seq.length
+        if req.background and any(
+                s is not None and s.state == ACTIVE and not s.background
+                for s in self.slots):
+            # a background chunk shrinks to the smallest bucket while an
+            # interactive lane decodes: the added inter-token gap is one
+            # small chunk's compute
+            return self.ecfg.prefill_buckets[0]
         return next((b for b in self.ecfg.prefill_buckets if b >= remaining),
                     self.ecfg.prefill_buckets[-1])
 
@@ -2155,6 +2324,23 @@ class InferenceEngine:
             [r for r in self.parked if r.state == PREFILLING]
         if not prefilling:
             return
+        bg = [r for r in prefilling if r.background]
+        if bg:
+            # background lanes yield their chunk to any interactive
+            # prefill; with none pending, one background lane advances
+            # one chunk
+            interactive = [r for r in prefilling if not r.background]
+            if interactive:
+                prefilling = interactive
+                self.bg_yields += 1
+                if self.flight is not None:
+                    self.flight.note_cause("bg_yield")
+            else:
+                bg.sort(key=lambda r: r.submit_time)
+                prefilling = bg[:1]
+                self.bg_chunks += 1
+                if self.flight is not None:
+                    self.flight.note_cause("bg_prefill")
         W = min(4, self.ecfg.max_batch)
         if len(prefilling) > W:
             prefilling.sort(key=lambda r: r.submit_time)
@@ -2376,6 +2562,10 @@ class InferenceEngine:
             return "length"
         if req.seq is not None and req.seq.length + 1 >= self.ecfg.max_window:
             return "length"
+        if req.handoff:
+            # prefill-and-hand-off ends at the first token (after the
+            # genuine limits: a one-token request finishes for real)
+            return "handoff"
         return None
 
     def _to_draining(self, req: GenRequest) -> None:
@@ -2762,7 +2952,7 @@ class InferenceEngine:
         saved = self._d_run.clone()
         self._d_run.zero_()
         if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(dev)
+            self._capture_stream = _capture_stream_for(dev)
         side = self._capture_stream
         side.wait_stream(cur)
         with torch.cuda.stream(side):
@@ -2831,6 +3021,13 @@ class InferenceEngine:
         0); host-masked lanes sit the dispatch out."""
         ecfg = self.ecfg
         K = ecfg.speculative_k
+        cap = self.spec_k_cap
+        if cap is not None:
+            # the autoscaler ladder's rung 2: proposals throttled, 0 =
+            # paused (plain decode dispatches)
+            K = min(K, cap)
+            if K <= 0:
+                return False
         proposals: Dict[int, List[int]] = {}
         for s in lanes:
             if s.spec is None or self._host_constrained(s) \
@@ -3345,7 +3542,10 @@ class InferenceEngine:
         cands = [s for s in self.slots if s is not None]
         if len(cands) <= 1:
             return
-        self._preempt(max(cands, key=lambda r: r.submit_time))
+        # background lanes are the first victims: they soak idle
+        # capacity and never hold pages an interactive lane needs
+        bg = [r for r in cands if r.background]
+        self._preempt(max(bg or cands, key=lambda r: r.submit_time))
 
     def _preempt(self, victim: GenRequest) -> None:
         """Roll a request back to the waiting queue: re-prefilled later
@@ -3368,4 +3568,5 @@ class InferenceEngine:
         victim.prefill_ids = victim.prompt_ids + victim.output_ids[:-1]
         victim.state = WAITING
         victim.resumed = bool(victim.output_ids)
-        self.waiting.insert(0, victim)
+        (self.waiting_bg if victim.background
+         else self.waiting).insert(0, victim)

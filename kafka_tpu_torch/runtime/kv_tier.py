@@ -1,10 +1,9 @@
 """Tiered KV cache: a host-RAM page tier (with optional disk spill) under
 the PagePool, and the page-shipping substrate between tiers.
 
-Counterpart of kafka_tpu/runtime/kv_tier.py (the host and disk tiers and
-the local shipper; the cross-replica shippers come with data-parallel
-replicas).  Almost every thread is idle at any moment, and an idle
-thread's conversation KV must not occupy device memory — yet a thread
+Counterpart of kafka_tpu/runtime/kv_tier.py (the host and disk tiers, the
+local shipper and the cross-replica shipper).  Almost every thread is idle
+at any moment, and an idle thread's conversation KV must not occupy device memory — yet a thread
 resuming later should not re-prefill its whole history either.  Pages are
 the unit of demotion:
 
@@ -36,6 +35,18 @@ the unit of demotion:
   Both copies are chaos-testable via the ``kv.demote`` / ``kv.promote``
   failpoints (fired once per shipped chunk, so an ``nth=2`` error rule
   produces a genuinely torn multi-chunk copy).
+
+* **Cross-replica shipping** (disaggregated prefill/decode, the DP
+  router): ``CrossReplicaPageShipper`` moves a page run from one replica's
+  pool into another's, chunk by chunk, device to device: a gather, a
+  ``.to`` of the destination device (a no-op when both replicas share the
+  card), and an in-place ``index_copy_``.  The JAX package also has a
+  host-staged transport, which it needs because its pools are not
+  addressable across replicas in process; the port's always are, so it
+  keeps only the device copy.  Every copy is enqueued on the current
+  stream: the gather runs before any later source step can overwrite the
+  pages, the scatter before any later destination step reads them, and
+  the host never waits on the device.
 
 Payloads are host tensors, one per pool leaf (a dense pool is one leaf; an
 int8 pool is its int8 rows, then its ``[L, SLOTS, 1]`` f32 scales — the
@@ -375,6 +386,93 @@ class LocalPageShipper(PageShipper):
         return total
 
 
+def _pool_bytes_per_page(pool_owner: Any, page_size: int) -> int:
+    total = 0
+    for pool in (pool_owner.k_pool, pool_owner.v_pool):
+        for a in pool_leaves(pool):
+            per_slot = int(np.prod(a.shape[2:])) if a.dim() > 2 else 1
+            total += a.shape[0] * page_size * per_slot * a.element_size()
+    return total
+
+
+def _slot_index(idx: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(idx.astype(np.int64))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+class CrossReplicaPageShipper:
+    """Ship a page run from one replica's pool into another's
+    (disaggregated prefill/decode; the JAX package's DeviceShipper,
+    kafka_tpu/runtime/kv_tier.py:482).
+
+    Per SHIP_BUCKETS chunk: ``index_select`` on the source pool's slot
+    axis, ``.to(destination device, non_blocking=True)`` (a no-op when
+    both replicas share the card), and an in-place ``index_copy_`` into
+    the destination pool: the pools are bound in captured decode graphs,
+    so they are never rebound.  Ordering: replicas on one card share the
+    current stream, so the scatter runs after the gather and both run
+    before any later step of either replica; across cards PyTorch's peer
+    copy makes the destination's current stream wait for the source's.
+    ship() runs on the thread that drives both replicas (the router's
+    worker thread).
+
+    Chunks are padded to SHIP_BUCKETS with trash-page slots on both
+    sides: padded gather rows are read from the source trash page, and
+    their scatter writes land in the destination trash page, which is
+    garbage by contract.  ``kv.ship`` fires once per chunk: an
+    ``error:nth=2`` rule on a multi-chunk run tears the copy, ship()
+    raises with the destination pages PARTIAL, and the caller
+    (dp_router._ship_run) frees every destination page (they were freshly
+    allocated and shared with nobody) and the thread re-prefills."""
+
+    # the DisaggMetrics transport dimension and the hand-off event attrs
+    transport = "device"
+
+    def __init__(self, src_owner: Any, dst_owner: Any, page_size: int):
+        self.src = src_owner
+        self.dst = dst_owner
+        self.page_size = page_size
+
+    def bytes_per_page(self) -> int:
+        return _pool_bytes_per_page(self.src, self.page_size)
+
+    def ship(self, src_pages: Sequence[int],
+             dest_pages: Sequence[int]) -> int:
+        """Copy `src_pages` (source pool) into `dest_pages` (destination
+        pool); returns the real (unpadded) bytes moved.  Raises on a torn
+        chunk (see the class docstring for the cleanup contract)."""
+        if len(src_pages) != len(dest_pages):
+            raise ShipError(f"ship of {len(src_pages)} pages into "
+                            f"{len(dest_pages)} destination pages")
+        ps = self.page_size
+        src_leaves = pool_leaves(self.src.k_pool) + pool_leaves(
+            self.src.v_pool)
+        dst_leaves = pool_leaves(self.dst.k_pool) + pool_leaves(
+            self.dst.v_pool)
+        if len(src_leaves) != len(dst_leaves):
+            raise ShipError("source and destination pool layouts differ")
+        sdev, ddev = src_leaves[0].device, dst_leaves[0].device
+        off = 0
+        nbytes = 0
+        for padded in _bucketize(len(src_pages)):
+            failpoint("kv.ship")
+            real = min(padded, len(src_pages) - off)
+            sidx = _slot_index(
+                _flat_slots(src_pages[off:off + real], ps, padded), sdev)
+            didx = _slot_index(
+                _flat_slots(dest_pages[off:off + real], ps, padded), ddev)
+            for s_leaf, d_leaf in zip(src_leaves, dst_leaves):
+                rows = s_leaf.index_select(1, sidx).to(ddev,
+                                                       non_blocking=True)
+                nbytes += int(rows.numel() * rows.element_size()
+                              * real / padded)
+                d_leaf.index_copy_(1, didx, rows)
+            off += real
+        return nbytes
+
+
 # ---------------------------------------------------------------------------
 # host + disk tiers
 # ---------------------------------------------------------------------------
@@ -494,6 +592,12 @@ class KVTierManager:
 
         `path_runs` / `threads` carry the radix-path content context the
         OBJECT tier needs (root->run token runs + claiming prefix keys)."""
+        from .autoscaler import background_deferred
+
+        if background_deferred():
+            # the autoscaler ladder's rung 3: demotion is background D2H
+            # work — refuse, the caller falls back to plain eviction
+            return None
         est = self.bytes_for_pages(len(pages))
         if est > self.host_budget_bytes:
             return None  # a run larger than the whole tier never fits

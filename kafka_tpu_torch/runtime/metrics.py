@@ -738,9 +738,9 @@ class ReplicaSupervisorMetrics:
 
 def ship_staging_peak(reset: bool = False) -> int:
     """Peak host bytes pinned by host-staged cross-replica ship chunks
-    since the last read (re-armed on read when `reset`).  Ships come with
-    the DP router, which this package does not have yet: nothing is ever
-    staged, so the peak is 0."""
+    since the last read (re-armed on read when `reset`).  The port ships
+    device to device only (runtime/kv_tier.CrossReplicaPageShipper):
+    nothing is ever staged, so the peak is 0."""
     return 0
 
 

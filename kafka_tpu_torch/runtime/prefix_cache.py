@@ -1,8 +1,7 @@
 """Content-addressed radix-tree KV prefix cache over the refcounted page pool.
 
 Counterpart of kafka_tpu/runtime/prefix_cache.py (its jax-free body,
-copied, less the shipped-run markers of cross-replica page shipping,
-which come with data-parallel replicas).  Multi-turn threads re-serve the
+copied).  Multi-turn threads re-serve the
 same conversation prefix every turn, and in a fan-out agent deployment
 every thread begins with the same system prompt and tool schemas.  The
 cache is a radix tree over page-granular token runs (SGLang's
@@ -71,6 +70,7 @@ class PrefixHit:
     # "own" (this thread stored through here) | "cross" (another thread's
     # shared prefix) | "host_tier" (any part was promoted from the tier)
     # | "object_tier" (any part was woken from the shared object store)
+    # | "shipped" (any part arrived via cross-replica page shipping)
     source: str
     # tokens of the hit that were re-materialized from the host/disk tier
     promoted_tokens: int = 0
@@ -94,7 +94,7 @@ class _Node:
     walk still matches through it."""
 
     __slots__ = ("tokens", "pages", "children", "parent", "keys",
-                 "host_run", "woken")
+                 "host_run", "shipped", "woken")
 
     def __init__(
         self,
@@ -114,6 +114,12 @@ class _Node:
         self.keys: "OrderedDict[str, None]" = OrderedDict()
         # KV-tier run id when demoted (host/disk resident), else None
         self.host_run: Optional[str] = None
+        # True while this run's pages arrived via cross-replica page
+        # shipping (disaggregated prefill/decode) and no local thread has
+        # stored through it yet: the first lookup crossing it classifies
+        # as cache_source="shipped", and a normal store() descending it
+        # clears the marker.
+        self.shipped = False
         # True while this run's pages were re-materialized from the
         # shared OBJECT store (a sleep-manifest wake) and no local thread
         # has stored through it since: lookups crossing it classify as
@@ -166,6 +172,10 @@ class PrefixCache:
         # demote/promote traffic counters)
         self._host_nodes = 0
         self._host_pages = 0
+        # content generation: bumped whenever the set of cached (token,
+        # page) runs changes; the DP router's probe memo keys each
+        # replica's match_tokens result on it
+        self.generation = 0
         # counters (observability + tests)
         self.hits = 0
         self.misses = 0
@@ -173,6 +183,8 @@ class PrefixCache:
         self.cross_thread_hits = 0  # hits whose deepest node another thread wrote
         self.host_tier_hits = 0  # hits that promoted at least one tier run
         self.object_tier_hits = 0  # hits crossing an object-store-woken run
+        self.shipped_hits = 0  # hits crossing a cross-replica-shipped run
+        self.probes = 0  # read-only match_tokens walks (router memo tests)
         self.evictions = 0  # nodes evicted under pressure (leaf-LRU + budget)
         self.pages_evicted = 0
 
@@ -286,8 +298,11 @@ class PrefixCache:
 
     def match_tokens(self, prompt_ids: Sequence[int]) -> int:
         """Longest cached prefix in TOKENS — a read-only probe (no retains,
-        no LRU touch, no counters).  Host-resident runs count: a lookup
-        would promote them."""
+        no LRU touch, no hit/miss counters; `probes` counts walks so the
+        router's memoization is testable).  Host-resident runs count: a
+        lookup would promote them.  The DP router scores replicas with
+        this."""
+        self.probes += 1
         _, matched, _ = self._walk(prompt_ids)
         return matched * self.pool.page_size
 
@@ -331,6 +346,7 @@ class PrefixCache:
         pages: List[int] = []
         promoted = 0
         object_tok = 0
+        shipped_any = False
         last_node: Optional[_Node] = None
         # nodes of this walk must not be evicted by promotion's reclaim —
         # their pages are in `pages` but not yet retained by the caller
@@ -343,6 +359,8 @@ class PrefixCache:
                 if not self._promote_node(node, protect):
                     break
                 promoted += take * ps
+            if node.shipped:
+                shipped_any = True
             if node.woken:
                 object_tok += take * ps
             pages.extend(node.pages[:take])
@@ -356,7 +374,12 @@ class PrefixCache:
         self._touch(last_node)
         self.pool.retain(pages)
         cached = len(pages) * ps
-        if object_tok:
+        if shipped_any:
+            # runs shipped from a prefill-pool replica: the thread's
+            # admission on the decode pool without a re-prefill is
+            # provable from this
+            source = "shipped"
+        elif object_tok:
             # runs woken from the shared object store: the cross-host
             # resume-without-re-prefill is provable from this
             source = "object_tier"
@@ -553,11 +576,13 @@ class PrefixCache:
             self.host_tier_hits += 1
         elif source == "object_tier":
             self.object_tier_hits += 1
+        elif source == "shipped":
+            self.shipped_hits += 1
 
     # -- store -----------------------------------------------------------
 
     def store(self, key: str, tokens: Sequence[int], pages: Sequence[int],
-              woken: bool = False) -> None:
+              shipped: bool = False, woken: bool = False) -> None:
         """Insert a finished sequence's materialized tokens along its path.
 
         Only whole pages are stored (`tokens` must count exactly the
@@ -565,9 +590,19 @@ class PrefixCache:
         whose KV is never written).  Matched runs keep the cache's
         existing pages; only the unmatched suffix's pages are retained.
 
+        ``shipped=True`` registers a run arriving via cross-replica page
+        shipping (dp_router._ship_run): new nodes carry the shipped marker
+        so the thread's first lookup classifies as
+        ``cache_source="shipped"``; a later normal store descending them
+        clears it.  Matched runs along a shipped registration are not
+        re-marked: they are this replica's own content, and the duplicate
+        shipped pages for them are not retained (the caller's release
+        frees them).
+
         ``woken=True`` marks runs re-materialized from the object store
         (_wake_from_object): first lookups crossing them classify as
-        ``cache_source="object_tier"``.  The wake passes DUMMY page ids (-1) for the already-present prefix; matched
+        ``cache_source="object_tier"``.  Both callers pass DUMMY page ids
+        (-1) for the already-present prefix; matched
         runs never read their page entries, and the guards below make a
         dummy id inert everywhere one could otherwise be captured (fresh
         insert after a racing eviction, host-run adoption).
@@ -582,12 +617,15 @@ class PrefixCache:
             if child is None:
                 run_pages = list(pages[idx:n_full])
                 if any(p < 0 for p in run_pages):
-                    # dummy placeholder ids (object wake) whose matched node was evicted mid-operation:
+                    # dummy placeholder ids (delta-ship skip / object
+                    # wake) whose matched node was evicted mid-operation:
                     # there is nothing real to insert here
                     break
                 run_tokens = list(tokens[idx * ps:n_full * ps])
                 self._retain_pages(run_pages)
+                self.generation += 1
                 new = _Node(run_tokens, run_pages, node)
+                new.shipped = shipped
                 new.woken = woken
                 self._claim(new, key)
                 node.children[pkey] = new
@@ -624,7 +662,8 @@ class PrefixCache:
                 # pages for exactly this run's tokens — a free promotion.
                 # The tier copy is dropped; the node is device-resident
                 # again without any H2D traffic.  Adoption is keyed on
-                # REAL page ids: an object wake passes dummy (-1) entries for runs the destination
+                # REAL page ids: a delta-ship registration or object wake
+                # passes dummy (-1) entries for runs the destination
                 # already holds, and adopting those would capture garbage
                 # — the run stays tier-resident and promotes as usual.
                 adopt = list(pages[idx:idx + take])
@@ -639,7 +678,11 @@ class PrefixCache:
                     self._host_nodes -= 1
                     if not child.children:
                         self._leaves[child] = None
-            if child.woken and not woken:
+            if child.shipped and not shipped:
+                # the thread's own finish stored through the shipped run:
+                # ordinary cache content from here on
+                child.shipped = False
+            if child.woken and not woken and not shipped:
                 # the thread's own finish stored through the woken run
                 child.woken = False
             self._claim(child, key)
@@ -664,6 +707,7 @@ class PrefixCache:
                 return False
             front_run, back_run = parts
         suffix = _Node(node.tokens[take * ps:], node.pages[take:], node)
+        suffix.shipped = node.shipped  # both halves are the shipped run
         suffix.woken = node.woken
         suffix.children = node.children
         for c in suffix.children.values():
@@ -710,6 +754,7 @@ class PrefixCache:
         else:
             self._release_pages(node.pages)
             self._n_pages -= len(node.pages)
+        self.generation += 1
         self._n_nodes -= 1
         self._leaves.pop(node, None)
         node.parent = None
@@ -823,6 +868,7 @@ class PrefixCache:
                 self._remove(victim)
             else:
                 self._release_pages(victim.pages[keep:])
+                self.generation += 1
                 victim.pages = victim.pages[:keep]
                 victim.tokens = victim.tokens[: keep * ps]
                 self._n_pages -= n
@@ -1136,3 +1182,4 @@ class PrefixCache:
         self._host_pages = 0
         self._leaves = OrderedDict()
         self._page_retains = {}
+        self.generation += 1

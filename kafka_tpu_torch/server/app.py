@@ -21,6 +21,9 @@ Counterpart of kafka_tpu/server/app.py:
   GET  /metrics                              the metrics registry (JSON, or
                                              ?format=prometheus)
   GET  /admin/signals                        the autoscaler input snapshot
+  GET  /admin/autoscaler                     the autoscaler's decision log
+  POST /admin/resize                         rebuild the DP replica set
+  POST /admin/drain/{replica}                flush a replica to the store
   POST /debug/profile                        a torch.profiler window
                                              (KAFKA_TORCH_PROFILING=1)
   GET  /debug/traces, /debug/trace/{id}      recent traces / one span tree
@@ -47,8 +50,10 @@ inside its `http.request` span); auth (the static bearer token
 `api_token` and per-user `sess_` tokens; thread ownership per user).  On
 shutdown the server drains: /health answers 503, serving routes answer
 503 + Retry-After, and in-flight streams get `drain_timeout_s` to finish.
-The telemetry routes are the reference's; /admin/autoscaler,
-/admin/resize and /admin/drain/{replica} come with the DP router.
+With `dp_size > 1` the engine is a DataParallelEngines router over
+replica slots (KAFKA_TORCH_REPLICA_DEVICES), optionally split into
+prefill and decode pools (KAFKA_TORCH_DP_ROLES); with KAFKA_TORCH_AUTOSCALE
+an autoscaler controller polls /admin/signals' snapshot and resizes it.
 """
 
 from __future__ import annotations
@@ -97,7 +102,8 @@ STATE_KEY = web.AppKey("kafka_torch_state", dict)
 def build_provider(cfg: ServingConfig, device: DeviceLike = None
                    ) -> LLMProvider:
     """Construct tokenizer + engine + provider per the serving config —
-    the counterpart of kafka_tpu's build_tpu_provider (single replica).
+    the counterpart of kafka_tpu's build_tpu_provider: one engine, or
+    with dp_size > 1 a DataParallelEngines router over the replica slots.
 
     Without a checkpoint the model is random-init from cfg.seed with the
     byte tokenizer, so the vocab is the tokenizer's (262) and every other
@@ -137,6 +143,11 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
         params = init_params(model_cfg, gen, device=dev)
     if cfg.quantize == "int8":
         params = quantize_params(params, model_cfg)
+    if cfg.dp_roles and cfg.dp_size <= 1:
+        raise ValueError(
+            "KAFKA_TORCH_DP_ROLES needs dp_size > 1: role pools split the "
+            "DP fleet into prefill and decode replicas")
+    slots = _replica_slots(cfg, dev) if cfg.dp_size > 1 else [dev]
     engine_cfg = EngineConfig(
         max_batch=cfg.max_batch,
         page_size=cfg.page_size,
@@ -166,7 +177,9 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
     memory_plan = None
     hbm = hbm_for_device(dev)
     if hbm:
-        memory_plan = plan_for_serving(cfg, hbm, model_cfg=model_cfg)
+        memory_plan = _card_plan(
+            plan_for_serving(cfg, hbm, model_cfg=model_cfg),
+            max(slots.count(d) for d in slots))
         if memory_plan.weight_bytes > memory_plan.usable_bytes:
             raise MemoryError(
                 f"{model_cfg.name} weights alone need "
@@ -175,28 +188,91 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
                 f"{memory_plan.summary()} — quantize or pick a bigger card")
         log = logger.warning if not memory_plan.fits else logger.info
         log("memory plan: %s", memory_plan.summary())
-    engine = InferenceEngine(model_cfg, params, engine_cfg, device=dev)
-    if memory_plan is not None and engine.memory_monitor is not None:
-        engine.memory_monitor.plan = memory_plan
+    if cfg.warmup and dev.type == "cuda":
+        # on CUDA every kernel is built now (one nvcc per source, in
+        # parallel), before any engine or worker thread runs
+        compile_log.set_phase("warmup")
+        from ..ops.kernels import build
+
+        build.build_all()
+    if cfg.dp_size > 1:
+        from ..runtime.dp_router import DataParallelEngines
+
+        engine = DataParallelEngines(
+            model_cfg, params, engine_cfg, dp=cfg.dp_size, devices=slots,
+            quarantine_threshold=cfg.replica_quarantine_threshold,
+            rebuild_threshold=cfg.replica_rebuild_threshold,
+            dp_roles=cfg.dp_roles,
+            disagg_min_prefill_tokens=cfg.disagg_min_prefill_tokens)
+        # replicas a resize or a quarantine escalation builds later get
+        # the same plan and warmup before they serve
+        engine.memory_plan = memory_plan
+    else:
+        engine = InferenceEngine(model_cfg, params, engine_cfg, device=dev)
+    replicas = getattr(engine, "engines", [engine])
+    for e in replicas:
+        if memory_plan is not None and e.memory_monitor is not None:
+            e.memory_monitor.plan = memory_plan
+
+    def warm(e) -> None:
+        _warmup(cfg, e, engine_cfg, tokenizer)
+        # /metrics reflects serving only (the flight ring keeps warmup)
+        e.metrics = EngineMetrics()
+        if e.kernel_sampler is not None:
+            # its profiler window belongs to this thread; the worker
+            # thread opens its own
+            e.kernel_sampler.close(e.metrics)
+
     if cfg.warmup:
         compile_log.set_phase("warmup")
-        # on CUDA every kernel is built now (one nvcc per source, in
-        # parallel), before the worker thread drives the engine
-        if dev.type == "cuda":
-            from ..ops.kernels import build
-
-            build.build_all()
-        _warmup(cfg, engine, engine_cfg, tokenizer)
-        # /metrics reflects serving only (the flight ring keeps warmup)
-        engine.metrics = EngineMetrics()
-    if engine.kernel_sampler is not None:
-        # its profiler window belongs to this thread; the worker thread
-        # opens its own
-        engine.kernel_sampler.close(engine.metrics)
+        # every replica runs every serving program once, then the
+        # cross-replica ships of the role pools (no-op colocated)
+        for e in replicas:
+            warm(e)
+        if cfg.dp_size > 1:
+            engine.warmup_disagg()
+            engine.warm_engine = warm
+    for e in replicas:
+        if e.kernel_sampler is not None:
+            e.kernel_sampler.close(e.metrics)
     # everything compiled past this point is work under live traffic:
     # the observatory's storm detector counts only this phase
     compile_log.set_phase("first_traffic")
     return TorchLLMProvider(engine, tokenizer, model_name=cfg.model_name)
+
+
+def _replica_slots(cfg: ServingConfig, dev) -> List[torch.device]:
+    """The DP router's replica slots: KAFKA_TORCH_REPLICA_DEVICES when
+    set, else one slot per visible card on CUDA, or dp_size CPU slots
+    when the caller asked for the CPU."""
+    if cfg.replica_devices:
+        return [resolve_device(d.strip())
+                for d in cfg.replica_devices.split(",") if d.strip()]
+    if dev.type == "cuda":
+        from ..runtime.dp_router import default_replica_devices
+
+        return default_replica_devices()
+    return [dev] * cfg.dp_size
+
+
+def _card_plan(plan, replicas_on_card: int):
+    """One card's plan when `replicas_on_card` replicas share it: the
+    weights once (the replicas share the tensors), every replica's KV
+    pool, activations and grammar tables.  Each replica's memory monitor
+    then compares the card's live bytes with this sum, not with one
+    replica's share."""
+    import dataclasses
+
+    n = replicas_on_card
+    if n <= 1:
+        return plan
+    return dataclasses.replace(
+        plan,
+        kv_pool_bytes=plan.kv_pool_bytes * n,
+        activation_bytes=plan.activation_bytes * n,
+        grammar_table_bytes=plan.grammar_table_bytes * n,
+        notes=(plan.notes + "; " if plan.notes else "")
+        + f"{n} replicas share the card (weights once)")
 
 
 def _warmup(cfg: ServingConfig, engine, engine_cfg, tokenizer) -> None:
@@ -327,9 +403,33 @@ async def create_app(
         tracing_middleware(),
         auth_middleware(cfg.api_token),
     ])
-    app[STATE_KEY] = {"cfg": cfg, "db": db, "llm": llm_provider,
-                      "tools": tools, "mcp_servers": list(mcp_servers or []),
-                      "kafka": kafka, "draining": False}
+    state = {"cfg": cfg, "db": db, "llm": llm_provider, "tools": tools,
+             "mcp_servers": list(mcp_servers or []), "kafka": kafka,
+             "draining": False, "autoscaler": None}
+    app[STATE_KEY] = state
+    # the autoscaler (runtime/autoscaler.py) is built only when
+    # KAFKA_TORCH_AUTOSCALE asks for it and the provider emits signals —
+    # "off" constructs nothing.  Its thread starts on the running loop:
+    # act-mode resizes schedule provider.resize_dp onto it.
+    from ..runtime.autoscaler import MODE_OFF, parse_mode
+
+    if (parse_mode(cfg.autoscale) != MODE_OFF
+            and getattr(llm_provider, "signals", None) is not None):
+        from ..runtime.autoscaler import (
+            AutoscalerConfig,
+            AutoscalerController,
+        )
+
+        scaler = AutoscalerController(
+            llm_provider,
+            AutoscalerConfig.from_env(mode=parse_mode(cfg.autoscale)),
+            is_draining=lambda: bool(state.get("draining")))
+        state["autoscaler"] = scaler
+
+        async def _start_autoscaler(app: web.Application) -> None:
+            scaler.start(loop=asyncio.get_running_loop())
+
+        app.on_startup.append(_start_autoscaler)
     r = app.router
     r.add_post("/v1/chat/completions", chat_completions)
     r.add_post("/v1/threads/{thread_id}/chat/completions",
@@ -351,6 +451,8 @@ async def create_app(
     r.add_get("/health", health)
     r.add_get("/metrics", metrics)
     r.add_get("/admin/signals", admin_signals)
+    r.add_get("/admin/autoscaler", admin_autoscaler)
+    r.add_post("/admin/resize", resize_topology)
     r.add_post("/admin/drain/{replica}", admin_drain_replica)
     r.add_post("/debug/profile", capture_profile)
     r.add_get("/debug/traces", debug_traces)
@@ -389,6 +491,13 @@ async def _drain_on_shutdown(app: web.Application) -> None:
 
 async def _cleanup(app: web.Application) -> None:
     state = app[STATE_KEY]
+    scaler = state.get("autoscaler")
+    if scaler is not None:
+        # before the provider closes (a poll racing teardown would read a
+        # dying engine; stop() also climbs off applied ladder rungs).  In
+        # an executor: stop() joins a thread that may wait on a resize
+        # coroutine scheduled onto this very loop.
+        await asyncio.get_running_loop().run_in_executor(None, scaler.stop)
     await state["kafka"].cleanup()
     await state["db"].close()
     await state["llm"].aclose()
@@ -983,13 +1092,21 @@ async def health(request: web.Request) -> web.Response:
     }
     engine = getattr(state["llm"], "engine", None)
     if engine is not None:
+        # a router exposes .engines; one engine is its own replica set
+        replicas = getattr(engine, "engines", [engine])
         payload["engine"] = {
             "device": str(engine.device),
             "active": engine.num_active,
             "waiting": len(engine.waiting),
-            "free_pages": engine.pool.free_pages,
-            "total_pages": engine.pool.num_pages,
+            "free_pages": sum(e.pool.free_pages for e in replicas),
+            "total_pages": sum(e.pool.num_pages for e in replicas),
         }
+        if len(replicas) > 1:
+            payload["engine"]["dp"] = len(replicas)
+        health_records = getattr(engine, "health", None)
+        if health_records:
+            # which replicas are quarantined, at a glance
+            payload["engine"]["replicas"] = [h.state for h in health_records]
     return web.json_response(payload, status=503 if draining else 200)
 
 
@@ -1036,6 +1153,11 @@ async def metrics(request: web.Request) -> web.Response:
     snap["tracing"] = tracing.counters()
     if isinstance(snap.get("requests"), dict):
         snap["requests"]["slow"] = tracing.slow_count()
+    # the autoscaler's counters (one controller per process; absent when
+    # KAFKA_TORCH_AUTOSCALE is off)
+    scaler = _state(request).get("autoscaler")
+    if scaler is not None:
+        snap["autoscaler"] = scaler.metrics_section()
     obs = compile_log.get()
     if obs is not None:
         snap["compiles"] = obs.metrics_section()
@@ -1049,15 +1171,83 @@ async def metrics(request: web.Request) -> web.Response:
     return web.json_response(snap)
 
 
+async def admin_autoscaler(request: web.Request) -> web.Response:
+    """The autoscaler's bounded decision log and live state: mode,
+    config, degradation-ladder rung, cooldowns, and every recorded
+    decision (cause, condensed inputs, action, vetoes, outcome;
+    consecutive identical holds collapse into one counted entry).
+    Read-only, the token policy of /admin/signals.  404 when
+    KAFKA_TORCH_AUTOSCALE is off."""
+    scaler = _state(request).get("autoscaler")
+    if scaler is None:
+        return web.json_response(
+            {"error": "autoscaler not running (KAFKA_TORCH_AUTOSCALE is "
+                      "off, or this deployment emits no signals)"},
+            status=404)
+    return web.json_response(scaler.snapshot())
+
+
+async def resize_topology(request: web.Request) -> web.Response:
+    """Rebuild the DP replica set at a new dp count while queued
+    requests survive: body {"dp": N, optional "drain_timeout_s": S,
+    optional "roles": "prefill:P,decode:D"}.  Started requests get the
+    drain budget; leftovers are cancelled with terminal events
+    ("clean": false).  "roles" re-shapes the pools in the same rebuild
+    ("" or null dissolves them); absent keeps the current spec.
+    Operator-destructive, so it refuses outright without a configured
+    KAFKA_TORCH_API_TOKEN."""
+    if not _state(request)["cfg"].api_token:
+        return web.json_response(
+            {"error": "admin endpoints require KAFKA_TORCH_API_TOKEN to "
+                      "be configured"},
+            status=403)
+    llm = _state(request)["llm"]
+    resize = getattr(llm, "resize_dp", None)
+    if resize is None or not hasattr(getattr(llm, "engine", None),
+                                     "rebuild"):
+        return web.json_response(
+            {"error": "this deployment has no resizable DP topology"},
+            status=501)
+    try:
+        body = await request.json()
+        dp = int(body["dp"])
+        drain_timeout_s = float(body.get(
+            "drain_timeout_s", _state(request)["cfg"].drain_timeout_s))
+        roles_given = "roles" in body
+        roles = body.get("roles")
+        if roles_given and roles is not None and not isinstance(roles, str):
+            raise TypeError("roles must be a string or null")
+    except Exception:
+        return web.json_response(
+            {"error": 'body must be {"dp": N[, "drain_timeout_s": S]'
+                      '[, "roles": "prefill:P,decode:D"|null]}'},
+            status=400)
+    if dp < 1:
+        return web.json_response({"error": "dp must be >= 1"}, status=400)
+    kwargs: Dict[str, Any] = {"drain_timeout_s": drain_timeout_s}
+    if roles_given:
+        kwargs["roles"] = roles
+    try:
+        clean = await resize(dp, **kwargs)
+    except ValueError as e:
+        return web.json_response({"error": str(e)}, status=400)
+    except RuntimeError as e:
+        return web.json_response({"error": str(e)}, status=409)
+    out: Dict[str, Any] = {"dp": dp, "clean": clean}
+    if roles_given:
+        out["roles"] = roles or None
+    return web.json_response(out)
+
+
 async def admin_drain_replica(request: web.Request) -> web.Response:
-    """Flush the engine's warm KV state into the shared object store:
+    """Flush one replica's warm KV state into the shared object store:
     every cached radix run is archived content-addressed and every
-    thread's sleep manifest written, so the engine can be torn down
-    without discarding any warm conversation — dormant threads wake on a
-    fresh engine with cache_source="object_tier" instead of
-    re-prefilling.  Non-destructive.  Requires the object tier
-    (KAFKA_TORCH_KV_OBJECT_DIR) and a configured KAFKA_TORCH_API_TOKEN
-    (it parks the scheduler for the flush).  One engine: replica 0."""
+    thread's sleep manifest written, so the replica can be removed (a
+    resize to a smaller dp) without discarding any warm conversation —
+    dormant threads wake on the survivors with cache_source=
+    "object_tier" instead of re-prefilling.  Non-destructive.  Requires
+    the object tier (KAFKA_TORCH_KV_OBJECT_DIR) and a configured
+    KAFKA_TORCH_API_TOKEN (it parks the scheduler for the flush)."""
     if not _state(request)["cfg"].api_token:
         return web.json_response(
             {"error": "admin endpoints require KAFKA_TORCH_API_TOKEN to "
@@ -1115,23 +1305,24 @@ async def debug_flight(request: web.Request) -> web.Response:
     engine = getattr(llm, "engine", None)
     if engine is None:
         return web.json_response({"error": "no local engine"}, status=404)
+    replicas = getattr(engine, "engines", [engine])
     try:
         idx = int(request.match_info["replica"])
     except ValueError:
         return web.json_response(
             {"error": "replica must be an integer index"}, status=400)
-    # one engine: replica 0 (data-parallel replicas come with a router)
-    if idx != 0:
+    if not 0 <= idx < len(replicas):
         return web.json_response(
-            {"error": f"replica {idx} out of range (dp=1)"}, status=404)
-    flight = engine.flight
+            {"error": f"replica {idx} out of range (dp={len(replicas)})"},
+            status=404)
+    flight = replicas[idx].flight
     if flight is None:
         return web.json_response(
             {"error": "flight recorder disabled "
                       "(KAFKA_TORCH_FLIGHT_RING=0)"}, status=404)
     payload = flight.snapshot()
     payload["replica"] = idx
-    payload["dp"] = 1
+    payload["dp"] = len(replicas)
     return web.json_response(payload)
 
 
@@ -1164,11 +1355,19 @@ async def debug_kernels(request: web.Request) -> web.Response:
     except ValueError:
         return web.json_response(
             {"error": "top_k must be an integer"}, status=400)
-    if engine.kernel_sampler is None:
+    # each replica owns its sampler: replica 0's table, and every
+    # replica's when there are several
+    samplers = [(i, e.kernel_sampler) for i, e in enumerate(
+        getattr(engine, "engines", [engine])) if e.kernel_sampler is not None]
+    if not samplers:
         return web.json_response(
             {"error": "kernel sampling disabled "
                       "(set KAFKA_TORCH_PROFILE_SAMPLE=N)"}, status=404)
-    return web.json_response(engine.kernel_sampler.snapshot(top_k=top_k))
+    payload = samplers[0][1].snapshot(top_k=top_k)
+    if len(samplers) > 1:
+        payload["replicas"] = [dict(sm.snapshot(top_k=top_k), replica=i)
+                               for i, sm in samplers]
+    return web.json_response(payload)
 
 
 _PROFILE_BUSY = False
@@ -1180,9 +1379,12 @@ def _flight_seqs(llm) -> Optional[List[Dict[str, Any]]]:
     """Per-replica flight-recorder sequence cursors (None = no engine or
     recorder off everywhere)."""
     engine = getattr(llm, "engine", None)
-    if engine is None or engine.flight is None:
+    if engine is None:
         return None
-    return [{"replica": 0, "seq": engine.flight.next_seq}]
+    out = [{"replica": i, "seq": e.flight.next_seq}
+           for i, e in enumerate(getattr(engine, "engines", [engine]))
+           if e.flight is not None]
+    return out or None
 
 
 async def capture_profile(request: web.Request) -> web.Response:

@@ -130,6 +130,39 @@ class ServingConfig:
     # Byte budget (MiB) on the object-store references the engine holds;
     # 0 = unbounded.  KAFKA_TORCH_KV_OBJECT_MB.
     kv_object_mb: int = 0
+    # Data-parallel replicas (runtime/dp_router.py): dp independent
+    # engines with thread-affinity routing (KAFKA_TORCH_DP_SIZE, or
+    # KAFKA_TORCH_DP).  1 = one engine, no router.
+    dp_size: int = 1
+    # The replica slots (KAFKA_TORCH_REPLICA_DEVICES, comma-separated,
+    # e.g. "cuda:0,cuda:0" or "cpu,cpu,cpu,cpu"): one device per slot, a
+    # device may repeat (replicas sharing a card share its weights).  None
+    # = one slot per visible card.  The counterpart of the virtual device
+    # budget the reference's tests set through XLA flags; it only says
+    # where replicas live and adds no behaviour of its own.
+    replica_devices: Optional[str] = None
+    # Disaggregated prefill/decode (KAFKA_TORCH_DP_ROLES):
+    # "prefill:P,decode:D" splits the dp fleet into role pools — long
+    # prefills run on the prefill pool and their KV pages ship to a
+    # decode-pool replica at first-token time.  P + D must equal dp_size.
+    # None (default) = colocated.
+    dp_roles: Optional[str] = None
+    # prompts whose uncached prefill span is below this many tokens
+    # prefill in place on the decode pool
+    # (KAFKA_TORCH_DISAGG_MIN_PREFILL_TOKENS)
+    disagg_min_prefill_tokens: int = 512
+    # replica supervision: consecutive step failures before a replica is
+    # circuit-broken out of the router, and quarantine trips before its
+    # engine is rebuilt instead of re-admitted (0 disables the rebuild)
+    replica_quarantine_threshold: int = 3
+    replica_rebuild_threshold: int = 3
+    # Autoscaler control loop (KAFKA_TORCH_AUTOSCALE, runtime/
+    # autoscaler.py): "off" (default — no controller built), "recommend"
+    # (the full decision loop and GET /admin/autoscaler log, no action),
+    # or "act" (scale out / in through /admin/resize's seam, the
+    # degradation ladder under overload).  Cadence, bands, cooldowns and
+    # dp bounds: KAFKA_TORCH_AUTOSCALE_*.
+    autoscale: str = "off"
     # Agent tool-call gaps are configured by the environment, read by
     # EngineConfig: KAFKA_TORCH_AGENT_DEMOTE = "" (off, default) | "host" |
     # "object" demotes a thread's KV down the tier ladder once it leaves
@@ -143,6 +176,12 @@ class ServingConfig:
         def get(name: str, default, cast=str):
             raw = env.get(f"KAFKA_TORCH_{name}")
             return cast(raw) if raw is not None else default
+
+        def get_axis(name: str, default: int) -> int:
+            # both spellings: KAFKA_TORCH_DP_SIZE=2 and KAFKA_TORCH_DP=2
+            raw = env.get(f"KAFKA_TORCH_{name}_SIZE",
+                          env.get(f"KAFKA_TORCH_{name}"))
+            return int(raw) if raw is not None else default
 
         cfg = cls(
             model_name=get("MODEL", cls.model_name),
@@ -187,5 +226,19 @@ class ServingConfig:
             kv_object_dir=get("KV_OBJECT_DIR", None),
             kv_object_mb=get("KV_OBJECT_MB", cls.kv_object_mb,
                              lambda v: max(0, int(v))),
+            dp_size=get_axis("DP", cls.dp_size),
+            replica_devices=get("REPLICA_DEVICES", None),
+            dp_roles=get("DP_ROLES", None),
+            disagg_min_prefill_tokens=get(
+                "DISAGG_MIN_PREFILL_TOKENS", cls.disagg_min_prefill_tokens,
+                lambda v: max(1, int(v))),
+            replica_quarantine_threshold=get(
+                "REPLICA_QUARANTINE_THRESHOLD",
+                cls.replica_quarantine_threshold, int),
+            # clamp negatives to 0 = disabled
+            replica_rebuild_threshold=get(
+                "REPLICA_REBUILD_THRESHOLD", cls.replica_rebuild_threshold,
+                lambda v: max(0, int(v))),
+            autoscale=get("AUTOSCALE", cls.autoscale),
         )
         return dataclasses.replace(cfg, **overrides)

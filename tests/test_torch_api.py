@@ -11,7 +11,11 @@ full thread lifecycle, a missing thread's 404, an invalid body's 400,
 buffered and streamed chat with a tool cycle, thread history, summed
 usage, both agent/run routes, profiles and their inheritance, the bearer
 token, signup / login / per-user threads, admission (429) and draining
-(503, /health, shutdown drain), and the playground.
+(503, /health, shutdown drain), the playground, and the admin routes of
+the DP router over stub providers: /admin/drain/{replica} on one engine
+and on two replicas, /admin/resize (resized, re-pooled, a bad dp, bad
+roles, a drain that does not finish, no token, one engine),
+/admin/autoscaler off and in recommend mode, /admin/signals at dp 2.
 """
 
 import asyncio
@@ -43,7 +47,8 @@ def package(side):
 # values that differ run to run: masked to first-seen placeholders, so a
 # flow that reuses an id still shows it as the same id
 VOLATILE = ("id", "created", "created_at", "updated_at", "expires_at",
-            "token", "user_id", "profile_id", "final_content_id")
+            "token", "user_id", "profile_id", "final_content_id",
+            "t", "t_last")
 
 
 class Recorder:
@@ -361,6 +366,118 @@ async def _drain(self, timeout_s):
     return True
 
 
+async def resize(c, rec, ctx):
+    auth = {"Authorization": "Bearer sekrit"}
+    await rec("no_auth", await c.post("/admin/resize", json={"dp": 1}))
+    await rec("ok", await c.post("/admin/resize", json={"dp": 1},
+                                 headers=auth))
+    await rec("roles", await c.post("/admin/resize", json={
+        "dp": 2, "roles": "prefill:1,decode:1", "drain_timeout_s": 5},
+        headers=auth))
+    await rec("dissolve", await c.post("/admin/resize", json={
+        "dp": 2, "roles": None}, headers=auth))
+    await rec("bad_dp", await c.post("/admin/resize", json={"dp": 9},
+                                     headers=auth))
+    await rec("zero", await c.post("/admin/resize", json={"dp": 0},
+                                   headers=auth))
+    await rec("bad_roles", await c.post("/admin/resize", json={
+        "dp": 2, "roles": "prefill:2,decode:1"}, headers=auth))
+    await rec("roles_type", await c.post("/admin/resize", json={
+        "dp": 2, "roles": 3}, headers=auth))
+    await rec("not_json", await c.post("/admin/resize", data="x",
+                                       headers=auth))
+    await rec("busy", await c.post("/admin/resize", json={"dp": 3},
+                                   headers=auth))
+    rec.notes.append(ctx["llm"].resizes)
+
+
+async def resize_needs_a_token(c, rec, ctx):
+    await rec("no_token", await c.post("/admin/resize", json={"dp": 1}))
+
+
+async def not_resizable(c, rec, ctx):
+    await rec("one_engine", await c.post(
+        "/admin/resize", json={"dp": 2},
+        headers={"Authorization": "Bearer sekrit"}))
+
+
+class _Router:
+    """The stub provider's engine: a resizable replica set of 8 slots."""
+
+    def rebuild(self, dp, roles=None):
+        pass
+
+
+async def _resize_dp(self, dp, drain_timeout_s=30.0, roles="keep"):
+    """A stub provider's resize: the router's device budget (8 slots) and
+    role rule, a started request that will not drain at dp 3, else a
+    clean rebuild."""
+    from kafka_tpu_torch.runtime.dp_router import validate_roles_spec
+
+    if dp > 8:
+        raise ValueError(f"dp={dp} x 1 devices/replica needs {dp}, have 8")
+    if roles != "keep":
+        validate_roles_spec(roles, dp)
+    if dp == 3:
+        raise RuntimeError("resize_dp: started work did not drain")
+    self.__dict__.setdefault("resizes", []).append(
+        (dp, drain_timeout_s, roles))
+    return True
+
+
+def _signals(self):
+    """A stub provider's dp-2 autoscaler feed."""
+    return {"version": 9, "dp": 2,
+            "queue": {"depth": 0, "peak": 0, "trend_per_s": 0.0},
+            "slo": {"slo_attainment_1m": 1.0, "window_1m_requests": 0},
+            "batch": {"occupancy": 0.0, "occupancy_frac": 0.0,
+                      "active": 0, "max_batch": 8, "slots_total": 16},
+            "utilization": {"decode": {"mfu_1m": 0.0,
+                                       "hbm_bw_util_1m": 0.0}},
+            "anomalies": {"anomalies_active": 0},
+            "replicas": [{"replica": 0, "state": "healthy"},
+                         {"replica": 1, "state": "probation"}],
+            "pools": [{"role": "colocated", "replicas": [0, 1],
+                       "queue_depth": 0}],
+            "supervisor": {"states": ["healthy", "probation"],
+                           "quarantines": 1, "readmits": 0},
+            "autoscaler": None}
+
+
+async def autoscaler_off(c, rec, ctx):
+    await rec("log", await c.get("/admin/autoscaler"))
+
+
+async def autoscaler_recommend(c, rec, ctx):
+    scaler = ctx["app"][ctx["key"]]["autoscaler"]
+    for _ in range(500):
+        if scaler.counters["autoscaler_polls"]:
+            break
+        await asyncio.sleep(0.01)
+    await rec("log", await c.get("/admin/autoscaler"))
+    await rec("signals", await c.get("/admin/signals"))
+
+
+async def signals_dp2(c, rec, ctx):
+    await rec("signals", await c.get("/admin/signals"))
+
+
+async def _drain_replica_dp2(self, replica):
+    """A stub router's drain over two replicas."""
+    if not 0 <= replica < 2:
+        raise ValueError(f"replica {replica} out of range (dp=2)")
+    self.drains += 1
+    return {**DRAINED, "replica": replica}
+
+
+async def drain_replica_1(c, rec, ctx):
+    auth = {"Authorization": "Bearer sekrit"}
+    await rec("one", await c.post("/admin/drain/1", headers=auth))
+    await rec("two", await c.post("/admin/drain/2", headers=auth))
+    await rec("zero", await c.post("/admin/drain/0", headers=auth))
+    rec.notes.append(ctx["llm"].drains)
+
+
 TOOL_CYCLE = [call_turn("add", {"a": 1, "b": 2}),
               text_turn("3", cid="chatcmpl-s3")]
 FLOWS = {
@@ -398,6 +515,22 @@ FLOWS = {
     "drain_needs_a_token": (drain_needs_a_token, dict(
         llm_extra={"drain_replica": _drain_replica, "drains": 0,
                    "engine": True})),
+    "resize": (resize, dict(api_token="sekrit", llm_extra={
+        "resize_dp": _resize_dp, "engine": _Router()})),
+    "resize_needs_a_token": (resize_needs_a_token, dict(llm_extra={
+        "resize_dp": _resize_dp, "engine": _Router()})),
+    "resize_one_engine_501": (not_resizable, dict(
+        api_token="sekrit", llm_extra={"resize_dp": _resize_dp,
+                                       "engine": True})),
+    "autoscaler_off_404": (autoscaler_off, {}),
+    "autoscaler_recommend": (autoscaler_recommend, dict(
+        autoscale="recommend", llm_extra={"signals": _signals,
+                                          "engine": True})),
+    "drain_replica_1_of_2": (drain_replica_1, dict(
+        api_token="sekrit", llm_extra={"drain_replica": _drain_replica_dp2,
+                                       "drains": 0, "engine": True})),
+    "signals_dp2": (signals_dp2, dict(llm_extra={"signals": _signals,
+                                                 "engine": True})),
 }
 
 
@@ -426,6 +559,10 @@ def test_flow_matches_the_reference(tmp_path, monkeypatch, name):
     flow, kw = FLOWS[name]
     if name in STREAMED:
         freeze_chunk_clock(monkeypatch)
+    if name.startswith("autoscaler"):
+        # one poll at start, then none within the flow
+        for pkg in ("TPU", "TORCH"):
+            monkeypatch.setenv(f"KAFKA_{pkg}_AUTOSCALE_INTERVAL_S", "3600")
     rec = both(flow, tmp_path, **kw)
     assert rec.items, name
     statuses = {label: status for label, status, _, _ in rec.items}
@@ -451,6 +588,15 @@ def test_flow_matches_the_reference(tmp_path, monkeypatch, name):
                             "other": 400, "no_tier": 409, "busy": 409,
                             "drained": 200, "wake": 200},
         "drain_needs_a_token": {"no_token": 403},
+        "resize": {"no_auth": 401, "ok": 200, "roles": 200, "dissolve": 200,
+                   "bad_dp": 400, "zero": 400, "bad_roles": 400,
+                   "roles_type": 400, "not_json": 400, "busy": 409},
+        "resize_needs_a_token": {"no_token": 403},
+        "resize_one_engine_501": {"one_engine": 501},
+        "autoscaler_off_404": {"log": 404},
+        "autoscaler_recommend": {"log": 200, "signals": 200},
+        "drain_replica_1_of_2": {"one": 200, "two": 400, "zero": 200},
+        "signals_dp2": {"signals": 200},
     }.get(name, {})
     for label, status in expect.items():
         assert statuses[label] == status, (label, statuses)
@@ -463,13 +609,21 @@ def test_flow_matches_the_reference(tmp_path, monkeypatch, name):
         assert rec.notes == [(9.0, True, 9.0)]
     if name == "profiles_and_inheritance":
         assert rec.notes[1] is True
+    if name == "resize":
+        assert rec.notes == [[(1, 30.0, "keep"),
+                              (2, 5.0, "prefill:1,decode:1"),
+                              (2, 30.0, None)]]
+    if name == "autoscaler_recommend":
+        log = rec.items[0][3]
+        assert log["mode"] == "recommend" and len(log["decisions"]) == 1
+        assert rec.items[1][3]["dp"] == 2
+    if name == "drain_replica_1_of_2":
+        assert rec.items[0][3]["replica"] == 1 and rec.notes == [2]
 
 
-def test_port_registers_the_reference_routes_but_nine():
-    """Twenty-seven routes: the reference's 29 less the two admin routes
-    that come with the DP router (/admin/autoscaler, /admin/resize).
-    Nine were missing before the telemetry routes landed; the
-    single-engine /admin/drain/{replica} came with the KV tiers."""
+def test_port_registers_every_reference_route():
+    """All of the reference's 29 routes, the DP router's two admin routes
+    (/admin/autoscaler, /admin/resize) the last to come."""
     from kafka_tpu.server import app as ref_app
     from kafka_tpu_torch.server import app as port_app
 
@@ -479,10 +633,7 @@ def test_port_registers_the_reference_routes_but_nine():
                               src))
 
     ref, port = routes(ref_app), routes(port_app)
-    assert port <= ref
-    missing = sorted(p for _, p in ref - port)
-    assert len(port) == 27 and missing == [
-        "/admin/autoscaler", "/admin/resize"]
+    assert len(ref) == 29 and port == ref
 
 
 def test_port_sse_client_is_the_reference(tmp_path):

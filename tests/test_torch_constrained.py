@@ -232,7 +232,10 @@ def test_env_gate_and_cache(toks, monkeypatch):
     g2 = pcon.compile_grammar_for_mask_fn(pcon.ToolCallMaskFn(pt, TOOLS), V)
     assert g1 is not None and g1 is g2
     assert pcon.compile_grammar_for_mask_fn(lambda out: None, V) is None
-    assert pcon.background_deferred() is False
+    # the gate the deferred compile worker asks is off by default
+    from kafka_tpu_torch.runtime.autoscaler import background_deferred
+
+    assert background_deferred() is False
 
 
 # ---------------------------------------------------------------------------

@@ -446,7 +446,8 @@ def test_every_wired_site_is_documented():
 
 def test_every_documented_site_is_wired():
     assert set(pfp.SITES) - wired_sites() == set()
-    assert len(pfp.SITES) == 16  # nine, plus the seven tier sites
+    # nine, plus the seven tier sites, plus the cross-replica ship
+    assert len(pfp.SITES) == 17
 
 
 @pytest.mark.cuda

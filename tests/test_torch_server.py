@@ -189,7 +189,9 @@ def test_import_leaves_jax_and_kafka_tpu_out():
         "kafka_tpu_torch.server.prometheus, "
         "kafka_tpu_torch.runtime.kv_tier, "
         "kafka_tpu_torch.runtime.object_tier, "
-        "kafka_tpu_torch.runtime.store_guard\n"
+        "kafka_tpu_torch.runtime.store_guard, "
+        "kafka_tpu_torch.runtime.dp_router, "
+        "kafka_tpu_torch.runtime.autoscaler\n"
         "bad = [m for m in sys.modules if m in ('jax', 'kafka_tpu', "
         "'ml_dtypes') or m.startswith(('jax.', 'kafka_tpu.', "
         "'ml_dtypes.'))]\n"
