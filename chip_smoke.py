@@ -283,6 +283,37 @@ Phases, each of which raises (non-zero exit) on any failure:
                logged decisions.  The phase's launches are counted from its
                start and summed over replicas (`replicas_launches`).
 
+  7. tp      — tensor parallelism (kafka_tpu_torch/parallel).  The
+               per-rank kernel leg runs on any card count: for llama-3.2-1b
+               at tp 2 and tp 4 (D 64), a grouped split with one kv head
+               per rank (tp 8 x tq 2), llama-3-8b at tp 2 and llama-3-70b
+               at tp 4 (D 128, G 4 and 8), every rank's K1, K3 and K4
+               through the per-rank wrappers (ops/kernels/sharded.py) on
+               its q-head block and pool column block, held to the plain
+               version (KERNEL_ATOL / KERNEL_RTOL) and compared bit for bit
+               with the full-head kernel's rows; rank 0 of each layout is
+               timed beside its plain version, bound and SDPA.  The engine
+               leg needs one card per rank (NCCL refuses two ranks on one
+               card: with one card visible that refusal is probed and
+               quoted, and the leg is reported as not run).  On 2+ cards:
+               (a) llama-3.2-1b full width, bf16, tp 2, 8 lanes at a 2048
+               window over NCCL with decode graphs, against the
+               single-card engine on the same weights (equal streams or
+               partings at near-ties inside the flip bound) and a
+               plain-attention tp-2 engine (logits within LOGITS_RTOL), K1
+               on both ranks, the decode step's ms and busy share, NCCL's
+               device time per layer; (b) int8 weights + int8 KV (K4) and
+               speculative_k 4 (K3); on 4 cards (c) llama-3-70b at tp 4
+               (~37 GB of random bf16 weights per card) against a plain
+               engine, each rank's bytes against the planner's per-rank
+               plan, and a streamed thread turn through the server from
+               KAFKA_TORCH_TP_SIZE=4; then (d) in a child process a tp-2
+               server whose rank 1 is killed mid-decode: the stream's
+               error event within the guard's deadline, /health 503, no
+               rank left running.  The per-rank kernels' kernels-line
+               launches are the engine leg's, summed over ranks (0 when
+               it did not run).
+
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
 `{"ok": true, "device": {...}}`.  The full record also goes to
@@ -5455,15 +5486,745 @@ def phase_telemetry(seed: int) -> None:
         "K4": res["int8"]["launches"]["paged_decode_attention_int8"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: tensor parallelism (per-rank kernels on any card count; the rank
+# group's engine on tp cards)
+# ---------------------------------------------------------------------------
+
+# (label, model, tp, tq): the per-rank head layouts the kernel leg runs.
+# llama-3.2-1b at tp 2 and 4 (D 64, G 4), a grouped split with one kv head
+# per rank (degree 16 over 8 kv heads: tp 8 x tq 2, G 2), llama-3-8b at tp
+# 2 and llama-3-70b at tp 4 (D 128, G 4 and 8: the kernels' limit)
+TP_LAYOUTS = (
+    ("llama-3.2-1b tp2", "llama-3.2-1b", 2, 1),
+    ("llama-3.2-1b tp4", "llama-3.2-1b", 4, 1),
+    ("llama-3.2-1b tp8 tq2", "llama-3.2-1b", 8, 2),
+    ("llama-3-8b tp2", "llama-3-8b", 2, 1),
+    ("llama-3-70b tp4", "llama-3-70b", 4, 1),
+)
+TP_LENS = [15, 16, 31, 255, 511, 700, 2046, 5]
+TP_QLENS = [5, 1, 3, 5, 2, 4, 5, 1]
+TP_KERNEL_KEYS = ("K1tp", "K3tp", "K4tp")
+# the guard's deadline in the engine leg's rank groups
+TP_GUARD_S = 60.0
+
+
+def tp_kernel_leg(seed: int) -> dict:
+    """Each layout's full q heads and pool on the card; then every rank's
+    K1, K3 and K4 through the per-rank wrappers (ops/kernels/sharded.py)
+    on its q-head block and pool column block, held to the plain version
+    (KERNEL_ATOL / KERNEL_RTOL), and compared bit for bit with the
+    full-head kernel's rows of the same heads.  Rank 0 of each layout is
+    timed (k1_case / k3_case / k4_case at the per-rank shape, SDPA at that
+    shape as the library call), and so is the per-rank wrapper itself."""
+    import torch
+
+    from kafka_tpu_torch.models import get_config
+    from kafka_tpu_torch.models.quant import quantize_array
+    from kafka_tpu_torch.ops.kernels import (
+        kernel_mesh_ok,
+        paged_decode_attention,
+        paged_decode_attention_int8,
+        paged_decode_attention_int8_plain,
+        paged_decode_attention_int8_sharded,
+        paged_decode_attention_plain,
+        paged_decode_attention_sharded,
+        paged_verify_attention,
+        paged_verify_attention_plain,
+        paged_verify_attention_sharded,
+    )
+    from kafka_tpu_torch.parallel import MeshConfig, RankMesh
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    ps, B, P, S = 16, 8, 128, 5
+    C = P * ps
+    bf16 = torch.bfloat16
+    out = {k: {"layouts": []} for k in TP_KERNEL_KEYS}
+    for label, name, tp, tq in TP_LAYOUTS:
+        cfg = get_config(name)
+        Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        if not kernel_mesh_ok(MeshConfig(tp=tp, tq=tq), Hq, Hkv):
+            raise AssertionError(f"{label}: the per-rank kernels refuse it")
+        n, hq, hkv = tp * tq, Hq // (tp * tq), Hkv // tp
+        num_pages = B * P + 1
+        kp, vp = (torch.randn(num_pages * ps, Hkv * D, generator=gen,
+                              device=dev).to(bf16) for _ in range(2))
+        q = torch.randn(B, Hq, D, generator=gen, device=dev).to(bf16)
+        qv = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(bf16)
+        perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+        table = perm.view(B, P).to(torch.int32).contiguous()
+        seq = torch.tensor(TP_LENS, dtype=torch.int32, device=dev)
+        seqv = seq.clamp(max=C - S - 1)
+        ql = torch.tensor(TP_QLENS, dtype=torch.int32, device=dev)
+        # whole-row per-slot scales, the same on every rank
+        kq, vq = quantize_array(kp, (-1,)), quantize_array(vp, (-1,))
+        full = {
+            "K1tp": paged_decode_attention(q, kp, vp, table, seq,
+                                           page_size=ps),
+            "K3tp": paged_verify_attention(qv, kp, vp, table, seqv, ql,
+                                           page_size=ps),
+            "K4tp": paged_decode_attention_int8(q, kq.q, kq.s, vq.q, vq.s,
+                                                table, seq, page_size=ps),
+        }
+        live = [(b, j) for b in range(B) for j in range(int(ql[b]))]
+        bi, ji = (torch.tensor(x, device=dev) for x in zip(*live))
+        rows = {k: {"label": label, "ranks": n, "q_heads": hq,
+                    "kv_heads": hkv, "head_dim": D, "max_abs_err": 0.0,
+                    "bit_equal_ranks": 0} for k in TP_KERNEL_KEYS}
+        rank0 = {}
+        for r in range(n):
+            mesh = RankMesh(tp, tq, r, dev)
+            qs = slice(r * hq, (r + 1) * hq)
+            cs = slice((r // tq) * hkv * D, (r // tq + 1) * hkv * D)
+            lk, lv = kp[:, cs].contiguous(), vp[:, cs].contiguous()
+            lkq, lvq = kq.q[:, cs].contiguous(), vq.q[:, cs].contiguous()
+            a1 = (q[:, qs].contiguous(), lk, lv, table, seq)
+            a3 = (qv[:, :, qs].contiguous(), lk, lv, table, seqv, ql)
+            a4 = (q[:, qs].contiguous(), lkq, kq.s, lvq, vq.s, table, seq)
+            got = {
+                "K1tp": paged_decode_attention_sharded(mesh, *a1,
+                                                       page_size=ps),
+                "K3tp": paged_verify_attention_sharded(mesh, *a3,
+                                                       page_size=ps),
+                "K4tp": paged_decode_attention_int8_sharded(mesh, *a4,
+                                                            page_size=ps),
+            }
+            want = {
+                "K1tp": paged_decode_attention_plain(*a1, page_size=ps),
+                "K3tp": paged_verify_attention_plain(*a3, page_size=ps),
+                "K4tp": paged_decode_attention_int8_plain(*a4, page_size=ps),
+            }
+            torch.cuda.synchronize()
+            for k in TP_KERNEL_KEYS:
+                g, w, f = got[k], want[k], full[k]
+                if k == "K3tp":  # live rows only (j < q_len)
+                    g, w, f = g[bi, ji], w[bi, ji], f[:, :, qs][bi, ji]
+                else:
+                    f = f[:, qs]
+                err = check_close(f"{k} {label} rank {r}", g, w)
+                rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], err)
+                rows[k]["bit_equal_ranks"] += bool(torch.equal(g, f))
+            if r == 0:
+                rank0 = {"mesh": mesh, "a1": a1, "a3": a3, "a4": a4}
+        # rank 0 timed: the kernel at the per-rank shape beside its plain
+        # version, its bound and SDPA, and the per-rank wrapper's own call
+        mesh = rank0["mesh"]
+        timed = {
+            "K1tp": (k1_case(f"{label} rank 0", rank0["a1"], ps),
+                     lambda: paged_decode_attention_sharded(
+                         mesh, *rank0["a1"], page_size=ps)),
+            "K3tp": (k3_case(f"{label} rank 0", rank0["a3"], ps),
+                     lambda: paged_verify_attention_sharded(
+                         mesh, *rank0["a3"], page_size=ps)),
+            "K4tp": (k4_case(f"{label} rank 0", rank0["a4"], ps),
+                     lambda: paged_decode_attention_int8_sharded(
+                         mesh, *rank0["a4"], page_size=ps)),
+        }
+        for k, (case, wrapper) in timed.items():
+            case["wrapper_ms"] = time_ms(wrapper)
+            rows[k].update({f: case.get(f) for f in (
+                "shape", "wrapper_ms", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_device_ms")})
+            out[k]["layouts"].append(rows[k])
+            log(f"{k} {label}: {n} ranks x ({hq} q heads over {hkv} kv "
+                f"heads, D {D}): max_abs_err {rows[k]['max_abs_err']:.3e}, "
+                f"{rows[k]['bit_equal_ranks']}/{n} ranks bit-equal to the "
+                f"full-head kernel; rank 0 wrapper {case['wrapper_ms']:.4f} "
+                f"ms, plain {case['plain_ms']:.4f}, bound "
+                f"{case['bound_ms']:.5f} by {case['bound_by']}, SDPA "
+                f"{case['library_ms']:.4f}")
+        del kp, vp, kq, vq, full
+        torch.cuda.empty_cache()
+    return out
+
+
+def _nccl_probe_rank(path: str, rank: int, queue) -> None:
+    """One rank of the two-ranks-on-one-card probe (a spawned process)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        store = dist.FileStore(path, 2)
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timedelta(seconds=60)
+        group = dist.ProcessGroupNCCL(store, rank, 2, opts)
+        t = torch.ones(1, device="cuda:0")
+        dist.all_reduce(t, group=group)
+        torch.cuda.synchronize()
+        queue.put((rank, "ok", float(t.item())))
+        group.shutdown()
+    except Exception as e:  # the refusal is the result
+        queue.put((rank, "error", f"{type(e).__name__}: {e}"))
+
+
+def nccl_one_card_probe(timeout_s: float = 120.0) -> dict:
+    """Two NCCL ranks on one card, as a rank group would place them with
+    one card visible: NCCL's answer, quoted (it refuses a duplicate GPU)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "store")
+        procs = [ctx.Process(target=_nccl_probe_rank, args=(path, r, queue),
+                             daemon=True) for r in (0, 1)]
+        for p in procs:
+            p.start()
+        answers = []
+        deadline = time.monotonic() + timeout_s
+        while len(answers) < 2 and time.monotonic() < deadline:
+            try:
+                answers.append(queue.get(timeout=1.0))
+            except Exception:
+                if not any(p.is_alive() for p in procs):
+                    break
+        for p in procs:
+            p.join(5)
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    res = {"answers": sorted(answers),
+           "refused": any(a[1] == "error" for a in answers),
+           "timed_out": len(answers) < 2}
+    log(f"tp: two NCCL ranks on one card: {res}")
+    return res
+
+
+def _tp_prompts(cfg, seed: int, lens):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
+
+
+def _rank_launches(eng, name: str) -> list:
+    return [r[name] for r in eng.rank_query("rank_launches")]
+
+
+def tp_nccl_profile(eng, cfg, rng, steps: int = 4) -> dict:
+    """Device time of the NCCL kernels inside rank 0's decode graph
+    replays, 8 lanes at ~256 tokens over a few fused steps: per step and
+    per layer (two all-reduces a layer; a tied head adds no gather)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kafka_tpu_torch.runtime import GenRequest
+
+    reqs = [GenRequest(request_id=f"nccl{i}", max_new_tokens=200,
+                       prompt_ids=rng.randint(0, cfg.vocab_size,
+                                              size=256).tolist())
+            for i in range(8)]
+    for r in reqs:
+        eng.submit(r)
+    while any(r.state != "active" for r in reqs):
+        eng.step()
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    n0 = eng.graph_replays
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    replays = eng.graph_replays - n0
+    for r in reqs:
+        eng.cancel(r.request_id)
+    while eng.has_work:
+        eng.step()
+    rows = [(e.key, e.count, getattr(e, "device_time_total",
+                                      getattr(e, "cuda_time_total", 0)))
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    total = sum(t for _, _, t in rows) / 1e3
+    nccl = [(k, c, t / 1e3) for k, c, t in rows if "nccl" in k.lower()]
+    nccl_ms = sum(t for _, _, t in nccl)
+    k = eng.ecfg.multi_step
+    out = {"replays": replays, "steps": replays * k, "device_ms": total,
+           "nccl_ms": nccl_ms, "nccl_kernels": [(n[:60], c) for n, c, _
+                                                in nccl]}
+    if replays and nccl:
+        out["nccl_ms_per_step"] = nccl_ms / (replays * k)
+        out["nccl_ms_per_layer"] = out["nccl_ms_per_step"] / cfg.num_layers
+        out["nccl_share"] = nccl_ms / total if total else None
+    log(f"  NCCL in rank 0's decode replays: {out}")
+    return out
+
+
+def tp_engine_leg_1b(seed: int) -> dict:
+    """(a) and (b): llama-3.2-1b at full width, bf16, tp 2, 8 lanes at a
+    2048-token window, over NCCL with decode graphs; then int8 weights +
+    int8 KV (K4 per rank) and speculative_k 4 with forced proposals (K3
+    per rank) on the same group."""
+    import numpy as np
+    import torch
+
+    from kafka_tpu_torch.models import get_config
+    from kafka_tpu_torch.parallel import (MeshConfig, RandomWeights,
+                                          RankGroup, init_params_shard)
+    from kafka_tpu_torch.runtime import InferenceEngine
+
+    cfg = get_config("llama-3.2-1b")
+    prompts = _tp_prompts(cfg, seed, [700, 40, 50, 90, 200, 300, 450, 600])
+    max_new = 24
+    total = max_new * len(prompts)
+    res = {}
+    t0 = time.monotonic()
+    group = RankGroup(MeshConfig(tp=2), timeout_s=TP_GUARD_S)
+    res["group_start_s"] = time.monotonic() - t0
+    log(f"tp (a): rank group of 2 (NCCL) up in {res['group_start_s']:.1f}s")
+    try:
+        t0 = time.monotonic()
+        eng = InferenceEngine(cfg, RandomWeights(seed=seed), _engine_cfg(),
+                              mesh=group)
+        res["engine_build_s"] = time.monotonic() - t0
+        eng.rank_query("rank_reset_launches")
+        t0 = time.monotonic()
+        got = _drive(eng, prompts, max_new)
+        res["drive_s"] = time.monotonic() - t0
+        k1 = _rank_launches(eng, "paged_decode_attention_sharded")
+        res["launches_k1"] = k1
+        if min(k1) == 0:
+            raise AssertionError(f"tp (a): a rank launched no K1: {k1}")
+        clock = ReplayClock(eng)
+        res["profile"] = graph_profile(eng, clock, cfg,
+                                       np.random.RandomState(seed + 1))
+        res["nccl"] = tp_nccl_profile(eng, cfg,
+                                      np.random.RandomState(seed + 2))
+        res["memory"] = eng.rank_query("rank_memory")
+        eng.close()
+        del eng, clock
+        gc.collect()
+        plain = InferenceEngine(cfg, RandomWeights(seed=seed),
+                                _engine_cfg(attention_backend="plain"),
+                                mesh=group)
+        ref_plain = _drive(plain, prompts, max_new)
+        plain.close()
+        del plain
+        same, agree, worst = _compare_streams(cfg, got, ref_plain, max_new)
+        res["vs_plain_tp2"] = {"identical_streams": same,
+                               "token_agreement": [agree, total],
+                               "logits_rel_err": worst}
+        log(f"tp (a): tp-2 kernel engine vs tp-2 plain engine: {same}/8 "
+            f"identical, agreement {agree}/{total}, worst logits "
+            f"{worst:.4f} (tol {LOGITS_RTOL}); K1 launches per rank {k1}")
+        if not worst <= LOGITS_RTOL:
+            raise AssertionError(f"tp (a) logits vs plain: {worst}")
+        # (b) int8 weights + int8 KV, then speculation
+        eng = InferenceEngine(cfg, RandomWeights(seed=seed, quantize="int8"),
+                              _engine_cfg(kv_quantize="int8"), mesh=group)
+        eng.rank_query("rank_reset_launches")
+        igot = _drive(eng, prompts, max_new)
+        k4 = _rank_launches(eng, "paged_decode_attention_int8_sharded")
+        eng.close()
+        del eng
+        plain = InferenceEngine(cfg, RandomWeights(seed=seed, quantize="int8"),
+                                _engine_cfg(kv_quantize="int8",
+                                            attention_backend="plain"),
+                                mesh=group)
+        iref = _drive(plain, prompts, max_new)
+        plain.close()
+        del plain
+        i_same, i_agree, i_worst = _compare_streams(cfg, igot, iref, max_new)
+        res["int8"] = {"launches_k4": k4, "identical_streams": i_same,
+                       "token_agreement": [i_agree, total],
+                       "logits_rel_err": i_worst}
+        log(f"tp (b): int8 weights + int8 KV at tp 2: K4 launches per rank "
+            f"{k4}; vs the plain int8 tp-2 engine {i_same}/8 identical, "
+            f"worst logits {i_worst:.4f}")
+        if min(k4) == 0 or not i_worst <= LOGITS_RTOL:
+            raise AssertionError(f"tp (b) int8: {res['int8']}")
+        spec = InferenceEngine(cfg, RandomWeights(seed=seed),
+                               _engine_cfg(speculative_k=4, fetch_lag=0),
+                               mesh=group)
+        spec.rank_query("rank_reset_launches")
+        sgot = _drive(spec, prompts, max_new,
+                      streams=[r.output_ids for r in got])
+        k3 = _rank_launches(spec, "paged_verify_attention_sharded")
+        s_same, s_agree, s_worst = _compare_streams(cfg, sgot, got, max_new)
+        res["speculative"] = {
+            "launches_k3": k3, "verify_steps": spec.verify_steps,
+            "proposed": spec.speculation_proposed_tokens,
+            "accepted": spec.speculation_accepted_tokens,
+            "identical_streams": s_same, "token_agreement": [s_agree, total],
+            "logits_rel_err": s_worst}
+        spec.close()
+        del spec
+        log(f"tp (b): speculative_k 4 at tp 2: {res['speculative']}")
+        if min(k3) == 0 or not res["speculative"]["accepted"] or \
+                not s_worst <= LOGITS_RTOL:
+            raise AssertionError(f"tp (b) speculation: {res['speculative']}")
+    finally:
+        group.close()
+    # the single-card engine on the same weights
+    torch.cuda.empty_cache()
+    single = InferenceEngine(cfg, init_params_shard(cfg, seed, None,
+                                                    device="cuda:0"),
+                             _engine_cfg())
+    ref = _drive(single, prompts, max_new)
+    single.close()
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    same, agree, worst = _compare_streams(cfg, got, ref, max_new)
+    ties = _near_ties(got, ref, max_new)
+    res["vs_single_card"] = {"identical_streams": same,
+                             "token_agreement": [agree, total],
+                             "logits_rel_err": worst, "near_ties": ties}
+    log(f"tp (a): tp-2 engine vs the single-card engine: {same}/8 "
+        f"identical greedy streams, agreement {agree}/{total}, worst logits "
+        f"{worst:.4f}, partings {ties} (each inside the flip bound)")
+    if not worst <= LOGITS_RTOL:
+        raise AssertionError(f"tp (a) vs single card: {worst}")
+    return res
+
+
+def tp_engine_leg_70b(seed: int) -> dict:
+    """(c) llama-3-70b at tp 4: the kernel engine against a plain-attention
+    engine on the same group and weights (each rank draws its ~37 GB
+    shard on its own card), every rank's bytes against the planner's
+    per-rank plan, then a streamed thread turn through the port's server
+    built from KAFKA_TORCH_TP_SIZE=4."""
+    import torch
+
+    from kafka_tpu_torch.models import get_config
+    from kafka_tpu_torch.parallel import MeshConfig, RandomWeights, RankGroup
+    from kafka_tpu_torch.runtime import InferenceEngine
+    from kafka_tpu_torch.runtime.planner import hbm_for_device, plan_memory
+
+    cfg = get_config("llama-3-70b")
+    prompts = _tp_prompts(cfg, seed + 2, [300, 40, 50, 90, 200, 120, 64, 30])
+    max_new = 8
+    res = {}
+    t0 = time.monotonic()
+    group = RankGroup(MeshConfig(tp=4), timeout_s=300)
+    log(f"tp (c): rank group of 4 up in {time.monotonic() - t0:.1f}s")
+    try:
+        t0 = time.monotonic()
+        eng = InferenceEngine(cfg, RandomWeights(seed=seed), _engine_cfg(),
+                              mesh=group)
+        res["engine_build_s"] = time.monotonic() - t0
+        log(f"tp (c): llama-3-70b tp 4 engine built in "
+            f"{res['engine_build_s']:.1f}s")
+        eng.rank_query("rank_reset_launches")
+        t0 = time.monotonic()
+        got = _drive(eng, prompts, max_new)
+        res["drive_s"] = time.monotonic() - t0
+        res["launches_k1"] = _rank_launches(eng,
+                                            "paged_decode_attention_sharded")
+        mem = eng.rank_query("rank_memory")
+        ecfg = eng.ecfg
+        plan = plan_memory(cfg, hbm_bytes=hbm_for_device("cuda:0"), tp=4,
+                           num_pages=ecfg.num_pages, page_size=ecfg.page_size,
+                           max_pages_per_seq=ecfg.max_pages_per_seq,
+                           max_batch=ecfg.max_batch,
+                           prefill_bucket=max(ecfg.prefill_buckets))
+        res["memory"] = mem
+        res["plan"] = {"weight_bytes": plan.weight_bytes,
+                       "kv_pool_bytes": plan.kv_pool_bytes,
+                       "activation_bytes": plan.activation_bytes,
+                       "total_bytes": plan.total_bytes}
+        log(f"tp (c): per-rank bytes {mem} against the plan {res['plan']}")
+        for m in mem:
+            if abs(m["weights"] - plan.weight_bytes) > 0.01 * \
+                    plan.weight_bytes or m["kv_pool"] != plan.kv_pool_bytes:
+                raise AssertionError(f"tp (c): rank bytes {m} vs plan "
+                                     f"{res['plan']}")
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = InferenceEngine(cfg, RandomWeights(seed=seed),
+                                _engine_cfg(attention_backend="plain"),
+                                mesh=group)
+        ref = _drive(plain, prompts, max_new)
+        plain.close()
+        del plain
+        same, agree, worst = _compare_streams(cfg, got, ref, max_new)
+        res["vs_plain_tp4"] = {"identical_streams": same,
+                               "token_agreement": [agree, max_new * 8],
+                               "logits_rel_err": worst}
+        log(f"tp (c): 70B kernel engine vs plain engine at tp 4: {same}/8 "
+            f"identical, worst logits {worst:.4f}; K1 launches per rank "
+            f"{res['launches_k1']}")
+        if min(res["launches_k1"]) == 0 or not worst <= LOGITS_RTOL:
+            raise AssertionError(f"tp (c): {res}")
+    finally:
+        group.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["server"] = asyncio.run(_serve_tp(
+        "llama-3-70b", 4, "Summarise tensor parallelism in one line."))
+    if res["server"]["left_running"]:
+        raise AssertionError(f"tp (c): ranks left running after the "
+                             f"server's shutdown: {res['server']}")
+    return res
+
+
+async def _serve_tp(model: str, tp: int, content: str,
+                    kill_after: int = 0) -> dict:
+    """A server from the environment (KAFKA_TORCH_TP_SIZE=tp) on a free
+    port: one streamed thread turn, /health; with kill_after > 0 rank 1 is
+    killed once that many content events have arrived, and the stream
+    must carry an error event and end, /health must answer 503, and the
+    shutdown must leave no rank behind."""
+    import aiohttp
+    from aiohttp import web
+
+    from kafka_tpu_torch.server import ServingConfig, create_app
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    os.environ["KAFKA_TORCH_TP_SIZE"] = str(tp)
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            cfg = ServingConfig.from_env(
+                model_name=model, max_batch=8, page_size=16, num_pages=600,
+                max_pages_per_seq=128, prefill_buckets=(64, 128, 256, 512),
+                max_new_tokens_default=16, db_path=os.path.join(td, "t.db"),
+                system_prompt="You are terse.", warmup=False)
+            t0 = time.monotonic()
+            app = await create_app(cfg, tools=[], mcp_servers=[])
+            out = {"build_s": time.monotonic() - t0}
+            engine = app[STATE_KEY]["llm"].engine
+            pids = engine._group.pids
+            port = _free_port()
+            runner = web.AppRunner(app)
+            await runner.setup()
+            await web.TCPSite(runner, "127.0.0.1", port).start()
+            base = f"http://127.0.0.1:{port}"
+            body = {"model": model, "stream": True, "temperature": 0,
+                    "max_tokens": 400 if kill_after else 16,
+                    "messages": [{"role": "user", "content": content}]}
+            try:
+                async with aiohttp.ClientSession() as s:
+                    if not kill_after:
+                        timing: dict = {}
+                        ev = await _stream(
+                            s, f"{base}/v1/threads/tp/chat/completions",
+                            body, timing)
+                        out["usage"] = _usage(ev)
+                        out["ttft_s"] = timing.get("ttft_s")
+                        async with s.get(f"{base}/health") as r:
+                            out["health"] = await r.json()
+                    else:
+                        out.update(await _stream_and_kill(
+                            s, base, body, pids[0], kill_after))
+                        async with s.get(f"{base}/health") as r:
+                            out["health_status"] = r.status
+                            out["health"] = await r.json()
+                        # what the stream and /health showed, before the
+                        # shutdown (a line the parent reads if it hangs)
+                        print(json.dumps({"partial": out}, default=str),
+                              flush=True)
+            finally:
+                t0 = time.monotonic()
+                await runner.cleanup()
+                out["shutdown_s"] = time.monotonic() - t0
+            out["left_running"] = [p for p in pids if _pid_alive(p)]
+    finally:
+        os.environ.pop("KAFKA_TORCH_TP_SIZE", None)
+    log(f"tp server {model} tp {tp}{' (kill)' if kill_after else ''}: {out}")
+    return out
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+async def _stream_and_kill(s, base: str, body: dict, pid: int,
+                           after: int, quiet_s: float = 90.0) -> dict:
+    """Stream a long turn; SIGKILL `pid` after `after` content events;
+    return when the stream ends (or stays silent for `quiet_s` after the
+    kill): the error event and the seconds from the kill to it."""
+    import signal
+
+    events = []
+    t_kill = t_err = None
+    silent = False
+    async with s.post(f"{base}/v1/threads/kill/chat/completions",
+                      json=body) as resp:
+        while True:
+            try:
+                raw = await asyncio.wait_for(resp.content.readline(),
+                                             quiet_s if t_kill else 600)
+            except asyncio.TimeoutError:
+                silent = True
+                log(f"tp (d): no event for {quiet_s}s after the kill")
+                break
+            if not raw:
+                break
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            events.append(line[len("data: "):])
+            if t_kill is None and sum('"content"' in e for e in events) \
+                    >= after:
+                os.kill(pid, signal.SIGKILL)
+                t_kill = time.monotonic()
+                log(f"tp (d): rank 1 (pid {pid}) killed after "
+                    f"{len(events)} events")
+            if t_err is None and t_kill is not None and '"error"' in line:
+                t_err = time.monotonic()
+                log(f"tp (d): error event {t_err - t_kill:.3f}s after the "
+                    f"kill: {line[:300]}")
+    errors = [e for e in events if '"error"' in e]
+    return {"events": len(events), "done": bool(events) and
+            events[-1] == "[DONE]", "error_events": errors[:2],
+            "silent_after_kill": silent,
+            "kill_to_error_s": (t_err - t_kill) if t_err and t_kill
+            else None}
+
+
+def tp_kill_leg() -> dict:
+    """(d), in a child process of its own (its NCCL state is poisoned by
+    design): a tp-2 llama-3.2-1b server, rank 1 killed mid-decode.  The
+    child's output goes to chiprun_out/tp_kill.log as it runs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "chiprun_out", "tp_kill.log")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    cmd = [sys.executable, os.path.abspath(__file__), "--tp-kill"]
+    t0 = time.monotonic()
+    with open(path, "w") as f:
+        try:
+            proc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                  timeout=300)
+            rc = proc.returncode
+        except subprocess.TimeoutExpired:
+            rc = None
+    with open(path) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    res = json.loads(lines[-1]) if lines else {"ok": False}
+    if "partial" in res:
+        res = {"ok": False, "why": "the shutdown hung", **res["partial"]}
+    res["child_rc"] = rc
+    res["child_s"] = time.monotonic() - t0
+    if rc != 0:
+        res["tail"] = text[-3000:]
+    return res
+
+
+def tp_kill_child() -> int:
+    """The --tp-kill child: print one JSON line with what (d) saw."""
+    os.environ["KAFKA_TORCH_DIST_STEP_TIMEOUT_S"] = "30"
+    out = asyncio.run(_serve_tp("llama-3.2-1b", 2,
+                                "Count slowly from one to four hundred.",
+                                kill_after=8))
+    out["ok"] = bool(
+        out["done"] and out["error_events"] and out["health_status"] == 503
+        and out["health"]["status"] == "unhealthy" and not out["left_running"]
+        and out["kill_to_error_s"] is not None
+        and out["kill_to_error_s"] < 30)
+    print(json.dumps(out, default=str), flush=True)
+    # its ranks are stopped (left_running); skip the interpreter's
+    # teardown of a CUDA context whose NCCL peer died by design
+    os._exit(0)
+
+
+def phase_tp(seed: int) -> None:
+    """Phase 7: tensor parallelism.  The per-rank kernel leg runs on any
+    card count.  The engine leg needs a card per rank: with fewer than 2
+    visible it does not run (and is never counted as passed); NCCL's
+    refusal of two ranks on one card is probed and quoted instead.  Each
+    engine leg runs even when one before it failed; the phase fails after
+    the last, with its record in chiprun_out/tp_phase.json."""
+    import traceback
+
+    import torch
+
+    res = {"kernels": tp_kernel_leg(seed)}
+    cards = torch.cuda.device_count()
+    res["cards"] = cards
+    launches = {k: 0 for k in TP_KERNEL_KEYS}
+    failed = []
+
+    def leg(key, fn, *args):
+        try:
+            res["engine_leg"][key] = fn(*args)
+        except Exception as e:
+            log(f"tp leg {key} FAILED:\n{traceback.format_exc()}")
+            res["engine_leg"][key] = {"failed": f"{type(e).__name__}: {e}"}
+            failed.append(key)
+
+    if cards < 2:
+        log(f"tp engine leg: needs 2 cards (one per rank), {cards} visible: "
+            "NOT RUN (not counted as passed)")
+        res["engine_leg"] = "not run: needs 2 cards"
+        res["one_card_nccl"] = nccl_one_card_probe()
+    else:
+        res["engine_leg"] = {}
+        leg("1b", tp_engine_leg_1b, seed)
+        if cards >= 4:
+            leg("70b", tp_engine_leg_70b, seed)
+        else:
+            log(f"tp (c): llama-3-70b needs 4 cards, {cards} visible: NOT RUN")
+            res["engine_leg"]["70b"] = "not run: needs 4 cards"
+        kill = tp_kill_leg()
+        res["engine_leg"]["kill"] = kill
+        log(f"tp (d): rank 1 killed mid-decode: {kill}")
+        if not kill.get("ok"):
+            failed.append("kill")
+        one = res["engine_leg"]["1b"]
+        if "failed" not in one:
+            launches["K1tp"] = sum(one["launches_k1"])
+            launches["K4tp"] = sum(one["int8"]["launches_k4"])
+            launches["K3tp"] = sum(one["speculative"]["launches_k3"])
+        big = res["engine_leg"]["70b"]
+        if isinstance(big, dict) and "launches_k1" in big:
+            launches["K1tp"] += sum(big["launches_k1"])
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(here, "chiprun_out", "tp_phase.json"), "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    if failed:
+        raise AssertionError(f"tp phase: legs {failed} failed")
+    RESULTS["tp"] = res
+    names = {"K1tp": ("paged_decode_attention_sharded", "paged_decode.cu",
+                      "kafka_tpu/ops/pallas/paged_attention.py:521"),
+             "K3tp": ("paged_verify_attention_sharded", "paged_verify.cu",
+                      "kafka_tpu/ops/pallas/paged_attention.py:461"),
+             "K4tp": ("paged_decode_attention_int8_sharded",
+                      "paged_decode_int8.cu",
+                      "kafka_tpu/ops/pallas/paged_attention.py:777")}
+    for k, (name, src, replaces) in names.items():
+        layouts = res["kernels"][k]["layouts"]
+        head = layouts[-1]  # llama-3-70b at tp 4: the rank the server runs
+        RESULTS[k] = {
+            "name": name, "route": "cuda",
+            "source": f"kafka_tpu_torch/csrc/{src}",
+            "wrapper": "kafka_tpu_torch/ops/kernels/sharded.py",
+            "replaces": replaces,
+            # the engine leg's launches over every rank (0: not run)
+            "launches": launches[k],
+            "launch_count_basis": ("the tp engine leg, every rank"
+                                   if cards >= 2 else
+                                   "the tp engine leg did not run (1 card)"),
+            "max_abs_err": max(c["max_abs_err"] for c in layouts),
+            "ms": head["wrapper_ms"], "device_ms": head["device_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "library_device_ms": head["library_device_ms"],
+            "cases": layouts,
+        }
+
+
 def main() -> int:
     global BASELINE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,engine,graphs,server,tiers,"
-                            "replicas,telemetry",
+                            "replicas,telemetry,tp",
                     help="comma list of kernels, engine, graphs, server, "
-                         "tiers, replicas, telemetry (default: all; "
+                         "tiers, replicas, telemetry, tp (default: all; "
                          "telemetry runs first), "
                          "or attention (K3 and K4 alone, timed) or mlp (K5 "
                          "alone, timed)")
@@ -5473,6 +6234,9 @@ def main() -> int:
                          "prints no result line")
     ap.add_argument("--out", default="chip_smoke.json",
                     help="the record's file name under chiprun_out/")
+    # the tp phase's dead-rank leg runs itself in a child process
+    ap.add_argument("--tp-kill", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
 
@@ -5488,6 +6252,8 @@ def main() -> int:
         print(f"chip_smoke: kafka_tpu_torch not found beside the script: {e}",
               file=sys.stderr)
         return 2
+    if args.tp_kill:
+        return tp_kill_child()
     phases = args.phases.split(",")
     # the card's machine has no network: no server booted here may fall
     # back to the reference's remote MCP default (each passes its own)
@@ -5542,6 +6308,8 @@ def main() -> int:
         phase_tiers(args.seed)
     if "replicas" in phases:
         phase_replicas(args.seed)
+    if "tp" in phases:
+        phase_tp(args.seed)
     for k, n in RESULTS.get("telemetry", {}).get("launches", {}).items():
         if k in RESULTS:
             RESULTS[k]["telemetry_launches"] = n
@@ -5563,9 +6331,9 @@ def main() -> int:
                                        "device_ms", "device_ms_cold_l2",
                                        "sweep_layer_device_ms",
                                        "library_device_ms", "torch_ms",
-                                       "cases")
+                                       "wrapper", "cases")
             if k in RESULTS[n]}}
-        for n in KERNEL_KEYS if n in RESULTS
+        for n in KERNEL_KEYS + TP_KERNEL_KEYS if n in RESULTS
     ]}
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
     with open(os.path.join(here, "chiprun_out", args.out), "w") as f:

@@ -114,6 +114,12 @@ SITES = (
     "sandbox.server.exec",
     # every thread-store mutation (db/local.py)
     "db.write",
+    # a tensor-parallel rank joining its process group (parallel/worker.py;
+    # armed through the environment, `exit` kills a spawned rank at
+    # startup) and every guarded wait on a step's result
+    # (parallel/worker.py RankGroup.wait, distributed.guarded_collective)
+    "dist.init",
+    "dist.step",
 )
 
 ACTIONS = ("error", "delay", "exit")

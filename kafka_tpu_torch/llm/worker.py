@@ -79,6 +79,11 @@ class EngineWorker:
             return
         self._stopped.set()
         self._inbox.put(("__wake__", None))
+        if getattr(self.engine, "mesh", None) is not None:
+            # a tensor-parallel engine stops its ranks as the thread ends
+            # (each frees its shard and leaves the process group): wait
+            # for them, so no rank outlives the server
+            timeout = max(timeout, 60.0)
         self._thread.join(timeout=timeout)
         self._thread = None
 

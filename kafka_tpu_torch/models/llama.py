@@ -25,6 +25,13 @@ Unlike JAX, caches are updated IN PLACE (the pools are the engine's
 largest allocation; a functional copy per step would double it), and
 forward returns the same cache object.
 
+On a rank of a tensor-parallel group (`forward(..., tp=...)`,
+parallel/tp.py) the parameters and the cache are the rank's shards
+(parallel/sharding.py): attention runs over its local heads (the per-rank
+K1/K3/K4 of ops/kernels/sharded.py; flash prefill stays single-device, as
+in the reference), the row-parallel `wo` and `wd` products are summed over
+the ranks, and an untied head's vocab shards are gathered.
+
 Int8 (models/quant.py), as in the JAX package: any matmul weight, the
 embedding table and the LM head may be a QTensor, and the paged pools may
 be QTensor pools (int8 rows, one f32 scale per slot).  Over an int8 pool a
@@ -45,8 +52,11 @@ from ..ops.attention import causal_attention
 from ..ops.kernels import (
     paged_decode_attention,
     paged_decode_attention_int8,
+    paged_decode_attention_int8_sharded,
+    paged_decode_attention_sharded,
     paged_prefill_attention,
     paged_verify_attention,
+    paged_verify_attention_sharded,
 )
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_cos_sin, rope_frequencies
@@ -69,14 +79,24 @@ def _w(layers: Params, name: str, l: int, dtype: torch.dtype) -> torch.Tensor:
     return dequantize(_layer(layers[name], l), dtype)
 
 
-def _kv_write(cache: Any, idx: torch.Tensor, rows: torch.Tensor) -> None:
+def _kv_write(cache: Any, idx: torch.Tensor, rows: torch.Tensor,
+              tp: Any = None) -> None:
     """Scatter new KV rows into a pool at flat slot indices, in place.
     rows [..., Hkv*D]; idx [...] integer.  An int8 pool (QTensor) takes
     each row quantized against its own abs-max, with its f32 scale — the
-    JAX package's per-slot recipe."""
+    JAX package's per-slot recipe.  On a rank of a tensor-parallel group
+    the rows are the rank's kv heads, and the abs-max is max-reduced over
+    the ranks first: the scale is the whole row's, the same on every
+    rank."""
     idx = idx.reshape(-1).long()
     if isinstance(cache, QTensor):
-        qt = quantize_array(rows, (-1,))
+        if tp is not None:
+            amax = tp.all_reduce_max(rows.float().abs().amax(-1, keepdim=True))
+            s_ = torch.clamp(amax, min=1e-8) / 127.0
+            qt = QTensor(q=torch.clamp(torch.round(rows.float() / s_), -127,
+                                       127).to(torch.int8), s=s_)
+        else:
+            qt = quantize_array(rows, (-1,))
         hd = cache.q.shape[-1]
         cache.q.index_copy_(0, idx, qt.q.reshape(-1, hd))
         cache.s.index_copy_(0, idx, qt.s.reshape(-1, 1))
@@ -281,12 +301,18 @@ def _attention_block(
     kv_valid: Optional[torch.Tensor],
     cache_positions: Optional[torch.Tensor],
     paged: Optional[PagedView],
+    tp: Any = None,
 ) -> torch.Tensor:
     """One attention sublayer. x: [B, S, H] -> [B, S, H].  Writes the new
-    k/v rows into this layer's cache (in place)."""
+    k/v rows into this layer's cache (in place).  On a rank of a
+    tensor-parallel group (`tp`, parallel/tp.py) the weights and the cache
+    hold the rank's heads: attention runs over them alone, and the
+    row-parallel `wo` product is summed over the ranks."""
     b, s, h = x.shape
     dt = x.dtype
-    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d = cfg.head_dim
+    hq, hkv = ((cfg.num_heads, cfg.num_kv_heads) if tp is None
+               else (tp.q_heads, tp.kv_heads))
     q = (x @ _w(layers, "wq", l, dt).reshape(h, hq * d)).view(b, s, hq, d)
     k = (x @ _w(layers, "wk", l, dt).reshape(h, hkv * d)).view(b, s, hkv, d)
     v = (x @ _w(layers, "wv", l, dt).reshape(h, hkv * d)).view(b, s, hkv, d)
@@ -296,11 +322,28 @@ def _attention_block(
     if paged is not None:
         # paged pool: k_cache/v_cache are this layer's [SLOTS, Hkv*D]
         # (dense tensors, or QTensor int8 rows + [SLOTS, 1] scales)
-        _kv_write(k_cache, paged.write_idx, k.reshape(b, s, hkv * d))
-        _kv_write(v_cache, paged.write_idx, v.reshape(b, s, hkv * d))
+        _kv_write(k_cache, paged.write_idx, k.reshape(b, s, hkv * d), tp)
+        _kv_write(v_cache, paged.write_idx, v.reshape(b, s, hkv * d), tp)
         kernel = cfg.attention_backend == "kernel"
         int8 = isinstance(k_cache, QTensor)
-        if kernel and s == 1 and paged.seq_lens is not None and int8:
+        if kernel and tp is not None and s == 1 \
+                and paged.seq_lens is not None:
+            # the rank's K1 (K4 over an int8 pool) on its local heads
+            if int8:
+                out = paged_decode_attention_int8_sharded(
+                    tp.mesh, q[:, 0], k_cache.q, k_cache.s, v_cache.q,
+                    v_cache.s, paged.page_table, paged.seq_lens,
+                    page_size=paged.page_size)[:, None]
+            else:
+                out = paged_decode_attention_sharded(
+                    tp.mesh, q[:, 0], k_cache, v_cache, paged.page_table,
+                    paged.seq_lens, page_size=paged.page_size)[:, None]
+        elif kernel and tp is not None and s > 1 \
+                and paged.seq_lens is not None and not int8:
+            out = paged_verify_attention_sharded(
+                tp.mesh, q.contiguous(), k_cache, v_cache, paged.page_table,
+                paged.seq_lens, paged.q_lens, page_size=paged.page_size)
+        elif kernel and s == 1 and paged.seq_lens is not None and int8:
             # int8 pool: K4 reads the int8 rows (half K1's bytes) and folds
             # the per-slot scales into scores and probabilities
             out = paged_decode_attention_int8(
@@ -318,7 +361,10 @@ def _attention_block(
                 paged.seq_lens, paged.q_lens, page_size=paged.page_size,
             )
         elif kernel and s > 1 and b == 1 and paged.start is not None \
-                and not int8:
+                and not int8 and tp is None:
+            # flash prefill (K2) is single-device only, as in the
+            # reference (JAX models/llama.py:305-311): at tp > 1 prefill
+            # chunks take the page gather below
             out = paged_prefill_attention(
                 q[0], k_cache, v_cache, paged.page_table[0],
                 paged.start, paged.chunk_len, page_size=paged.page_size,
@@ -336,8 +382,14 @@ def _attention_block(
             else:
                 k_win = _kv_read(k_cache, paged.read_idx, dt)
                 v_win = _kv_read(v_cache, paged.read_idx, dt)
+            k_win, v_win = k_win.view(b, -1, hkv, d), v_win.view(b, -1, hkv, d)
+            if tp is not None and tp.kv_map is not None:
+                # a rank whose q heads do not map to its kv heads
+                # contiguously: one gathered kv head per q head
+                k_win = k_win.index_select(2, tp.kv_map)
+                v_win = v_win.index_select(2, tp.kv_map)
             out = causal_attention(
-                q, k_win.view(b, -1, hkv, d), v_win.view(b, -1, hkv, d),
+                q, k_win, v_win,
                 q_positions=positions, kv_positions=paged.kv_positions,
                 kv_valid=paged.kv_valid,
             )
@@ -355,16 +407,21 @@ def _attention_block(
         kv_pos = torch.arange(cap, device=x.device).expand(b, cap)
         out = causal_attention(q, k_cache, v_cache, q_positions=positions,
                                kv_positions=kv_pos, kv_valid=kv_valid)
-    return out.reshape(b, s, hq * d) @ _w(layers, "wo", l, dt).reshape(
+    out = out.reshape(b, s, hq * d) @ _w(layers, "wo", l, dt).reshape(
         hq * d, h)
+    return out if tp is None else tp.all_reduce(out)
 
 
-def _mlp_block(x: torch.Tensor, layers: Params, l: int) -> torch.Tensor:
-    """SwiGLU MLP: down(silu(gate(x)) * up(x))."""
+def _mlp_block(x: torch.Tensor, layers: Params, l: int,
+               tp: Any = None) -> torch.Tensor:
+    """SwiGLU MLP: down(silu(gate(x)) * up(x)); on a rank of a
+    tensor-parallel group over its F columns, the row-parallel down
+    product summed over the ranks."""
     dt = x.dtype
     g = x @ _w(layers, "wg", l, dt)
     u = x @ _w(layers, "wu", l, dt)
-    return (torch.nn.functional.silu(g) * u) @ _w(layers, "wd", l, dt)
+    out = (torch.nn.functional.silu(g) * u) @ _w(layers, "wd", l, dt)
+    return out if tp is None else tp.all_reduce(out)
 
 
 def forward(
@@ -377,6 +434,7 @@ def forward(
     cache_positions: Optional[torch.Tensor] = None,
     paged: Optional[PagedView] = None,
     logits_at: Optional[torch.Tensor] = None,
+    tp: Any = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder.
 
@@ -409,9 +467,9 @@ def forward(
         attn_in = rms_norm(x, layers["ln_attn"][l], cfg.rms_norm_eps)
         x = x + _attention_block(attn_in, layers, l, cfg, cos, sin,
                                  positions, kc, vc, kv_valid,
-                                 cache_positions, paged)
+                                 cache_positions, paged, tp)
         mlp_in = rms_norm(x, layers["ln_mlp"][l], cfg.rms_norm_eps)
-        x = x + _mlp_block(mlp_in, layers, l)
+        x = x + _mlp_block(mlp_in, layers, l, tp)
     if logits_at is not None:
         x = x[torch.arange(x.shape[0], device=x.device), logits_at][:, None]
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -422,5 +480,8 @@ def forward(
         head = QTensor(q=embed.q.t(), s=embed.s)
     else:
         head = embed.t()
-    logits = _matmul_f32(x.reshape(b * s, h), head).view(b, s, -1)
-    return logits, kv_cache
+    logits = _matmul_f32(x.reshape(b * s, h), head)
+    if tp is not None and not cfg.tie_word_embeddings:
+        # the vocab-sharded head: gather every rank's logits columns
+        logits = tp.gather_vocab(logits)
+    return logits.view(b, s, -1), kv_cache

@@ -17,6 +17,13 @@ sits beside its plain PyTorch version in the same module:
                                                    path, as in the JAX
                                                    package)
 
+On one rank of a tensor-parallel group (ops/kernels/sharded.py) K1, K3
+and K4 run over the rank's local heads:
+
+  paged_decode_attention_sharded, paged_verify_attention_sharded,
+  paged_decode_attention_int8_sharded, and the head-split rule
+  kernel_mesh_ok
+
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors (raising on what the kernel does not take); each counts
 its launches in `<wrapper>.launches`.  Sources compile at first use
@@ -31,10 +38,18 @@ from .paged_decode_int8 import (
     paged_decode_attention_int8_plain,
 )
 from .paged_verify import paged_verify_attention, paged_verify_attention_plain
+from .sharded import (
+    kernel_mesh_ok,
+    paged_decode_attention_int8_sharded,
+    paged_decode_attention_sharded,
+    paged_verify_attention_sharded,
+)
 
 KERNELS = (paged_decode_attention, paged_prefill_attention,
            paged_verify_attention, paged_decode_attention_int8,
-           fused_mlp_block)
+           fused_mlp_block, paged_decode_attention_sharded,
+           paged_verify_attention_sharded,
+           paged_decode_attention_int8_sharded)
 
 
 def reset_launch_counts() -> None:
@@ -47,6 +62,10 @@ __all__ = [
     "fused_mlp_args",
     "fused_mlp_block",
     "fused_mlp_block_plain",
+    "kernel_mesh_ok",
+    "paged_decode_attention_int8_sharded",
+    "paged_decode_attention_sharded",
+    "paged_verify_attention_sharded",
     "paged_decode_attention_int8",
     "paged_decode_attention_int8_plain",
     "paged_decode_attention",

@@ -192,9 +192,11 @@ class DataParallelEngines:
         the supervision clock (quarantine windows); tests inject one."""
         if tp > 1 or sp > 1 or ep > 1:
             raise ValueError(
-                f"tp={tp} sp={sp} ep={ep}: tensor, sequence and expert "
-                "parallelism inside a replica are not ported (ROADMAP A9 "
-                "multi-GPU, A10 MoE); replicas are whole engines here")
+                f"tp={tp} sp={sp} ep={ep}: replicas of a tensor-parallel "
+                "group (ROADMAP A9, dp x tp), sequence parallelism (A9) and "
+                "expert parallelism (A9 with A10's MoE) are not ported; "
+                "replicas are whole single-card engines here, and tp runs "
+                "at dp 1")
         devices = [torch.device(d) for d in (
             devices if devices is not None else default_replica_devices())]
         if len(devices) < dp:

@@ -71,6 +71,17 @@ scheduler keeps the JAX engine's semantics:
   autoscaler's ladder pause speculation;
 * `recover_from_failure` rebuilds a servable engine after a step fault
   (the `engine.step` and `engine.prefill` failpoints inject one);
+* with `mesh` (a parallel.MeshConfig of tp, tq > 1, or a RankGroup) the
+  engine is rank 0 of a tensor-parallel group (kafka_tpu/runtime/
+  engine.py:639-850): every rank holds its shard of the weights and of
+  the pool, and every method that touches device state is `replicated`:
+  rank 0 sends it, with its host inputs, to the other ranks, and each
+  runs it in the same order (prefill chunks, control uploads, decode
+  graph captures and replays, verify steps, FSM and grammar tables,
+  recovery).  Sampling is replicated, so the next token is on every card
+  with no broadcast; only rank 0 fetches to the host, and its host waits
+  run under the group's guard: a dead rank fails every request with
+  "error:distributed" (the group cannot serve again);
 * a request carrying a trace (`GenRequest.trace`, tracing.py) gets
   engine.queue, engine.prefill and emit spans, and an engine.decode span
   each time one of its fetches lands.
@@ -117,6 +128,7 @@ only at capture.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import logging
 import os
@@ -400,10 +412,12 @@ class GenRequest:
     grammar: Optional[Any] = None
     # over-tight mask rows log once per request (the counter counts all)
     overtight_logged: bool = False
-    # off-slot (parked) admission: the prefill's sampled token as a device
-    # tensor, held until a decode slot frees and seeds the lane's last
-    # token at seating (None for resumed lanes: output_ids[-1] is known)
-    pending_tok: Optional[torch.Tensor] = None
+    # off-slot (parked) admission: True while the prefill's sampled token
+    # waits on the device (engine._parked_toks, on every rank of a
+    # tensor-parallel group) for a decode slot, where it seeds the lane's
+    # last token at seating (None for resumed lanes: output_ids[-1] is
+    # known)
+    pending_tok: Optional[bool] = None
     # request tracing (tracing.py): the trace context this request
     # carries — None = untraced, and every engine span site is then one
     # branch.  t_prefill_start / t_first_dispatch stamp the first prefill
@@ -469,6 +483,9 @@ class _GrammarTables:
         self.trans: Optional[torch.Tensor] = None        # [S_pad, C_pad]
         self.dist: Optional[torch.Tensor] = None         # [S_pad] int32
         self.slack: Optional[torch.Tensor] = None        # [] int32
+        # how a rebuilt table set reaches the device: `write` here; the
+        # engine routes it through every rank of a tensor-parallel group
+        self.upload: Callable[..., None] = self.write
 
     def register(self, grammar) -> Optional[int]:
         """Index of `grammar` in the table set (registering if new); None
@@ -525,6 +542,14 @@ class _GrammarTables:
             block[block >= 0] += off
             trans[off:off + g.num_states, : g.num_classes] = block
             dist[off:off + g.num_states] = g.dist
+        # conservative across grammars: extra slack engages wrap earlier
+        # but never breaks closure
+        self.upload(tc, trans, dist, max(g.wrap_slack for g in self.grammars))
+
+    def write(self, tc: np.ndarray, trans: np.ndarray, dist: np.ndarray,
+              slack: int) -> None:
+        """Refill the device tables, reallocating (a new `version`) only
+        when a padded shape grew."""
         if self.token_class is None or \
                 self.trans.shape != trans.shape or \
                 self.token_class.shape != tc.shape:
@@ -542,9 +567,7 @@ class _GrammarTables:
             if buf.is_cuda:
                 src = src.pin_memory()
             buf.copy_(src, non_blocking=True)
-        # conservative across grammars: extra slack engages wrap earlier
-        # but never breaks closure
-        self.slack.fill_(max(g.wrap_slack for g in self.grammars))
+        self.slack.fill_(slack)
 
     def args(self) -> Tuple[torch.Tensor, ...]:
         """(token_class, trans, dist, slack): grammar_allowed_mask's
@@ -658,8 +681,8 @@ class _ControlState:
         return host
 
 
-def kernel_backend_problems(cfg: ModelConfig,
-                            ecfg: EngineConfig) -> List[str]:
+def kernel_backend_problems(cfg: ModelConfig, ecfg: EngineConfig,
+                            mesh: Any = None) -> List[str]:
     """Why the CUDA attention kernels (K1-K4) cannot serve this model and
     engine configuration; empty when they can.  On CUDA, "auto" then
     resolves to "plain" with these as its reasons, and an explicit
@@ -670,7 +693,9 @@ def kernel_backend_problems(cfg: ModelConfig,
     (ops/kernels/common.py).  K3 (paged verify) sets no bound on
     speculative_k: it holds any G * (speculative_k + 1) query rows of a kv
     head, so every speculative_k the window fits (checked at construction)
-    is served, as in the reference engine."""
+    is served, as in the reference engine.  On a tensor-parallel group
+    (`mesh`) the kernels run per rank on local heads (ops/kernels/
+    sharded.py): the split must pass kernel_mesh_ok (tensor_mesh_problems)."""
     problems = []
     g, d = cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
     if cfg.activation_dtype != torch.bfloat16 or d not in (64, 128) \
@@ -684,17 +709,34 @@ def kernel_backend_problems(cfg: ModelConfig,
                    min(DECODE_CHUNK, DECODE_INT8_CHUNK, VERIFY_CHUNK))
     except ValueError as e:
         problems.append(str(e))
-    return problems
+    return problems + tensor_mesh_problems(cfg, mesh)
+
+
+def tensor_mesh_problems(cfg: ModelConfig, mesh: Any) -> List[str]:
+    """Why the per-rank kernels cannot take this head split (the
+    reference's pallas_mesh_ok rule); empty off a mesh."""
+    if mesh is None or mesh.tp * mesh.tq <= 1:
+        return []
+    from ..ops.kernels.sharded import kernel_mesh_ok
+
+    if kernel_mesh_ok(mesh, cfg.num_heads, cfg.num_kv_heads):
+        return []
+    return [f"the per-rank kernels need tp | Hkv, tp*tq | Hq and one kv "
+            f"head per rank when tq > 1; tp={mesh.tp} tq={mesh.tq} over "
+            f"Hq={cfg.num_heads} Hkv={cfg.num_kv_heads}"]
 
 
 def resolve_attention_backend(cfg: ModelConfig, ecfg: EngineConfig,
-                              device_type: str) -> Tuple[str, List[str]]:
+                              device_type: str, mesh: Any = None
+                              ) -> Tuple[str, List[str]]:
     """EngineConfig.attention_backend resolved for a device type:
     (backend, reasons).  "auto" is "kernel" on the CPU (the wrappers run
     their plain versions on CPU tensors) and on CUDA where
     kernel_backend_problems is empty; otherwise "plain", with those
-    problems as the reasons.  An explicit "kernel" with problems on CUDA
-    raises ValueError; "plain" stays "plain"."""
+    problems as the reasons.  On a tensor-parallel group the head split
+    counts on the CPU too (the plain versions share the kernels' q->kv
+    map).  An explicit "kernel" with problems raises ValueError; "plain"
+    stays "plain"."""
     choice = ecfg.attention_backend
     if choice not in ("auto", "kernel", "plain"):
         raise ValueError(
@@ -702,8 +744,9 @@ def resolve_attention_backend(cfg: ModelConfig, ecfg: EngineConfig,
             f"{choice!r}")
     if choice == "plain":
         return "plain", []
-    problems = (kernel_backend_problems(cfg, ecfg)
-                if device_type == "cuda" else [])
+    problems = (kernel_backend_problems(cfg, ecfg, mesh)
+                if device_type == "cuda"
+                else tensor_mesh_problems(cfg, mesh))
     if not problems:
         return "kernel", []
     if choice == "kernel":
@@ -711,6 +754,30 @@ def resolve_attention_backend(cfg: ModelConfig, ecfg: EngineConfig,
             "; ".join(problems) + " — use attention_backend='auto' or "
             "'plain'")
     return "plain", problems
+
+
+def validate_tensor_parallel(cfg: ModelConfig, ecfg: EngineConfig,
+                             mesh: Any) -> None:
+    """The engine's tensor-parallel checks (kafka_tpu/runtime/engine.py
+    mesh validation): whole heads and MLP columns per rank, and nothing
+    this slice does not move across ranks.  Raises ValueError naming the
+    ROADMAP item."""
+    n = mesh.tp * mesh.tq
+    if cfg.num_heads % n or cfg.intermediate_size % n:
+        raise ValueError(
+            f"tp={mesh.tp} tq={mesh.tq}: {cfg.name}'s {cfg.num_heads} q "
+            f"heads and {cfg.intermediate_size} MLP columns must split {n} "
+            "ways")
+    if mesh.tq > 1 and cfg.num_kv_heads % mesh.tp:
+        raise ValueError(
+            f"tp={mesh.tp} must divide the {cfg.num_kv_heads} kv heads on a "
+            "grouped split (tq > 1)")
+    if ecfg.kv_host_tier_mb > 0 or ecfg.kv_disk_tier_dir or \
+            ecfg.kv_object_dir:
+        raise ValueError(
+            "the KV tiers at tp > 1 are not ported: every rank's shard of "
+            "a page run would have to move (ROADMAP A9, KV tiers and ships "
+            "at tp > 1)")
 
 
 def _spans_s(spans: Sequence[Tuple[Any, Any]]) -> float:
@@ -743,6 +810,31 @@ def sampling_mode(reqs: Sequence[Optional[GenRequest]]) -> int:
     return SAMPLED
 
 
+def replicated(fn: Callable) -> Callable:
+    """Mark an engine method as device work that every rank of a
+    tensor-parallel group runs (parallel/worker.py).  Its arguments are
+    host values; on rank 0 the call is first sent to the other ranks, then
+    run here, so every rank runs the same device operations in the same
+    order.  A worker runs `method.replicated`, the undecorated function.
+    A failure here while a peer is down is that peer's failure: it
+    surfaces as the group's DistributedStepError."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kw):
+        group = self._group
+        if group is None:
+            return fn(self, *args, **kw)
+        group.op(self._eid, fn.__name__, args, kw)
+        try:
+            return fn(self, *args, **kw)
+        except Exception as e:
+            group.explain(e)
+            raise
+
+    wrapper.replicated = fn
+    return wrapper
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -751,12 +843,32 @@ class InferenceEngine:
         engine_cfg: Optional[EngineConfig] = None,
         kv_dtype: Optional[torch.dtype] = None,
         device: DeviceLike = None,
+        mesh: Any = None,
     ):
         """device: None = CUDA (raises without it); "cpu" for the tests.
-        params: the layer-stacked dict (models/llama.py), moved to device."""
-        self.device = resolve_device(device)
+        params: the layer-stacked dict (models/llama.py), moved to device.
+
+        mesh: None for one device.  A `parallel.MeshConfig` with tp (and
+        tq) > 1 makes this engine rank 0 of a tensor-parallel group it
+        spawns and owns (rank r on `cuda:r`, or every rank on the CPU with
+        device="cpu"); a `parallel.RankGroup` builds it on a group the
+        caller owns.  `params` is then the full tree each rank slices its
+        shard from, or `parallel.RandomWeights`, from which each rank
+        draws its own shard on its own card."""
         self.ecfg = engine_cfg or EngineConfig()
         ecfg = self.ecfg
+        # tensor parallelism (parallel/): the group rank 0 sends its device
+        # work to (None on one device and on the other ranks), this
+        # engine's id there, and the rank's collectives
+        self._group = None
+        self._owns_group = False
+        self._eid: Optional[int] = None
+        self.tp = None
+        self.mesh = None
+        if mesh is not None:
+            mesh, device, params = self._join_mesh(cfg, mesh, device, params,
+                                                   kv_dtype)
+        self.device = resolve_device(device)
         if ecfg.num_pages - 1 < ecfg.max_pages_per_seq:
             raise ValueError(
                 "num_pages must exceed max_pages_per_seq: a lone sequence "
@@ -791,8 +903,9 @@ class InferenceEngine:
             raise ValueError(
                 "agent_demote must be '' (off), 'host', or 'object'")
         backend, self.attention_backend_reasons = resolve_attention_backend(
-            cfg, ecfg, self.device.type)
-        if self.attention_backend_reasons:
+            cfg, ecfg, self.device.type, mesh=self.mesh)
+        if self.attention_backend_reasons and (
+                self.mesh is None or self.mesh.rank == 0):
             logger.warning(
                 "attention_backend 'auto' resolved to 'plain' on %s: %s",
                 self.device, "; ".join(self.attention_backend_reasons))
@@ -801,9 +914,13 @@ class InferenceEngine:
         self.kv_dtype = kv_dtype or cfg.activation_dtype
         ps = ecfg.page_size
         self.pool = PagePool(ecfg.num_pages, ps)
-        # dense tensors, or QTensor pools (int8 rows + per-slot scales)
+        # dense tensors, or QTensor pools (int8 rows + per-slot scales);
+        # a rank's pool holds its kv heads only: column block r // tq of
+        # the full pool, allocated contiguous
         self.k_pool, self.v_pool = make_kv_pool_arrays(
-            cfg, ecfg.num_pages, ps, self.kv_dtype, device=self.device,
+            cfg if self.tp is None
+            else cfg.replace(num_kv_heads=self.tp.kv_heads),
+            ecfg.num_pages, ps, self.kv_dtype, device=self.device,
             quantize=ecfg.kv_quantize)
         B, P = ecfg.max_batch, ecfg.max_pages_per_seq
         dev = self.device
@@ -858,6 +975,10 @@ class InferenceEngine:
         # host mask rows of a host-masked micro-batch (allocated at first
         # use: [B, V])
         self._d_allowed: Optional[torch.Tensor] = None
+        # the last prefill dispatch's sampled tokens, and parked lanes'
+        # first tokens by request id (_dev_park_prefill), on the device
+        self._prefill_toks: Optional[torch.Tensor] = None
+        self._parked_toks: Dict[str, torch.Tensor] = {}
         self._ctl_dirty = True
         # step program outputs per fused depth k: tokens [k, B], and with
         # keep_logits the sampled rows [k, B, V] f32
@@ -908,6 +1029,7 @@ class InferenceEngine:
         # unconstrained), grammar index into the shared table set, and
         # remaining token budget, all on the device and advanced there
         self._grammars = _GrammarTables(cfg.vocab_size, dev)
+        self._grammars.upload = self._dev_grammar_tables
         self._fsm = torch.full((B,), -1, dtype=torch.int32, device=dev)
         self._fsm_g = torch.zeros(B, dtype=torch.int32, device=dev)
         self._budget = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -919,6 +1041,46 @@ class InferenceEngine:
         self.constrained_degrades = 0
         self._init_telemetry()
         self._rtt_est = self._measure_rtt()
+        if self._group is not None:
+            # the other ranks built their engines meanwhile
+            self._group.await_built(self._eid)
+
+    def _join_mesh(self, cfg: ModelConfig, mesh: Any, device: DeviceLike,
+                   params: Any, kv_dtype: Optional[torch.dtype]):
+        """Place this engine on a tensor-parallel rank group: check the
+        split, spawn the group (a MeshConfig) or join it (a RankGroup, or a
+        worker's RankContext), send the other ranks their build order, and
+        return (this rank's mesh, its device, its parameter shard)."""
+        from ..parallel.mesh import MeshConfig
+        from ..parallel.tp import TensorParallel
+        from ..parallel.worker import EngineSpec, RankContext, RankGroup
+
+        if isinstance(mesh, MeshConfig):
+            if mesh.total_devices <= 1:
+                return None, device, params
+            validate_tensor_parallel(cfg, self.ecfg, mesh)
+            mesh = RankGroup(mesh, device=device)
+            self._owns_group = True
+        if isinstance(mesh, RankGroup):
+            validate_tensor_parallel(cfg, self.ecfg, mesh.mesh)
+            try:
+                spec = EngineSpec(cfg, self.ecfg, kv_dtype, params)
+                self._eid = mesh.build(spec)
+                self._group = mesh
+                rank_mesh, group = mesh.mesh, mesh.group
+                params = spec.rank_params(rank_mesh)
+            except BaseException:
+                if self._owns_group:
+                    mesh.close()
+                raise
+        elif isinstance(mesh, RankContext):
+            rank_mesh, group = mesh.mesh, mesh.group
+        else:
+            raise TypeError(f"mesh must be a MeshConfig, RankGroup or None, "
+                            f"got {type(mesh).__name__}")
+        self.mesh = rank_mesh
+        self.tp = TensorParallel(cfg, rank_mesh, group)
+        return rank_mesh, rank_mesh.device, params
 
     def _build_kv_tier(self) -> None:
         """The host-RAM (+ disk) page tier under the pool, and the object
@@ -982,7 +1144,20 @@ class InferenceEngine:
 
     def close(self) -> None:
         """Stop the tier's background threads (spill writer, janitor, wake
-        prefetcher) after resolving in-flight demotions.  Idempotent."""
+        prefetcher) after resolving in-flight demotions; on a
+        tensor-parallel group, drop this engine on every rank and stop
+        the ranks when the engine owns them.  Idempotent."""
+        # the grammar tables' upload hook is a bound method of this engine
+        self._grammars.upload = self._grammars.write
+        group, self._group = self._group, None
+        if group is not None:
+            try:
+                group.drop(self._eid)
+            except Exception:  # a broken group cannot take the order
+                logger.warning("dropping the engine on the rank group "
+                               "failed", exc_info=True)
+            if self._owns_group:
+                group.close()
         tier = self.kv_tier
         if tier is None:
             return
@@ -1020,11 +1195,17 @@ class InferenceEngine:
             from ..models.quant import param_bytes
             from .planner import device_peaks, dispatch_cost_model
 
+            # per device: on a tensor-parallel group each rank does 1/n of
+            # the flops over its own shard and kv heads, so the device's
+            # share against one card's peaks is the group's against n
+            # cards' (kafka_tpu/runtime/engine.py:1060-1100)
+            n = self.mesh.size if self.mesh is not None else 1
             self._cost_model = dispatch_cost_model(
-                self.cfg, n_devices=1,
-                weight_bytes_total=param_bytes(self.params),
+                self.cfg, n_devices=n,
+                weight_bytes_total=param_bytes(self.params) * n,
                 kv_dtype_bytes=(1 if self.ecfg.kv_quantize == "int8"
-                                else self.kv_dtype.itemsize))
+                                else self.kv_dtype.itemsize),
+                kv_replication=self.mesh.tq if self.mesh is not None else 1)
             self._roofline = device_peaks(self.device)
             self.metrics.set_roofline(*self._roofline)
             # a known roofline survives metrics resets (the server swaps
@@ -1112,6 +1293,11 @@ class InferenceEngine:
     def submit(self, req: GenRequest) -> None:
         if len(req.prompt_ids) == 0:
             raise ValueError("empty prompt")
+        if self.group_broken:
+            from ..parallel.distributed import DistributedStepError
+
+            raise DistributedStepError(
+                f"the engine's rank group is broken: {self.group_broken}")
         if not req.background and self.ecfg.max_waiting > 0 and \
                 len(self.waiting) >= self.ecfg.max_waiting:
             self.metrics.record_rejected()
@@ -1410,10 +1596,9 @@ class InferenceEngine:
             raise RuntimeError("warmup dispatch on a busy engine")
         if self._ctl_dirty:
             self._refresh_ctl()
-        self._d_run.zero_()
-        self._run_step(k, fsm, mode, False)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        self._dev_decode(np.zeros(self.ecfg.max_batch, bool), None, k, fsm,
+                         mode, self.ecfg.keep_logits)
+        self._sync()
 
     def warmup_sampling(self) -> None:
         """Capture the plain decode program for every sampling mode, at
@@ -1436,8 +1621,7 @@ class InferenceEngine:
         B, K = self.ecfg.max_batch, self.ecfg.speculative_k
         self._verify_step([None] * B, np.zeros((B, K), np.int32), [0] * B,
                           fsm=False)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        self._sync()
 
     def warmup_grammar(self, grammar) -> None:
         """Register `grammar` and run the FSM decode variant (every
@@ -1456,8 +1640,7 @@ class InferenceEngine:
             B, K = self.ecfg.max_batch, self.ecfg.speculative_k
             self._verify_step([None] * B, np.zeros((B, K), np.int32),
                               [0] * B, fsm=True)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            self._sync()
 
     def warmup_kv_tier(self) -> None:
         """One ship per SHIP_BUCKETS entry against the trash page, outside
@@ -1475,8 +1658,7 @@ class InferenceEngine:
             pending = ship.export_run([TRASH_PAGE] * b)
             k_leaves, v_leaves = ship.resolve(pending)
             ship.import_run(k_leaves, v_leaves, b, [TRASH_PAGE] * b)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        self._sync()
 
     def sleep_to_object(self) -> Dict[str, Any]:
         """Flush this engine's warm KV state (every cached radix run +
@@ -1615,8 +1797,9 @@ class InferenceEngine:
         flight recorder's postmortem, before recovery mutates the state
         it explains."""
         self.dump_postmortem("engine_failure")
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self.group_broken:
+            return self._fail_group()
+        self._dev_reset()
         events: List[TokenEvent] = list(self._out_events)
         self._out_events = []
         self._pending.clear()
@@ -1647,9 +1830,21 @@ class InferenceEngine:
                                      finish_reason="error:engine"))
         self.waiting.sort(key=lambda r: r.submit_time)
         self.waiting_bg.sort(key=lambda r: r.submit_time)
-        # the graphs go, and with the last of them their memory pool: the
-        # next capture opens a new one (capturing into the freed pool's
-        # handle fails in the caching allocator)
+        self._ctl_dirty = True
+        self._park_cooldown = 0
+        problems = self.self_check(repair=True)
+        if problems:
+            logger.error("post-failure self-check repaired %d problem(s): %s",
+                         len(problems), "; ".join(problems))
+        return events
+
+    @replicated
+    def _dev_reset(self) -> None:
+        """Recovery's device side: let in-flight work finish, then drop
+        the graphs (and with the last of them their memory pool: the next
+        capture opens a new one — capturing into a freed pool's handle
+        fails in the caching allocator) and zero the control state."""
+        self._sync(whole_device=True)
         self._graphs.clear()
         self._graph_pool = None
         self._d_last.zero_()
@@ -1658,12 +1853,113 @@ class InferenceEngine:
         self._fsm.fill_(-1)
         self._fsm_g.zero_()
         self._budget.zero_()
-        self._ctl_dirty = True
-        self._park_cooldown = 0
-        problems = self.self_check(repair=True)
-        if problems:
-            logger.error("post-failure self-check repaired %d problem(s): %s",
-                         len(problems), "; ".join(problems))
+        self._parked_toks.clear()
+        self._prefill_toks = None
+
+    # -- tensor-parallel groups ----------------------------------------
+
+    @property
+    def group_broken(self) -> Optional[str]:
+        """Why this engine's rank group is broken (a rank died, failed or
+        missed a deadline); None while it serves, and off a group."""
+        return self._group.broken if self._group is not None else None
+
+    def _sync(self, whole_device: bool = False) -> None:
+        """Wait for the device work enqueued so far on the stream (every
+        stream with `whole_device`); on rank 0 of a group under the guard
+        (a dead rank raises DistributedStepError instead of hanging in a
+        collective)."""
+        if self.device.type != "cuda":
+            return
+        if self._group is None:
+            if whole_device:
+                torch.cuda.synchronize(self.device)
+            else:
+                torch.cuda.current_stream(self.device).synchronize()
+            return
+        ev = torch.cuda.Event()
+        ev.record()
+        self._wait_event(ev)
+
+    def _wait_event(self, event: Any) -> None:
+        if self._group is None:
+            event.synchronize()
+        else:
+            self._group.wait(event.query)
+
+    def rank_query(self, name: str, *args: Any) -> List[Any]:
+        """Engine method `name` evaluated on every rank, in rank order (one
+        entry off a group): per-rank telemetry and test probes.  On rank 0
+        the others answer after every operation sent before the query.
+        Call it on the thread that drives the engine: the query shares the
+        pipes that carry the ranks' operations."""
+        local = getattr(self, name)(*args)
+        if self._group is None:
+            return [local]
+        return [local] + self._group.query(self._eid, name, *args)
+
+    def rank_launches(self) -> Dict[str, int]:
+        """This rank's kernel launch counts by wrapper name."""
+        from ..ops import kernels
+
+        return {fn.__name__: fn.launches for fn in kernels.KERNELS}
+
+    def rank_reset_launches(self) -> None:
+        from ..ops import kernels
+
+        kernels.reset_launch_counts()
+
+    def rank_pools(self) -> Tuple[Any, Any]:
+        """This rank's K and V pools on the host (tests; QTensor pools as
+        (q, s) pairs)."""
+        def host(pool):
+            if isinstance(pool, tuple):
+                return tuple(t.cpu() for t in pool)
+            return pool.cpu()
+
+        self._sync()
+        return host(self.k_pool), host(self.v_pool)
+
+    def rank_memory(self) -> Dict[str, int]:
+        """This rank's bytes: its weight shard, its KV pool and, on CUDA,
+        the caching allocator's live and reserved bytes."""
+        from ..models.quant import param_bytes
+        from .kv_tier import pool_leaves
+
+        out = {"weights": param_bytes(self.params),
+               "kv_pool": sum(a.numel() * a.element_size() for a in
+                              pool_leaves(self.k_pool)
+                              + pool_leaves(self.v_pool))}
+        if self.device.type == "cuda":
+            out["allocated"] = torch.cuda.memory_allocated(self.device)
+            out["reserved"] = torch.cuda.memory_reserved(self.device)
+        return out
+
+    def _fail_group(self) -> List[TokenEvent]:
+        """The rank group is broken: the engine cannot serve again.  Every
+        request, queued ones too, gets one terminal error event; the
+        fetch pipeline is dropped unread."""
+        events: List[TokenEvent] = list(self._out_events)
+        self._out_events = []
+        self._pending.clear()
+        self._pending_steps = 0
+        self._constrained_fetch = None
+        self.waiting.clear()
+        self.waiting_bg.clear()
+        self.parked.clear()
+        self.slots = [None] * self.ecfg.max_batch
+        reason = "error:distributed"
+        for req in list(self._requests.values()):
+            req.state = FINISHED
+            req.finish_reason = reason
+            req.seq = None
+            req.slot = -1
+            req.pending_tok = None
+            self._finalize_slo(req, reason)
+            add_event(req.trace, "engine.recover", {"reason": reason})
+            events.append(TokenEvent(req.request_id, None, finished=True,
+                                     finish_reason=reason))
+        self._requests.clear()
         return events
 
     # ------------------------------------------------------------------
@@ -1874,7 +2170,7 @@ class InferenceEngine:
         landed) and process its tokens.  Returns the tokens processed."""
         if entry.event is not None and not entry.event.query():
             t0 = time.monotonic()
-            entry.event.synchronize()
+            self._wait_event(entry.event)
             # dispatch -> landed bounds the round trip from above but also
             # holds the device backlog: shrink freely, grow slowly and
             # never past 2x the compute-free probe
@@ -2140,10 +2436,10 @@ class InferenceEngine:
         self._ctl_dirty = True
         if req.state == PARKED:
             req.state = ACTIVE
-            if req.pending_tok is not None:
-                self._d_last[slot:slot + 1].copy_(req.pending_tok)
+            if req.pending_tok:
+                self._dev_set_last(slot, None, req.request_id)
             else:  # resumed: the pending token is host-known
-                self._d_last[slot] = req.output_ids[-1]
+                self._dev_set_last(slot, req.output_ids[-1], None)
             req.pending_tok = None
             self._set_fsm_lane(req, slot)
 
@@ -2385,7 +2681,6 @@ class InferenceEngine:
         """Dispatch ONE single-sequence prefill chunk; the final chunk
         samples the first token and activates (or parks) the lane."""
         failpoint("engine.prefill")
-        ps, dev = self.ecfg.page_size, self.device
         start = req.seq.length
         prompt = req.prefill_ids
         bucket = self._prefill_bucket_for(req)
@@ -2393,41 +2688,58 @@ class InferenceEngine:
         chunk = np.zeros(bucket, np.int64)
         chunk[:chunk_len] = prompt[start:start + chunk_len]
         row = self._page_row(req)
-        C = self.ecfg.max_window
+        final = start + chunk_len >= len(prompt)
+        sample = (self._sample_args([req], [start + chunk_len - 1],
+                                    self._prefill_masks([req]))
+                  if final else None)
+        t_start = self._timer()
+        rows, toks = self._dev_prefill(
+            chunk, self._write_slots(row, start, chunk_len, bucket), row,
+            start, chunk_len, sample)
+        self._prefill_dispatched(t_start, [(chunk_len, start)])
+        req.seq.length = start + chunk_len
+        if not final:
+            return  # more chunks to go; decode proceeds meanwhile
+        self._finish_prefills([req], toks, rows)
+
+    @replicated
+    def _dev_prefill(self, chunk: np.ndarray, write: np.ndarray,
+                     row: np.ndarray, start: int, chunk_len: int,
+                     sample: Optional[tuple]):
+        """One single-sequence prefill chunk on the device; a final chunk
+        (`sample`: _sample_args) samples its first token too.  Returns the
+        sampled row's logits and tokens (None for other chunks)."""
+        dev, C = self.device, self.ecfg.max_window
         kv_pos = torch.arange(C, device=dev)[None]
         paged = PagedView(
-            write_idx=self._to_device(
-                self._write_slots(row, start, chunk_len, bucket)[None]),
+            write_idx=self._to_device(write[None]),
             read_idx=None,
             kv_positions=kv_pos,
             kv_valid=kv_pos < start + chunk_len,
             page_table=self._to_device(row[None]),
-            page_size=ps,
+            page_size=self.ecfg.page_size,
             start=start,
             chunk_len=chunk_len,
         )
-        positions = (start + torch.arange(bucket, device=dev))[None]
-        t_start = self._timer()
+        positions = (start + torch.arange(len(chunk), device=dev))[None]
         logits, _ = forward(
             self.params, self.cfg, self._to_device(chunk[None]),
             positions, kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged,
             logits_at=self._to_device(np.asarray([chunk_len - 1])),
+            tp=self.tp,
         )
-        self._prefill_dispatched(t_start, [(chunk_len, start)])
-        req.seq.length = start + chunk_len
-        if req.seq.length < len(prompt):
-            return  # more chunks to go; decode proceeds meanwhile
+        if sample is None:
+            return None, None
         rows = logits[:, 0]
-        toks = self._sample(rows, [req], [start + chunk_len - 1],
-                            allowed=self._prefill_masks([req]))
-        self._finish_prefills([req], toks, rows)
+        self._prefill_toks = self._sample_on_device(rows, sample)
+        return rows, self._prefill_toks
 
     def _advance_prefill_batch(self, bucket: int, reqs: List[GenRequest],
                                W: int) -> None:
         """One fused chunk dispatch for 2..W same-bucket lanes (plain
         attention over each lane's page-gathered window)."""
         failpoint("engine.prefill")
-        ps, dev, C = self.ecfg.page_size, self.device, self.ecfg.max_window
+        ps = self.ecfg.page_size
         rows = np.full((W, self.ecfg.max_pages_per_seq), TRASH_PAGE, np.int32)
         chunks = np.zeros((W, bucket), np.int64)
         starts = np.zeros(W, np.int64)
@@ -2444,39 +2756,56 @@ class InferenceEngine:
             write[i] = self._write_slots(rows[i], start, clen, bucket)
         active = np.zeros(W, bool)
         active[: len(reqs)] = True
+        ends = np.where(active, starts + lens, 0)
+        last = np.clip(lens - 1, 0, bucket - 1)
+        done = [i for i, req in enumerate(reqs)
+                if req.seq.length + int(lens[i]) >= len(req.prefill_ids)]
+        finished = [reqs[i] for i in done]
+        sample = (self._sample_args(
+            finished, [int(starts[i] + lens[i] - 1) for i in done], None)
+            if done else None)
+        t_start = self._timer()
+        rows_l, toks = self._dev_prefill_batch(chunks, write, rows, starts,
+                                               ends, last, done, sample)
+        self._prefill_dispatched(
+            t_start, [(int(lens[i]), int(starts[i])) for i in range(len(reqs))])
+        for i, req in enumerate(reqs):
+            req.seq.length += int(lens[i])
+        if not done:
+            return
+        self._finish_prefills(finished, toks, rows_l)
+
+    @replicated
+    def _dev_prefill_batch(self, chunks: np.ndarray, write: np.ndarray,
+                           rows: np.ndarray, starts: np.ndarray,
+                           ends: np.ndarray, last: np.ndarray,
+                           done: List[int], sample: Optional[tuple]):
+        """One fused prefill chunk over W lanes (plain attention over each
+        lane's page-gathered window); the lanes in `done` sample their
+        first tokens.  Returns their logits rows and tokens."""
+        W, bucket = chunks.shape
+        dev, C = self.device, self.ecfg.max_window
         kv_pos = torch.arange(C, device=dev).expand(W, C)
-        ends = self._to_device(np.where(active, starts + lens, 0))
         paged = PagedView(
             write_idx=self._to_device(write),
             read_idx=None,
             kv_positions=kv_pos,
-            kv_valid=kv_pos < ends[:, None],
+            kv_valid=kv_pos < self._to_device(ends)[:, None],
             page_table=self._to_device(rows),
-            page_size=ps,
+            page_size=self.ecfg.page_size,
         )
         positions = self._to_device(starts)[:, None] + \
             torch.arange(bucket, device=dev)[None]
-        last = np.clip(lens - 1, 0, bucket - 1)
-        t_start = self._timer()
         logits, _ = forward(
             self.params, self.cfg, self._to_device(chunks),
             positions, kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged,
-            logits_at=self._to_device(last),
+            logits_at=self._to_device(last), tp=self.tp,
         )
-        self._prefill_dispatched(
-            t_start, [(int(lens[i]), int(starts[i])) for i in range(len(reqs))])
-        done = []
-        for i, req in enumerate(reqs):
-            req.seq.length += int(lens[i])
-            if req.seq.length >= len(req.prefill_ids):
-                done.append(i)
-        if not done:
-            return
-        finished = [reqs[i] for i in done]
+        if sample is None:
+            return None, None
         rows_l = logits[done, 0]
-        toks = self._sample(rows_l, finished,
-                            [int(starts[i] + lens[i] - 1) for i in done])
-        self._finish_prefills(finished, toks, rows_l)
+        self._prefill_toks = self._sample_on_device(rows_l, sample)
+        return rows_l, self._prefill_toks
 
     def _finish_prefills(self, reqs: List[GenRequest], toks: torch.Tensor,
                          logits: torch.Tensor) -> None:
@@ -2492,7 +2821,6 @@ class InferenceEngine:
         fused = len(reqs) > 1
         for i, req in enumerate(reqs):
             slot = req.slot
-            tok = toks[i:i + 1]
             if req.t_first_dispatch is None:
                 req.t_first_dispatch = time.monotonic()
                 if req.trace is not None:
@@ -2508,18 +2836,19 @@ class InferenceEngine:
                 req.state = PARKED
                 if req.resumed:
                     req.resumed = False
-                    req.pending_tok = None  # host-known: output_ids[-1]
+                    self._drop_parked(req)  # host-known: output_ids[-1]
                     continue
-                req.pending_tok = tok
+                self._dev_park_prefill(req.request_id, i)
+                req.pending_tok = True
             else:
                 req.state = ACTIVE
                 self._ctl_dirty = True
                 if req.resumed:
                     req.resumed = False
-                    self._d_last[slot] = req.output_ids[-1]
+                    self._dev_set_last(slot, req.output_ids[-1], None)
                     self._set_fsm_lane(req, slot)
                     continue
-                self._d_last[slot:slot + 1].copy_(tok)
+                self._dev_seat_prefill(slot, i)
             req.dispatched += 1
             if slot >= 0:
                 self._set_fsm_lane(req, slot)
@@ -2579,7 +2908,7 @@ class InferenceEngine:
             req.slot = -1
         elif req in self.parked:
             self.parked.remove(req)  # finished at prefill (1-token budget)
-        req.pending_tok = None
+        self._drop_parked(req)
         if req.prefix_key is None or self.prefix_cache is None:
             if req.seq is not None:
                 self.pool.free_sequence(req.seq)
@@ -2760,17 +3089,27 @@ class InferenceEngine:
         writes go to the trash page, their lengths, last tokens and FSM
         states stay), with `allowed` [B, V] host mask rows, then book it."""
         t_start = self._timer()
-        self._to_device(np.array([m is not None for m in members]),
-                        out=self._d_run)
+        self._dev_decode(np.array([m is not None for m in members]),
+                         allowed, steps, fsm, sampling_mode(members),
+                         self.ecfg.keep_logits)
+        return self._book_dispatch(members, steps, t_start)
+
+    @replicated
+    def _dev_decode(self, run: np.ndarray, allowed: Optional[np.ndarray],
+                    steps: int, fsm: bool, mode: int, keep: bool) -> None:
+        """Upload the dispatch's lanes (and host mask rows), then run the
+        `steps`-step program: a CUDA graph replay on the card.  `keep`
+        is rank 0's keep_logits, mirrored on every rank: it picks the
+        graph, and every rank must capture and replay the same ones."""
+        self.ecfg.keep_logits = keep
+        self._to_device(run, out=self._d_run)
         if allowed is not None:
             if self._d_allowed is None:
                 self._d_allowed = torch.ones(
                     (self.ecfg.max_batch, self.cfg.vocab_size),
                     dtype=torch.bool, device=self.device)
             self._to_device(allowed, out=self._d_allowed)
-        self._run_step(steps, fsm, sampling_mode(members),
-                       allowed is not None)
-        return self._book_dispatch(members, steps, t_start)
+        self._run_step(steps, fsm, mode, allowed is not None)
 
     def _book_dispatch(self, members: List[Optional[GenRequest]],
                        steps: int, t_start: Optional[Any] = None) -> _Fetch:
@@ -2812,7 +3151,7 @@ class InferenceEngine:
         slots = self.slots
         keep = np.array([s is not None and s.state == ACTIVE
                          and s.spec_ahead > 0 for s in slots])
-        self._to_device(self._ctl.pack({
+        self._dev_upload_ctl(self._ctl.pack({
             "table": page_table_array(
                 [s.seq if s is not None else None for s in slots],
                 self.ecfg.max_pages_per_seq),
@@ -2823,14 +3162,20 @@ class InferenceEngine:
             "top_ks": [s.top_k if s else 0 for s in slots],
             "top_ps": [s.top_p if s else 1.0 for s in slots],
             "seeds": [(s.seed if s else 0) & 0xFFFFFFFF for s in slots],
-        }), out=self._ctl.buf)
+        }), bool(keep.any()))
+        self._ctl_dirty = False
+
+    @replicated
+    def _dev_upload_ctl(self, packed: np.ndarray, keep_any: bool) -> None:
+        """Upload the packed control arrays; lengths follow the host's,
+        except lanes marked `keep` (a verify in flight)."""
+        self._to_device(packed, out=self._ctl.buf)
         v = self._ctl.views
-        if keep.any():
+        if keep_any:
             self._d_seq_lens.copy_(
                 torch.where(v["keep"], self._d_seq_lens, v["lens"]))
         else:
             self._d_seq_lens.copy_(v["lens"])
-        self._ctl_dirty = False
 
     # ------------------------------------------------------------------
     # the step program
@@ -2886,7 +3231,8 @@ class InferenceEngine:
             logits, _ = forward(
                 self.params, self.cfg, self._d_last[:, None],
                 lens.long()[:, None],
-                kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged)
+                kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged,
+                tp=self.tp)
             logits = logits[:, 0]
             mask = self._d_allowed if masked else None
             if fsm:
@@ -2959,12 +3305,22 @@ class InferenceEngine:
             self._decode_body(k, fsm, mode, masked, keep)
         cur.wait_stream(side)
         self._d_run.copy_(saved)
+        if self._group is not None:
+            # the capture begins with a device synchronize: wait for the
+            # warm-up's collectives under the guard first, so a dead rank
+            # raises here instead of hanging it
+            self._sync()
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         before = [fn.launches for fn in kernels.KERNELS]
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self._graph_pool):
+            # a rank of a tensor-parallel group captures its NCCL calls;
+            # the process group's watchdog thread queries its events
+            # meanwhile, which a process-wide capture would forbid
+            with torch.cuda.graph(graph, pool=self._graph_pool,
+                                  capture_error_mode="global"
+                                  if self.tp is None else "thread_local"):
                 self._decode_body(k, fsm, mode, masked, keep)
         except Exception as e:
             raise RuntimeError(f"capturing decode step graph {key} "
@@ -3115,12 +3471,24 @@ class InferenceEngine:
         Returns ([B, K+2] samples and accepted counts, [B, K+1, V]
         logits).  `fsm` forces the FSM variant (warmup, every lane
         inactive); None takes it when a member carries a grammar."""
+        if fsm is None:
+            fsm = any(m is not None and m.grammar is not None
+                      for m in members)
+        return self._dev_verify(np.array([m is not None for m in members]),
+                                np.asarray(cand_arr), list(cand_lens), fsm,
+                                sampling_mode(members))
+
+    @replicated
+    def _dev_verify(self, act_np: np.ndarray, cand_arr: np.ndarray,
+                    cand_lens: List[int], fsm: bool, mode: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The verify step's device work (_verify_step)."""
         ecfg, dev = self.ecfg, self.device
         ps, B, C = ecfg.page_size, ecfg.max_batch, ecfg.max_window
         K = ecfg.speculative_k
         S = K + 1
         P = ecfg.max_pages_per_seq
-        act = self._to_device(np.array([m is not None for m in members]))
+        act = self._to_device(act_np)
         cands = self._to_device(cand_arr)
         cl = self._to_device(np.asarray(cand_lens, np.int32))
         lens = torch.where(act, self._d_seq_lens, 0)
@@ -3143,14 +3511,12 @@ class InferenceEngine:
         )
         logits, _ = forward(
             self.params, self.cfg, toks_in, pos,
-            kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged)
+            kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged,
+            tp=self.tp)
         V = logits.shape[-1]
         sp = self._d_sampling
         rep = lambda x: x.repeat_interleave(S)  # noqa: E731
         mask = states = None
-        if fsm is None:
-            fsm = any(m is not None and m.grammar is not None
-                      for m in members)
         if fsm:
             # the FSM state BEFORE each position: states[:, j] is the
             # automaton after the first j candidates (what sequential
@@ -3167,7 +3533,6 @@ class InferenceEngine:
                 grammar_allowed_mask(sts[j], self._fsm_g, self._budget - j,
                                      act, *self._grammars.args())
                 for j in range(S)], dim=1).reshape(B * S, V)
-        mode = sampling_mode(members)
         samples = sample_tokens_per_slot(
             logits.reshape(B * S, V),
             SamplingParams(rep(sp.temperature), rep(sp.top_k),
@@ -3337,27 +3702,33 @@ class InferenceEngine:
         if self.flight is not None:
             self.flight.note_cost(flops, bytes_, modeled)
 
-    def _sample(self, logits: torch.Tensor, reqs: Sequence[GenRequest],
-                positions: Sequence[int],
-                allowed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    @staticmethod
+    def _sample_args(reqs: Sequence[GenRequest], positions: Sequence[int],
+                     allowed: Optional[np.ndarray]) -> tuple:
+        """The host inputs of a prefill's sampling: per row temperature,
+        top-k, top-p, seed and position, the sampling mode, and the
+        [rows, V] bool constrained mask (None = free)."""
+        return (np.array([r.temperature for r in reqs], np.float32),
+                np.array([r.top_k for r in reqs], np.int64),
+                np.array([r.top_p for r in reqs], np.float32),
+                np.array([r.seed & 0xFFFFFFFF for r in reqs], np.int64),
+                np.asarray(positions, np.int64), sampling_mode(reqs),
+                allowed)
+
+    def _sample_on_device(self, logits: torch.Tensor,
+                          args: tuple) -> torch.Tensor:
         """A prefill's tokens on the device: row i draws at (seed,
-        positions[i]); allowed [rows, V] bool is the constrained mask."""
-        params = SamplingParams(
-            temperature=self._to_device(np.array(
-                [r.temperature for r in reqs], np.float32)),
-            top_k=self._to_device(np.array([r.top_k for r in reqs],
-                                           np.int64)),
-            top_p=self._to_device(np.array([r.top_p for r in reqs],
-                                           np.float32)),
-        )
-        mode = sampling_mode(reqs)
+        positions[i]) under the _sample_args inputs."""
+        temps, top_ks, top_ps, seeds, positions, mode, allowed = args
+        params = SamplingParams(temperature=self._to_device(temps),
+                                top_k=self._to_device(top_ks),
+                                top_p=self._to_device(top_ps))
         return sample_tokens_per_slot(
-            logits, params,
-            self._to_device(np.array([r.seed & 0xFFFFFFFF for r in reqs],
-                                     np.int64)),
-            self._to_device(np.asarray(positions, np.int64)),
-            allowed_mask=allowed, sampled=mode != GREEDY,
-            filtered=mode == FILTERED)
+            logits, params, self._to_device(seeds),
+            self._to_device(positions),
+            allowed_mask=(self._to_device(allowed) if allowed is not None
+                          else None),
+            sampled=mode != GREEDY, filtered=mode == FILTERED)
 
     # ------------------------------------------------------------------
     # constrained decoding
@@ -3378,28 +3749,20 @@ class InferenceEngine:
         that cannot register or a replay that stops validating degrades
         the lane to the host mask path."""
         if req.grammar is None:
-            self._fsm[slot] = -1
+            self._dev_fsm(slot, -1)
             return
         g_idx = self._grammars.register(req.grammar)
         state = req.grammar.walk(req.output_ids) if g_idx is not None else -1
         if state < 0:
             self._degrade(req, "cannot register" if g_idx is None
                           else "replay stopped validating")
-            self._fsm[slot] = -1
+            self._dev_fsm(slot, -1)
             return
-        off = self._grammars.offsets[g_idx]
-        if req.drained == req.dispatched:
-            self._fsm[slot] = off + state
-        else:
-            # exactly the prefill's token is in flight: it sits in
-            # _d_last[slot]; advance the replayed state by it on device
-            tc = self._grammars.token_class[g_idx]
-            cls = tc.index_select(0, self._d_last[slot:slot + 1])
-            nxt = self._grammars.trans[off + state].index_select(
-                0, cls.long())
-            self._fsm[slot:slot + 1].copy_(nxt)
-        self._fsm_g[slot] = g_idx
-        self._budget[slot] = req.max_new_tokens - req.dispatched
+        # when exactly the prefill's token is in flight it sits in
+        # _d_last[slot]: the replayed state advances by it on the device
+        self._dev_fsm(slot, self._grammars.offsets[g_idx] + state, g_idx,
+                      req.max_new_tokens - req.dispatched,
+                      advance=req.drained != req.dispatched)
 
     def _degrade(self, req: GenRequest, why: str) -> None:
         logger.warning("grammar for %s: %s; degrading to the host mask path",
@@ -3410,7 +3773,7 @@ class InferenceEngine:
             self.flight.note_cause("degrade")
 
     def _prefill_masks(self, reqs: Sequence[GenRequest]
-                       ) -> Optional[torch.Tensor]:
+                       ) -> Optional[np.ndarray]:
         """[len(reqs), V] mask for the tokens a prefill samples, None when
         no lane is constrained.  Grammar lanes take their compiled row at
         the state their output replays to, under the decode step's
@@ -3433,8 +3796,7 @@ class InferenceEngine:
         if all(r is None for r in rows):
             return None
         V = self.cfg.vocab_size
-        return self._to_device(np.stack(
-            [np.ones(V, bool) if r is None else r for r in rows]))
+        return np.stack([np.ones(V, bool) if r is None else r for r in rows])
 
     def _host_mask_row(self, req: GenRequest) -> Optional[np.ndarray]:
         """[V] bool row from the lane's mask fn over its complete output
@@ -3520,8 +3882,67 @@ class InferenceEngine:
 
     def _vacate(self, slot: int) -> None:
         self.slots[slot] = None
-        self._fsm[slot] = -1  # the next occupant starts free
+        self._dev_fsm(slot, -1)  # the next occupant starts free
         self._ctl_dirty = True
+
+    # -- the device writes of seating, parking and FSM lanes --------------
+
+    @replicated
+    def _dev_set_last(self, slot: int, token: Optional[int],
+                      parked: Optional[str]) -> None:
+        """Seed a lane's last token: a host-known `token`, or the token a
+        parked prefill left on the device under request id `parked`."""
+        if parked is not None:
+            self._d_last[slot:slot + 1].copy_(self._parked_toks.pop(parked))
+        else:
+            self._d_last[slot] = token
+
+    @replicated
+    def _dev_seat_prefill(self, slot: int, row: int) -> None:
+        """The last prefill's sampled token `row` seeds lane `slot`."""
+        self._d_last[slot:slot + 1].copy_(self._prefill_toks[row:row + 1])
+
+    @replicated
+    def _dev_park_prefill(self, key: str, row: int) -> None:
+        """Keep the last prefill's token `row` on the device for a parked
+        lane until it is seated (or released)."""
+        self._parked_toks[key] = self._prefill_toks[row:row + 1]
+
+    @replicated
+    def _dev_drop_parked(self, key: str) -> None:
+        self._parked_toks.pop(key, None)
+
+    @replicated
+    def _dev_grammar_tables(self, tc: np.ndarray, trans: np.ndarray,
+                            dist: np.ndarray, slack: int) -> None:
+        """A registration's rebuilt grammar tables, to the device."""
+        self._grammars.write(tc, trans, dist, slack)
+
+    def _drop_parked(self, req: GenRequest) -> None:
+        """Release a parked lane's device token, if it holds one."""
+        if req.pending_tok:
+            self._dev_drop_parked(req.request_id)
+        req.pending_tok = None
+
+    @replicated
+    def _dev_fsm(self, slot: int, state: int, g_idx: Optional[int] = None,
+                 budget: int = 0, advance: bool = False) -> None:
+        """Set lane `slot`'s FSM state (-1 = free).  With `advance`, the
+        lane's token still in flight (in _d_last) steps `state` on the
+        device first.  A grammar lane also gets its grammar index and
+        budget."""
+        if g_idx is None:
+            self._fsm[slot] = state
+            return
+        if advance:
+            tc = self._grammars.token_class[g_idx]
+            cls = tc.index_select(0, self._d_last[slot:slot + 1])
+            nxt = self._grammars.trans[state].index_select(0, cls.long())
+            self._fsm[slot:slot + 1].copy_(nxt)
+        else:
+            self._fsm[slot] = state
+        self._fsm_g[slot] = g_idx
+        self._budget[slot] = budget
 
     def _release_slot(self, req: GenRequest) -> None:
         """Free a request's batch slot (or parked place) and pages.  Pages
@@ -3533,7 +3954,7 @@ class InferenceEngine:
             req.slot = -1
         if req in self.parked:
             self.parked.remove(req)
-        req.pending_tok = None
+        self._drop_parked(req)
         if req.seq is not None:
             self.pool.free_sequence(req.seq)
             req.seq = None

@@ -30,12 +30,12 @@ not model.
 from __future__ import annotations
 
 import dataclasses
-import math
 import os
 import time
 from typing import Dict, Optional, Tuple
 
 from ..models.config import ModelConfig
+from ..parallel.mesh import factor_tp_for_kv, resolve_tensor_axes
 
 GiB = 1024**3
 MiB = 1024**2
@@ -54,17 +54,6 @@ _DTYPE_BYTES = {"bfloat16": 2, "float32": 4, "float16": 2, "int8": 1}
 
 def _bytes(dtype: str) -> int:
     return _DTYPE_BYTES[dtype]
-
-
-def factor_tp_for_kv(tensor_degree: int, num_kv_heads: int
-                     ) -> Tuple[int, int]:
-    """(tp, tq) for a tensor-parallel degree: the kv sub-axis tp is the
-    largest divisor of the degree that divides num_kv_heads, tq carries
-    the rest as kv replication groups (kafka_tpu/parallel/mesh.py)."""
-    if tensor_degree <= 1:
-        return max(tensor_degree, 1), 1
-    kv = math.gcd(tensor_degree, num_kv_heads)
-    return kv, tensor_degree // kv
 
 
 def _kv_shard(cfg: ModelConfig, tp: int, kv_shard: Optional[int] = None
@@ -471,16 +460,24 @@ def dispatch_cost_model(
 
 def plan_for_serving(scfg, hbm_bytes: int,
                      model_cfg: Optional[ModelConfig] = None) -> MemoryPlan:
-    """Plan from a ServingConfig (server/config.py); `model_cfg` is the
-    model the server actually built (tiny / checkpoint configs differ
-    from model_name).  One device: tp = sp = pp = ep = 1."""
+    """Plan for one card from a ServingConfig (server/config.py);
+    `model_cfg` is the model the server actually built (tiny / checkpoint
+    configs differ from model_name).  At tp_size > 1 the plan is one
+    rank's: its weight shard (heads, MLP columns and vocab over the
+    degree, kv over the resolved tp), its pool columns and activations,
+    as the engine places them (parallel/sharding.py).  sp = pp = ep = 1."""
     if model_cfg is None:
         from ..models.config import get_config
 
         model_cfg = get_config(scfg.model_name)
+    degree = max(1, getattr(scfg, "tp_size", 1))
+    tpk, tq = resolve_tensor_axes(degree, model_cfg.num_kv_heads)
     return plan_memory(
         model_cfg,
         hbm_bytes=hbm_bytes,
+        tp=degree,
+        kv_shard=tpk if (tq > 1 or model_cfg.num_kv_heads % tpk == 0)
+        else 1,
         num_pages=scfg.num_pages, page_size=scfg.page_size,
         max_pages_per_seq=scfg.max_pages_per_seq, max_batch=scfg.max_batch,
         prefill_bucket=max(scfg.prefill_buckets),

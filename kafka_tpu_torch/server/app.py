@@ -54,6 +54,10 @@ With `dp_size > 1` the engine is a DataParallelEngines router over
 replica slots (KAFKA_TORCH_REPLICA_DEVICES), optionally split into
 prefill and decode pools (KAFKA_TORCH_DP_ROLES); with KAFKA_TORCH_AUTOSCALE
 an autoscaler controller polls /admin/signals' snapshot and resizes it.
+With `tp_size > 1` (KAFKA_TORCH_TP_SIZE) the engine is rank 0 of a
+tensor-parallel group over tp_size cards (parallel/); a group that breaks
+(a rank dies) fails its in-flight requests with an error event and turns
+/health to 503 "unhealthy", and shutdown stops every rank.
 """
 
 from __future__ import annotations
@@ -128,6 +132,7 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
         if mode not in ("", "int8"):
             raise ValueError(f"unknown {knob} mode {mode!r}")
     dev = resolve_device(device)
+    mesh = _tensor_mesh(cfg)
     if cfg.checkpoint_dir:
         tokenizer = load_tokenizer(cfg.checkpoint_dir)
         model_cfg, params = load_checkpoint(cfg.checkpoint_dir, device=dev)
@@ -139,9 +144,15 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
         else:
             model_cfg = get_config(cfg.model_name).replace(
                 vocab_size=max(tokenizer.vocab_size, 262), dtype=cfg.dtype)
-        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-        params = init_params(model_cfg, gen, device=dev)
-    if cfg.quantize == "int8":
+        if mesh is not None:
+            # every rank draws its own shard on its own card
+            from ..parallel import RandomWeights
+
+            params = RandomWeights(seed=cfg.seed, quantize=cfg.quantize)
+        else:
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+            params = init_params(model_cfg, gen, device=dev)
+    if cfg.quantize == "int8" and mesh is None:
         params = quantize_params(params, model_cfg)
     if cfg.dp_roles and cfg.dp_size <= 1:
         raise ValueError(
@@ -207,6 +218,16 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
         # replicas a resize or a quarantine escalation builds later get
         # the same plan and warmup before they serve
         engine.memory_plan = memory_plan
+    elif mesh is not None:
+        # rank 0 here, ranks 1..n-1 spawned on cuda:1..n-1 (or the CPU
+        # when the caller asked for it)
+        from ..parallel import MeshConfig
+
+        tp, tq = mesh
+        engine = InferenceEngine(
+            model_cfg, params, engine_cfg,
+            device="cpu" if dev.type == "cpu" else None,
+            mesh=MeshConfig(tp=tp, tq=tq))
     else:
         engine = InferenceEngine(model_cfg, params, engine_cfg, device=dev)
     replicas = getattr(engine, "engines", [engine])
@@ -239,6 +260,26 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
     # the observatory's storm detector counts only this phase
     compile_log.set_phase("first_traffic")
     return TorchLLMProvider(engine, tokenizer, model_name=cfg.model_name)
+
+
+def _tensor_mesh(cfg: ServingConfig):
+    """(tp, tq) of the server's rank group, None at tp_size 1.  The
+    degree splits by resolve_tensor_axes, as the planner charges it."""
+    if cfg.tp_size <= 1:
+        return None
+    if cfg.dp_size > 1:
+        raise ValueError(
+            f"dp_size={cfg.dp_size} x tp_size={cfg.tp_size}: replicas of a "
+            "tensor-parallel group are not ported (ROADMAP A9, dp x tp)")
+    if cfg.checkpoint_dir:
+        raise ValueError(
+            "a checkpoint at tp_size > 1 is not ported: each rank would load "
+            "its own shard of the safetensors files (ROADMAP A9)")
+    from ..models import get_config
+    from ..parallel import resolve_tensor_axes
+
+    model_cfg = get_config("tiny" if cfg.tiny_model else cfg.model_name)
+    return resolve_tensor_axes(cfg.tp_size, model_cfg.num_kv_heads)
 
 
 def _replica_slots(cfg: ServingConfig, dev) -> List[torch.device]:
@@ -1086,11 +1127,14 @@ async def health(request: web.Request) -> web.Response:
     from load-balancer rotation while in-flight streams finish."""
     state = _state(request)
     draining = state["draining"]
+    engine = getattr(state["llm"], "engine", None)
+    # a tensor-parallel engine whose rank group broke cannot serve again
+    broken = getattr(engine, "group_broken", None)
     payload: Dict[str, Any] = {
-        "status": "draining" if draining else "ok",
+        "status": ("draining" if draining
+                   else "unhealthy" if broken else "ok"),
         "kafka_initialized": state["kafka"]._initialized,
     }
-    engine = getattr(state["llm"], "engine", None)
     if engine is not None:
         # a router exposes .engines; one engine is its own replica set
         replicas = getattr(engine, "engines", [engine])
@@ -1107,7 +1151,14 @@ async def health(request: web.Request) -> web.Response:
         if health_records:
             # which replicas are quarantined, at a glance
             payload["engine"]["replicas"] = [h.state for h in health_records]
-    return web.json_response(payload, status=503 if draining else 200)
+        rank_mesh = getattr(engine, "mesh", None)
+        if rank_mesh is not None:
+            payload["engine"]["tp"] = rank_mesh.tp
+            payload["engine"]["tq"] = rank_mesh.tq
+        if broken:
+            payload["engine"]["error"] = broken
+    return web.json_response(payload,
+                             status=503 if draining or broken else 200)
 
 
 async def debug_traces(request: web.Request) -> web.Response:

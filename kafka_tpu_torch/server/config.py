@@ -130,6 +130,13 @@ class ServingConfig:
     # Byte budget (MiB) on the object-store references the engine holds;
     # 0 = unbounded.  KAFKA_TORCH_KV_OBJECT_MB.
     kv_object_mb: int = 0
+    # Tensor parallelism (parallel/, KAFKA_TORCH_TP_SIZE or
+    # KAFKA_TORCH_TP): one engine over tp_size cards, rank r on cuda:r,
+    # spawned as worker processes; the degree splits into (tp, tq) by
+    # resolve_tensor_axes.  Random weights are drawn per rank
+    # (RandomWeights): no full copy of the model exists anywhere.  One
+    # card per rank; dp x tp is not ported (ROADMAP A9).
+    tp_size: int = 1
     # Data-parallel replicas (runtime/dp_router.py): dp independent
     # engines with thread-affinity routing (KAFKA_TORCH_DP_SIZE, or
     # KAFKA_TORCH_DP).  1 = one engine, no router.
@@ -226,6 +233,7 @@ class ServingConfig:
             kv_object_dir=get("KV_OBJECT_DIR", None),
             kv_object_mb=get("KV_OBJECT_MB", cls.kv_object_mb,
                              lambda v: max(0, int(v))),
+            tp_size=get_axis("TP", cls.tp_size),
             dp_size=get_axis("DP", cls.dp_size),
             replica_devices=get("REPLICA_DEVICES", None),
             dp_roles=get("DP_ROLES", None),

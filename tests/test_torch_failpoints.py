@@ -446,8 +446,9 @@ def test_every_wired_site_is_documented():
 
 def test_every_documented_site_is_wired():
     assert set(pfp.SITES) - wired_sites() == set()
-    # nine, plus the seven tier sites, plus the cross-replica ship
-    assert len(pfp.SITES) == 17
+    # nine, plus the seven tier sites, plus the cross-replica ship, plus
+    # the tensor-parallel group's two
+    assert len(pfp.SITES) == 19
 
 
 @pytest.mark.cuda
