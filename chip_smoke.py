@@ -313,6 +313,37 @@ Phases, each of which raises (non-zero exit) on any failure:
                rank left running.  The per-rank kernels' kernels-line
                launches are the engine leg's, summed over ranks (0 when
                it did not run).
+  8. moe     — Mixtral-class MoE (models/llama.py's dense-dispatch
+               _moe_block, parallel/expert.py).  (a) mixtral-8x7b at full
+               width and depth with int8 weights on one card (drawn one
+               expert at a time and quantized as drawn: the bf16 model
+               never exists), bf16 KV, page 16, 8 lanes, a 4096-token
+               window, decode graphs at multi_step 16: eight greedy
+               requests on the kernel engine (K2 and K1 must launch) held
+               against a plain-attention engine on the same parameter
+               tree (logits within LOGITS_RTOL, streams equal or parting
+               at near-ties inside the flip bound); a cold 3,000-token
+               prompt's prefill (host clock; device time by kernel, K2's
+               and the GEMMs' shares); the decode step at 8 lanes x ~256
+               tokens (graphs phase's profile: ms per step, busy share);
+               the weights and pool against the plan and the graph pool's
+               bytes beside the plan's activations.  (b) the same with an
+               int8 KV pool (K4 must launch, K1 none) against its plain
+               engine.  (c) the server from KAFKA_TORCH_MODEL=
+               mixtral-8x7b and KAFKA_TORCH_QUANTIZE=int8 (byte
+               tokenizer): a streamed thread turn to [DONE], then a
+               forced tool call (tool_choice "required", the idle tool)
+               whose text must parse.  On 2+ cards (d): bf16 mixtral-8x7b
+               at full width and MOE_EP_LAYERS layers at ep 2 ("auto"
+               resolves to plain attention, the reference's rule) against
+               a single-card engine on the same weights, NCCL per layer,
+               each rank's bytes against its plan; on 4 cards (e): full
+               depth at ep 2 x tp 2, each rank's bytes against its plan,
+               NCCL per layer, and a streamed turn through a server from
+               KAFKA_TORCH_EP_SIZE=2 KAFKA_TORCH_TP_SIZE=2.  With fewer
+               cards (d) and (e) report "skipped: cards".  The kernels
+               line's `moe_launches` are legs (a)-(c)'s counts.
+               `--moe-legs de` runs the multi-card legs alone.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
@@ -2870,7 +2901,8 @@ def _spy_submits(engine) -> list:
 
 
 async def _constrained_turn(session, url: str, tool_choice, engine, seen,
-                            tokenizer, tool_defs) -> dict:
+                            tokenizer, tool_defs,
+                            model: str = "llama-3.2-1b") -> dict:
     """One greedy thread turn with `tool_choice`: it must be one model turn
     that ends `finish_reason: "tool_calls"`, its text a tool call that
     validate_tool_call_json accepts.  Returns its tokens and the engine's
@@ -2883,7 +2915,7 @@ async def _constrained_turn(session, url: str, tool_choice, engine, seen,
     before = {k: getattr(engine, k) for k in keys}
     n0 = len(seen)
     ev = await _stream(session, url, {
-        "model": "llama-3.2-1b", "stream": True, "temperature": 0,
+        "model": model, "stream": True, "temperature": 0,
         "max_tokens": CONSTRAINED_MAX_TOKENS, "tool_choice": tool_choice,
         "messages": [{"role": "user", "content": CONSTRAINED_PROMPT}]})
     if len(seen) != n0 + 1:
@@ -5966,12 +5998,13 @@ def tp_engine_leg_70b(seed: int) -> dict:
 
 
 async def _serve_tp(model: str, tp: int, content: str,
-                    kill_after: int = 0) -> dict:
-    """A server from the environment (KAFKA_TORCH_TP_SIZE=tp) on a free
-    port: one streamed thread turn, /health; with kill_after > 0 rank 1 is
-    killed once that many content events have arrived, and the stream
-    must carry an error event and end, /health must answer 503, and the
-    shutdown must leave no rank behind."""
+                    kill_after: int = 0, ep: int = 1) -> dict:
+    """A server from the environment (KAFKA_TORCH_TP_SIZE=tp, and
+    KAFKA_TORCH_EP_SIZE=ep when ep > 1) on a free port: one streamed
+    thread turn, /health; with kill_after > 0 rank 1 is killed once that
+    many content events have arrived, and the stream must carry an error
+    event and end, /health must answer 503, and the shutdown must leave
+    no rank behind."""
     import aiohttp
     from aiohttp import web
 
@@ -5979,6 +6012,8 @@ async def _serve_tp(model: str, tp: int, content: str,
     from kafka_tpu_torch.server.app import STATE_KEY
 
     os.environ["KAFKA_TORCH_TP_SIZE"] = str(tp)
+    if ep > 1:
+        os.environ["KAFKA_TORCH_EP_SIZE"] = str(ep)
     try:
         with tempfile.TemporaryDirectory() as td:
             cfg = ServingConfig.from_env(
@@ -6027,7 +6062,9 @@ async def _serve_tp(model: str, tp: int, content: str,
             out["left_running"] = [p for p in pids if _pid_alive(p)]
     finally:
         os.environ.pop("KAFKA_TORCH_TP_SIZE", None)
-    log(f"tp server {model} tp {tp}{' (kill)' if kill_after else ''}: {out}")
+        os.environ.pop("KAFKA_TORCH_EP_SIZE", None)
+    log(f"tp server {model} tp {tp} ep {ep}"
+        f"{' (kill)' if kill_after else ''}: {out}")
     return out
 
 
@@ -6216,16 +6253,644 @@ def phase_tp(seed: int) -> None:
         }
 
 
+# ---------------------------------------------------------------------------
+# phase 8: Mixtral-class MoE
+# ---------------------------------------------------------------------------
+
+MOE_PAGES = 256              # a 4096-token window at page 16
+MOE_PROMPT = 3000            # a cold agent turn's prompt
+MOE_NEW = 16
+MOE_EP_LAYERS = 4            # leg (d)'s depth: bf16 at full width
+
+
+def _moe_cfg(**kw):
+    """The Mixtral engines: 8 lanes, page 16, a 4096-token window, prefill
+    chunks up to 2048, decode graphs at the default multi_step (16), the
+    kernels unless a caller asks for "plain" or "auto"."""
+    from kafka_tpu_torch.runtime import EngineConfig
+
+    kw.setdefault("attention_backend", "kernel")
+    kw.setdefault("num_pages", 8 * MOE_PAGES + 1)
+    return EngineConfig(max_batch=8, page_size=16,
+                        max_pages_per_seq=MOE_PAGES,
+                        prefill_buckets=(64, 256, 512, 1024, 2048),
+                        keep_logits=True, **kw)
+
+
+def _moe_launches() -> dict:
+    from kafka_tpu_torch.ops import kernels
+
+    return {f.__name__: f.launches for f in kernels.KERNELS}
+
+
+def _moe_compare(label, cfg, got, ref, max_new: int) -> dict:
+    """Greedy streams of two engines on one parameter tree: logits within
+    LOGITS_RTOL up to each first parting, and every parting a near-tie
+    inside the flip bound."""
+    same, agree, worst = _compare_streams(cfg, got, ref, max_new)
+    ties = _near_ties(got, ref, max_new)
+    out = {"identical_streams": same, "streams": len(got),
+           "token_agreement": [agree, max_new * len(got)],
+           "logits_rel_err": worst, "near_ties": ties}
+    log(f"moe {label}: {same}/{len(got)} identical greedy streams, token "
+        f"agreement {agree}/{max_new * len(got)}, worst logits "
+        f"max|d|/max|ref| = {worst:.4f} (tol {LOGITS_RTOL}), partings "
+        f"{[(t['position'], round(t['margin'], 4)) for t in ties]}")
+    if not worst <= LOGITS_RTOL:
+        raise AssertionError(f"moe {label}: logits disagree: {worst}")
+    return out
+
+
+class RoutingTrace:
+    """Records every MoE layer's router logits (f32 [T, E]) while active,
+    by wrapping models/llama.py's _routing_weights (called by name from
+    _moe_block, eagerly in prefill)."""
+
+    def __init__(self):
+        from kafka_tpu_torch.models import llama
+
+        self.llama = llama
+        self.real = llama._routing_weights
+        self.calls = []
+        self.active = False
+        llama._routing_weights = self
+
+    def __call__(self, t, router, top_k):
+        if self.active:
+            self.calls.append(
+                self.llama._matmul_f32(t, router).float().cpu())
+        return self.real(t, router, top_k)
+
+    def restore(self):
+        self.llama._routing_weights = self.real
+
+
+def routing_trace(eng, prompt) -> list:
+    """The router logits of every layer for one prompt's prefill (a
+    request of one token, so only the prefill's chunks run the model)."""
+    from kafka_tpu_torch.runtime import GenRequest
+
+    tr = RoutingTrace()
+    try:
+        tr.active = True
+        eng.submit(GenRequest(request_id="moe-route", prompt_ids=prompt,
+                              max_new_tokens=1))
+        eng.run_to_completion()
+    finally:
+        tr.restore()
+    # one chunk per layer (the prompt fits the largest bucket); the rows
+    # past the prompt are the bucket's padding
+    if len(tr.calls) != eng.cfg.num_layers:
+        raise AssertionError(f"routing trace: {len(tr.calls)} calls for "
+                             f"{eng.cfg.num_layers} layers")
+    return [c[:len(prompt)] for c in tr.calls]
+
+
+def routing_flips(cfg, got: list, ref: list) -> dict:
+    """Where two engines' top-k expert choices for the same prompt first
+    differ.  Each such token must be a router near-tie: the reference's
+    margin between its k-th and (k+1)-th logit at most twice the two
+    runs' largest router-logit difference for that token (a flip needs
+    the perturbation to close the gap).  Tokens routed alike everywhere
+    give no layer."""
+    import torch
+
+    k = cfg.num_experts_per_tok
+    out = {"layers": len(ref), "first_layer": None, "tokens": 0,
+           "flips": []}
+    if k >= cfg.num_experts:
+        return out
+    for layer, (a, b) in enumerate(zip(got, ref)):
+        ia = torch.sort(a, dim=-1, descending=True, stable=True)[1][:, :k]
+        vb, ib = torch.sort(b, dim=-1, descending=True, stable=True)
+        diff = (ia.sort(-1)[0] != ib[:, :k].sort(-1)[0]).any(-1)
+        if not diff.any():
+            continue
+        tokens = diff.nonzero().flatten().tolist()
+        out.update(first_layer=layer, tokens=len(tokens))
+        for t in tokens[:8]:
+            flip = {"token": t,
+                    "margin": (vb[t, k - 1] - vb[t, k]).item(),
+                    "max_abs_dlogit": (a[t] - b[t]).abs().max().item()}
+            if not flip["margin"] <= 2 * flip["max_abs_dlogit"]:
+                raise AssertionError(f"routing parts outside the flip "
+                                     f"bound at layer {layer}: {flip}")
+            out["flips"].append(flip)
+        break
+    return out
+
+
+def moe_prefill(eng, cfg, rng, n: int) -> dict:
+    """A cold ~n-token prompt's prefill to its first token on the host
+    clock (the second of two prompts of that size: the first warms the
+    GEMM heuristics), then a third under the profiler: device time by
+    kernel, K2's and the GEMMs' shares."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kafka_tpu_torch.runtime import GenRequest
+
+    def one(tag):
+        req = GenRequest(request_id=f"moe-prefill-{tag}", max_new_tokens=1,
+                         prompt_ids=rng.randint(0, cfg.vocab_size,
+                                                size=n).tolist())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.submit(req)
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    one("warm")
+    ms = one("timed")
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        one("profiled")
+    rows = [(e.key, e.count, getattr(e, "device_time_total",
+                                      getattr(e, "cuda_time_total", 0)) / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    total = sum(t for _, _, t in rows)
+    k2 = sum(t for k, _, t in rows if "flash_prefill" in k)
+    gemm = sum(t for k, _, t in rows if any(
+        g in k.lower() for g in ("gemm", "cutlass", "xmma", "nvjet")))
+    top = sorted(rows, key=lambda r: -r[2])[:8]
+    out = {"tokens": n, "host_ms": ms, "device_ms": total, "k2_ms": k2,
+           "k2_share": k2 / total if total else None, "gemm_ms": gemm,
+           "gemm_share": gemm / total if total else None,
+           "top_kernels": [(k[:70], c, round(t, 3)) for k, c, t in top]}
+    log(f"moe prefill of {n} tokens: {ms:.1f} ms host clock; device "
+        f"{total:.1f} ms, K2 {k2:.2f} ms ({out['k2_share']}), GEMMs "
+        f"{gemm:.1f} ms ({out['gemm_share']}); top {out['top_kernels']}")
+    return out
+
+
+def moe_one_card(seed: int) -> dict:
+    """(a) and (b): mixtral-8x7b at full width with int8 weights (drawn
+    one expert at a time on the card and quantized as drawn: the bf16
+    model, ~93 GB, never exists), held against a plain-attention engine
+    on the same parameter tree, bf16 KV (K2, K1) then int8 KV (K4)."""
+    import numpy as np
+    import torch
+
+    from kafka_tpu_torch.models import get_config
+    from kafka_tpu_torch.models.quant import QTensor, param_bytes
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.parallel import init_params_shard
+    from kafka_tpu_torch.runtime import InferenceEngine
+    from kafka_tpu_torch.runtime.planner import hbm_for_device, plan_memory
+
+    cfg = get_config("mixtral-8x7b")
+    if (cfg.hidden_size, cfg.intermediate_size, cfg.num_layers,
+            cfg.num_experts, cfg.head_dim, cfg.num_heads,
+            cfg.num_kv_heads) != (4096, 14336, 32, 8, 128, 32, 8):
+        raise AssertionError(f"not the published mixtral-8x7b: {cfg}")
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = init_params_shard(cfg, seed, device="cuda", quantize="int8")
+    torch.cuda.synchronize()
+    res["draw_s"] = time.monotonic() - t0
+    res["draw_peak_bytes"] = torch.cuda.max_memory_allocated()
+    if not isinstance(params["layers"]["wg"], QTensor):
+        raise AssertionError("the experts are not int8")
+    weights = param_bytes(params)
+    log(f"moe: mixtral-8x7b int8 weights, {weights / 1e9:.2f} GB, drawn in "
+        f"{res['draw_s']:.1f}s (peak allocated "
+        f"{res['draw_peak_bytes'] / 1e9:.2f} GB)")
+    rng = np.random.RandomState(seed + 8)
+    lens = [700, 40, 90, 200, 300, 450, 600, 120]
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
+    # a prompt no engine has cached, for the routing trace
+    route_prompt = rng.randint(0, cfg.vocab_size, size=600).tolist()
+
+    # (a) bf16 KV: K2 for every prompt chunk, K1 for every decode step
+    eng = InferenceEngine(cfg, params, _moe_cfg())
+    clock = ReplayClock(eng)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    got = _drive(eng, prompts, MOE_NEW)
+    torch.cuda.synchronize()
+    res["drive_s"] = time.monotonic() - t0
+    launched = _moe_launches()
+    k1, k2 = launched["paged_decode_attention"], \
+        launched["paged_prefill_attention"]
+    log(f"moe (a): 8 requests in {res['drive_s']:.1f}s, launches K1={k1} "
+        f"K2={k2}, {eng.graph_replays} replays, graphs {sorted(eng._graphs)}")
+    if k1 == 0 or k2 == 0:
+        raise AssertionError(f"moe (a): K1={k1} K2={k2}")
+    res["launches_a"] = launched
+    route_kernel = routing_trace(eng, route_prompt)
+    res["prefill"] = moe_prefill(eng, cfg, rng, MOE_PROMPT)
+    res["decode"] = graph_profile(eng, clock, cfg, rng, width=8, ctx=256,
+                                  max_new=112)
+    ecfg = eng.ecfg
+    plan = plan_memory(cfg, hbm_bytes=hbm_for_device("cuda:0"),
+                       num_pages=ecfg.num_pages, page_size=ecfg.page_size,
+                       max_pages_per_seq=ecfg.max_pages_per_seq,
+                       max_batch=ecfg.max_batch,
+                       prefill_bucket=max(ecfg.prefill_buckets),
+                       quantize="int8", kv_dtype="bfloat16")
+    pool = tensor_bytes((eng.k_pool, eng.v_pool))
+    split = allocator_split(torch.device("cuda:0"))
+    res["memory"] = {
+        "weights": weights, "kv_pool": pool,
+        "graph_pool_reserved": split["graph_reserved"],
+        "graph_pool_allocated": split["graph_allocated"],
+        "allocated": torch.cuda.memory_allocated(),
+        "reserved": torch.cuda.memory_reserved(),
+        "plan": {"weight_bytes": plan.weight_bytes,
+                 "kv_pool_bytes": plan.kv_pool_bytes,
+                 "activation_bytes": plan.activation_bytes,
+                 "total_bytes": plan.total_bytes}}
+    log(f"moe (a) bytes: {res['memory']}")
+    if abs(weights - plan.weight_bytes) > PLAN_EXACT * plan.weight_bytes \
+            or pool != plan.kv_pool_bytes:
+        raise AssertionError(f"moe (a): bytes {res['memory']} vs the plan")
+    eng.close()
+    del eng, clock
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = InferenceEngine(cfg, params, _moe_cfg(attention_backend="plain"))
+    kernels.reset_launch_counts()
+    ref = _drive(plain, prompts, MOE_NEW)
+    if any(_moe_launches()[k] for k in ("paged_decode_attention",
+                                        "paged_prefill_attention")):
+        raise AssertionError("moe (a): the plain engine launched a kernel")
+    route_plain = routing_trace(plain, route_prompt)
+    plain.close()
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    # top-2 routing is discontinuous: where a token's 2nd and 3rd router
+    # logits are nearer than attention's rounding moves them, the two
+    # engines route it to different experts and their logits part by far
+    # more than rounding.  So the streams are reported, every routing
+    # parting is held to the router's flip bound, and the logits gate
+    # (LOGITS_RTOL) runs on the same widths and tree with every expert
+    # routed (top-8 of 8: continuous weights), which holds K2 and K1 end
+    # to end inside the MoE model.
+    same, agree, worst = _compare_streams(cfg, got, ref, MOE_NEW)
+    res["vs_plain_top2"] = {
+        "identical_streams": same, "token_agreement": [agree,
+                                                       MOE_NEW * len(got)],
+        "logits_rel_err": worst,
+        "routing": routing_flips(cfg, route_kernel, route_plain)}
+    log(f"moe (a) top-2, kernel vs plain engine: {same}/8 identical, "
+        f"agreement {agree}/{MOE_NEW * len(got)}, worst logits {worst:.4f}; "
+        f"routing on a 600-token prefill: {res['vs_plain_top2']['routing']}")
+    del got, ref
+    dense = cfg.replace(num_experts_per_tok=cfg.num_experts)
+    short = prompts[:4]
+    runs = []
+    for backend in ("kernel", "plain"):
+        e = InferenceEngine(dense, params,
+                            _moe_cfg(attention_backend=backend))
+        kernels.reset_launch_counts()
+        runs.append(_drive(e, short, MOE_NEW))
+        if backend == "kernel":
+            res["launches_a_top8"] = _moe_launches()
+        e.close()
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["vs_plain"] = _moe_compare("(a) every expert routed, kernel vs "
+                                   "plain engine", dense, *runs, MOE_NEW)
+    del runs
+
+    # (b) int8 KV: K4 for every decode step, on the model as published
+    # (top-2), then held to plain attention with every expert routed
+    kv8 = InferenceEngine(cfg, params, _moe_cfg(kv_quantize="int8"))
+    kernels.reset_launch_counts()
+    _drive(kv8, short, MOE_NEW)
+    torch.cuda.synchronize()
+    res["launches_b"] = _moe_launches()
+    k4 = res["launches_b"]["paged_decode_attention_int8"]
+    log(f"moe (b): int8 KV, launches {res['launches_b']}")
+    if k4 == 0 or res["launches_b"]["paged_decode_attention"]:
+        raise AssertionError(f"moe (b): {res['launches_b']}")
+    kv8.close()
+    del kv8
+    runs = []
+    for backend in ("kernel", "plain"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        e = InferenceEngine(dense, params, _moe_cfg(
+            kv_quantize="int8", attention_backend=backend))
+        runs.append(_drive(e, short, MOE_NEW))
+        e.close()
+        del e
+    res["int8_kv_vs_plain"] = _moe_compare(
+        "(b) int8 KV, every expert routed, K4 vs plain", dense, *runs,
+        MOE_NEW)
+    del runs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+async def _serve_moe(db_path: str) -> dict:
+    """(c) A server from the environment (KAFKA_TORCH_MODEL=mixtral-8x7b,
+    KAFKA_TORCH_QUANTIZE=int8; byte tokenizer, so the vocab is 262, full
+    width otherwise): one streamed thread turn to [DONE], then a forced
+    tool call (tool_choice "required" over the agent's idle tool) whose
+    text must parse."""
+    import aiohttp
+    from aiohttp import web
+
+    from kafka_tpu_torch.agents import IDLE_TOOL
+    from kafka_tpu_torch.models.quant import QTensor
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.server import ServingConfig, create_app
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    knobs = {"KAFKA_TORCH_MODEL": "mixtral-8x7b",
+             "KAFKA_TORCH_QUANTIZE": "int8"}
+    os.environ.update(knobs)
+    try:
+        cfg = ServingConfig.from_env(
+            max_batch=8, page_size=16, num_pages=8 * MOE_PAGES + 1,
+            max_pages_per_seq=MOE_PAGES,
+            prefill_buckets=(64, 256, 512, 1024, 2048), db_path=db_path,
+            system_prompt="You are a terse assistant.", warmup=False)
+    finally:
+        for k in knobs:
+            del os.environ[k]
+    t0 = time.monotonic()
+    app = await create_app(cfg, tools=[], mcp_servers=[])
+    out = {"build_s": time.monotonic() - t0}
+    llm = app[STATE_KEY]["llm"]
+    engine, tok = llm.engine, llm.tokenizer
+    if not engine.cfg.is_moe or \
+            not isinstance(engine.params["layers"]["wg"], QTensor):
+        raise AssertionError("the server does not hold int8 Mixtral experts")
+    seen = _spy_submits(engine)
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    base = f"http://127.0.0.1:{port}/v1/threads"
+    kernels.reset_launch_counts()
+    try:
+        async with aiohttp.ClientSession() as s:
+            timing: dict = {}
+            ev = await _stream(s, f"{base}/moe/chat/completions", {
+                "model": "mixtral-8x7b", "stream": True, "temperature": 0,
+                "max_tokens": 16, "messages": [{
+                    "role": "user",
+                    "content": "Name one use of a mixture of experts."}]},
+                timing)
+            out["turn"] = _usage(ev)
+            out["ttft_s"] = timing.get("ttft_s")
+            t0 = time.monotonic()
+            out["forced"] = await _constrained_turn(
+                s, f"{base}/moe-forced/chat/completions", "required",
+                engine, seen, tok, [IDLE_TOOL], model="mixtral-8x7b")
+            out["forced"].pop("grammar")
+            out["forced_s"] = time.monotonic() - t0
+    finally:
+        out["launches"] = _moe_launches()
+        await runner.cleanup()
+    log(f"moe (c) server: {out}")
+    if not out["launches"]["paged_prefill_attention"] or \
+            not out["launches"]["paged_decode_attention"]:
+        raise AssertionError(f"moe (c): the server launched {out['launches']}")
+    return out
+
+
+def moe_ep_leg(seed: int) -> dict:
+    """(d) bf16 mixtral-8x7b at full width and MOE_EP_LAYERS layers at ep 2
+    (experts 0-3 on cuda:0, 4-7 on cuda:1; attention and the pool
+    replicated; "auto" resolves to plain attention, the reference's rule)
+    against a single-card engine on the same weights: the published
+    top-2 streams and where their routing parts (each parting held to the
+    router's flip bound), and with every expert routed (continuous
+    weights) logits within LOGITS_RTOL; NCCL's device time per layer (one
+    all-reduce a layer: the MoE combine) and each rank's bytes against
+    the per-rank plan."""
+    import numpy as np
+    import torch
+
+    from kafka_tpu_torch.models import get_config
+    from kafka_tpu_torch.parallel import (
+        MeshConfig,
+        RandomWeights,
+        RankGroup,
+        init_params_shard,
+    )
+    from kafka_tpu_torch.runtime import InferenceEngine
+
+    cfg = get_config("mixtral-8x7b").replace(num_layers=MOE_EP_LAYERS)
+    dense = cfg.replace(num_experts_per_tok=cfg.num_experts)
+    prompts = _tp_prompts(cfg, seed + 9, [700, 40, 90, 200, 300, 450, 600,
+                                          120, 600])
+    # the last prompt is no engine's cached prefix: the routing trace's
+    route_prompt = prompts.pop()
+    res = {"layers": MOE_EP_LAYERS}
+    params = init_params_shard(cfg, seed, device="cuda:0")
+    ref, route = {}, {}
+    for name, c in (("top2", cfg), ("top8", dense)):
+        single = InferenceEngine(c, params, _moe_cfg())
+        ref[name] = _drive(single, prompts, MOE_NEW)
+        if name == "top2":
+            route["single"] = routing_trace(single, route_prompt)
+        single.close()
+        del single
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    group = RankGroup(MeshConfig(ep=2), timeout_s=300)
+    res["group_s"] = time.monotonic() - t0
+    try:
+        for name, c in (("top2", cfg), ("top8", dense)):
+            eng = InferenceEngine(c, RandomWeights(seed=seed),
+                                  _moe_cfg(attention_backend="auto"),
+                                  mesh=group)
+            res["backend"] = [eng.cfg.attention_backend,
+                              eng.attention_backend_reasons]
+            if eng.cfg.attention_backend != "plain":
+                raise AssertionError(f"moe (d): ep 2 resolved to "
+                                     f"{res['backend']}")
+            t0 = time.monotonic()
+            got = _drive(eng, prompts, MOE_NEW)
+            if name == "top8":
+                res["vs_single_card"] = _moe_compare(
+                    "(d) ep 2 vs one card, every expert routed", c, got,
+                    ref[name], MOE_NEW)
+                eng.close()
+                del eng, got
+                continue
+            res["drive_s"] = time.monotonic() - t0
+            same, agree, worst = _compare_streams(c, got, ref[name],
+                                                  MOE_NEW)
+            res["top2_vs_single_card"] = {
+                "identical_streams": same,
+                "token_agreement": [agree, MOE_NEW * len(got)],
+                "logits_rel_err": worst,
+                "routing": routing_flips(c, routing_trace(
+                    eng, route_prompt), route["single"])}
+            log(f"moe (d) top-2, ep 2 vs one card: "
+                f"{res['top2_vs_single_card']}")
+            res["nccl"] = tp_nccl_profile(eng, c, np.random.RandomState(seed))
+            res["memory"] = _moe_rank_bytes(eng, c, tp=1, ep=2)
+            eng.close()
+            del eng, got
+    finally:
+        group.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _moe_rank_bytes(eng, cfg, tp: int, ep: int) -> dict:
+    """Each rank's weight and pool bytes against the per-rank plan
+    (weights within PLAN_EXACT, the pool exact)."""
+    from kafka_tpu_torch.runtime.planner import hbm_for_device, plan_memory
+
+    ecfg = eng.ecfg
+    plan = plan_memory(cfg, hbm_bytes=hbm_for_device("cuda:0"), tp=tp,
+                       ep=ep, num_pages=ecfg.num_pages,
+                       page_size=ecfg.page_size,
+                       max_pages_per_seq=ecfg.max_pages_per_seq,
+                       max_batch=ecfg.max_batch,
+                       prefill_bucket=max(ecfg.prefill_buckets))
+    mem = eng.rank_query("rank_memory")
+    out = {"ranks": mem, "plan": {"weight_bytes": plan.weight_bytes,
+                                  "kv_pool_bytes": plan.kv_pool_bytes,
+                                  "total_bytes": plan.total_bytes}}
+    log(f"  per-rank bytes at tp {tp} x ep {ep}: {out}")
+    for m in mem:
+        if abs(m["weights"] - plan.weight_bytes) > \
+                PLAN_EXACT * plan.weight_bytes or \
+                m["kv_pool"] != plan.kv_pool_bytes:
+            raise AssertionError(f"rank bytes {m} vs plan {out['plan']}")
+    return out
+
+
+def moe_ep_tp_leg(seed: int) -> dict:
+    """(e) full-depth bf16 mixtral-8x7b at ep 2 x tp 2 (~24 GB a rank):
+    eight requests through the engine, each rank's bytes against the
+    per-rank plan, NCCL per layer, then a streamed thread turn through a
+    server from KAFKA_TORCH_EP_SIZE=2 KAFKA_TORCH_TP_SIZE=2."""
+    import numpy as np
+    import torch
+
+    from kafka_tpu_torch.models import get_config
+    from kafka_tpu_torch.parallel import MeshConfig, RandomWeights, RankGroup
+    from kafka_tpu_torch.runtime import InferenceEngine
+
+    cfg = get_config("mixtral-8x7b")
+    prompts = _tp_prompts(cfg, seed + 10, [700, 40, 90, 200, 300, 450, 600,
+                                           120])
+    res = {}
+    t0 = time.monotonic()
+    group = RankGroup(MeshConfig(tp=2, ep=2), timeout_s=600)
+    res["group_s"] = time.monotonic() - t0
+    try:
+        t0 = time.monotonic()
+        eng = InferenceEngine(cfg, RandomWeights(seed=seed),
+                              _moe_cfg(attention_backend="auto"), mesh=group)
+        res["build_s"] = time.monotonic() - t0
+        got = _drive(eng, prompts, 8)
+        for r in got:
+            if len(r.output_ids) != 8 or not all(
+                    torch.isfinite(x).all() for x in r.logits):
+                raise AssertionError(f"moe (e): {r.request_id} "
+                                     f"{r.output_ids} {r.finish_reason}")
+        res["memory"] = _moe_rank_bytes(eng, cfg, tp=2, ep=2)
+        res["nccl"] = tp_nccl_profile(eng, cfg, np.random.RandomState(seed))
+        eng.close()
+        del eng, got
+    finally:
+        group.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["server"] = asyncio.run(_serve_tp(
+        "mixtral-8x7b", 2, "Summarise expert parallelism in one line.",
+        ep=2))
+    if res["server"]["left_running"]:
+        raise AssertionError(f"moe (e): ranks left running: {res['server']}")
+    return res
+
+
+def phase_moe(seed: int, legs: str = "abcde") -> None:
+    """Phase 8: Mixtral-class MoE.  (a)-(c) on one card; (d) needs 2 cards
+    and (e) 4, and report `skipped: cards` with fewer.  Every leg runs
+    even when one before it failed; the phase fails after the last, its
+    record in chiprun_out/moe_phase.json."""
+    import traceback
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    res = {"cards": cards}
+    failed = []
+
+    def leg(key, fn, *args):
+        try:
+            res[key] = fn(*args)
+        except Exception as e:
+            log(f"moe leg {key} FAILED:\n{traceback.format_exc()}")
+            res[key] = {"failed": f"{type(e).__name__}: {e}"}
+            failed.append(key)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "a" in legs or "b" in legs:
+        leg("one_card", moe_one_card, seed)
+    if "c" in legs:
+        with tempfile.TemporaryDirectory() as td:
+            leg("server", lambda: asyncio.run(
+                _serve_moe(os.path.join(td, "moe.db"))))
+    for key, need, fn in (("d", 2, moe_ep_leg), ("e", 4, moe_ep_tp_leg)):
+        if key not in legs:
+            continue
+        if cards < need:
+            log(f"moe ({key}): needs {need} cards, {cards} visible: "
+                "skipped: cards (not counted as passed)")
+            res[key] = "skipped: cards"
+        else:
+            leg(key, fn, seed)
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(here, "chiprun_out", "moe_phase.json"), "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    if failed:
+        raise AssertionError(f"moe phase: legs {failed} failed")
+    RESULTS["moe"] = res
+    one = res.get("one_card", {})
+    server = res.get("server", {})
+    # the kernels line's `moe_launches`: each leg's counts, zeroed just
+    # before it and read just after ((a), (b), (c) on one card; at ep > 1
+    # attention is the plain gather, so (d) and (e) launch none)
+    names = {"K1": "paged_decode_attention", "K2": "paged_prefill_attention",
+             "K3": "paged_verify_attention",
+             "K4": "paged_decode_attention_int8", "K5": "fused_mlp_block",
+             "K5_int8": None}
+    res["launches"] = {}
+    for k, name in names.items():
+        res["launches"][k] = sum(
+            r.get(name, 0) for r in (one.get("launches_a", {}),
+                                     one.get("launches_b", {}),
+                                     server.get("launches", {}))) \
+            if name else 0
+    for k in KERNEL_KEYS + TP_KERNEL_KEYS:
+        if k in RESULTS:
+            RESULTS[k]["moe_launches"] = res["launches"].get(k, 0)
+
+
 def main() -> int:
     global BASELINE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,engine,graphs,server,tiers,"
-                            "replicas,telemetry,tp",
+                            "replicas,telemetry,tp,moe",
                     help="comma list of kernels, engine, graphs, server, "
-                         "tiers, replicas, telemetry, tp (default: all; "
-                         "telemetry runs first), "
+                         "tiers, replicas, telemetry, tp, moe (default: "
+                         "all; telemetry runs first), "
                          "or attention (K3 and K4 alone, timed) or mlp (K5 "
                          "alone, timed)")
     ap.add_argument("--root", default=None,
@@ -6234,6 +6899,9 @@ def main() -> int:
                          "prints no result line")
     ap.add_argument("--out", default="chip_smoke.json",
                     help="the record's file name under chiprun_out/")
+    ap.add_argument("--moe-legs", default="abcde",
+                    help="the moe phase's legs: a-c one card, d two "
+                         "cards, e four (default: all)")
     # the tp phase's dead-rank leg runs itself in a child process
     ap.add_argument("--tp-kill", action="store_true",
                     help=argparse.SUPPRESS)
@@ -6310,6 +6978,8 @@ def main() -> int:
         phase_replicas(args.seed)
     if "tp" in phases:
         phase_tp(args.seed)
+    if "moe" in phases:
+        phase_moe(args.seed, args.moe_legs)
     for k, n in RESULTS.get("telemetry", {}).get("launches", {}).items():
         if k in RESULTS:
             RESULTS[k]["telemetry_launches"] = n
@@ -6326,6 +6996,7 @@ def main() -> int:
          **{k: RESULTS[n][k] for k in ("engine_launches", "server_launches",
                                        "telemetry_launches", "tiers_launches",
                                        "replicas_launches",
+                                       "moe_launches",
                                        "launch_count_basis",
                                        "replay_profiler_launches",
                                        "device_ms", "device_ms_cold_l2",

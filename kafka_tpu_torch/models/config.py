@@ -1,8 +1,8 @@
 """Model configurations for the Llama family served by the CUDA engine.
 
 Counterpart of kafka_tpu/models/config.py with torch dtypes.  A model name
-resolves to an architecture config; widths follow the published Llama
-checkpoints' config.json files.
+resolves to an architecture config; widths follow the published Llama and
+Mixtral checkpoints' config.json files.
 """
 
 from __future__ import annotations
@@ -49,6 +49,17 @@ class ModelConfig:
     # EngineConfig.attention_backend="auto" to "kernel"; plain forward()
     # callers keep the gather path by default.
     attention_backend: str = "plain"
+    # Mixture-of-experts MLP (Mixtral-style): 0 = dense.  When > 0 each
+    # layer's MLP is num_experts stacked SwiGLU experts with top-k routing
+    # (softmax over the top-k router logits, models/llama.py _moe_block);
+    # expert weights shard over the "ep" axis of a rank group
+    # (parallel/sharding.py).
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     @property
     def q_per_kv(self) -> int:
@@ -129,6 +140,27 @@ CONFIGS = {
         tie_word_embeddings=False,
         rope_scaling_factor=8.0,
     ),
+    "tiny-moe": ModelConfig(
+        name="tiny-moe", num_heads=8, num_kv_heads=2, hidden_size=128,
+        head_dim=16, num_experts=4, num_experts_per_tok=2,
+    ),
+    # Mixtral 8x7B (HF mistralai/Mixtral-8x7B-v0.1 config.json): experts
+    # shard over "ep", attention and each expert's FFN over "tp"
+    "mixtral-8x7b": ModelConfig(
+        name="mixtral-8x7b",
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=1e6,
+        max_context=32768,
+        tie_word_embeddings=False,
+        num_experts=8,
+        num_experts_per_tok=2,
+    ),
     "llama-3-70b": ModelConfig(
         name="llama-3-70b",
         vocab_size=128256,
@@ -173,10 +205,11 @@ def config_from_hf_json(path: str) -> ModelConfig:
              "float16": "bfloat16"}.get(
         hf.get("dtype", hf.get("torch_dtype")), "bfloat16"
     )
-    if hf.get("num_local_experts"):
-        raise ValueError("mixture-of-experts checkpoints are not ported yet")
     return ModelConfig(
         dtype=dtype,
+        # MoE (HF Mixtral config keys); absent -> 0 = dense
+        num_experts=hf.get("num_local_experts", 0) or 0,
+        num_experts_per_tok=hf.get("num_experts_per_tok", 2),
         name=os.path.basename(os.path.dirname(os.path.abspath(path))),
         vocab_size=hf["vocab_size"],
         hidden_size=hf["hidden_size"],

@@ -1,12 +1,17 @@
 """Llama-family decoder in plain PyTorch.
 
-Counterpart of kafka_tpu/models/llama.py (dense models).  Parameters keep
-the JAX package's layer-stacked layout at the public boundary, so the
-tests compare like with like:
+Counterpart of kafka_tpu/models/llama.py (dense and Mixtral-style MoE
+models).  Parameters keep the JAX package's layer-stacked layout at the
+public boundary, so the tests compare like with like:
 
     embed [V, H], final_norm [H], lm_head [H, V] (untied only),
     layers: ln_attn/ln_mlp [L, H], wq [L, H, Hq, D], wk/wv [L, H, Hkv, D],
             wo [L, Hq, D, H], wg/wu [L, H, F], wd [L, F, H]
+    MoE (cfg.is_moe): router [L, H, E], wg/wu [L, E, H, F], wd [L, E, F, H]
+
+A MoE layer's MLP is the reference's dense dispatch (_moe_block): every
+expert computes every token and the [T, E] routing weights — a softmax
+over exactly the top-k router logits, the rest zero — combine them.
 
 The layer stack is a Python loop over views of those tensors.  bf16
 weights and activations, f32 norms, rope, softmax and logits — the JAX
@@ -30,7 +35,9 @@ parallel/tp.py) the parameters and the cache are the rank's shards
 (parallel/sharding.py): attention runs over its local heads (the per-rank
 K1/K3/K4 of ops/kernels/sharded.py; flash prefill stays single-device, as
 in the reference), the row-parallel `wo` and `wd` products are summed over
-the ranks, and an untied head's vocab shards are gathered.
+the rank's tensor group, and an untied head's vocab shards are gathered.
+A MoE layer's rank holds the experts of its "ep" slice, each over its F
+columns; the combine of its local experts is summed over the whole group.
 
 Int8 (models/quant.py), as in the JAX package: any matmul weight, the
 embedding table and the LM head may be a QTensor, and the paged pools may
@@ -43,7 +50,8 @@ has no int8 kernel for either.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -207,10 +215,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None,
         "wk": norm01((L, h, hkv, d), h),
         "wv": norm01((L, h, hkv, d), h),
         "wo": norm01((L, hq, d, h), hq * d),
-        "wg": norm01((L, h, f), h),
-        "wu": norm01((L, h, f), h),
-        "wd": norm01((L, f, h), f),
     }
+    if cfg.is_moe:
+        # Mixtral-style MoE MLP: router [L, H, E] + E stacked SwiGLU
+        # experts per layer (the expert axis shards over "ep")
+        E = cfg.num_experts
+        layers["wg"] = norm01((L, E, h, f), h)
+        layers["wu"] = norm01((L, E, h, f), h)
+        layers["wd"] = norm01((L, E, f, h), f)
+        layers["router"] = norm01((L, h, E), h)
+    else:
+        layers["wg"] = norm01((L, h, f), h)
+        layers["wu"] = norm01((L, h, f), h)
+        layers["wd"] = norm01((L, f, h), f)
     params: Params = {
         "embed": norm01((cfg.vocab_size, h), h),
         "final_norm": ones((h,)),
@@ -247,9 +264,10 @@ def _leaf_from_jax(v: Any, dtype, device) -> Any:
 def params_from_jax(np_params: Mapping[str, Any], dtype=None,
                     device=None) -> Params:
     """The port's parameters from `kafka_tpu.models.init_params`' pytree
-    (dense, or int8 from `quantize_params`), converted to numpy arrays.
-    Layouts are identical; `dtype` (default: keep each array's own) casts
-    every dense tensor."""
+    (dense or MoE, or int8 from `quantize_params`), converted to numpy
+    arrays.  Layouts are identical (MoE: the router and the 4-D expert
+    stacks, dense or QTensor); `dtype` (default: keep each array's own)
+    casts every dense tensor."""
     layers = {k: _leaf_from_jax(v, dtype, device)
               for k, v in np_params["layers"].items()}
     out: Params = {
@@ -424,6 +442,60 @@ def _mlp_block(x: torch.Tensor, layers: Params, l: int,
     return out if tp is None else tp.all_reduce(out)
 
 
+def _routing_weights(t: torch.Tensor, router: torch.Tensor,
+                     top_k: int) -> torch.Tensor:
+    """Per-token expert weights [T, E] f32: a softmax over EXACTLY the
+    top-k router logits, scattered back, the rest zero (HF
+    MixtralSparseMoeBlock; JAX models/llama.py:413-426).  The logits are
+    f32 from activation-dtype inputs (_matmul_f32).  lax.top_k puts the
+    lower expert first among equal logits, which torch.topk does not
+    promise: a stable descending sort over the E columns does.
+    parallel/expert.py reuses this function, so the two cannot drift."""
+    logits = _matmul_f32(t, router)
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    w_top = torch.softmax(vals[:, :top_k], dim=-1)
+    return torch.zeros_like(logits).scatter_(1, idx[:, :top_k], w_top)
+
+
+def _experts(t: torch.Tensor, weight: Callable[[str], torch.Tensor],
+             w: torch.Tensor) -> torch.Tensor:
+    """The dense-dispatch expert MLP: every expert of the stack computes
+    every token, t [T, H] against weight("wg") / weight("wu") [E, H, F]
+    and weight("wd") [E, F, H], and the outputs combine by the routing
+    weights w [T, E] cast to the activation dtype: g/u `th,ehf->tef`, y
+    `tef,efh->teh`, out `te,teh->th` (JAX models/llama.py:429-449), with
+    the expert axis leading.  Each stack is fetched just before its
+    product, so an int8 model holds one dequantized stack at a time."""
+    g = torch.matmul(t, weight("wg"))                        # [E, T, F]
+    u = torch.matmul(t, weight("wu"))
+    y = torch.matmul(torch.nn.functional.silu(g) * u,
+                     weight("wd"))                           # [E, T, H]
+    return torch.bmm(w.to(t.dtype).unsqueeze(1),             # [T, 1, E]
+                     y.transpose(0, 1)).squeeze(1)           # [T, H]
+
+
+def _moe_block(x: torch.Tensor, layers: Params, l: int, cfg: ModelConfig,
+               tp: Any = None) -> torch.Tensor:
+    """Mixtral-style top-k routed MoE MLP, x [B, S, H] -> [B, S, H], by
+    dense dispatch, as the reference serves it.  An int8 expert stack is
+    dequantized whole, one at a time (_w).  On a rank group the router
+    is replicated, so every rank routes alike; the rank holds experts
+    [e*E/ep, (e+1)*E/ep) of its ep slice e over its F columns, takes its
+    columns of the [T, E] weights, and one all-reduce over the whole
+    group sums the partial outputs of every rank's experts and columns
+    (parallel/tp.py)."""
+    b, s, h = x.shape
+    dt = x.dtype
+    t = x.reshape(b * s, h)
+    w = _routing_weights(t, layers["router"][l], cfg.num_experts_per_tok)
+    if tp is not None:
+        w = w[:, tp.experts]
+    out = _experts(t, lambda name: _w(layers, name, l, dt), w)
+    if tp is not None:
+        out = tp.all_reduce_experts(out)
+    return out.view(b, s, h)
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -469,7 +541,8 @@ def forward(
                                  positions, kc, vc, kv_valid,
                                  cache_positions, paged, tp)
         mlp_in = rms_norm(x, layers["ln_mlp"][l], cfg.rms_norm_eps)
-        x = x + _mlp_block(mlp_in, layers, l, tp)
+        x = x + (_moe_block(mlp_in, layers, l, cfg, tp) if cfg.is_moe
+                 else _mlp_block(mlp_in, layers, l, tp))
     if logits_at is not None:
         x = x[torch.arange(x.shape[0], device=x.device), logits_at][:, None]
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)

@@ -1,9 +1,13 @@
-"""Checkpoint loading: HuggingFace Llama safetensors -> the port's params.
+"""Checkpoint loading: HuggingFace Llama / Mixtral safetensors -> the
+port's params.
 
 Counterpart of kafka_tpu/models/loader.py for a local safetensors
-directory (dense models).  HF stores projections as [out, in] per layer;
-they are transposed to [in, out] and stacked on a leading layer axis — the
-same layout as the JAX package (models/llama.py docstring).
+directory.  HF stores projections as [out, in] per layer; they are
+transposed to [in, out] and stacked on a leading layer axis — the same
+layout as the JAX package (models/llama.py docstring).  A Mixtral
+checkpoint (config.json's num_local_experts) keeps its MLP under
+block_sparse_moe: the router `gate` [E, H] and experts.{e}.w1/w3/w2
+(gate/up/down), stacked to [L, E, H, F] / [L, E, F, H].
 """
 
 from __future__ import annotations
@@ -27,8 +31,8 @@ def _to_tensor(t: Any) -> torch.Tensor:
 
 def convert_hf_state_dict(state: Mapping[str, Any], cfg: ModelConfig,
                           dtype=None, device=None) -> Params:
-    """Convert an HF Llama state dict (torch tensors or numpy arrays) to
-    the layer-stacked parameter dict."""
+    """Convert an HF Llama or Mixtral state dict (torch tensors or numpy
+    arrays) to the layer-stacked parameter dict."""
     dtype = dtype or cfg.activation_dtype
     h, d = cfg.hidden_size, cfg.head_dim
     hq, hkv, L = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
@@ -57,10 +61,30 @@ def convert_hf_state_dict(state: Mapping[str, Any], cfg: ModelConfig,
                     lambda w: w.t().reshape(h, hkv, d)),
         "wo": stack("layers.{i}.self_attn.o_proj.weight",
                     lambda w: w.t().reshape(hq, d, h)),
-        "wg": stack("layers.{i}.mlp.gate_proj.weight", lambda w: w.t()),
-        "wu": stack("layers.{i}.mlp.up_proj.weight", lambda w: w.t()),
-        "wd": stack("layers.{i}.mlp.down_proj.weight", lambda w: w.t()),
     }
+    if cfg.is_moe:
+        # HF Mixtral: block_sparse_moe.gate [E, H] is the router;
+        # experts.{e}.w1/w3/w2 = gate/up/down [F, H] / [F, H] / [H, F]
+        E = cfg.num_experts
+
+        def stack_experts(wname: str) -> torch.Tensor:
+            return torch.stack([torch.stack([
+                get(f"layers.{i}.block_sparse_moe.experts.{e}."
+                    f"{wname}.weight").t().to(dtype) for e in range(E)
+            ]) for i in range(L)]).contiguous().to(device)
+
+        layers["router"] = stack("layers.{i}.block_sparse_moe.gate.weight",
+                                 lambda w: w.t())
+        layers["wg"] = stack_experts("w1")
+        layers["wu"] = stack_experts("w3")
+        layers["wd"] = stack_experts("w2")
+    else:
+        layers["wg"] = stack("layers.{i}.mlp.gate_proj.weight",
+                             lambda w: w.t())
+        layers["wu"] = stack("layers.{i}.mlp.up_proj.weight",
+                             lambda w: w.t())
+        layers["wd"] = stack("layers.{i}.mlp.down_proj.weight",
+                             lambda w: w.t())
     params: Params = {
         "embed": get("embed_tokens.weight").to(dtype).contiguous().to(device),
         "final_norm": get("norm.weight").to(dtype).to(device),
@@ -91,7 +115,8 @@ def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
 
 def load_checkpoint(path: str, cfg: Optional[ModelConfig] = None,
                     device=None) -> tuple:
-    """Load (cfg, params) from a local HF checkpoint directory."""
+    """Load (cfg, params) from a local HF checkpoint directory (a
+    Mixtral config.json gives a MoE config, models/config.py)."""
     if cfg is None:
         cfg = config_from_hf_json(os.path.join(path, "config.json"))
     state = load_safetensors_dir(path)

@@ -1,9 +1,11 @@
 """Int8 weight-only quantization for the serving matmuls.
 
-Counterpart of kafka_tpu/models/quant.py (dense models; the MoE contract
-waits for MoE).  Symmetric per-output-channel int8: each quantized leaf
-becomes a `QTensor(q=int8, s=f32 scale)` whose scale broadcasts over the
-contraction axes, so `q.to(dt) * s` reconstructs the weight.  The same
+Counterpart of kafka_tpu/models/quant.py (dense and MoE models).
+Symmetric per-output-channel int8: each quantized leaf becomes a
+`QTensor(q=int8, s=f32 scale)` whose scale broadcasts over the
+contraction axes, so `q.to(dt) * s` reconstructs the weight.  A MoE
+model's expert stacks [L, E, H, F] / [L, E, F, H] contract axis 2: one
+scale per (layer, expert, output channel); its router stays dense.  The same
 recipe quantizes the int8 paged KV pool's rows (models/llama.py
 _kv_write, one scale per slot).
 
@@ -16,7 +18,9 @@ codes for the same weights:
 
 The matmuls dequantize at each use site (models/llama.py `_w`) and run
 `torch.matmul` on the dense weight; on the card that materialises the
-layer's weight in the activation dtype for each matmul (PERF.md).
+layer's weight in the activation dtype for each matmul (PERF.md) — for a
+MoE layer, a whole expert stack at a time (runtime/planner.py charges
+that working set).
 """
 
 from __future__ import annotations
@@ -69,17 +73,26 @@ _CONTRACT = {
     "wu": (1,),
     "wd": (1,),        # [L, F, H]       contract F
 }
+_CONTRACT_MOE = {
+    "wg": (2,),        # [L, E, H, F]    contract H
+    "wu": (2,),
+    "wd": (2,),        # [L, E, F, H]    contract F
+}
 
 
 def quantize_params(params: Params, cfg=None) -> Params:
-    """Quantize the serving matmul weights of a dense Llama parameter tree.
+    """Quantize the serving matmul weights of a Llama/Mixtral parameter
+    tree.
 
     embed is quantized per row ([V, H], contract H): the row gather
     dequantizes per looked-up token, and a tied LM head streams the same
-    int8 table.  Norms stay dense.  `cfg` is accepted for the JAX
-    signature's sake; dense models need nothing from it."""
+    int8 table.  Norms and the MoE router stay dense.  A MoE tree is
+    known by its router; `cfg` is accepted for the JAX signature's
+    sake."""
     layers = dict(params["layers"])
-    for name, axes in _CONTRACT.items():
+    contract = ({**_CONTRACT, **_CONTRACT_MOE} if "router" in layers
+                else _CONTRACT)
+    for name, axes in contract.items():
         if name in layers:
             layers[name] = quantize_array(layers[name], axes)
     out: Params = {

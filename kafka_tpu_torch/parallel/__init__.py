@@ -1,10 +1,16 @@
-"""Tensor parallelism over torch.distributed (counterpart of
-kafka_tpu/parallel, its tp/tq half): rank groups, sharding rules, the
-forward pass's collectives, and fault containment across ranks.  Sequence,
-pipeline and expert parallelism, dp x tp and multi-host initialization
-wait for later slices (ROADMAP A9)."""
+"""Tensor and expert parallelism over torch.distributed (counterpart of
+kafka_tpu/parallel, its tp/tq/ep part): rank groups, sharding rules, the
+forward pass's collectives, expert-sharded MoE, and fault containment
+across ranks.  Sequence and pipeline parallelism, dp x tp and multi-host
+initialization wait for later slices (ROADMAP A9)."""
 
 from .distributed import DistributedStepError, barrier, guarded_collective
+from .expert import (
+    init_moe_params,
+    moe_mlp_reference,
+    moe_mlp_sharded,
+    shard_moe_params,
+)
 from .mesh import (
     AXIS_ORDER,
     MeshConfig,
@@ -17,6 +23,7 @@ from .mesh import (
 from .sharding import (
     init_params_shard,
     kv_pool_spec,
+    local_experts,
     local_heads,
     local_kv_map,
     param_specs,
@@ -38,14 +45,19 @@ __all__ = [
     "barrier",
     "factor_tp_for_kv",
     "guarded_collective",
+    "init_moe_params",
     "init_params_shard",
     "kv_pool_spec",
+    "local_experts",
     "local_heads",
     "local_kv_map",
     "make_mesh",
+    "moe_mlp_reference",
+    "moe_mlp_sharded",
     "param_specs",
     "rank_devices",
     "resolve_tensor_axes",
     "shard_kv_pool",
+    "shard_moe_params",
     "shard_params",
 ]

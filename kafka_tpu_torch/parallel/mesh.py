@@ -1,4 +1,4 @@
-"""Rank groups and axis conventions for tensor parallelism.
+"""Rank groups and axis conventions for tensor and expert parallelism.
 
 Counterpart of kafka_tpu/parallel/mesh.py.  The axis vocabulary is the
 JAX package's (dp, pp, sp, tp, tq, ep; see MeshConfig), and the (tp, tq)
@@ -8,14 +8,21 @@ memory planner charge exactly what the engine places:
   tp  — tensor parallel: q heads / MLP hidden / vocab over ("tp","tq"),
         kv heads and the KV pool over "tp" alone;
   tq  — the kv-replica factor when the tensor degree exceeds the kv head
-        count (factor_tp_for_kv): each kv head lives on tq ranks.
+        count (factor_tp_for_kv): each kv head lives on tq ranks;
+  ep  — expert parallel: a MoE model's experts over "ep", attention and
+        the KV pool replicated over it.
 
 JAX runs one controller over a device mesh and lets GSPMD insert the
 collectives.  The port uses PyTorch's idiom instead: one process per rank,
 rank r on `cuda:r`, NCCL collectives (gloo on the CPU) called by the
 model code itself.  A `RankMesh` is one rank's view of that group: its
-index on each axis and its device.  Only tp and tq may exceed 1 here;
-dp x tp, sp, pp and ep wait for later slices (ROADMAP A9).
+index on each axis and its device.  Only tp, tq and ep may exceed 1
+here; dp x tp, sp and pp wait for later slices (ROADMAP A9).
+
+Ranks are numbered in AXIS_ORDER with ep innermost, as the JAX mesh lays
+its devices out: rank r = (tp_index * tq + tq_index) * ep + ep_index.
+The ranks of one ep slice (equal ep_index) form a tensor group of tp*tq,
+in which rank r is tensor rank r // ep.
 """
 
 from __future__ import annotations
@@ -78,26 +85,43 @@ def resolve_tensor_axes(
 
 @dataclasses.dataclass(frozen=True)
 class RankMesh:
-    """One rank's place in a ("tp", "tq") rank group.  Ranks are numbered
-    tq-fastest, as the JAX mesh orders its axes: rank r holds q-head, MLP
-    and vocab block r of tp*tq and kv-head block r // tq of tp."""
+    """One rank's place in a ("tp", "tq", "ep") rank group.  Ranks are
+    numbered ep-fastest, then tq, as the JAX mesh orders its axes: rank r
+    is tensor rank r // ep of ep slice r % ep; it holds q-head, MLP and
+    vocab block r // ep of tp*tq, kv-head block (r // ep) // tq of tp,
+    and expert block r % ep of ep."""
 
     tp: int
     tq: int
     rank: int
     device: torch.device
+    ep: int = 1
 
     @property
     def size(self) -> int:
+        """Ranks in the whole group."""
+        return self.tp * self.tq * self.ep
+
+    @property
+    def tensor_size(self) -> int:
+        """Ranks in this rank's tensor group (its ep slice)."""
         return self.tp * self.tq
 
     @property
+    def tensor_rank(self) -> int:
+        return self.rank // self.ep
+
+    @property
     def tp_index(self) -> int:
-        return self.rank // self.tq
+        return self.tensor_rank // self.tq
 
     @property
     def tq_index(self) -> int:
-        return self.rank % self.tq
+        return self.tensor_rank % self.tq
+
+    @property
+    def ep_index(self) -> int:
+        return self.rank % self.ep
 
 
 def rank_devices(size: int, device: DeviceLike = None) -> List[torch.device]:
@@ -121,13 +145,14 @@ def rank_devices(size: int, device: DeviceLike = None) -> List[torch.device]:
 def make_mesh(cfg: MeshConfig, rank: int = 0,
               device: DeviceLike = None) -> RankMesh:
     """The rank-group counterpart of make_mesh: rank `rank`'s view of a
-    pure tensor-parallel group, placed on `cuda:rank` unless the caller
-    asks for device="cpu".  Axes other than tp and tq raise, naming the
+    group over the tp, tq and ep axes, placed on `cuda:rank` unless the
+    caller asks for device="cpu".  dp, sp and pp raise, naming the
     ROADMAP item that ports them."""
     if cfg.dp > 1:
         raise ValueError(
-            f"dp={cfg.dp} x tp={cfg.tp * cfg.tq}: data-parallel replicas of "
-            "a tensor-parallel group are not ported (ROADMAP A9, dp x tp)")
+            f"dp={cfg.dp} x tp={cfg.tp * cfg.tq} x ep={cfg.ep}: "
+            "data-parallel replicas of a rank group are not ported "
+            "(ROADMAP A9, dp x tp)")
     if cfg.sp > 1:
         raise ValueError(
             f"sp={cfg.sp}: sequence parallelism is not ported (ROADMAP A9, "
@@ -135,12 +160,8 @@ def make_mesh(cfg: MeshConfig, rank: int = 0,
     if cfg.pp > 1:
         raise ValueError(
             f"pp={cfg.pp}: pipeline stages are not ported (ROADMAP A9)")
-    if cfg.ep > 1:
-        raise ValueError(
-            f"ep={cfg.ep}: expert parallelism is not ported (ROADMAP A9 "
-            "with A10's MoE)")
-    size = cfg.tp * cfg.tq
+    size = cfg.tp * cfg.tq * cfg.ep
     if not 0 <= rank < size:
         raise ValueError(f"rank {rank} outside a group of {size}")
-    return RankMesh(tp=cfg.tp, tq=cfg.tq, rank=rank,
+    return RankMesh(tp=cfg.tp, tq=cfg.tq, ep=cfg.ep, rank=rank,
                     device=rank_devices(size, device)[rank])

@@ -1,5 +1,5 @@
 """Sharding rules: which slice of every parameter and of the KV pool each
-rank of a tensor-parallel group holds.
+rank of a tensor- and expert-parallel group holds.
 
 Counterpart of kafka_tpu/parallel/sharding.py.  The rules are the JAX
 package's Megatron split, written as partition specs over the same axis
@@ -18,7 +18,16 @@ rank r's block out of it:
   lm_head [H, V]      V over ("tp","tq")        logits all-gathered
   KV pool [L, SLOTS, Hkv*D]  merged kv axis over "tp": heads are its
                       outer factor, so rank r's pool is column block
-                      r // tq, whole heads
+                      tp_index, whole heads
+  MoE (cfg.is_moe):
+  router [L, H, E]    replicated: every rank routes alike
+  wg/wu [L, E, H, F]  experts over "ep", F over ("tp","tq")
+  wd  [L, E, F, H]    experts over "ep", F over ("tp","tq")
+
+The "ep" axis is used only when it divides the experts (the engine
+refuses the rest); attention weights and the KV pool are replicated over
+it.  Blocks over ("tp","tq") are indexed by the rank's tensor rank (its
+place in its ep slice, parallel/mesh.py).
 
 A kv axis that "tp" does not divide replicates (the JAX fallback); the
 engine never builds that layout (resolve_tensor_axes).  Int8 QTensor
@@ -30,10 +39,10 @@ trims, parallel/tp.py).
 
 `init_params_shard` builds rank r's shard of a random model on its own
 card, so no full copy of a 70B model exists anywhere: every (tensor,
-layer) is drawn from its own seeded generator at full width, cut, and
-dropped.  `init_params_shard(..., mesh=None)` gives the whole model from
-the same draws, so a single-card engine and a rank group hold the same
-weights.
+layer) — and every expert of a MoE layer — is drawn from its own seeded
+generator at full width, cut, and dropped.  `init_params_shard(...,
+mesh=None)` gives the whole model from the same draws, so a single-card
+engine and a rank group hold the same weights.
 """
 
 from __future__ import annotations
@@ -59,6 +68,15 @@ def _axes(mesh) -> Tuple[int, int]:
     return mesh.tp, mesh.tq
 
 
+def _ep_axis(cfg: ModelConfig, mesh) -> Optional[str]:
+    """The expert shard axis, or None (replicate) when ep is 1 or does
+    not divide the experts."""
+    ep = getattr(mesh, "ep", 1)
+    if ep > 1 and cfg.num_experts % ep == 0:
+        return "ep"
+    return None
+
+
 def _kv_axis(cfg: ModelConfig, mesh) -> Optional[str]:
     """The kv-head shard axis, or None (replicate) when tp does not divide
     the kv heads."""
@@ -76,24 +94,29 @@ def _tensor_axes(mesh):
 
 
 def param_specs(cfg: ModelConfig, mesh) -> Params:
-    """Partition specs congruent with init_params' tree (dense models)."""
+    """Partition specs congruent with init_params' tree (dense and MoE
+    models; JAX parallel/sharding.py:66-109)."""
     kv = _kv_axis(cfg, mesh)
     tx = _tensor_axes(mesh)
-    specs: Params = {
-        "embed": (),
-        "final_norm": (),
-        "layers": {
-            "ln_attn": (),
-            "ln_mlp": (),
-            "wq": (None, None, tx, None),
-            "wk": (None, None, kv, None),
-            "wv": (None, None, kv, None),
-            "wo": (None, tx, None, None),
-            "wg": (None, None, tx),
-            "wu": (None, None, tx),
-            "wd": (None, tx, None),
-        },
+    layers: Params = {
+        "ln_attn": (),
+        "ln_mlp": (),
+        "wq": (None, None, tx, None),
+        "wk": (None, None, kv, None),
+        "wv": (None, None, kv, None),
+        "wo": (None, tx, None, None),
     }
+    if cfg.is_moe:
+        ep = _ep_axis(cfg, mesh)
+        layers["router"] = ()
+        layers["wg"] = (None, ep, None, tx)     # [L, E, H, F]
+        layers["wu"] = (None, ep, None, tx)
+        layers["wd"] = (None, ep, tx, None)     # [L, E, F, H]
+    else:
+        layers["wg"] = (None, None, tx)
+        layers["wu"] = (None, None, tx)
+        layers["wd"] = (None, tx, None)
+    specs: Params = {"embed": (), "final_norm": (), "layers": layers}
     if not cfg.tie_word_embeddings:
         specs["lm_head"] = (None, tx)
     return specs
@@ -109,7 +132,9 @@ def _block(mesh: RankMesh, ax) -> Tuple[int, int]:
     if ax == "tp":
         return mesh.tp_index, mesh.tp
     if ax == _TX:
-        return mesh.rank, mesh.size
+        return mesh.tensor_rank, mesh.tensor_size
+    if ax == "ep":
+        return mesh.ep_index, mesh.ep
     raise ValueError(f"unknown mesh axis {ax!r}")
 
 
@@ -172,7 +197,16 @@ def local_heads(cfg: ModelConfig, mesh: RankMesh) -> Tuple[int, int]:
     hkv = cfg.num_kv_heads
     if _kv_axis(cfg, mesh) is not None:
         hkv //= mesh.tp
-    return cfg.num_heads // mesh.size, hkv
+    return cfg.num_heads // mesh.tensor_size, hkv
+
+
+def local_experts(cfg: ModelConfig, mesh: RankMesh) -> slice:
+    """The experts one rank holds: block ep_index of ep (all of them on
+    a dense model or when ep does not divide them)."""
+    if _ep_axis(cfg, mesh) is None:
+        return slice(0, cfg.num_experts)
+    n = cfg.num_experts // mesh.ep
+    return slice(mesh.ep_index * n, (mesh.ep_index + 1) * n)
 
 
 def local_kv_map(cfg: ModelConfig, mesh: RankMesh) -> Optional[list]:
@@ -185,7 +219,7 @@ def local_kv_map(cfg: ModelConfig, mesh: RankMesh) -> Optional[list]:
     hq_l, hkv_l = local_heads(cfg, mesh)
     g = cfg.num_heads // cfg.num_kv_heads
     kv0 = mesh.tp_index * hkv_l if _kv_axis(cfg, mesh) is not None else 0
-    want = [(mesh.rank * hq_l + i) // g - kv0 for i in range(hq_l)]
+    want = [(mesh.tensor_rank * hq_l + i) // g - kv0 for i in range(hq_l)]
     if hq_l % hkv_l == 0 and want == [i // (hq_l // hkv_l)
                                       for i in range(hq_l)]:
         return None
@@ -196,22 +230,31 @@ def local_kv_map(cfg: ModelConfig, mesh: RankMesh) -> Optional[list]:
 # random weights, one shard per rank
 # ---------------------------------------------------------------------------
 
-# init_params' draw order and fan-ins: (name, per-layer shape, fan_in)
+# init_params' draw order and fan-ins: (name, per-layer shape, fan_in,
+# per-expert: the shape is one expert's of a MoE layer's stack)
 def _layer_shapes(cfg: ModelConfig):
     h, f, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    return (("wq", (h, hq, d), h), ("wk", (h, hkv, d), h),
-            ("wv", (h, hkv, d), h), ("wo", (hq, d, h), hq * d),
-            ("wg", (h, f), h), ("wu", (h, f), h), ("wd", (f, h), f))
+    attn = (("wq", (h, hq, d), h, False), ("wk", (h, hkv, d), h, False),
+            ("wv", (h, hkv, d), h, False), ("wo", (hq, d, h), hq * d, False))
+    moe = cfg.is_moe
+    mlp = (("wg", (h, f), h, moe), ("wu", (h, f), h, moe),
+           ("wd", (f, h), f, moe))
+    router = (("router", (h, cfg.num_experts), h, False),) if moe else ()
+    return attn + mlp + router
 
 
-# per-layer contraction axes (models/quant.py _CONTRACT without the layer)
+# per-layer (per-expert) contraction axes: models/quant.py _CONTRACT and
+# _CONTRACT_MOE without the layer and expert axes; the router stays dense
 _CONTRACT_LAYER = {"wq": (0,), "wk": (0,), "wv": (0,), "wo": (0, 1),
                    "wg": (0,), "wu": (0,), "wd": (0,)}
 
 
-def _draw_seed(seed: int, name: str, layer: int) -> int:
-    digest = hashlib.sha256(f"{seed}/{name}/{layer}".encode()).digest()
+def _draw_seed(seed: int, name: str, layer: int,
+               expert: Optional[int] = None) -> int:
+    key = f"{seed}/{name}/{layer}" + (
+        f"/{expert}" if expert is not None else "")
+    digest = hashlib.sha256(key.encode()).digest()
     return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
 
 
@@ -220,21 +263,29 @@ def init_params_shard(cfg: ModelConfig, seed: int,
                       device: DeviceLike = None, dtype=None,
                       quantize: str = "") -> Params:
     """Random weights (normal * fan_in^-0.5, as init_params) for rank
-    `mesh.rank` of a tensor-parallel group, drawn on `device` one (tensor,
-    layer) at a time from a generator seeded by (seed, tensor, layer) and
-    sliced there, so a rank never holds more than one full layer tensor.
-    mesh=None returns every tensor whole: the same weights a rank group
-    shares out.  quantize="int8" quantizes each full tensor before it is
-    cut (per-output-channel scales over the whole contraction, as
-    quantize_params then shard_params would give)."""
+    `mesh.rank` of a rank group, drawn on `device` one (tensor, layer) at
+    a time — one (tensor, layer, expert) for a MoE layer's experts —
+    from a generator seeded by those names and sliced there, so a rank
+    never holds more than one full layer tensor or expert; only the
+    experts of the rank's ep slice are drawn.  mesh=None returns every
+    tensor whole: the same weights a rank group shares out, so a
+    single-card engine and a rank group hold the same model.
+    quantize="int8" quantizes each full tensor (each expert) before it
+    is cut (per-output-channel scales over the whole contraction, as
+    quantize_params then shard_params would give); the router stays
+    dense.  An int8 mixtral-8x7b is thus built on one card without its
+    bf16 form (~93 GB) ever existing."""
     dtype = dtype or cfg.activation_dtype
     dev = torch.device(device) if device is not None else None
     specs = param_specs(cfg, mesh) if mesh is not None else None
     L = cfg.num_layers
+    experts = (local_experts(cfg, mesh) if mesh is not None
+               else slice(0, cfg.num_experts))
 
-    def draw(name: str, layer: int, shape: Sequence[int], fan_in: int):
+    def draw(name: str, layer: int, shape: Sequence[int], fan_in: int,
+             expert: Optional[int] = None):
         gen = torch.Generator(device=dev or "cpu")
-        gen.manual_seed(_draw_seed(seed, name, layer))
+        gen.manual_seed(_draw_seed(seed, name, layer, expert))
         w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                         device=dev)
         return (w * fan_in ** -0.5).to(dtype)
@@ -251,23 +302,32 @@ def init_params_shard(cfg: ModelConfig, seed: int,
         "ln_attn": torch.ones((L, cfg.hidden_size), dtype=dtype, device=dev),
         "ln_mlp": torch.ones((L, cfg.hidden_size), dtype=dtype, device=dev),
     }
-    for name, shape, fan_in in _layer_shapes(cfg):
-        spec = specs["layers"][name][1:] if specs is not None else None
+    for name, shape, fan_in, per_expert in _layer_shapes(cfg):
+        # the spec of one unit: a layer's tensor, or one expert of it
+        lead = 2 if per_expert else 1
+        spec = specs["layers"][name][lead:] if specs is not None else None
+        units = ([(layer, e) for layer in range(L)
+                  for e in range(experts.start, experts.stop)]
+                 if per_expert else [(layer, None) for layer in range(L)])
+        q8 = quantize == "int8" and name in _CONTRACT_LAYER
         stacked = None
-        for layer in range(L):
-            w = draw(name, layer, shape, fan_in)
-            if quantize == "int8":
+        for layer, e in units:
+            w = draw(name, layer, shape, fan_in, e)
+            if q8:
                 w = quantize_array(w, _CONTRACT_LAYER[name])
             w = cut(w, spec)
-            leaves = (w.q, w.s) if quantize == "int8" else (w,)
-            if stacked is None:  # the layer stack, filled in place
-                stacked = [torch.empty((L,) + tuple(a.shape), dtype=a.dtype,
+            leaves = (w.q, w.s) if q8 else (w,)
+            if stacked is None:  # the stack, filled in place
+                dims = (L, experts.stop - experts.start) if per_expert \
+                    else (L,)
+                stacked = [torch.empty(dims + tuple(a.shape), dtype=a.dtype,
                                        device=a.device) for a in leaves]
+            at = (layer, e - experts.start) if per_expert else layer
             for out, a in zip(stacked, leaves):
-                out[layer].copy_(a)
+                out[at].copy_(a)
             del w, leaves
-        layers[name] = (QTensor(q=stacked[0], s=stacked[1])
-                        if quantize == "int8" else stacked[0])
+        layers[name] = (QTensor(q=stacked[0], s=stacked[1]) if q8
+                        else stacked[0])
     embed = draw("embed", 0, (cfg.vocab_size, cfg.hidden_size),
                  cfg.hidden_size)
     params: Params = {

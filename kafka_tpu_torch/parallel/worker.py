@@ -1,12 +1,14 @@
-"""The processes of a tensor-parallel rank group.
+"""The processes of a tensor- and expert-parallel rank group.
 
-One process per rank.  Rank 0 is the engine in the caller's process (the
-server's): it owns the scheduler, the prefix cache, grammars, speculation
-and telemetry.  `RankGroup` spawns ranks 1..n-1 (the `spawn` start
-method: CUDA cannot fork), joins them in a process group of their own
-(NCCL on the card, gloo on the CPU, rendezvous through a FileStore) and
-runs one warm-up collective, so every NCCL communicator exists before any
-CUDA graph capture.  Rank r works on `cuda:r`.
+One process per rank (tp * tq * ep of them).  Rank 0 is the engine in the
+caller's process (the server's): it owns the scheduler, the prefix cache,
+grammars, speculation and telemetry.  `RankGroup` spawns ranks 1..n-1 (the
+`spawn` start method: CUDA cannot fork), joins them in a process group of
+their own (NCCL on the card, gloo on the CPU, rendezvous through a
+FileStore) and runs one warm-up collective; at ep > 1 each rank also joins
+the tensor group of its ep slice (parallel/mesh.py) and warms it up, so
+every NCCL communicator exists before any CUDA graph capture.  Rank r
+works on `cuda:r`.
 
 Each rank holds an engine over its own shard of the weights and of the KV
 pool.  Rank 0 sends every device-side operation of its engine, with its
@@ -61,21 +63,16 @@ class RandomWeights:
     quantize: str = ""
 
 
-def _join(backend: str, path: str, rank: int, size: int,
-          device: torch.device, timeout_s: float) -> Tuple[Any, Any]:
-    """This rank's process group over the FileStore at `path` (a group of
-    its own, not the process's default group), and the store."""
-    failpoint("dist.init")
-    store = dist.FileStore(path, size)
-    timeout = timedelta(seconds=timeout_s)
+def _group(backend: str, store: Any, rank: int, size: int,
+           device: torch.device, timeout: timedelta) -> Any:
+    """A process group over `store`, warmed up: the first collective
+    creates NCCL's communicator, outside any capture."""
     if backend == "nccl":
-        torch.cuda.set_device(device)
         opts = dist.ProcessGroupNCCL.Options()
         opts._timeout = timeout
         group = dist.ProcessGroupNCCL(store, rank, size, opts)
     else:
         group = dist.ProcessGroupGloo(store, rank, size, timeout)
-    # the first collective creates NCCL's communicator: outside any capture
     probe = torch.ones(1, device=device)
     dist.all_reduce(probe, group=group)
     if device.type == "cuda":
@@ -83,36 +80,64 @@ def _join(backend: str, path: str, rank: int, size: int,
     if int(probe.item()) != size:
         raise RuntimeError(f"warm-up all-reduce gave {probe.item()}, "
                            f"want {size}")
-    return group, store
+    return group
 
 
-def _release(group: Any, how: str, wait_s: Optional[float] = None) -> bool:
-    """Tear a process group down on a daemon thread: "shutdown" (every
-    rank at once: NCCL finalizes its communicator collectively) or
-    "abort" (this rank alone, when a peer is gone: it also stops NCCL
-    kernels spinning on the dead peer, so a host call waiting on the
-    device returns).  Waits at most `wait_s` (None: not at all); True if
-    the call returned in time."""
-    fn = getattr(group, how, None)
-    if fn is None:
-        return True
+def _join(backend: str, path: str, mesh: RankMesh,
+          timeout_s: float) -> Tuple[Any, Any, Any]:
+    """This rank's process group over the FileStore at `path` (a group of
+    its own, not the process's default group), the store, and at ep > 1
+    the tensor group of the rank's ep slice (None when that slice is the
+    rank alone, or when ep is 1 and the whole group is the tensor
+    group)."""
+    failpoint("dist.init")
+    store = dist.FileStore(path, mesh.size)
+    timeout = timedelta(seconds=timeout_s)
+    if backend == "nccl":
+        torch.cuda.set_device(mesh.device)
+    group = _group(backend, store, mesh.rank, mesh.size, mesh.device,
+                   timeout)
+    tensor_group = None
+    if mesh.ep > 1 and mesh.tensor_size > 1:
+        tensor_group = _group(
+            backend, dist.PrefixStore(f"tensor{mesh.ep_index}", store),
+            mesh.tensor_rank, mesh.tensor_size, mesh.device, timeout)
+    return group, store, tensor_group
 
-    def run() -> None:
-        try:
-            fn()
-        except Exception:  # best effort on the way out
-            logger.debug("process group %s failed", how, exc_info=True)
 
-    t = threading.Thread(target=run, name=f"kafka-torch-pg-{how}",
-                         daemon=True)
-    t.start()
+def _release(groups: List[Any], wait_s: Optional[float] = None) -> bool:
+    """Abort this rank's process groups, each on a daemon thread, all at
+    once (None entries are skipped).  Abort is local: it needs no peer
+    and also stops NCCL kernels spinning on a dead peer, so a host call
+    waiting on the device returns.  A collective `shutdown` instead
+    finalizes with every peer and was seen not to return within 30 s on
+    the cards.  Waits at most `wait_s` for all of them together (None:
+    not at all); True if every call returned in time."""
+    threads = []
+    for group in groups:
+        fn = getattr(group, "abort", None)
+        if fn is None:
+            continue
+
+        def run(fn=fn) -> None:
+            try:
+                fn()
+            except Exception:  # best effort on the way out
+                logger.debug("process group abort failed", exc_info=True)
+
+        t = threading.Thread(target=run, name="kafka-torch-pg-abort",
+                             daemon=True)
+        t.start()
+        threads.append(t)
     if wait_s is None:
-        return False
-    t.join(wait_s)
-    return not t.is_alive()
+        return not threads
+    deadline = time.monotonic() + wait_s
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    return not any(t.is_alive() for t in threads)
 
 
-def _worker_main(conn, tp: int, tq: int, rank: int, device: str,
+def _worker_main(conn, tp: int, tq: int, ep: int, rank: int, device: str,
                  backend: str, path: str, timeout_s: float) -> None:
     """Rank `rank`'s process: join the group, then run what rank 0 sends,
     in order, until told to stop.  SIGUSR1 prints every thread's stack
@@ -122,12 +147,12 @@ def _worker_main(conn, tp: int, tq: int, rank: int, device: str,
     dev = torch.device(device)
     if dev.type == "cpu":
         torch.set_num_threads(1)
-    mesh = RankMesh(tp=tp, tq=tq, rank=rank, device=dev)
-    group = None
+    mesh = RankMesh(tp=tp, tq=tq, ep=ep, rank=rank, device=dev)
+    group = tensor_group = None
     engines = {}
     try:
-        group, store = _join(backend, path, rank, tp * tq, dev, timeout_s)
-        barrier(store, "kafka-torch-tp/ready", tp * tq, timeout_s)
+        group, store, tensor_group = _join(backend, path, mesh, timeout_s)
+        barrier(store, "kafka-torch-tp/ready", mesh.size, timeout_s)
         conn.send(("ready", rank))
         while True:
             try:
@@ -147,7 +172,7 @@ def _worker_main(conn, tp: int, tq: int, rank: int, device: str,
                 conn.send(("reply", getattr(engines[eid], name)(*args)))
             elif kind == "build":
                 _, eid, spec = msg
-                engines[eid] = spec.build(mesh, group)
+                engines[eid] = spec.build(mesh, group, tensor_group)
                 conn.send(("built", eid))
             elif kind == "drop":
                 engine = engines.pop(msg[1], None)
@@ -159,20 +184,23 @@ def _worker_main(conn, tp: int, tq: int, rank: int, device: str,
                     gc.collect()
     except BaseException:
         tb = traceback.format_exc()
-        print(f"tensor-parallel rank {rank} failed:\n{tb}", file=sys.stderr,
-              flush=True)
+        print(f"rank {rank} of the rank group failed:\n{tb}",
+              file=sys.stderr, flush=True)
         try:
             conn.send(("error", rank, tb))
         except Exception:
             pass
         # skip interpreter teardown: a collective may be stuck on a peer
         os._exit(1)
-    for engine in engines.values():
-        engine.close()
-    engines.clear()
+    # free every engine (and its captured graphs, which hold the NCCL
+    # communicators) before the groups are torn down
+    while engines:
+        engines.popitem()[1].close()
+    gc.collect()
     if group is not None:
-        # rank 0 shuts its group down at the same time (RankGroup.close)
-        _release(group, "shutdown", wait_s=30.0)
+        # rank 0 aborts its groups at the same time (RankGroup.close);
+        # every operation it sent has run here
+        _release([tensor_group, group], wait_s=30.0)
     conn.close()
 
 
@@ -196,31 +224,35 @@ class EngineSpec:
                                      quantize=self.weights.quantize)
         return shard_params(self.weights, self.cfg, mesh)
 
-    def build(self, mesh: RankMesh, group: Any) -> Any:
+    def build(self, mesh: RankMesh, group: Any,
+              tensor_group: Any = None) -> Any:
         from ..runtime.engine import InferenceEngine
 
         return InferenceEngine(self.cfg, self.rank_params(mesh), self.ecfg,
                                kv_dtype=self.kv_dtype, device=mesh.device,
-                               mesh=RankContext(mesh, group))
+                               mesh=RankContext(mesh, group, tensor_group))
 
 
 @dataclasses.dataclass
 class RankContext:
-    """A worker rank's mesh position and process group, as its engine
-    sees them (the engine then takes orders and sends none)."""
+    """A worker rank's mesh position and process groups (the whole group,
+    and at ep > 1 its tensor group), as its engine sees them (the engine
+    then takes orders and sends none)."""
 
     mesh: RankMesh
     group: Any
+    tensor_group: Any = None
 
 
 class RankGroup:
-    """Rank 0's handle on a tensor-parallel rank group: the spawned ranks,
-    the process group, and the pipes that carry each engine's device
-    operations.  Engines are built on it (`InferenceEngine(...,
+    """Rank 0's handle on a rank group of tp*tq*ep ranks: the spawned
+    ranks, the process groups, and the pipes that carry each engine's
+    device operations.  Engines are built on it (`InferenceEngine(...,
     mesh=group)`); an engine built from a MeshConfig owns the group it
     creates and closes it with itself.
 
-    device: None = rank r on `cuda:r` (tp*tq cards); "cpu" for the tests.
+    device: None = rank r on `cuda:r` (tp*tq*ep cards); "cpu" for the
+    tests.
     store_dir: where the FileStore rendezvous lives (a fresh temp dir by
     default; tests pass tmp_path).  timeout_s: the guard's deadline for a
     rank to answer or a step to land (KAFKA_TORCH_DIST_STEP_TIMEOUT_S)."""
@@ -248,14 +280,15 @@ class RankGroup:
         self._procs: List[Any] = []
         self._conns: List[Any] = []
         self._next_engine = 0
-        self.group = None
+        self.group = self.tensor_group = None
         try:
             for r in range(1, self.size):
                 parent, child = ctx.Pipe()
                 proc = ctx.Process(
                     target=_worker_main,
-                    args=(child, config.tp, config.tq, r, str(devices[r]),
-                          self.backend, path, self.timeout_s),
+                    args=(child, config.tp, config.tq, config.ep, r,
+                          str(devices[r]), self.backend, path,
+                          self.timeout_s),
                     name=f"kafka-torch-rank{r}", daemon=True)
                 proc.start()
                 child.close()
@@ -263,9 +296,8 @@ class RankGroup:
                 self._conns.append(parent)
             # joining blocks until every rank has joined: wait on a
             # watchdog thread while watching the workers
-            self.group, self.store = self._watch(
-                lambda: _join(self.backend, path, 0, self.size,
-                              self.mesh.device, self.timeout_s),
+            self.group, self.store, self.tensor_group = self._watch(
+                lambda: _join(self.backend, path, self.mesh, self.timeout_s),
                 "process group join")
             self._watch(lambda: barrier(self.store, "kafka-torch-tp/ready",
                                         self.size, self.timeout_s),
@@ -305,7 +337,7 @@ class RankGroup:
         with self._release_lock:
             if self.group is not None and not self._released:
                 self._released = True
-                _release(self.group, "abort")
+                _release([self.tensor_group, self.group])
 
     # -- health --------------------------------------------------------
 
@@ -456,10 +488,9 @@ class RankGroup:
         return [p.pid for p in self._procs]
 
     def close(self, timeout_s: float = 10.0) -> None:
-        """Stop every rank: ask, shut the process group down with them
-        (aborted instead when the group is broken), join, then terminate
-        and kill what is left.  Never waits on NCCL for long.
-        Idempotent."""
+        """Stop every rank: ask, abort this rank's process groups (every
+        rank aborts its own on the same order), join, then terminate and
+        kill what is left.  Never waits on NCCL for long.  Idempotent."""
         if self._closed:
             return
         self._closed = True
@@ -472,8 +503,7 @@ class RankGroup:
             with self._release_lock:
                 if not self._released:
                     self._released = True
-                    _release(self.group, "shutdown" if self.broken is None
-                             else "abort", wait_s=30.0)
+                    _release([self.tensor_group, self.group], wait_s=30.0)
         deadline = time.monotonic() + timeout_s
         for proc in self._procs:
             proc.join(max(0.0, deadline - time.monotonic()))

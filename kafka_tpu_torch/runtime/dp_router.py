@@ -48,7 +48,8 @@ cancel / step / has_work / metrics / _requests), so llm/worker.EngineWorker
 drives it unchanged.
 
 Tensor, sequence and expert parallelism inside a replica (tp / sp / ep >
-1) and replicas across hosts are not ported (ROADMAP A9, A10).
+1: dp x tp, dp x ep) and replicas across hosts are not ported (ROADMAP
+A9); tp and ep run at dp 1, in one engine's rank group.
 """
 
 from __future__ import annotations
@@ -192,11 +193,10 @@ class DataParallelEngines:
         the supervision clock (quarantine windows); tests inject one."""
         if tp > 1 or sp > 1 or ep > 1:
             raise ValueError(
-                f"tp={tp} sp={sp} ep={ep}: replicas of a tensor-parallel "
-                "group (ROADMAP A9, dp x tp), sequence parallelism (A9) and "
-                "expert parallelism (A9 with A10's MoE) are not ported; "
-                "replicas are whole single-card engines here, and tp runs "
-                "at dp 1")
+                f"tp={tp} sp={sp} ep={ep}: replicas of a rank group "
+                "(ROADMAP A9, dp x tp and dp x ep) and sequence parallelism "
+                "(A9) are not ported; replicas are whole single-card "
+                "engines here, and tp and ep run at dp 1")
         devices = [torch.device(d) for d in (
             devices if devices is not None else default_replica_devices())]
         if len(devices) < dp:

@@ -71,17 +71,18 @@ scheduler keeps the JAX engine's semantics:
   autoscaler's ladder pause speculation;
 * `recover_from_failure` rebuilds a servable engine after a step fault
   (the `engine.step` and `engine.prefill` failpoints inject one);
-* with `mesh` (a parallel.MeshConfig of tp, tq > 1, or a RankGroup) the
-  engine is rank 0 of a tensor-parallel group (kafka_tpu/runtime/
-  engine.py:639-850): every rank holds its shard of the weights and of
-  the pool, and every method that touches device state is `replicated`:
-  rank 0 sends it, with its host inputs, to the other ranks, and each
-  runs it in the same order (prefill chunks, control uploads, decode
-  graph captures and replays, verify steps, FSM and grammar tables,
-  recovery).  Sampling is replicated, so the next token is on every card
-  with no broadcast; only rank 0 fetches to the host, and its host waits
-  run under the group's guard: a dead rank fails every request with
-  "error:distributed" (the group cannot serve again);
+* with `mesh` (a parallel.MeshConfig of tp, tq or ep > 1, or a RankGroup)
+  the engine is rank 0 of a rank group (kafka_tpu/runtime/
+  engine.py:639-850): every rank holds its shard of the weights (at ep, a
+  MoE model's experts of its ep slice) and of the pool, and every method
+  that touches device state is `replicated`: rank 0 sends it, with its
+  host inputs, to the other ranks, and each runs it in the same order
+  (prefill chunks, control uploads, decode graph captures and replays,
+  verify steps, FSM and grammar tables, recovery).  Sampling is replicated,
+  so the next token is on every card with no broadcast; only rank 0
+  fetches to the host, and its host waits run under the group's guard: a
+  dead rank fails every request with "error:distributed" (the group cannot
+  serve again);
 * a request carrying a trace (`GenRequest.trace`, tracing.py) gets
   engine.queue, engine.prefill and emit spans, and an engine.decode span
   each time one of its fetches lands.
@@ -129,6 +130,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import itertools
 import logging
 import os
@@ -714,13 +716,22 @@ def kernel_backend_problems(cfg: ModelConfig, ecfg: EngineConfig,
 
 def tensor_mesh_problems(cfg: ModelConfig, mesh: Any) -> List[str]:
     """Why the per-rank kernels cannot take this head split (the
-    reference's pallas_mesh_ok rule); empty off a mesh."""
-    if mesh is None or mesh.tp * mesh.tq <= 1:
+    reference's pallas_mesh_ok rule); empty off a mesh.  At ep > 1 they
+    never run: the rule admits only the tensor axes (tp * tq equal to the
+    mesh's size, JAX ops/pallas/paged_attention.py:510-513), so "auto"
+    resolves to the plain gather there, as the reference's does."""
+    ep = getattr(mesh, "ep", 1) if mesh is not None else 1
+    if mesh is None or mesh.tp * mesh.tq * ep <= 1:
         return []
     from ..ops.kernels.sharded import kernel_mesh_ok
 
     if kernel_mesh_ok(mesh, cfg.num_heads, cfg.num_kv_heads):
         return []
+    if ep > 1:
+        return [f"ep={ep}: the per-rank kernels take the tensor axes only "
+                f"(tp*tq={mesh.tp * mesh.tq} is not the group's "
+                f"{mesh.tp * mesh.tq * ep} ranks), so attention is the "
+                "plain gather at ep > 1, as in the reference"]
     return [f"the per-rank kernels need tp | Hkv, tp*tq | Hq and one kv "
             f"head per rank when tq > 1; tp={mesh.tp} tq={mesh.tq} over "
             f"Hq={cfg.num_heads} Hkv={cfg.num_kv_heads}"]
@@ -758,10 +769,24 @@ def resolve_attention_backend(cfg: ModelConfig, ecfg: EngineConfig,
 
 def validate_tensor_parallel(cfg: ModelConfig, ecfg: EngineConfig,
                              mesh: Any) -> None:
-    """The engine's tensor-parallel checks (kafka_tpu/runtime/engine.py
-    mesh validation): whole heads and MLP columns per rank, and nothing
-    this slice does not move across ranks.  Raises ValueError naming the
-    ROADMAP item."""
+    """The engine's rank-group checks (kafka_tpu/runtime/engine.py
+    mesh validation, :669-684 for MoE): ep only on a MoE model whose
+    experts it divides, no MoE at pp > 1, whole heads and MLP columns per
+    rank, and nothing this port does not move across ranks.  Raises
+    ValueError (naming the ROADMAP item where one ports it)."""
+    ep = getattr(mesh, "ep", 1)
+    if ep > 1:
+        if not cfg.is_moe:
+            raise ValueError(
+                f"mesh has ep={ep} but {cfg.name!r} is dense: the ep axis "
+                "shards MoE expert weights")
+        if cfg.num_experts % ep:
+            raise ValueError(
+                f"num_experts={cfg.num_experts} not divisible by ep={ep}")
+    if getattr(mesh, "pp", 1) > 1 and cfg.is_moe:
+        raise ValueError(
+            "pp stage sharding does not support MoE models: use ep x tp "
+            "rank groups for Mixtral-class serving")
     n = mesh.tp * mesh.tq
     if cfg.num_heads % n or cfg.intermediate_size % n:
         raise ValueError(
@@ -848,9 +873,9 @@ class InferenceEngine:
         """device: None = CUDA (raises without it); "cpu" for the tests.
         params: the layer-stacked dict (models/llama.py), moved to device.
 
-        mesh: None for one device.  A `parallel.MeshConfig` with tp (and
-        tq) > 1 makes this engine rank 0 of a tensor-parallel group it
-        spawns and owns (rank r on `cuda:r`, or every rank on the CPU with
+        mesh: None for one device.  A `parallel.MeshConfig` with tp, tq
+        or ep > 1 makes this engine rank 0 of a rank group it spawns and
+        owns (rank r on `cuda:r`, or every rank on the CPU with
         device="cpu"); a `parallel.RankGroup` builds it on a group the
         caller owns.  `params` is then the full tree each rank slices its
         shard from, or `parallel.RandomWeights`, from which each rank
@@ -1068,6 +1093,7 @@ class InferenceEngine:
                 self._eid = mesh.build(spec)
                 self._group = mesh
                 rank_mesh, group = mesh.mesh, mesh.group
+                tensor_group = mesh.tensor_group
                 params = spec.rank_params(rank_mesh)
             except BaseException:
                 if self._owns_group:
@@ -1075,11 +1101,12 @@ class InferenceEngine:
                 raise
         elif isinstance(mesh, RankContext):
             rank_mesh, group = mesh.mesh, mesh.group
+            tensor_group = mesh.tensor_group
         else:
             raise TypeError(f"mesh must be a MeshConfig, RankGroup or None, "
                             f"got {type(mesh).__name__}")
         self.mesh = rank_mesh
-        self.tp = TensorParallel(cfg, rank_mesh, group)
+        self.tp = TensorParallel(cfg, rank_mesh, group, tensor_group)
         return rank_mesh, rank_mesh.device, params
 
     def _build_kv_tier(self) -> None:
@@ -1156,6 +1183,13 @@ class InferenceEngine:
             except Exception:  # a broken group cannot take the order
                 logger.warning("dropping the engine on the rank group "
                                "failed", exc_info=True)
+            # NCCL holds a communicator that collectives were captured on
+            # until their graphs are destroyed (an executable graph still
+            # in flight is freed when it completes): release this
+            # engine's graphs before its group's communicators go, or
+            # tearing them down waits on the graphs
+            self._graphs.clear()
+            self._graph_pool = None
             if self._owns_group:
                 group.close()
         tier = self.kv_tier
@@ -1205,7 +1239,8 @@ class InferenceEngine:
                 weight_bytes_total=param_bytes(self.params) * n,
                 kv_dtype_bytes=(1 if self.ecfg.kv_quantize == "int8"
                                 else self.kv_dtype.itemsize),
-                kv_replication=self.mesh.tq if self.mesh is not None else 1)
+                kv_replication=(self.mesh.tq * self.mesh.ep
+                                if self.mesh is not None else 1))
             self._roofline = device_peaks(self.device)
             self.metrics.set_roofline(*self._roofline)
             # a known roofline survives metrics resets (the server swaps
@@ -3314,6 +3349,12 @@ class InferenceEngine:
             self._graph_pool = torch.cuda.graph_pool_handle()
         before = [fn.launches for fn in kernels.KERNELS]
         graph = torch.cuda.CUDAGraph()
+        # no cyclic garbage collection while capturing: a collection
+        # could free another engine's graphs or pinned buffers, whose
+        # teardown calls are not permitted during a capture and
+        # invalidate it (torch.cuda.graph collects once before it begins)
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             # a rank of a tensor-parallel group captures its NCCL calls;
             # the process group's watchdog thread queries its events
@@ -3326,6 +3367,8 @@ class InferenceEngine:
             raise RuntimeError(f"capturing decode step graph {key} "
                                f"failed: {e}") from e
         finally:
+            if gc_on:
+                gc.enable()
             # the captured calls launched nothing: take their ticks back,
             # and let every replay add them instead
             ticks = [(fn, fn.launches - b)

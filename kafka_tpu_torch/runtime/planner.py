@@ -18,8 +18,11 @@ PyTorch instead of a chip table:
   pools' segments (`torch.cuda.memory_snapshot`) as their own line.
 
 The placement rules keep the reference's tensor-parallel arithmetic
-(grouped-GQA kv sharding over gcd(tp, Hkv)), so a plan for tp > 1 reads
-as the reference's does; this package serves one device, tp = 1.
+(grouped-GQA kv sharding over gcd(tp, Hkv); a MoE model's experts over
+ep), so a plan for a rank group reads as the reference's does.  A MoE
+model adds what dense dispatch holds (moe_activation_bytes): the
+per-expert prefill intermediates and, with int8 experts, one dequantized
+expert stack.
 Activation peaks are *estimates* sized from the dominant live tensors:
 the [S, V/tp] f32 prefill logits block, the window gather, and the
 decode-time [B, V] f32 logits + sampling workspace.  A
@@ -259,6 +262,31 @@ def activation_bytes_estimate(
     return max(prefill, decode)
 
 
+def moe_activation_bytes(cfg: ModelConfig, *, prefill_bucket: int,
+                         tp: int = 1, ep: int = 1,
+                         quantize: str = "") -> int:
+    """What a MoE layer holds beyond activation_bytes_estimate's dense
+    figures, per device (0 on a dense model).  Dense dispatch
+    (models/llama.py _experts) gives every local expert every token: a
+    prefill chunk's g, u and silu(g) * u are [E/ep, S, F/tp] and y is
+    [E/ep, S, H], in place of the dense [S, F/tp] trio.  Int8 experts are
+    dequantized one stack at a time: an [E/ep, H, F/tp] stack's f32
+    product and its bf16 copy are live together (models/quant.py
+    dequantize), in prefill and in every decode step alike — 2.8 GB at
+    mixtral-8x7b width on one card."""
+    if not getattr(cfg, "is_moe", False):
+        return 0
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    e_local = cfg.num_experts // (ep if ep > 1 and
+                                  cfg.num_experts % ep == 0 else 1)
+    f_local = f // tp
+    wb = _bytes(cfg.dtype)
+    trio = prefill_bucket * e_local * (3 * f_local + h) * wb \
+        - prefill_bucket * (h + 2 * f_local) * 2
+    dequant = e_local * h * f_local * (4 + wb) if quantize == "int8" else 0
+    return max(0, trio) + dequant
+
+
 def plan_memory(
     cfg: ModelConfig,
     *,
@@ -310,7 +338,8 @@ def plan_memory(
         activation_bytes=activation_bytes_estimate(
             cfg, max_batch=max_batch, prefill_bucket=prefill_bucket,
             window=window, tp=tp, sp=sp,
-        ),
+        ) + moe_activation_bytes(cfg, prefill_bucket=prefill_bucket, tp=tp,
+                                 ep=ep, quantize=quantize),
         kv_replicated=kv_replicated,
         kv_bytes_per_token=kv_bytes_per_token(
             cfg, tp=tp, pp=pp, kv_dtype=kv_dtype, kv_shard=kv_shard
@@ -465,7 +494,8 @@ def plan_for_serving(scfg, hbm_bytes: int,
     configs differ from model_name).  At tp_size > 1 the plan is one
     rank's: its weight shard (heads, MLP columns and vocab over the
     degree, kv over the resolved tp), its pool columns and activations,
-    as the engine places them (parallel/sharding.py).  sp = pp = ep = 1."""
+    as the engine places them (parallel/sharding.py); at ep_size > 1 a
+    MoE model's experts of one ep slice.  sp = pp = 1."""
     if model_cfg is None:
         from ..models.config import get_config
 
@@ -476,6 +506,7 @@ def plan_for_serving(scfg, hbm_bytes: int,
         model_cfg,
         hbm_bytes=hbm_bytes,
         tp=degree,
+        ep=max(1, getattr(scfg, "ep_size", 1)),
         kv_shard=tpk if (tq > 1 or model_cfg.num_kv_heads % tpk == 0)
         else 1,
         num_pages=scfg.num_pages, page_size=scfg.page_size,

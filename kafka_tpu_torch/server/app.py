@@ -54,8 +54,9 @@ With `dp_size > 1` the engine is a DataParallelEngines router over
 replica slots (KAFKA_TORCH_REPLICA_DEVICES), optionally split into
 prefill and decode pools (KAFKA_TORCH_DP_ROLES); with KAFKA_TORCH_AUTOSCALE
 an autoscaler controller polls /admin/signals' snapshot and resizes it.
-With `tp_size > 1` (KAFKA_TORCH_TP_SIZE) the engine is rank 0 of a
-tensor-parallel group over tp_size cards (parallel/); a group that breaks
+With `tp_size > 1` (KAFKA_TORCH_TP_SIZE) and/or `ep_size > 1`
+(KAFKA_TORCH_EP_SIZE, a MoE model's experts) the engine is rank 0 of a
+rank group over tp_size * ep_size cards (parallel/); a group that breaks
 (a rank dies) fails its in-flight requests with an error event and turns
 /health to 503 "unhealthy", and shutdown stops every rank.
 """
@@ -72,7 +73,7 @@ import tempfile
 from typing import Any, AsyncIterator, Dict, List, Optional
 
 import torch
-from aiohttp import web
+from aiohttp import web, web_app
 from pydantic import ValidationError
 
 from ..core.types import (
@@ -133,6 +134,8 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
             raise ValueError(f"unknown {knob} mode {mode!r}")
     dev = resolve_device(device)
     mesh = _tensor_mesh(cfg)
+    # drawn already quantized (a MoE model's random weights)
+    drawn_int8 = False
     if cfg.checkpoint_dir:
         tokenizer = load_tokenizer(cfg.checkpoint_dir)
         model_cfg, params = load_checkpoint(cfg.checkpoint_dir, device=dev)
@@ -149,10 +152,19 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
             from ..parallel import RandomWeights
 
             params = RandomWeights(seed=cfg.seed, quantize=cfg.quantize)
+        elif model_cfg.is_moe:
+            # one expert at a time, quantized as drawn: an int8
+            # mixtral-8x7b never exists in bf16 (~93 GB) here, and its
+            # weights are the ones an ep group draws from the same seed
+            from ..parallel import init_params_shard
+
+            params = init_params_shard(model_cfg, cfg.seed, device=dev,
+                                       quantize=cfg.quantize)
+            drawn_int8 = cfg.quantize == "int8"
         else:
             gen = torch.Generator(device=dev).manual_seed(cfg.seed)
             params = init_params(model_cfg, gen, device=dev)
-    if cfg.quantize == "int8" and mesh is None:
+    if cfg.quantize == "int8" and mesh is None and not drawn_int8:
         params = quantize_params(params, model_cfg)
     if cfg.dp_roles and cfg.dp_size <= 1:
         raise ValueError(
@@ -221,13 +233,9 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
     elif mesh is not None:
         # rank 0 here, ranks 1..n-1 spawned on cuda:1..n-1 (or the CPU
         # when the caller asked for it)
-        from ..parallel import MeshConfig
-
-        tp, tq = mesh
         engine = InferenceEngine(
             model_cfg, params, engine_cfg,
-            device="cpu" if dev.type == "cpu" else None,
-            mesh=MeshConfig(tp=tp, tq=tq))
+            device="cpu" if dev.type == "cpu" else None, mesh=mesh)
     else:
         engine = InferenceEngine(model_cfg, params, engine_cfg, device=dev)
     replicas = getattr(engine, "engines", [engine])
@@ -263,23 +271,28 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
 
 
 def _tensor_mesh(cfg: ServingConfig):
-    """(tp, tq) of the server's rank group, None at tp_size 1.  The
-    degree splits by resolve_tensor_axes, as the planner charges it."""
-    if cfg.tp_size <= 1:
+    """The MeshConfig of the server's rank group (tp x ep), None at
+    tp_size = ep_size = 1.  The tensor degree splits by
+    resolve_tensor_axes, as the planner charges it."""
+    if cfg.tp_size <= 1 and cfg.ep_size <= 1:
         return None
     if cfg.dp_size > 1:
         raise ValueError(
-            f"dp_size={cfg.dp_size} x tp_size={cfg.tp_size}: replicas of a "
-            "tensor-parallel group are not ported (ROADMAP A9, dp x tp)")
+            f"dp_size={cfg.dp_size} x tp_size={cfg.tp_size} x "
+            f"ep_size={cfg.ep_size}: replicas of a rank group are not "
+            "ported (ROADMAP A9, dp x tp and dp x ep)")
     if cfg.checkpoint_dir:
         raise ValueError(
-            "a checkpoint at tp_size > 1 is not ported: each rank would load "
-            "its own shard of the safetensors files (ROADMAP A9)")
+            "a checkpoint on a rank group (tp_size or ep_size > 1) is not "
+            "ported: each rank would load its own shard of the "
+            "safetensors files (ROADMAP A9)")
     from ..models import get_config
-    from ..parallel import resolve_tensor_axes
+    from ..parallel import MeshConfig, resolve_tensor_axes
 
     model_cfg = get_config("tiny" if cfg.tiny_model else cfg.model_name)
-    return resolve_tensor_axes(cfg.tp_size, model_cfg.num_kv_heads)
+    tp, tq = resolve_tensor_axes(max(cfg.tp_size, 1),
+                                 model_cfg.num_kv_heads)
+    return MeshConfig(tp=tp, tq=tq, ep=max(cfg.ep_size, 1))
 
 
 def _replica_slots(cfg: ServingConfig, dev) -> List[torch.device]:
@@ -542,6 +555,14 @@ async def _cleanup(app: web.Application) -> None:
     await state["kafka"].cleanup()
     await state["db"].close()
     await state["llm"].aclose()
+    # aiohttp keeps every Application that served a request in a
+    # process-wide cache of middleware chains (keyed by handler and apps,
+    # 1024 entries): clear it, or this app and the model its provider
+    # holds outlive the server, and a process that runs servers in turn
+    # keeps every model's weights and pool on the card
+    cache = getattr(web_app, "_cached_build_middleware", None)
+    if cache is not None:
+        cache.cache_clear()
 
 
 def cors_middleware(origins: str):
@@ -1155,6 +1176,8 @@ async def health(request: web.Request) -> web.Response:
         if rank_mesh is not None:
             payload["engine"]["tp"] = rank_mesh.tp
             payload["engine"]["tq"] = rank_mesh.tq
+            if rank_mesh.ep > 1:
+                payload["engine"]["ep"] = rank_mesh.ep
         if broken:
             payload["engine"]["error"] = broken
     return web.json_response(payload,

@@ -137,6 +137,11 @@ class ServingConfig:
     # (RandomWeights): no full copy of the model exists anywhere.  One
     # card per rank; dp x tp is not ported (ROADMAP A9).
     tp_size: int = 1
+    # Expert parallelism (KAFKA_TORCH_EP_SIZE or KAFKA_TORCH_EP): a MoE
+    # model's experts shard over ep_size ranks, attention and the KV pool
+    # replicated over them; composes with tp_size (tp_size * ep_size
+    # cards, one per rank).  A dense model at ep_size > 1 is refused.
+    ep_size: int = 1
     # Data-parallel replicas (runtime/dp_router.py): dp independent
     # engines with thread-affinity routing (KAFKA_TORCH_DP_SIZE, or
     # KAFKA_TORCH_DP).  1 = one engine, no router.
@@ -234,6 +239,7 @@ class ServingConfig:
             kv_object_mb=get("KV_OBJECT_MB", cls.kv_object_mb,
                              lambda v: max(0, int(v))),
             tp_size=get_axis("TP", cls.tp_size),
+            ep_size=get_axis("EP", cls.ep_size),
             dp_size=get_axis("DP", cls.dp_size),
             replica_devices=get("REPLICA_DEVICES", None),
             dp_roles=get("DP_ROLES", None),

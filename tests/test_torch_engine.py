@@ -264,13 +264,20 @@ class TestLifecycle:
         event, waiting ones stay queued and are served afterwards."""
         _, _, cfg, params = model
         # max_parked=0: "b" must still be waiting (not prefilled off-slot)
-        # when the step fails
-        eng = port_engine(cfg, params, max_batch=1, max_parked=0)
+        # when the step fails.  fetch_lag=0: every fetch is processed in
+        # the step that dispatched it, so none is in flight when the step
+        # fails.  Recovery returns the failed step's already-popped events
+        # too, so with a fetch in flight the events would depend on
+        # whether it landed before the failure (both packages alike).
+        eng = port_engine(cfg, params, max_batch=1, max_parked=0,
+                          fetch_lag=0)
         eng.submit(GenRequest(request_id="a", prompt_ids=[1, 2, 3],
                               max_new_tokens=6))
         eng.submit(GenRequest(request_id="b", prompt_ids=[4, 5],
                               max_new_tokens=3))
-        eng.step()  # "a" prefills and takes the only slot
+        # "a" prefills and takes the only slot; its tokens reach the host
+        assert {e.request_id for e in eng.step()} == {"a"}
+        assert not eng._pending
         real = eng._run_step
 
         def boom(*args):

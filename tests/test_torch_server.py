@@ -92,6 +92,38 @@ def test_streamed_thread_turns_persist_history(tmp_path):
     assert models["data"][0]["id"] == "llama-3.2-1b"
 
 
+def test_server_cleanup_releases_the_model(tmp_path):
+    """aiohttp keeps every Application that served a request in a
+    process-wide cache, so after shutdown the app must not pin its
+    engine: the engine and its weights are freed once the server is
+    gone (a card that runs several servers in turn would otherwise keep
+    every model's weights)."""
+    import gc
+    import weakref
+
+    from aiohttp.test_utils import TestClient, TestServer
+    from kafka_tpu_torch.server.app import STATE_KEY
+
+    async def run():
+        app = await create_app(serving_cfg(tmp_path), tools=[],
+                               mcp_servers=[], device="cpu")
+        engine = app[STATE_KEY]["llm"].engine
+        refs = (weakref.ref(engine),
+                weakref.ref(engine.params["layers"]["wq"]))
+        del engine
+        async with TestClient(TestServer(app)) as c:
+            r = await c.post("/v1/chat/completions", json={
+                "model": "tiny", "stream": True, "temperature": 0,
+                "max_tokens": 4,
+                "messages": [{"role": "user", "content": "hi"}]})
+            assert sse_events(await r.text())[-1] == "[DONE]"
+        return refs
+
+    refs = asyncio.run(run())
+    gc.collect()
+    assert [r() for r in refs] == [None, None]
+
+
 def test_stateless_completion_streamed_and_not(tmp_path):
     from aiohttp.test_utils import TestClient, TestServer
 

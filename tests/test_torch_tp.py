@@ -394,9 +394,15 @@ def test_what_the_slice_does_not_port_is_refused(model):
     with pytest.raises(ValueError, match="ROADMAP A9, KV tiers"):
         port_engine(cfg, params, MeshConfig(tp=2), kv_host_tier_mb=4)
     for kw, item in (({"dp": 2}, "dp x tp"), ({"sp": 2}, "ring"),
-                     ({"pp": 2}, "pipeline"), ({"ep": 2}, "MoE")):
+                     ({"pp": 2}, "pipeline")):
         with pytest.raises(ValueError, match=item):
             RankGroup(MeshConfig(tp=2, **kw), device="cpu")
+    # ep is ported with MoE (tests/test_torch_moe.py); what the reference
+    # refuses is refused before any rank spawns (tests/test_moe.py:109)
+    with pytest.raises(ValueError, match="dense"):
+        port_engine(cfg, params, MeshConfig(tp=2, ep=2))
+    with pytest.raises(ValueError, match="divisible"):
+        port_engine(cfg.replace(num_experts=4), params, MeshConfig(ep=3))
 
 
 def test_serving_config_axis_spellings(monkeypatch):
