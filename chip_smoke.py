@@ -344,6 +344,33 @@ Phases, each of which raises (non-zero exit) on any failure:
                cards (d) and (e) report "skipped: cards".  The kernels
                line's `moe_launches` are legs (a)-(c)'s counts.
                `--moe-legs de` runs the multi-card legs alone.
+  9. vision  — images as a ViT soft prompt (models/vision.py):
+               llama-3.2-1b at full width with the reference's default
+               VisionConfig() (32x32 images, 16 patches, width 64) and
+               image_token_id 262, as in tiny-vision, random weights from
+               --seed.  (a) bf16: four images encoded on the card (ms),
+               four image prompts (60 to 700 tokens; the 700-token one
+               chunks at 512 with its image across the boundary) each
+               streamed alone through the kernel engine (K2 on every
+               prompt chunk, K1 after) and a plain-attention engine on
+               the same weights: logits within LOGITS_RTOL, first-token
+               logits printed; the same prompt showing another image must
+               move the first-token logits by more than VISION_DIFF_MIN
+               and ten times the kernel engine's error; the 700-token
+               prompt's prefill and first token timed.  (b) the same with
+               int8 weights and an int8 KV pool (K4; K1 and K2 none:
+               prefill over an int8 pool is the dequantizing gather).
+               (c) when Pillow is installed, the HTTP leg: create_app over
+               a provider holding the tower (vocab 263 for the byte
+               tokenizer): an image turn as `image_url` and as
+               Anthropic-style `image` streams to [DONE] with num_patches
+               more prompt tokens than its text alone; a malformed image
+               is a 400.  The kernels line's `vision_launches` sum the
+               legs' counts, each zeroed just before its main-path drive.
+               The server phase's host-masked forced call (ONDEVICE=0)
+               chains its grammar-forced tokens: its round trips per call
+               are printed and must equal its choice points (positions
+               the grammar does not force) and be fewer than its tokens.
 
 Output: progress lines, then a `{"kernels": [...]}` JSON line, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and last
@@ -2900,6 +2927,24 @@ def _spy_submits(engine) -> list:
     return seen
 
 
+def _choice_points(req) -> int:
+    """Decode positions of a host-masked request whose token the grammar
+    does not force (the mask fn's forced_id is None and it allows more
+    than one id): the round trips singleton-mask chaining must leave.
+    The first token comes from the prefill; the mask fn is a function of
+    the output so far."""
+    fn = req.logits_mask_fn
+    if fn is None or req.grammar is not None:
+        return 0
+    n = 0
+    for i in range(1, len(req.output_ids)):
+        ctx = req.output_ids[:i]
+        fid = fn.forced_id(ctx) if hasattr(fn, "forced_id") else None
+        allowed = fn(ctx) if fid is None else [fid]
+        n += allowed is None or len(allowed) != 1
+    return n
+
+
 async def _constrained_turn(session, url: str, tool_choice, engine, seen,
                             tokenizer, tool_defs,
                             model: str = "llama-3.2-1b") -> dict:
@@ -2936,6 +2981,10 @@ async def _constrained_turn(session, url: str, tool_choice, engine, seen,
                              f"{calls}, text {text!r}")
     return {"tool_choice": tool_choice, "tokens": len(req.output_ids),
             "output_ids": list(req.output_ids), "call": calls[0],
+            # host-masked lanes: the choice points that awaited a round
+            # trip (grammar-forced tokens chain without one)
+            "roundtrips": req.constrained_roundtrips,
+            "choice_points": _choice_points(req),
             "finish_reason": req.finish_reason, "grammar": req.grammar,
             **{k: getattr(engine, k) - before[k] for k in keys}}
 
@@ -3009,6 +3058,16 @@ async def _serve_constrained(db_path: str) -> dict:
             host["constrained_host_mask_steps"] <= 0:
         raise AssertionError(f"ONDEVICE=0 turn did not take the host mask: "
                              f"{host}")
+    # singleton-mask chaining: the host-masked lane's grammar-forced
+    # tokens dispatch without a round trip, so it makes exactly one round
+    # trip per genuine choice point, and fewer than its decoded tokens
+    log(f"constrained host-mask turn (chained): {host['roundtrips']} round "
+        f"trips for {host['tokens']} tokens in one forced call "
+        f"({host['choice_points']} choice points, "
+        f"{host['tokens'] - 1 - host['roundtrips']} tokens chained)")
+    if host["roundtrips"] != host["choice_points"] or \
+            not host["roundtrips"] < host["tokens"] - 1:
+        raise AssertionError(f"the host-masked lane did not chain: {host}")
     fsm_ids = turns["required"]["output_ids"]
     slack = max(g.wrap_slack for g in engine._grammars.grammars)
     n = _wrap_free(turns["required"]["grammar"], fsm_ids,
@@ -6881,15 +6940,278 @@ def phase_moe(seed: int, legs: str = "abcde") -> None:
             RESULTS[k]["moe_launches"] = res["launches"].get(k, 0)
 
 
+# the vision phase's image prompts: (prompt tokens, first placeholder's
+# position).  Lane 0 is longer than the largest bucket and its image
+# straddles the chunk boundary at 512, so K2 runs on a chunk holding part
+# of the image and the next holds the rest
+VISION_LANES = ((700, 500), (60, 10), (120, 40), (300, 250))
+VISION_NEW = 16
+# two different images must move the first-token logits by more than this
+# share of the row's largest logit (and by more than ten times the kernel
+# engine's own error against plain attention)
+VISION_DIFF_MIN = 1e-3
+
+
+def _vision_prompts(cfg, rng) -> list:
+    """(prompt ids, placeholder positions) per VISION_LANES entry: random
+    text ids around num_patches image_token_id placeholders."""
+    import numpy as np
+
+    P = cfg.vision.num_patches
+    out = []
+    for n, at in VISION_LANES:
+        ids = rng.randint(0, cfg.vocab_size, size=n)
+        ids[at:at + P] = cfg.image_token_id
+        out.append((ids.tolist(), np.arange(at, at + P, dtype=np.int32)))
+    return out
+
+
+def _vision_run(eng, prompts, rows, max_new: int, tag: str = "v") -> list:
+    """Each image prompt alone through the engine (a single-lane prefill:
+    K2 on a bf16 pool), lane i showing rows[i] ([P, H] f32)."""
+    from kafka_tpu_torch.runtime import GenRequest
+
+    reqs = []
+    for i, (ids, pos) in enumerate(prompts):
+        req = GenRequest(request_id=f"{tag}{i}", prompt_ids=list(ids),
+                         max_new_tokens=max_new, override_pos=pos,
+                         override_rows=rows[i])
+        eng.submit(req)
+        eng.run_to_completion()
+        reqs.append(req)
+    return reqs
+
+
+def vision_leg(label: str, cfg, params, vparams, prompts, pixels,
+               kv_quantize: str = "") -> dict:
+    """One leg of the vision phase: encode the images on the card, stream
+    every image prompt through the kernel engine and a plain-attention
+    engine on the same parameters, and hold them together."""
+    import torch
+
+    from kafka_tpu_torch.models.vision import encode_images
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.runtime import InferenceEngine
+
+    vcfg = cfg.vision
+    pix = torch.from_numpy(pixels).cuda()
+    with torch.no_grad():
+        emb = encode_images(vparams, vcfg, pix)
+        encode_ms = time_ms(lambda: encode_images(vparams, vcfg, pix),
+                            iters=20, warmup=3)
+    if emb.shape != (len(pixels), vcfg.num_patches, cfg.hidden_size) or \
+            not torch.isfinite(emb).all():
+        raise AssertionError(f"vision {label}: tower output {emb.shape}")
+    rows = list(emb.float().cpu().numpy())
+    eng = InferenceEngine(cfg, params, _engine_cfg(kv_quantize=kv_quantize))
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    got = _vision_run(eng, prompts, rows, VISION_NEW)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launched = {f.__name__: f.launches for f in kernels.KERNELS}
+    want = (("paged_decode_attention_int8",) if kv_quantize
+            else ("paged_prefill_attention", "paged_decode_attention"))
+    if any(not launched[n] for n in want) or (kv_quantize and (
+            launched["paged_decode_attention"]
+            or launched["paged_prefill_attention"])):
+        raise AssertionError(f"vision {label}: launches {launched}")
+    plain = InferenceEngine(cfg, params, _engine_cfg(
+        kv_quantize=kv_quantize, attention_backend="plain"))
+    kernels.reset_launch_counts()
+    ref = _vision_run(plain, prompts, rows, VISION_NEW)
+    if any(f.launches for f in kernels.KERNELS):
+        raise AssertionError(f"vision {label}: the plain engine launched")
+    same, agree, worst = _compare_streams(cfg, got, ref, VISION_NEW)
+    first = max(((a.logits[0] - b.logits[0]).abs().max()
+                 / b.logits[0].abs().max()).item()
+                for a, b in zip(got, ref))
+    # the same prompt showing another image (lane 0's) on the kernel
+    # engine: the first-token logits must move
+    alt = _vision_run(eng, prompts[3:], rows[:1], 1, tag="alt")[0]
+    row = got[3].logits[0]
+    img_diff = ((row - alt.logits[0]).abs().max() / row.abs().max()).item()
+    # host clock of lane 0's prefill (700 tokens: two chunks, the image
+    # across their boundary) and its first token
+    prefill_ms = time_ms(lambda: _vision_run(eng, prompts[:1], rows, 1,
+                                             tag="t"), iters=5, warmup=1)
+    total = VISION_NEW * len(prompts)
+    out = {"seconds": dt, "launches": launched, "encode_ms": encode_ms,
+           "images": len(pixels), "prefill_ms_700": prefill_ms,
+           "identical_streams": same, "token_agreement": [agree, total],
+           "logits_rel_err": worst, "first_token_rel_err": first,
+           "two_images_rel_diff": img_diff}
+    log(f"vision {label}: encode {len(pixels)} images {encode_ms:.3f} ms, "
+        f"700-token image prompt prefill + first token {prefill_ms:.2f} ms "
+        f"(CUDA events), launches {launched}; vs plain: {same}/"
+        f"{len(prompts)} identical streams, agreement {agree}/{total}, "
+        f"first-token logits {first:.4f}, worst {worst:.4f} (tol "
+        f"{LOGITS_RTOL}); another image moves the first-token logits by "
+        f"{img_diff:.4f}")
+    if not worst <= LOGITS_RTOL or not first <= LOGITS_RTOL:
+        raise AssertionError(f"vision {label}: logits disagree: {out}")
+    if not img_diff > max(VISION_DIFF_MIN, 10 * first):
+        raise AssertionError(f"vision {label}: two images give the same "
+                             f"logits: {out}")
+    if eng.self_check():
+        raise AssertionError(f"vision {label}: {eng.self_check()}")
+    return out
+
+
+async def _serve_vision(cfg, params, vparams, db_path: str) -> dict:
+    """The HTTP image leg: create_app over a provider holding the tower
+    (the byte tokenizer's vocab + the placeholder id, full width
+    otherwise).  An image turn in each wire form (`image_url`, and
+    Anthropic-style `image`) streams to [DONE] with num_patches more
+    prompt tokens than the same text alone; a malformed image is a 400."""
+    import aiohttp
+    from aiohttp import web
+
+    from kafka_tpu_torch.llm import TorchLLMProvider
+    from kafka_tpu_torch.models import ByteTokenizer
+    from kafka_tpu_torch.ops import kernels
+    from kafka_tpu_torch.runtime import InferenceEngine
+    from kafka_tpu_torch.server import ServingConfig, create_app
+
+    engine = InferenceEngine(cfg, params, _engine_cfg())
+    provider = TorchLLMProvider(engine, ByteTokenizer(),
+                                model_name="llama-3.2-1b-vision",
+                                vision_params=vparams)
+    app = await create_app(
+        ServingConfig(db_path=db_path,
+                      system_prompt="You are a terse assistant."),
+        llm_provider=provider, tools=[], mcp_servers=[])
+    port = _free_port()
+    runner = web.AppRunner(app)
+    await runner.setup()
+    await web.TCPSite(runner, "127.0.0.1", port).start()
+    url = f"http://127.0.0.1:{port}/v1/chat/completions"
+    png = _png_data_url()
+    out = {}
+    kernels.reset_launch_counts()
+    try:
+        async with aiohttp.ClientSession() as s:
+            for label, content in (
+                    ("text", "What is in the picture?"),
+                    ("image_url", [
+                        {"type": "text", "text": "What is in the picture?"},
+                        {"type": "image_url", "image_url": {"url": png}}]),
+                    ("image", [
+                        {"type": "text", "text": "What is in the picture?"},
+                        {"type": "image", "source": {"data": png}}])):
+                ev = await _stream(s, url, {
+                    "model": "llama-3.2-1b-vision", "stream": True,
+                    "temperature": 0, "max_tokens": 8,
+                    "messages": [{"role": "user", "content": content}]})
+                out[label] = _usage(ev)["prompt_tokens"]
+            async with s.post(url, json={
+                    "model": "llama-3.2-1b-vision", "max_tokens": 4,
+                    "messages": [{"role": "user", "content": [{
+                        "type": "image_url", "image_url": {
+                            "url": "data:image/png;base64,@@"}}]}]}) as r:
+                out["malformed_status"] = r.status
+    finally:
+        out["launches"] = {f.__name__: f.launches for f in kernels.KERNELS}
+        await runner.cleanup()
+    P = cfg.vision.num_patches
+    log(f"vision server: prompt tokens {out}")
+    if out["image_url"] != out["text"] + P or out["image"] != out["text"] \
+            + P or out["malformed_status"] != 400:
+        raise AssertionError(f"vision server: {out}")
+    if not out["launches"]["paged_prefill_attention"] or \
+            not out["launches"]["paged_decode_attention"]:
+        raise AssertionError(f"vision server: launches {out['launches']}")
+    return out
+
+
+def _png_data_url(size: int = 48) -> str:
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    arr = np.random.RandomState(5).randint(0, 255, (size, size, 3), np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(
+        buf.getvalue()).decode()
+
+
+def phase_vision(seed: int) -> None:
+    """Phase 9: vision.  llama-3.2-1b at full width (random weights from
+    --seed) with the reference's default VisionConfig() tower and
+    image_token_id 262, as in tiny-vision: (a) bf16 (K2 on every image
+    prompt's chunks, K1 for the decode after them), (b) int8 weights and
+    an int8 KV pool (K4; prefill over an int8 pool reads it through the
+    dequantizing gather, as in the reference), (c) the HTTP image leg when
+    Pillow is installed."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from kafka_tpu_torch.models import get_config, init_params
+    from kafka_tpu_torch.models.quant import quantize_params
+    from kafka_tpu_torch.models.vision import VisionConfig, vision_init_params
+
+    cfg = get_config("llama-3.2-1b").replace(vision=VisionConfig(),
+                                             image_token_id=262)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    vparams = vision_init_params(cfg.vision, cfg.hidden_size, gen,
+                                 dtype=torch.bfloat16, device="cuda")
+    rng = np.random.RandomState(seed + 9)
+    prompts = _vision_prompts(cfg, rng)
+    pixels = rng.rand(len(prompts), cfg.vision.image_size,
+                      cfg.vision.image_size, 3).astype(np.float32)
+    res = {"bf16": vision_leg("bf16", cfg, params, vparams, prompts, pixels)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    qparams = quantize_params(params)
+    res["int8"] = vision_leg("int8 weights + int8 KV", cfg, qparams, vparams,
+                             prompts, pixels, kv_quantize="int8")
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    if importlib.util.find_spec("PIL") is None:
+        log("vision (c) HTTP image leg left out: Pillow is not installed")
+        res["server"] = "left out: no Pillow"
+    else:
+        scfg = cfg.replace(vocab_size=cfg.image_token_id + 1)
+        sparams = init_params(scfg, gen, device="cuda")
+        with tempfile.TemporaryDirectory() as td:
+            res["server"] = asyncio.run(_serve_vision(
+                scfg, sparams, vparams, os.path.join(td, "vision.db")))
+        del sparams
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    names = {"K1": "paged_decode_attention", "K2": "paged_prefill_attention",
+             "K3": "paged_verify_attention",
+             "K4": "paged_decode_attention_int8", "K5": "fused_mlp_block",
+             "K5_int8": None}
+    legs = [res["bf16"]["launches"], res["int8"]["launches"]]
+    if isinstance(res["server"], dict):
+        legs.append(res["server"]["launches"])
+    res["launches"] = {k: sum(l.get(n, 0) for l in legs) if n else 0
+                       for k, n in names.items()}
+    RESULTS["vision"] = res
+    for k in KERNEL_KEYS:
+        if k in RESULTS:
+            RESULTS[k]["vision_launches"] = res["launches"][k]
+
+
 def main() -> int:
     global BASELINE
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases",
                     default="kernels,engine,graphs,server,tiers,"
-                            "replicas,telemetry,tp,moe",
+                            "replicas,telemetry,tp,moe,vision",
                     help="comma list of kernels, engine, graphs, server, "
-                         "tiers, replicas, telemetry, tp, moe (default: "
+                         "tiers, replicas, telemetry, tp, moe, vision "
+                         "(default: "
                          "all; telemetry runs first), "
                          "or attention (K3 and K4 alone, timed) or mlp (K5 "
                          "alone, timed)")
@@ -6980,6 +7302,8 @@ def main() -> int:
         phase_tp(args.seed)
     if "moe" in phases:
         phase_moe(args.seed, args.moe_legs)
+    if "vision" in phases:
+        phase_vision(args.seed)
     for k, n in RESULTS.get("telemetry", {}).get("launches", {}).items():
         if k in RESULTS:
             RESULTS[k]["telemetry_launches"] = n
@@ -6996,7 +7320,7 @@ def main() -> int:
          **{k: RESULTS[n][k] for k in ("engine_launches", "server_launches",
                                        "telemetry_launches", "tiers_launches",
                                        "replicas_launches",
-                                       "moe_launches",
+                                       "moe_launches", "vision_launches",
                                        "launch_count_basis",
                                        "replay_profiler_launches",
                                        "device_ms", "device_ms_cold_l2",

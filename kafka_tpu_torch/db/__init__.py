@@ -1,10 +1,26 @@
-"""Persistence tier: the thread/message store (SQLite).
+"""Persistence tier: the thread/message store.
 
-Copied from kafka_tpu/db (base + local); the remote PostgREST client
-waits for a later slice of the port.
+Copied from kafka_tpu/db: `LocalDBClient` over SQLite and
+`RemoteDBClient` over any PostgREST / Supabase-dialect deployment, behind
+one duck type (db/base.py).  `make_db_client()` picks by environment.
 """
+
+import os
+from typing import Optional
 
 from .base import DBClient
 from .local import LocalDBClient
+from .remote import RemoteDBClient
 
-__all__ = ["DBClient", "LocalDBClient"]
+
+def make_db_client(db_path: Optional[str] = None) -> DBClient:
+    """Remote when KAFKA_TORCH_REMOTE_DB_URL is set, local SQLite
+    otherwise."""
+    url = os.environ.get("KAFKA_TORCH_REMOTE_DB_URL")
+    if url:
+        return RemoteDBClient(
+            url, api_key=os.environ.get("KAFKA_TORCH_REMOTE_DB_KEY", ""))
+    return LocalDBClient(db_path)
+
+
+__all__ = ["DBClient", "LocalDBClient", "RemoteDBClient", "make_db_client"]

@@ -33,7 +33,11 @@ InferenceEngine or a DataParallelEngines router over replicas
 * `signals` is the autoscaler's input snapshot (GET /admin/signals) and
   `record_rejection` counts a gate-level 429 in the metrics registry.
 
-Images wait for a later slice of the port (ROADMAP A10).
+* image parts (OpenAI `image_url` and Anthropic-style `image`) are
+  served through the vision tower when the model has one (a ViT soft
+  prompt, models/vision.py, encoded on the engine's device off the event
+  loop); a text-only model answers them with a typed 400
+  (UnsupportedContentError), never as text alone.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ import itertools
 import logging
 import time
 from typing import Any, AsyncIterator, Dict, List, Optional, Sequence
+
+import numpy as np
 
 from ..core.types import (
     ContextLengthError,
@@ -63,6 +69,8 @@ from .constrained import (
     compile_grammar_for_mask_fn,
     grammar_ondevice_enabled,
 )
+from .images import expand_placeholders, extract_images, sentinelize_images
+from .utils import count_images, prune_images
 from .worker import EngineWorker
 
 logger = logging.getLogger("kafka_tpu_torch.llm.torch_provider")
@@ -84,16 +92,6 @@ def _torn_items(d) -> list:
         except RuntimeError:
             continue
     return []
-
-
-def _count_images(dicts: List[Dict[str, Any]]) -> int:
-    n = 0
-    for m in dicts:
-        c = m.get("content")
-        if isinstance(c, list):
-            n += sum(1 for p in c
-                     if isinstance(p, dict) and p.get("type") == "image_url")
-    return n
 
 
 class IncrementalDetokenizer:
@@ -142,7 +140,22 @@ class TorchLLMProvider(LLMProvider):
 
     def __init__(self, engine: InferenceEngine, tokenizer: BaseTokenizer,
                  model_name: str = "llama",
-                 worker: Optional[EngineWorker] = None):
+                 worker: Optional[EngineWorker] = None,
+                 vision_params: Any = None):
+        # vision tower params (models/vision.py), present iff the model
+        # config has a VisionConfig; image requests answer 400 otherwise.
+        # The sentinel scheme (llm/images.py) needs a tokenizer where NUL
+        # is one token that round-trips (the byte tokenizer's id 0): a
+        # subword tokenizer would silently mis-split it
+        self.vision_params = None
+        if vision_params is not None and engine.cfg.vision is not None:
+            nul = tokenizer.encode("\x00")
+            if len(nul) != 1 or tokenizer.decode(nul) != "\x00":
+                raise ValueError(
+                    "vision serving requires a tokenizer with a "
+                    "single-token NUL sentinel (byte-level); this "
+                    f"tokenizer encodes NUL as {nul!r}")
+            self.vision_params = vision_params
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
@@ -169,9 +182,16 @@ class TorchLLMProvider(LLMProvider):
     def count_prompt_tokens(self, messages: Sequence[MessageLike],
                             tools: Optional[List[Dict[str, Any]]] = None
                             ) -> int:
-        """Token count of the rendered prompt (compaction pre-flight)."""
-        return len(self.tokenizer.encode_chat(to_message_dicts(messages),
-                                              tools=tools))
+        """Token count of the rendered prompt (compaction pre-flight).
+        A vision prompt is priced with its expansion: each image left
+        after the newest-N pruning costs num_patches placeholder tokens
+        in place of its one-token sentinel."""
+        dicts = to_message_dicts(messages)
+        if self.vision_params is not None and count_images(dicts):
+            dicts, parts = sentinelize_images(prune_images(dicts))
+            n = len(self.tokenizer.encode_chat(dicts, tools=tools))
+            return n + len(parts) * (self.model_cfg.vision.num_patches - 1)
+        return len(self.tokenizer.encode_chat(dicts, tools=tools))
 
     @property
     def max_prompt_tokens(self) -> int:
@@ -545,6 +565,26 @@ class TorchLLMProvider(LLMProvider):
         return [{"id": self.model_name, "object": "model",
                  "owned_by": "kafka-tpu-torch", "created": 0}]
 
+    def _encode_image_parts(self, dicts: List[Dict[str, Any]]):
+        """Decode the image parts (PIL) and run the tower where its
+        weights live: (messages with each image replaced by the NUL
+        sentinel, [n_images * num_patches, H] f32 rows).  Blocking: the
+        caller runs it off the event loop.  The tower's launches wait
+        while an engine captures a decode graph (a process-wide capture
+        forbids other threads' CUDA calls)."""
+        import torch
+
+        from ..models.vision import encode_images
+        from ..runtime.engine import capture_lock
+
+        vcfg = self.model_cfg.vision
+        dicts, pixels = extract_images(dicts, vcfg.image_size)
+        with capture_lock, torch.no_grad():
+            emb = encode_images(self.vision_params, vcfg,
+                                torch.from_numpy(np.stack(pixels)))
+            rows = emb.float().cpu().numpy()
+        return dicts, rows.reshape(-1, self.model_cfg.hidden_size)
+
     async def stream_completion(
         self,
         messages: Sequence[MessageLike],
@@ -562,11 +602,29 @@ class TorchLLMProvider(LLMProvider):
     ) -> AsyncIterator[StreamChunk]:
         self.validate_messages(messages)
         dicts = to_message_dicts(messages)
-        n_images = _count_images(dicts)
+        # image parts: a vision model serves them as a soft prompt (the
+        # newest 19 kept); a text-only model refuses them with a typed 400
+        # rather than answering as if it had seen no image
+        n_images = count_images(dicts)
+        override_pos = override_rows = None
         if n_images:
-            raise UnsupportedContentError(n_images,
-                                          provider=self.provider_name)
-        prompt_ids = self.tokenizer.encode_chat(dicts, tools=tools)
+            if self.vision_params is None:
+                raise UnsupportedContentError(n_images,
+                                              provider=self.provider_name)
+            dicts, override_rows = await asyncio.to_thread(
+                self._encode_image_parts, prune_images(dicts))
+            # each sentinel -> num_patches placeholder ids at the
+            # absolute positions the override rows fill
+            P = self.model_cfg.vision.num_patches
+            prompt_ids, override_pos = expand_placeholders(
+                self.tokenizer.encode_chat(dicts, tools=tools),
+                self.tokenizer.encode("\x00")[0],
+                self.model_cfg.image_token_id, P, len(override_rows) // P)
+            # the same placeholder ids stand for different pixels: an
+            # image turn never shares prefix-cached KV
+            prefix_key = None
+        else:
+            prompt_ids = self.tokenizer.encode_chat(dicts, tools=tools)
         if len(prompt_ids) > self.max_prompt_tokens:
             raise ContextLengthError(len(prompt_ids), self.max_prompt_tokens,
                                      self.provider_name)
@@ -595,6 +653,8 @@ class TorchLLMProvider(LLMProvider):
             prefix_key=prefix_key,
             logits_mask_fn=logits_mask_fn,
             grammar=grammar,
+            override_pos=override_pos,
+            override_rows=override_rows,
             # the background class: tool-result prefill rides idle
             # capacity, yielding to interactive work every iteration
             background=background,

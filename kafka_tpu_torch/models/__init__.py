@@ -10,7 +10,11 @@ from .llama import (
     params_from_jax,
     params_to,
 )
-from .loader import convert_hf_state_dict, load_checkpoint
+from .loader import (
+    convert_hf_state_dict,
+    load_checkpoint,
+    resolve_checkpoint_dir,
+)
 from .quant import (
     QTensor,
     dequantize,
@@ -40,6 +44,7 @@ __all__ = [
     "params_to",
     "convert_hf_state_dict",
     "load_checkpoint",
+    "resolve_checkpoint_dir",
     "QTensor",
     "dequantize",
     "param_bytes",

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from .vision import VisionConfig
+
 _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float32": torch.float32,
@@ -56,6 +58,12 @@ class ModelConfig:
     # (parallel/sharding.py).
     num_experts: int = 0
     num_experts_per_tok: int = 2
+    # Vision input (Llava-style soft prompt, models/vision.py): a ViT +
+    # projector encodes images into num_patches embeddings that replace
+    # `image_token_id` placeholder positions at prefill.  None = text-only
+    # (image parts answer a typed 400 at the provider).
+    vision: Optional[VisionConfig] = None
+    image_token_id: Optional[int] = None
 
     @property
     def is_moe(self) -> bool:
@@ -160,6 +168,13 @@ CONFIGS = {
         tie_word_embeddings=False,
         num_experts=8,
         num_experts_per_tok=2,
+    ),
+    # Llava-class tiny vision model for tests: byte tokenizer vocab (262)
+    # + 1 reserved image-placeholder id (JAX models/config.py "tiny-vision")
+    "tiny-vision": ModelConfig(
+        name="tiny-vision", vocab_size=263, hidden_size=64,
+        intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+        head_dim=16, vision=VisionConfig(), image_token_id=262,
     ),
     "llama-3-70b": ModelConfig(
         name="llama-3-70b",

@@ -507,6 +507,8 @@ def forward(
     paged: Optional[PagedView] = None,
     logits_at: Optional[torch.Tensor] = None,
     tp: Any = None,
+    embed_override: Optional[torch.Tensor] = None,
+    override_on: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder.
 
@@ -519,6 +521,9 @@ def forward(
     logits_at: optional [B] row index — return logits only for that
         position of each sequence ([B, 1, V]); the engine samples from one
         row per chunk and skips the rest of the LM head.
+    embed_override [B, S, H] + override_on [B, S] bool: positions whose
+        input embedding is replaced (image patches entering as soft-prompt
+        tokens, models/vision.py), in the activation dtype.
     Returns (logits float32 [B, S, V] (or [B, 1, V]), the cache or None).
     """
     layers = params["layers"]
@@ -530,6 +535,8 @@ def forward(
         x = embed.q[token_ids].to(act) * embed.s[token_ids].to(act)
     else:
         x = embed[token_ids].to(act)
+    if embed_override is not None:
+        x = torch.where(override_on[..., None], embed_override.to(act), x)
     inv_freq = rope_frequencies(cfg, device=x.device)
     cos, sin = rope_cos_sin(positions, inv_freq)
     for l in range(cfg.num_layers):

@@ -121,3 +121,25 @@ def load_checkpoint(path: str, cfg: Optional[ModelConfig] = None,
         cfg = config_from_hf_json(os.path.join(path, "config.json"))
     state = load_safetensors_dir(path)
     return cfg, convert_hf_state_dict(state, cfg, device=device)
+
+
+def resolve_checkpoint_dir(model_name: str) -> Optional[str]:
+    """A local checkpoint directory for a model name, if one exists
+    (kafka_tpu/models/loader.py's lookup).  Searched in order:
+    $KAFKA_TORCH_CKPT_DIR/<name>, ./checkpoints/<name>, then the HF cache
+    ($HF_HOME, default ~/.cache/huggingface).  A directory counts only
+    when it holds a *.safetensors file.  Nothing is downloaded: None
+    means the model runs with random weights."""
+    candidates = []
+    env_dir = os.environ.get("KAFKA_TORCH_CKPT_DIR")
+    if env_dir:
+        candidates.append(os.path.join(env_dir, model_name))
+    candidates.append(os.path.join("checkpoints", model_name))
+    hf_cache = os.path.expanduser(
+        os.environ.get("HF_HOME", "~/.cache/huggingface"))
+    candidates.extend(glob.glob(os.path.join(
+        hf_cache, "hub", f"models--*{model_name}*", "snapshots", "*")))
+    for c in candidates:
+        if os.path.isdir(c) and glob.glob(os.path.join(c, "*.safetensors")):
+            return c
+    return None

@@ -105,8 +105,14 @@ Sampled tokens reach the host through a FIFO of asynchronous copies
 most `fetch_lag` steps deep and popped by age (`fetch_wait_s`, ~RTT for a
 lone stream) once landed; a stop token found in flight retires the lane
 and the tokens dispatched after it are dropped.  Prefill and verify run
-eagerly (captured graphs for them and singleton-mask chaining wait for
-later slices).
+eagerly.  A host-masked lane (a mask fn without a compiled grammar)
+dispatches the tokens its grammar forces without waiting for the
+previous token to land (singleton-mask chaining, `predicted`); only its
+genuine choice points wait for a round trip.
+
+A vision model's requests carry `override_pos` / `override_rows`: the
+image rows replace the embeddings of their placeholder positions in
+whichever prefill chunk holds them (`_chunk_override`).
 
 Telemetry is the reference's (runtime/metrics.py, flight_recorder.py,
 planner.py, compile_log.py, kernel_profiler.py): `self.metrics` records
@@ -134,6 +140,7 @@ import gc
 import itertools
 import logging
 import os
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -180,6 +187,11 @@ logger = logging.getLogger("kafka_tpu_torch.engine")
 
 WAITING, PREFILLING, ACTIVE, PARKED, DRAINING, FINISHED = (
     "waiting", "prefilling", "active", "parked", "draining", "finished")
+
+# Held while an engine captures a decode-step graph.  A process-wide
+# capture forbids CUDA calls from other threads, so work that another
+# thread launches on the card (the provider's vision tower) takes it too.
+capture_lock = threading.Lock()
 
 # Agent-gap scheduling knobs.
 AGENT_DEMOTE_ENV = "KAFKA_TORCH_AGENT_DEMOTE"
@@ -414,6 +426,26 @@ class GenRequest:
     grammar: Optional[Any] = None
     # over-tight mask rows log once per request (the counter counts all)
     overtight_logged: bool = False
+    # singleton-mask chaining on the host mask path: tokens already
+    # dispatched whose value the grammar forces (the mask fn's forced_id,
+    # or an allowed list of one id), not yet drained.  The next mask
+    # builds on output_ids + predicted, so a forced run of tool-call JSON
+    # dispatches at scheduler cadence instead of one token per
+    # device->host round trip
+    predicted: List[int] = dataclasses.field(default_factory=list)
+    # (position, _next_constraint result) memo: a lane blocked behind the
+    # awaited fetch does not re-walk its mask fn every iteration
+    mask_cache: Optional[Tuple[int, Tuple[str, Any]]] = None
+    # genuine constrained choice points that awaited a device->host round
+    # trip (forced tokens chain without one)
+    constrained_roundtrips: int = 0
+    # vision soft prompt (models/vision.py): projected image-patch rows
+    # that replace the prompt's image_token_id placeholders at prefill.
+    # The positions are absolute prompt positions, so chunked prefill, a
+    # prefix-hit resume, a preemption's re-prefill and a router's hand-off
+    # all recompute the same per-chunk slices.  None = text only
+    override_pos: Optional[np.ndarray] = None   # [K] int32
+    override_rows: Optional[np.ndarray] = None  # [K, H] float32
     # off-slot (parked) admission: True while the prefill's sampled token
     # waits on the device (engine._parked_toks, on every rank of a
     # tensor-parallel group) for a decode slot, where it seeds the lane's
@@ -1064,6 +1096,10 @@ class InferenceEngine:
         # host mask
         self.constrained_host_mask_steps = 0
         self.constrained_degrades = 0
+        # device-resident all-zero embed overrides of a vision engine's
+        # text-only prefill chunks, per [B, S] (_zero_override)
+        self._zero_ov_cache: Dict[Tuple[int, int],
+                                  Tuple[torch.Tensor, torch.Tensor]] = {}
         self._init_telemetry()
         self._rtt_est = self._measure_rtt()
         if self._group is not None:
@@ -1783,6 +1819,7 @@ class InferenceEngine:
             "cache_source": req.cache_source,
             "grammar": req.grammar is not None,
             "host_constrained": self._host_constrained(req),
+            "predicted": len(req.predicted),
             "pages": len(req.seq.pages) if req.seq is not None else 0,
             "seq_len": req.seq.length if req.seq is not None else 0,
             "finish_reason": req.finish_reason,
@@ -2322,6 +2359,12 @@ class InferenceEngine:
     def _process_token(self, req: GenRequest, token: int,
                        final_reason: Optional[str]) -> None:
         req.drained += 1
+        if req.predicted:
+            # a chained token ran with a one-id mask row: the sampled
+            # value is exactly the prediction
+            expected = req.predicted.pop(0)
+            assert expected == token, (
+                f"constrained prediction diverged: {expected} != {token}")
         req.output_ids.append(token)
         if req.grammar is not None:
             self.metrics.constrained_ondevice_tokens += 1
@@ -2712,6 +2755,50 @@ class InferenceEngine:
         return np.where(live, page.astype(np.int64) * ps + pos % ps,
                         local % ps)
 
+    def _chunk_override(self, req: GenRequest, start: int, bucket: int
+                        ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """The embed-override slices (ov [bucket, H], on [bucket]) of the
+        prompt span [start, start + bucket); None when the span holds no
+        override row (JAX runtime/engine.py _chunk_override)."""
+        if req.override_pos is None:
+            return None
+        sel = (req.override_pos >= start) & \
+            (req.override_pos < start + bucket)
+        if not sel.any():
+            return None
+        ov = np.zeros((bucket, self.cfg.hidden_size), np.float32)
+        on = np.zeros((bucket,), bool)
+        idx = req.override_pos[sel] - start
+        ov[idx] = req.override_rows[sel]
+        on[idx] = True
+        return ov, on
+
+    def _override_args(self, ov: Optional[tuple],
+                       shape: Tuple[int, int]) -> Dict[str, Any]:
+        """forward()'s embed-override arguments for a prefill dispatch of
+        `shape` [B, S]: none on a text-only model; on a vision model every
+        prefill passes the pair, the cached all-zero one for a span with
+        no image (one argument shape per bucket, as the reference's
+        prefill programs take)."""
+        if self.cfg.vision is None:
+            return {}
+        if ov is None:
+            ov = self._zero_override(shape)
+        else:
+            ov = (self._to_device(ov[0]), self._to_device(ov[1]))
+        return {"embed_override": ov[0], "override_on": ov[1]}
+
+    def _zero_override(self, shape: Tuple[int, int]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device-resident all-zero (ov, on) pair, cached per shape: a
+        text-only chunk of a vision engine uploads nothing."""
+        if shape not in self._zero_ov_cache:
+            self._zero_ov_cache[shape] = (
+                torch.zeros(shape + (self.cfg.hidden_size,),
+                            dtype=torch.float32, device=self.device),
+                torch.zeros(shape, dtype=torch.bool, device=self.device))
+        return self._zero_ov_cache[shape]
+
     def _advance_prefill(self, req: GenRequest) -> None:
         """Dispatch ONE single-sequence prefill chunk; the final chunk
         samples the first token and activates (or parks) the lane."""
@@ -2727,10 +2814,12 @@ class InferenceEngine:
         sample = (self._sample_args([req], [start + chunk_len - 1],
                                     self._prefill_masks([req]))
                   if final else None)
+        ov = self._chunk_override(req, start, bucket)
         t_start = self._timer()
         rows, toks = self._dev_prefill(
             chunk, self._write_slots(row, start, chunk_len, bucket), row,
-            start, chunk_len, sample)
+            start, chunk_len, sample,
+            None if ov is None else (ov[0][None], ov[1][None]))
         self._prefill_dispatched(t_start, [(chunk_len, start)])
         req.seq.length = start + chunk_len
         if not final:
@@ -2740,9 +2829,10 @@ class InferenceEngine:
     @replicated
     def _dev_prefill(self, chunk: np.ndarray, write: np.ndarray,
                      row: np.ndarray, start: int, chunk_len: int,
-                     sample: Optional[tuple]):
+                     sample: Optional[tuple], ov: Optional[tuple] = None):
         """One single-sequence prefill chunk on the device; a final chunk
-        (`sample`: _sample_args) samples its first token too.  Returns the
+        (`sample`: _sample_args) samples its first token too; `ov` is the
+        chunk's embed override (_chunk_override, batched).  Returns the
         sampled row's logits and tokens (None for other chunks)."""
         dev, C = self.device, self.ecfg.max_window
         kv_pos = torch.arange(C, device=dev)[None]
@@ -2761,7 +2851,7 @@ class InferenceEngine:
             self.params, self.cfg, self._to_device(chunk[None]),
             positions, kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged,
             logits_at=self._to_device(np.asarray([chunk_len - 1])),
-            tp=self.tp,
+            tp=self.tp, **self._override_args(ov, (1, len(chunk))),
         )
         if sample is None:
             return None, None
@@ -2782,6 +2872,7 @@ class InferenceEngine:
         write = np.zeros((W, bucket), np.int64)
         for i in range(W):
             write[i] = np.arange(bucket) % ps  # idle lanes: trash page
+        chunk_ovs = []
         for i, req in enumerate(reqs):
             start = req.seq.length
             clen = min(len(req.prefill_ids) - start, bucket)
@@ -2789,6 +2880,14 @@ class InferenceEngine:
             rows[i] = self._page_row(req)
             starts[i], lens[i] = start, clen
             write[i] = self._write_slots(rows[i], start, clen, bucket)
+            chunk_ovs.append(self._chunk_override(req, start, bucket))
+        ov = None
+        if any(co is not None for co in chunk_ovs):
+            ov = (np.zeros((W, bucket, self.cfg.hidden_size), np.float32),
+                  np.zeros((W, bucket), bool))
+            for i, co in enumerate(chunk_ovs):
+                if co is not None:
+                    ov[0][i], ov[1][i] = co
         active = np.zeros(W, bool)
         active[: len(reqs)] = True
         ends = np.where(active, starts + lens, 0)
@@ -2801,7 +2900,7 @@ class InferenceEngine:
             if done else None)
         t_start = self._timer()
         rows_l, toks = self._dev_prefill_batch(chunks, write, rows, starts,
-                                               ends, last, done, sample)
+                                               ends, last, done, sample, ov)
         self._prefill_dispatched(
             t_start, [(int(lens[i]), int(starts[i])) for i in range(len(reqs))])
         for i, req in enumerate(reqs):
@@ -2814,10 +2913,12 @@ class InferenceEngine:
     def _dev_prefill_batch(self, chunks: np.ndarray, write: np.ndarray,
                            rows: np.ndarray, starts: np.ndarray,
                            ends: np.ndarray, last: np.ndarray,
-                           done: List[int], sample: Optional[tuple]):
+                           done: List[int], sample: Optional[tuple],
+                           ov: Optional[tuple] = None):
         """One fused prefill chunk over W lanes (plain attention over each
         lane's page-gathered window); the lanes in `done` sample their
-        first tokens.  Returns their logits rows and tokens."""
+        first tokens; `ov` is the lanes' embed override.  Returns their
+        logits rows and tokens."""
         W, bucket = chunks.shape
         dev, C = self.device, self.ecfg.max_window
         kv_pos = torch.arange(C, device=dev).expand(W, C)
@@ -2835,6 +2936,7 @@ class InferenceEngine:
             self.params, self.cfg, self._to_device(chunks),
             positions, kv_cache=KVCache(self.k_pool, self.v_pool), paged=paged,
             logits_at=self._to_device(last), tp=self.tp,
+            **self._override_args(ov, (W, bucket)),
         )
         if sample is None:
             return None, None
@@ -2989,12 +3091,11 @@ class InferenceEngine:
         self._dispatch_mixed(members)
 
     def _dispatch_mixed(self, members: List[Optional[GenRequest]]) -> None:
-        """A batch with host-masked lanes.  Their next mask depends on
-        every token they emitted, so they cannot be pipelined — but nobody
-        else waits for them: the free and device-FSM lanes dispatch as in
-        the common case, and the host-masked lanes run as their own
-        micro-batch at fetch cadence (dispatch, let the fetch land, build
-        the next mask rows from the complete output_ids, redispatch)."""
+        """A batch with host-masked lanes.  Their masks depend on every
+        token they emitted, so they cannot be pipelined like the others
+        — but nobody else waits for them: the free and device-FSM lanes
+        dispatch as in the common case, and the host-masked lanes run
+        beside them (_dispatch_host_masked)."""
         uncon = [m if m is not None and not self._host_constrained(m)
                  else None for m in members]
         n_uncon = sum(m is not None for m in uncon)
@@ -3004,27 +3105,34 @@ class InferenceEngine:
                 uncon, None,
                 fsm=any(m is not None and m.grammar is not None
                         for m in uncon)))
-        n_amb = self._dispatch_host_masked(members, n_uncon)
-        if n_amb:
-            entries.append(self._constrained_fetch)
-        if self.flight is not None and n_amb:
-            # awaited host-constrained lanes this iteration (genuine
-            # choice points; this package chains none)
-            self.flight.note_constrained(0, n_amb)
-        if n_uncon or n_amb:
+        n_chain, n_amb, masked = self._dispatch_host_masked(members, n_uncon)
+        entries += masked
+        if self.flight is not None and (n_chain or n_amb):
+            # host-masked groups this iteration: chained (grammar-forced,
+            # no round trip) and awaited (genuine choice points)
+            self.flight.note_constrained(n_chain, n_amb)
+        if entries:
             # one scheduler iteration = one TPOT sample / occupancy
             # record, however many groups it took; its cost covers
             # exactly the lanes it advanced, and no single fetch carries
             # its modeled time (entry None)
-            self.metrics.record_decode_step(n_uncon + n_amb)
+            self.metrics.record_decode_step(n_uncon + n_chain + n_amb)
             advanced = [m for e in entries for m in e.items if m is not None]
             self._record_decode_cost(advanced, entries=entries)
 
     def _dispatch_host_masked(self, members: List[Optional[GenRequest]],
-                              n_uncon: int) -> int:
-        """The host-masked micro-batch of _dispatch_mixed: pop its
-        landed fetch, then redispatch the lanes whose output is complete
-        with mask rows built from it.  Returns the lanes dispatched."""
+                              n_uncon: int
+                              ) -> Tuple[int, int, List[_Fetch]]:
+        """The host-masked lanes of _dispatch_mixed, as the reference
+        runs them (kafka_tpu/runtime/engine.py _dispatch_decode's mixed
+        branch).  A lane whose next token the grammar forces (the mask
+        fn's forced_id, or an allowed list of one id over output_ids +
+        predicted) has a host-known value: it dispatches every iteration
+        as a chained group with a one-id mask row, awaiting nothing.  A
+        lane at a genuine choice point joins the awaited micro-batch: it
+        dispatches with its mask row once the previous awaited fetch has
+        landed, and its next mask waits for this one.  Returns (chained
+        lanes, awaited lanes, their fetch entries)."""
         if self._constrained_inflight():
             # pop once landed; with no pipelined lane nobody is stalled by
             # waiting, so pop at once
@@ -3032,35 +3140,70 @@ class InferenceEngine:
             if self._entry_ready(entry) or not n_uncon:
                 self._pop_through(entry)
                 self._constrained_fetch = None
-        if self._constrained_inflight():
-            return 0
+        awaiting = ({id(r) for r in self._constrained_fetch.items
+                     if r is not None}
+                    if self._constrained_inflight() else set())
         B, V = self.ecfg.max_batch, self.cfg.vocab_size
+        chain: List[Optional[GenRequest]] = [None] * B
         amb: List[Optional[GenRequest]] = [None] * B
+        forced: Dict[int, int] = {}
         rows: Dict[int, Optional[np.ndarray]] = {}
         for i, s in enumerate(members):
-            # a lane whose tokens are not all processed (one that just
-            # degraded off the device FSM) sits out until they are: the
-            # host mask needs complete output_ids
+            # a lane sits out while it waits on the awaited fetch, while
+            # tokens other than its predicted chain are undrained (one
+            # that just degraded off the device FSM), and once the chain
+            # holds a stop token (it retires when that drains: the mask
+            # fn is never called past the grammar's end)
             if s is None or not self._host_constrained(s) \
-                    or s.state != ACTIVE or s.dispatched != s.drained:
+                    or s.state != ACTIVE or id(s) in awaiting \
+                    or s.dispatched - s.drained != len(s.predicted) \
+                    or any(t in s.stop_token_ids for t in s.predicted):
                 continue
-            amb[i] = s
-            rows[i] = self._host_mask_row(s)
-        if not rows:
-            return 0
-        allowed = None
-        if any(r is not None for r in rows.values()):
+            pos = len(s.output_ids) + len(s.predicted)
+            if s.mask_cache is not None and s.mask_cache[0] == pos:
+                kind, val = s.mask_cache[1]  # a blocked lane: no re-walk
+            else:
+                kind, val = self._next_constraint(s)
+                s.mask_cache = (pos, (kind, val))
+            if kind == "forced":
+                chain[i] = s
+                forced[i] = val
+            else:
+                amb[i] = s
+                rows[i] = val  # None: a free step
+        entries: List[_Fetch] = []
+        if forced:
             allowed = np.ones((B, V), bool)
-            for i, r in rows.items():
-                if r is not None:
-                    allowed[i] = r
+            for i, tok in forced.items():
+                allowed[i] = False
+                allowed[i, tok] = True
+            entries.append(self._dispatch_group(chain, allowed, fsm=False))
+            for i, tok in forced.items():
+                if chain[i].state in (ACTIVE, DRAINING):
+                    chain[i].predicted.append(tok)
+        if not rows or self._constrained_inflight():
+            return len(forced), 0, entries
+        allowed = None
+        if any(ids is not None for ids in rows.values()):
+            allowed = np.ones((B, V), bool)
+            for i, ids in rows.items():
+                if ids is None:
+                    continue
+                if len(ids) == 0:
+                    # a fully clipped allow-list: the sampler degrades the
+                    # all-False row to unconstrained
+                    self._record_overtight(amb[i])
+                allowed[i] = False
+                allowed[i, ids] = True
         self._constrained_fetch = self._dispatch_group(amb, allowed,
                                                        fsm=False)
-        # each masked lane now awaits a device->host round trip for its
-        # next mask: a genuine constrained choice point
-        self.metrics.constrained_roundtrips += sum(
-            r is not None for r in rows.values())
-        return len(rows)
+        entries.append(self._constrained_fetch)
+        for i in rows:
+            # this lane now awaits a device->host round trip for its next
+            # mask: a genuine choice point
+            amb[i].constrained_roundtrips += 1
+            self.metrics.constrained_roundtrips += 1
+        return len(forced), len(rows), entries
 
     def _constrained_inflight(self) -> bool:
         """Is the host-masked micro-batch still waiting on its fetch?"""
@@ -3359,9 +3502,10 @@ class InferenceEngine:
             # a rank of a tensor-parallel group captures its NCCL calls;
             # the process group's watchdog thread queries its events
             # meanwhile, which a process-wide capture would forbid
-            with torch.cuda.graph(graph, pool=self._graph_pool,
-                                  capture_error_mode="global"
-                                  if self.tp is None else "thread_local"):
+            with capture_lock, torch.cuda.graph(
+                    graph, pool=self._graph_pool,
+                    capture_error_mode="global"
+                    if self.tp is None else "thread_local"):
                 self._decode_body(k, fsm, mode, masked, keep)
         except Exception as e:
             raise RuntimeError(f"capturing decode step graph {key} "
@@ -3843,25 +3987,48 @@ class InferenceEngine:
 
     def _host_mask_row(self, req: GenRequest) -> Optional[np.ndarray]:
         """[V] bool row from the lane's mask fn over its complete output
-        (None: this step is free).  Ids outside the model vocab are
-        dropped; a raising mask fn degrades the lane to unconstrained."""
+        (None: this step is free): a prefill's first token."""
+        kind, val = self._next_constraint(req, singleton=False)
+        if kind == "free":
+            return None
+        if len(val) == 0:
+            self._record_overtight(req)
+        row = np.zeros(self.cfg.vocab_size, bool)
+        row[val] = True
+        return row
+
+    def _next_constraint(self, req: GenRequest, singleton: bool = True
+                         ) -> Tuple[str, Any]:
+        """Classify the lane's next host-masked step over output_ids +
+        predicted: ("forced", id) when the grammar forces the token (the
+        mask fn's forced_id hook, or an allowed list of one id),
+        ("ids", in-vocab ids) at a genuine choice point, ("free", None)
+        for an unconstrained step (JAX runtime/engine.py
+        _next_constraint).  `singleton=False` skips the forced_id hook
+        and returns ids.  A raising mask fn degrades the lane to
+        unconstrained for good (one log line), never the engine thread."""
+        fn = req.logits_mask_fn
+        ctx = req.output_ids + req.predicted
         try:
-            allowed = req.logits_mask_fn(req.output_ids)
+            if singleton and hasattr(fn, "forced_id"):
+                fid = fn.forced_id(ctx)
+                if fid is not None and 0 <= int(fid) < self.cfg.vocab_size:
+                    self.constrained_host_mask_steps += 1
+                    return ("forced", int(fid))
+            allowed = fn(ctx)
         except Exception:
             logger.exception("logits_mask_fn failed for %s; degrading the "
                              "lane to unconstrained", req.request_id)
             req.logits_mask_fn = None
-            return None
+            return ("free", None)
         if allowed is None:
-            return None
+            return ("free", None)
         self.constrained_host_mask_steps += 1
         ids = np.asarray(allowed, np.int64)
         ids = ids[(ids >= 0) & (ids < self.cfg.vocab_size)]
-        if len(ids) == 0:
-            self._record_overtight(req)
-        row = np.zeros(self.cfg.vocab_size, bool)
-        row[ids] = True
-        return row
+        if singleton and len(ids) == 1:
+            return ("forced", int(ids[0]))
+        return ("ids", ids)
 
     def _record_overtight(self, req: GenRequest) -> None:
         """An over-tight mask row (no token allowed): the sampler degrades

@@ -85,7 +85,7 @@ from ..core.types import (
 )
 from .. import failpoints, tracing
 from ..core.wire import AgentRunRequest, ChatCompletionRequest
-from ..db import DBClient, LocalDBClient
+from ..db import DBClient, make_db_client
 from ..device import DeviceLike, resolve_device
 from ..kafka import KafkaV1Provider, MessageAccumulator
 from ..llm.base import LLMProvider
@@ -145,8 +145,12 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
             model_cfg = get_config("tiny").replace(
                 vocab_size=tokenizer.vocab_size, dtype="float32")
         else:
-            model_cfg = get_config(cfg.model_name).replace(
-                vocab_size=max(tokenizer.vocab_size, 262), dtype=cfg.dtype)
+            base = get_config(cfg.model_name)
+            vocab = max(tokenizer.vocab_size, 262)
+            if base.image_token_id is not None:
+                # the reserved image-placeholder id stays in the vocab
+                vocab = max(vocab, base.image_token_id + 1)
+            model_cfg = base.replace(vocab_size=vocab, dtype=cfg.dtype)
         if mesh is not None:
             # every rank draws its own shard on its own card
             from ..parallel import RandomWeights
@@ -267,7 +271,20 @@ def build_provider(cfg: ServingConfig, device: DeviceLike = None
     # everything compiled past this point is work under live traffic:
     # the observatory's storm detector counts only this phase
     compile_log.set_phase("first_traffic")
-    return TorchLLMProvider(engine, tokenizer, model_name=cfg.model_name)
+    vision_params = None
+    if model_cfg.vision is not None:
+        # the vision tower (models/vision.py), random-init like the text
+        # weights (no checkpoint in the repo carries one), on the first
+        # replica's device
+        from ..models.vision import vision_init_params
+
+        vdev = replicas[0].device
+        vision_params = vision_init_params(
+            model_cfg.vision, model_cfg.hidden_size,
+            torch.Generator(device=vdev).manual_seed(7),
+            dtype=model_cfg.activation_dtype, device=vdev)
+    return TorchLLMProvider(engine, tokenizer, model_name=cfg.model_name,
+                            vision_params=vision_params)
 
 
 def _tensor_mesh(cfg: ServingConfig):
@@ -433,7 +450,9 @@ async def create_app(
     if llm_provider is None:
         llm_provider = build_provider(cfg, device=device)
     if db is None:
-        db = LocalDBClient(cfg.db_path)
+        # the remote PostgREST store when KAFKA_TORCH_REMOTE_DB_URL is
+        # set, else SQLite at db_path
+        db = make_db_client(cfg.db_path)
     await db.initialize()
     if tools is None:
         from ..server_tools import builtin_tools

@@ -16,6 +16,10 @@ tests/test_grammar_fsm.py (byte tokenizer, vocab 262, 2 layers, width 64):
 * greedy constrained streams — device FSM and host mask, free and forced
   name — are token-identical to the JAX engine's (speculation off: the
   reference's speculative outcomes depend on host timing), and parse;
+* on the host mask path, grammar-forced tokens chain without a round
+  trip: streams and constrained_roundtrips (per request and engine-wide)
+  equal the JAX engine's, with the byte tokenizer and with the subword
+  stub of tests/test_constrained.py, alone and beside a free lane;
 * wrap-up, mixed batches, preemption churn, slot reuse, degrades and the
   speculation rule (device-FSM lanes speculate, host-masked lanes do not;
   a proposed illegal token is cut where it stands);
@@ -318,14 +322,21 @@ FORCES = [None, "get_weather", "get_time"]
 @pytest.fixture(scope="module")
 def jax_streams(model, toks):
     """The JAX engine's greedy constrained streams, per forced name, on
-    its device-FSM path (key `f`) and its host-mask path (`(f, "host")`)."""
+    its device-FSM path (key `f`) and its host-mask path (`(f, "host")`),
+    and the host path's round trips (`(f, "roundtrips")`)."""
     jt = toks[0]
     out = {}
     for f in FORCES:
         for ondevice in (True, False):
-            req, = run(jax_engine(model), constrained_req(
+            eng = jax_engine(model)
+            req, = run(eng, constrained_req(
                 "jax", jt, force=f, ondevice=ondevice))
             out[f if ondevice else (f, "host")] = list(req.output_ids)
+            if not ondevice:
+                # the host path's round trips, per request and engine-wide
+                out[(f, "roundtrips")] = (
+                    req.constrained_roundtrips,
+                    eng.metrics.constrained_roundtrips)
     return out
 
 
@@ -437,6 +448,85 @@ def test_preemption_churn_keeps_the_stream(model, toks, jax_streams,
     assert con.output_ids == jax_streams[None if ondevice
                                          else (None, "host")]
     assert (eng.constrained_host_mask_steps == 0) == ondevice
+
+
+# ---------------------------------------------------------------------------
+# singleton-mask chaining on the host mask path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("force", FORCES)
+def test_host_lane_chains_forced_tokens_like_jax(model, toks, jax_streams,
+                                                 force):
+    """A host-masked lane dispatches its grammar-forced tokens without a
+    round trip: the stream and the round trips (per request and
+    engine-wide) equal the JAX engine's, and most tokens chain."""
+    eng = port_engine(model)
+    req, = run(eng, constrained_req("port", toks[1], force=force,
+                                    ondevice=False))
+    assert req.output_ids == jax_streams[(force, "host")]
+    want = jax_streams[(force, "roundtrips")]
+    assert (req.constrained_roundtrips,
+            eng.metrics.constrained_roundtrips) == want
+    # (get_time takes no arguments: its whole call is forced)
+    assert req.constrained_roundtrips < len(req.output_ids) // 2
+    assert not req.predicted and req.finish_reason == "stop"
+
+
+@pytest.fixture(scope="module")
+def subword():
+    """The subword stub of tests/test_constrained.py (multi-character
+    pieces: forced text resolves to one canonical token through the mask
+    fn's forced_id) over a model sized to its vocab, in both packages."""
+    from test_constrained import SubwordStubTokenizer
+
+    tok = SubwordStubTokenizer()
+    kw = dict(name="bpe-chain", vocab_size=max(148, tok.vocab_size),
+              hidden_size=64, intermediate_size=128, num_layers=2,
+              num_heads=4, num_kv_heads=2, head_dim=16, dtype="float32")
+    jcfg = JModelConfig(**kw)
+    jparams = jinit_params(jcfg, jax.random.PRNGKey(3))
+    return tok, (jcfg, jparams, ModelConfig(**kw),
+                 params_from_jax(jax.tree.map(np.asarray, jparams)))
+
+
+def test_subword_host_lane_chains_like_jax(subword):
+    tok, m = subword
+    got = []
+    for side, make in (("jax", jax_engine), ("port", port_engine)):
+        con, Req = (pcon, GenRequest) if side == "port" else \
+            (jcon, JGenRequest)
+        eng = make(m)
+        req = Req(request_id="bpe", prompt_ids=[40, 41, 42],
+                  max_new_tokens=40, stop_token_ids=tok.stop_ids,
+                  logits_mask_fn=con.ToolCallMaskFn(
+                      tok, TOOLS, force_name="get_weather", max_tokens=40))
+        run(eng, req)
+        got.append((list(req.output_ids), req.constrained_roundtrips,
+                    eng.metrics.constrained_roundtrips))
+    assert got[1] == got[0]
+    text = tok.decode(got[1][0])
+    assert pcon.validate_tool_call_json(text, TOOLS), text
+    # canonical multi-character tokens: far fewer tokens than characters
+    assert len(got[1][0]) < len(text)
+
+
+def test_chained_lane_beside_a_free_lane_equals_jax(model, toks):
+    """A chained host-masked lane and a free lane share the batch: both
+    streams, and the round trips, equal the JAX engine's."""
+    got = []
+    for side, make, Req in (("jax", jax_engine, JGenRequest),
+                            ("port", port_engine, GenRequest)):
+        tok = toks[0] if side == "jax" else toks[1]
+        eng = make(model)
+        free = Req(request_id="free", prompt_ids=tok.encode("tell a story"),
+                   max_new_tokens=40)
+        con = constrained_req(side, tok, force="get_time", ondevice=False)
+        run(eng, free, con)
+        got.append((list(free.output_ids), list(con.output_ids),
+                    con.constrained_roundtrips,
+                    eng.metrics.constrained_roundtrips))
+    assert got[1] == got[0]
 
 
 def test_slot_reuse_resets_the_fsm_lane(model, toks):

@@ -329,11 +329,40 @@ def _tree(x):
     return type(x).__name__ if x is not None else None
 
 
+def _first_diff(got, want, path="signals"):
+    """The first key path where two snapshots differ, with both values."""
+    if isinstance(got, dict) and isinstance(want, dict):
+        for k in sorted(set(got) | set(want), key=str):
+            if got.get(k) != want.get(k):
+                return _first_diff(got.get(k), want.get(k), f"{path}.{k}")
+    elif isinstance(got, list) and isinstance(want, list) \
+            and len(got) == len(want):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g != w:
+                return _first_diff(g, w, f"{path}[{i}]")
+    return f"{path}: port {got!r} != reference {want!r}"
+
+
 def test_signals_at_dp2_match(model, monkeypatch):
     """The provider over each router: the same key tree, and the same dp,
     pools, replica rows and supervisor section after the same turns."""
     # the port ships device to device: the reference's device transport
     monkeypatch.setenv("KAFKA_TPU_SHIP_TRANSPORT", "device")
+    # Both packages' process-wide state as a fresh process has it under
+    # tests/conftest.py: no compile observatory (conftest turns the
+    # reference's off; a port server built earlier on the same xdist
+    # worker leaves the port's on, and its `compiles` section then
+    # differs from the reference's null) and no SLO target override
+    from kafka_tpu.runtime import compile_log as rcomp
+    from kafka_tpu.runtime import metrics as rmetrics
+    from kafka_tpu_torch.runtime import compile_log as pcomp
+    from kafka_tpu_torch.runtime import metrics as pmetrics
+
+    for mod in (rcomp, pcomp):
+        monkeypatch.setattr(mod, "_OBS", None)
+    for mod in (rmetrics, pmetrics):
+        monkeypatch.setattr(mod, "_slo_override",
+                            {"ttft_ms": None, "tpot_ms": None})
     j, p = routers(model, dp_roles="prefill:1,decode:1",
                    disagg_min_prefill_tokens=8)
     snaps = []
@@ -346,7 +375,7 @@ def test_signals_at_dp2_match(model, monkeypatch):
     want, got = snaps
     # the port's utilization rows carry measured-time fields the JAX
     # engine also has; the trees (names and value types) must agree
-    assert _tree(got) == _tree(want)
+    assert _tree(got) == _tree(want), _first_diff(_tree(got), _tree(want))
     for key in ("version", "dp", "supervisor", "batch", "autoscaler",
                 "object_tier"):
         assert got[key] == want[key], key
